@@ -1,0 +1,81 @@
+"""The port stands alone: no module of ``polyaxon_tpu_torch`` (nor
+``chip_smoke.py``) imports JAX, its relatives, or anything of the JAX
+package — by an AST scan of every source, and by a fresh interpreter that
+builds and runs a CPU engine with nothing of JAX in ``sys.modules``."""
+
+from __future__ import annotations
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "polyaxon_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "polyaxon_tpu")
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def test_the_scan_sees_every_port_module():
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
+    for expected in ("ops/paged_attention.py", "serve/engine.py",
+                     "serve/server.py", "models/transformer.py", "convert.py"):
+        assert expected in names
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_imports(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_a_cpu_engine_runs_without_jax_in_sys_modules(tmp_path):
+    code = """
+import json, sys
+import polyaxon_tpu_torch
+from polyaxon_tpu_torch.serve.runtime import build_engine
+from polyaxon_tpu_torch.serve.engine import SamplingParams
+from polyaxon_tpu_torch.serve.server import build_server
+engine = build_engine({"model": "llama-tiny", "platform": "cpu", "block_size": 8,
+                       "max_seq_len": 64, "prefill_chunk": 16, "attn_impl": "flash"})
+srv = build_server(engine)
+srv.server_close()
+engine.start()
+req = engine.generate([1, 2, 3], SamplingParams(max_new_tokens=3), timeout=60)
+engine.stop()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "flax", "orbax",
+                                    "polyaxon_tpu"))
+print(json.dumps({"tokens": req.out_tokens, "bad": bad}))
+"""
+    # PYTHONPATH is the repository alone: an image whose site directory
+    # pre-imports jax must not leak it into this interpreter
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=90)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(out["tokens"]) == 3
+    assert out["bad"] == []
