@@ -7,28 +7,45 @@ Phases, each printing its numbers on lines of its own; any failure exits
 non-zero:
 
 1. device — the card's name and power limit (nvidia-smi); CUDA required.
-2. build  — nvcc builds the paged-decode kernel library from
-   ``polyaxon_tpu_torch/csrc`` (seconds, and ptxas's register report).
-3. kernel — the CUDA kernel against its plain PyTorch version on the same
-   inputs at the llama-1b serving shape (B=8, KVH=4, G=8, D=64, bs=128,
-   T=16, ragged lengths incl. 0/1/127/128/129/2048, one table aliasing
-   another row's leading blocks), and again at D=128, each in bf16 and
-   f32: max abs error and its tolerance, the kernel's time, the plain
-   version's time, one PyTorch call's time (scaled_dot_product_attention
-   over the gathered cache, a yardstick the port never calls) and the
-   bound (live K/V bytes over 3.35 TB/s). Two planted faults (the long
-   row's last tile skipped, one of its blocks read off by one) must fail
-   the same check, which shows the tolerance can see them.
-4. main path — the port's ``build_engine`` at llama-1b full width (22
-   layers, hidden 2048, bf16, random init from seed 0) with the
+2. build  — nvcc builds the three kernel libraries from
+   ``polyaxon_tpu_torch/csrc`` at once, one nvcc per source (seconds, and
+   ptxas's register, spill and shared-memory report).
+3. kernel — the paged-decode kernel against its plain PyTorch version at
+   the llama-1b serving shape (B=8, KVH=4, G=8, D=64, bs=128, T=16, ragged
+   lengths incl. 0/1/127/128/129/2048, one table aliasing another row's
+   leading blocks), and again at D=128, each in bf16 and f32: max abs
+   error and its tolerance, the kernel's time, the plain version's time,
+   one PyTorch call's time (scaled_dot_product_attention over the gathered
+   cache, a yardstick the port never calls) and the bound (live K/V bytes
+   over 3.35 TB/s). Two planted faults (the long row's last tile skipped,
+   one of its blocks read off by one) must fail the same check.
+4. flash kernels — the forward, dQ and dK/dV kernels against their plain
+   versions at the llama-1b training shape (BH = 2 x 32 heads, S = 2048,
+   D = 64, causal) and at D = 128, in bf16 and f32, with cold L2, plus
+   small cases with nonzero offsets, rows that see no key, and a length
+   (200) that ends in a partial tile: errors and tolerances, kernel, plain
+   and library times (scaled_dot_product_attention with is_causal, and its
+   backward for dQ + dK/dV) and the bounds. Three faults planted in the
+   kernels (``walk_cut=1``: the forward and dQ stop before the diagonal kv
+   tile, dK/dV starts one q tile late) must fail the same check.
+5. serve — the port's ``build_engine`` at llama-1b full width (22 layers,
+   hidden 2048, bf16, random init from seed 0) with the
    examples/llama1b_service.yaml runtime settings and attn_impl flash,
    served by the port's HTTP server on an ephemeral port: 8 concurrent
    greedy /generate requests (prompts of 100..1000 tokens, 64 new tokens
-   each, two sharing a 256-token prefix). The kernel's launch count over
-   that run must equal decode steps x 22. Then one decode_step with
+   each, two sharing a 256-token prefix). The paged kernel's launch count
+   over that run must equal decode steps x 22. Then one decode_step with
    impl flash against impl gather on the same pools, and the time of a
    decode step on each path.
-5. the ``{"kernels": [...]}`` line, then the last line
+6. train — ``run_builtin`` (the port's builtin runtime) on llama-1b at full
+   width with the examples/llama1b_tpujob.yaml runtime keys (steps cut from
+   8 to 3): every loss finite, no anomaly, the step-0 loss near ln 32000,
+   each flash kernel's launch count equal to its formula; step time p50,
+   tokens/s, MFU against 989 TFLOP/s, peak device memory. Then one
+   microbatch (2 x 2048) at full depth, loss and grads with attn_impl flash
+   against dense, which must agree; with each of the three planted faults
+   in turn they must not.
+7. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs one card and the repository checkout around this file; imports
@@ -81,6 +98,57 @@ SERVE_SPEC = {
     "max_seq_len": 2048, "prefill_chunk": 256, "attn_impl": "flash",
     "platform": "cuda", "warmup": True,
 }
+# -- flash attention (training) -------------------------------------------------
+
+# the llama-1b training shape: microbatch 2 x 32 heads, seq 2048, head dim 64
+FLASH_SHAPE = dict(bh=64, seq=2048)
+FLASH_BLOCK = 1024   # the recipe's attn_block_q/k: the plain versions' blocks
+# kernel vs plain, elementwise |out - ref| <= atol + rtol|ref|. f32: both
+# compute in f32 and differ in the order of the sums and in how the online
+# softmax is split (the kernel's 32-row tiles against 1024-row blocks):
+# sums over up to 2048 keys keep that under 1e-5 relative, so 5e-5. bf16:
+# p and dS are rounded to bf16 in both, but against other running maxima
+# (forward) or after other f32 sums (backward), which moves a rounded term
+# by up to one bf16 place (2^-8 relative), and outputs round to bf16: the
+# paged kernel's 3e-3 + 2^-6 |ref|. LSE is f32 in both: 1e-4 absolute.
+FLASH_TOL = {"bfloat16": (3e-3, 2.0 ** -6), "float32": (5e-5, 5e-5)}
+LSE_TOL = (1e-4, 1e-5)
+
+TRAIN_SPEC = {
+    # examples/llama1b_tpujob.yaml runtime, steps cut from 8 to 3, on the card
+    "model": "llama-1b", "steps": 3, "batch_size": 64, "seq_len": 2048,
+    "learning_rate": 3.0e-4, "warmup_steps": 5, "remat": "attn_qkv",
+    "attn_block_q": 1024, "attn_block_k": 1024, "mu_dtype": "bfloat16",
+    "nu_dtype": "bfloat16", "grad_dtype": "bfloat16", "microbatches": 32,
+    "accum_dtype": "bfloat16", "loss_chunk_tokens": 4096, "checkpoint": False,
+    "log_interval": 1, "data": {"kind": "synthetic-lm"}, "platform": "cuda",
+}
+# step-0 loss of a random init: the logits have std ~0.8 (lm-head std
+# 0.0176 x sqrt(2048) over unit-RMS hidden states), which lifts the
+# expected loss above ln 32000 = 10.37 by about var/2 = 0.32; 0.5 holds
+# that, while a model that reads its inputs wrongly (NaN, a blown-up
+# activation) lands far outside
+LOSS0_MARGIN = 0.5
+# flash vs dense at llama-1b on one microbatch, bf16 activations and grads:
+# the kernels round p and dS to bf16 where dense keeps f32 probabilities
+# (<= 2^-9 relative per term), and the difference travels 22 layers of
+# bf16 activations. The limits sit between the sound readings and those of
+# the planted faults (FLASH_FAULTS), which the train-compare phase measures
+# in every run. On an H100 80GB HBM3 (700 W) it read: sound, loss 0.00021
+# and worst grad 0.037 (layers/mlp/wg); the forward fault, loss 0.017 and
+# grad 1.6 (wq); the dQ fault, grad 0.56 (wq); the dK/dV fault, grad 0.68
+# (wv). The backward faults leave the loss as it is, so the grad limit
+# must see them: each limit is about the geometric mean of the two sides.
+TRAIN_LOSS_TOL = 0.002
+TRAIN_GRAD_REL_TOL = 0.15
+# the faults a check must see, planted in the kernels with walk_cut=1: the
+# launcher each is planted in
+FLASH_FAULTS = {
+    "fwd_drops_diagonal_tile": "flash_fwd_cuda",
+    "dq_skips_diagonal_tile": "flash_bwd_dq_cuda",
+    "dkv_starts_one_q_tile_late": "flash_bwd_dkv_cuda",
+}
+
 PROMPT_LENGTHS = (100, 230, 400, 556, 700, 850, 930, 1000)
 SHARED_PREFIX = 256          # tokens (two full 128-token blocks)
 SHARED_ROWS = (2, 3)         # request 3 goes out after request 2's first token
@@ -101,6 +169,35 @@ def device_phase() -> str:
         timeout=60, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     return smi.stdout.strip().splitlines()[0]
+
+
+def build_phase(libs) -> None:
+    """Build every kernel library at once (one nvcc per source), then load
+    each; prints the seconds and ptxas's report."""
+    t0 = time.monotonic()
+    errors = []
+
+    def build(lib):
+        try:
+            lib.build()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(lib,)) for lib in libs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    for lib in libs:
+        lib.load()
+    log("build", seconds=time.monotonic() - t0, libraries=[lib.path().name for lib in libs])
+    for lib in libs:
+        for line in lib.build_log.splitlines():
+            if ("registers" in line or "Compiling entry" in line or "spill" in line
+                    or "smem" in line):
+                print("  " + line.strip(), flush=True)
 
 
 # -- phase 3 helpers ----------------------------------------------------------
@@ -472,11 +569,12 @@ def compare_phase(torch, engine, lengths=(1, 127, 128, 129, 300, 700, 1000, 1900
     return out
 
 
-def profile_steps(torch, fn, steps: int = 3) -> dict:
+def profile_steps(torch, fn, steps: int = 3,
+                  kernels: tuple = ("paged_decode",)) -> dict:
     """Device time of ``steps`` calls of ``fn`` by kernel, from
-    torch.profiler: the per-step device time, the paged-decode kernel's
-    share of it, the device's idle share of the wall time, and the five
-    largest kernels."""
+    torch.profiler: the per-step device time, each named kernel's time and
+    share of it, the device's idle share of the wall time, and the largest
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     def device_us(evt):
@@ -497,17 +595,372 @@ def profile_steps(torch, fn, steps: int = 3) -> dict:
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and device_us(e) > 0), key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    paged = sum(r[1] for r in rows if "paged_decode_kernel" in r[0])
-    return {
+    out = {
         "profiled_steps": steps,
         "device_ms_per_step": total / steps / 1e3,
         "wall_ms_per_step": wall_us / steps / 1e3,
         "device_idle_share": (1.0 - total / wall_us) if total else None,
-        "paged_decode_ms_per_step": paged / steps / 1e3,
-        "paged_decode_share": paged / total if total else None,
-        "top_kernels": [{"name": k[:80], "ms_per_step": t / steps / 1e3,
-                         "calls_per_step": c / steps} for k, t, c in rows[:6]],
     }
+    for name in kernels:
+        t = sum(r[1] for r in rows if f"{name}_kernel" in r[0])
+        out[f"{name}_ms_per_step"] = t / steps / 1e3
+        out[f"{name}_share"] = t / total if total else None
+    # cuBLAS's kernels: gemm*, gemv*, cutlass*, sm90_xmma*, nvjet*
+    gemm = sum(r[1] for r in rows
+               if any(tag in r[0].lower() for tag in ("gemm", "cutlass", "xmma", "nvjet")))
+    out["gemm_ms_per_step"] = gemm / steps / 1e3
+    out["top_kernels"] = [{"name": k[:80], "ms_per_step": t / steps / 1e3,
+                           "calls_per_step": c / steps} for k, t, c in rows[:8]]
+    return out
+
+
+# -- phase 4: flash kernels ------------------------------------------------------
+
+
+def flash_inputs(torch, bh: int, seq: int, head_dim: int, dtype, seed: int = 0):
+    """q, k, v and dO [bh, seq, head_dim], unit normal, made from a seed on
+    the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(bh, seq, head_dim, generator=gen, device="cuda").to(dtype)
+            for _ in range(4)]
+
+
+def flash_bounds(bh, sq, sk, d, esize, q_offset, k_offset, causal, dtype_name) -> dict:
+    """Least time of each kernel on these inputs: the larger of its bytes
+    (each input read once, each output written once) over 3.35 TB/s and
+    its products' FLOPs over the dtype's peak. The FLOPs count the (q, k)
+    pairs the causal mask leaves visible on these offsets."""
+    if causal:
+        pairs = sum(min(max(q_offset + i - k_offset + 1, 0), sk) for i in range(sq))
+    else:
+        pairs = sq * sk
+    per_product = 2 * d * pairs * bh
+    rows, keys, stats = bh * sq * d * esize, bh * sk * d * esize, bh * sq * 4
+    work = {
+        "flash_fwd": (2 * per_product, 2 * rows + 2 * keys + stats),
+        "flash_bwd_dq": (3 * per_product, 3 * rows + 2 * keys + 2 * stats),
+        "flash_bwd_dkv": (4 * per_product, 2 * rows + 4 * keys + 2 * stats),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
+        out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def adaptive_time_ms(torch, fn, args_list, budget_s: float = 0.3) -> float:
+    """time_ms with as many launches as fit ``budget_s`` (3 to 200)."""
+    for args in args_list:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    once = max(time.perf_counter() - t0, 1e-6)
+    return time_ms(torch, fn, args_list, int(min(200, max(3, budget_s / once))))
+
+
+def flash_check(torch, fa, q, k, v, do, q_offset, k_offset, causal, dtype_name) -> dict:
+    """Each kernel against its plain version on the same inputs (the
+    backward ones on the plain forward's LSE and delta). Raises when an
+    output is non-finite or out of tolerance; returns each kernel's max abs
+    error and worst ratio to the tolerance, and the plain outputs."""
+    d = q.shape[-1]
+    kw = dict(sm_scale=d ** -0.5, causal=causal)
+    blocks = dict(block_q=min(FLASH_BLOCK, q.shape[1]), block_k=min(FLASH_BLOCK, k.shape[1]))
+    o, lse = fa.flash_fwd_cuda(q, k, v, q_offset, k_offset, **kw)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, q_offset, k_offset, **kw, **blocks)
+    _, delta = fa.bwd_row_stats(o_p, lse_p, do)
+    args = (q, k, v, do, lse_p, delta, q_offset, k_offset)
+    dq = fa.flash_bwd_dq_cuda(*args, **kw)
+    dk, dv = fa.flash_bwd_dkv_cuda(*args, **kw)
+    dq_p = fa.flash_bwd_dq_plain(*args, **kw, **blocks)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(*args, **kw, **blocks)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype_name]
+    for name, t in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError(f"non-finite {name} from the flash kernels ({dtype_name})")
+    if not torch.equal(torch.isinf(lse), torch.isinf(lse_p)):
+        raise AssertionError("the forward kernel's -inf LSE rows differ from the plain version's")
+    lse_ratio = worst_ratio(lse.nan_to_num(neginf=0.0), lse_p.nan_to_num(neginf=0.0), LSE_TOL)
+    err = lambda a, b: (a.float() - b.float()).abs().max().item()  # noqa: E731
+    out = {
+        "flash_fwd": (err(o, o_p), max(worst_ratio(o, o_p, tol), lse_ratio)),
+        "flash_bwd_dq": (err(dq, dq_p), worst_ratio(dq, dq_p, tol)),
+        "flash_bwd_dkv": (max(err(dk, dk_p), err(dv, dv_p)),
+                          max(worst_ratio(dk, dk_p, tol), worst_ratio(dv, dv_p, tol))),
+    }
+    for name, (e, ratio) in out.items():
+        if not ratio <= 1.0:
+            raise AssertionError(f"{name} vs plain ({dtype_name}, offsets {q_offset}/"
+                                 f"{k_offset}): max abs err {e}, {ratio} times the "
+                                 f"tolerance {tol}")
+    return {"checks": out, "refs": (o_p, dq_p, dk_p, dv_p), "row_stats": (lse_p, delta)}
+
+
+def flash_planted_faults(torch, fa, q, k, v, do, checked, dtype_name) -> dict:
+    """The three faults planted in the kernels (walk_cut=1: the forward and
+    dQ stop before the diagonal kv tile, dK/dV starts one q tile late),
+    held against the true plain outputs by the same check: each must fail
+    it (ratio > 1)."""
+    kw = dict(sm_scale=q.shape[-1] ** -0.5, causal=True, walk_cut=1)
+    o_p, dq_p, dk_p, dv_p = checked["refs"]
+    lse_p, delta = checked["row_stats"]
+    tol = FLASH_TOL[dtype_name]
+    o_f, _ = fa.flash_fwd_cuda(q, k, v, 0, 0, **kw)
+    dq_f = fa.flash_bwd_dq_cuda(q, k, v, do, lse_p, delta, 0, 0, **kw)
+    dk_f, dv_f = fa.flash_bwd_dkv_cuda(q, k, v, do, lse_p, delta, 0, 0, **kw)
+    ratios = {
+        "fwd_drops_diagonal_tile": worst_ratio(o_f, o_p, tol),
+        "dq_skips_diagonal_tile": worst_ratio(dq_f, dq_p, tol),
+        "dkv_starts_one_q_tile_late": max(worst_ratio(dk_f, dk_p, tol),
+                                          worst_ratio(dv_f, dv_p, tol)),
+    }
+    for fault, ratio in ratios.items():
+        if not ratio > 1.0:
+            raise AssertionError(f"planted fault {fault} passes the flash check "
+                                 f"(ratio {ratio}); the tolerance cannot see it")
+    return ratios
+
+
+def flash_kernel_phase(torch, fa) -> list[dict]:
+    import torch.nn.functional as F
+
+    results = []
+    bh, seq = FLASH_SHAPE["bh"], FLASH_SHAPE["seq"]
+    for head_dim in (64, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            q, k, v, do = flash_inputs(torch, bh, seq, head_dim, dtype, seed=head_dim)
+            checked = flash_check(torch, fa, q, k, v, do, 0, 0, True, name)
+            faults = flash_planted_faults(torch, fa, q, k, v, do, checked, name)
+            lse_p, delta = checked["row_stats"]
+            scale = head_dim ** -0.5
+            kw = dict(sm_scale=scale, causal=True)
+            blocks = dict(block_q=FLASH_BLOCK, block_k=FLASH_BLOCK)
+
+            # cold L2: rotate through copies of the inputs
+            one = 4 * q.numel() * q.element_size()
+            copies = [[t.clone() for t in (q, k, v, do)] + [lse_p, delta]
+                      for _ in range(max(2, math.ceil(200e6 / one)))]
+            fwd_args = [(c[0], c[1], c[2], 0, 0) for c in copies]
+            bwd_args = [(c[0], c[1], c[2], c[3], c[4], c[5], 0, 0) for c in copies]
+            ms = {
+                "flash_fwd": adaptive_time_ms(
+                    torch, lambda *a: fa.flash_fwd_cuda(*a, **kw), fwd_args),
+                "flash_bwd_dq": adaptive_time_ms(
+                    torch, lambda *a: fa.flash_bwd_dq_cuda(*a, **kw), bwd_args),
+                "flash_bwd_dkv": adaptive_time_ms(
+                    torch, lambda *a: fa.flash_bwd_dkv_cuda(*a, **kw), bwd_args),
+            }
+            plain_ms = {
+                "flash_fwd": time_ms(
+                    torch, lambda *a: fa.flash_fwd_plain(*a, **kw, **blocks), fwd_args, 3),
+                "flash_bwd_dq": time_ms(
+                    torch, lambda *a: fa.flash_bwd_dq_plain(*a, **kw, **blocks), bwd_args, 3),
+                "flash_bwd_dkv": time_ms(
+                    torch, lambda *a: fa.flash_bwd_dkv_plain(*a, **kw, **blocks), bwd_args, 3),
+            }
+            # the yardstick the port never calls: one SDPA call, and its
+            # backward for dQ + dK/dV together
+            heads = 32
+            as4 = lambda t: t.view(bh // heads, heads, seq, head_dim)  # noqa: E731
+            lib_fwd = adaptive_time_ms(
+                torch, lambda a, b, c: F.scaled_dot_product_attention(
+                    a, b, c, is_causal=True, scale=scale),
+                [tuple(as4(t) for t in c[:3]) for c in copies])
+            graphs = []
+            for c in copies:
+                leaves = [as4(t).detach().requires_grad_() for t in c[:3]]
+                graphs.append((F.scaled_dot_product_attention(
+                    *leaves, is_causal=True, scale=scale), *leaves, as4(c[3])))
+            lib_bwd = adaptive_time_ms(
+                torch, lambda out, a, b, c, g: torch.autograd.grad(
+                    out, (a, b, c), g, retain_graph=True), graphs)
+            bounds = flash_bounds(bh, seq, seq, head_dim, q.element_size(), 0, 0, True, name)
+            row = {"head_dim": head_dim, "dtype": name, "atol": FLASH_TOL[name][0],
+                   "rtol": FLASH_TOL[name][1], "planted_fault_ratios": faults,
+                   "library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd}
+            for kname, (e, ratio) in checked["checks"].items():
+                row[kname] = {"max_abs_err": e, "tol_ratio": ratio, "ms": ms[kname],
+                              "plain_ms": plain_ms[kname], "bound_ms": bounds[kname][0],
+                              "bound_us": bounds[kname][0] * 1e3,
+                              "bound_by": bounds[kname][1],
+                              "library_ms": lib_fwd if kname == "flash_fwd" else lib_bwd}
+            log("flash_kernel", **row)
+            results.append(row)
+            del copies, graphs, fwd_args, bwd_args
+            torch.cuda.empty_cache()
+    # small cases with nonzero offsets, one of them hiding the first rows'
+    # every key (O = 0, LSE = -inf there), and a length of 200, which ends
+    # in a partial tile in both dtypes (64-row tiles in bf16, 32 in f32)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for seq, q_offset, k_offset in ((256, 64, 0), (256, 0, 128), (200, 0, 0),
+                                        (200, 72, 0)):
+            q, k, v, do = flash_inputs(torch, 4, seq, 64, dtype, seed=seq + q_offset + k_offset)
+            checked = flash_check(torch, fa, q, k, v, do, q_offset, k_offset, True, name)
+            log("flash_small", dtype=name, seq=seq, q_offset=q_offset, k_offset=k_offset,
+                **{kname: {"max_abs_err": e, "tol_ratio": r}
+                   for kname, (e, r) in checked["checks"].items()})
+    return results
+
+
+# -- phase 6: train ----------------------------------------------------------------
+
+
+def flash_launch_formula(spec: dict, layers: int) -> dict:
+    """Launches of each flash kernel over a run: one forward, dQ and dK/dV
+    per layer per microbatch per step, plus the forward the remat policy
+    reruns in the backward (every policy but none)."""
+    per = int(spec["steps"]) * layers * int(spec.get("microbatches", 1))
+    rerun = 2 if spec.get("remat", "none") != "none" else 1
+    return {"flash_fwd": per * rerun, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+
+
+def train_phase(torch, fa, spec: dict) -> dict:
+    """The port's builtin runtime on the card; returns its measurements."""
+    from polyaxon_tpu_torch.models import REGISTRY
+    from polyaxon_tpu_torch.runtime.builtin import run_builtin
+
+    logged = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    summary = run_builtin(dict(spec), track=lambda step, m: logged.append((step, m)))
+    wall_s = time.monotonic() - t0
+    launches = dict(fa.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    layers = REGISTRY[spec["model"]][1].num_layers
+    expected = flash_launch_formula(spec, layers)
+    losses = [m["loss"] for _, m in sorted(logged, key=lambda e: e[0])]
+    out = {"losses": losses, "grad_norms": [m["grad_norm"] for _, m in logged],
+           "step_time_p50_ms": summary["step_time_p50_ms"],
+           "step_time_ms": summary["step_time_ms"], "timed_steps": summary["steps"],
+           "tokens_per_sec": summary["tokens_per_sec"], "mfu": summary["mfu"],
+           "achieved_tflops": summary["achieved_tflops_per_chip"],
+           "peak_mem_gib": peak_gib, "wall_s": wall_s, "launches": launches,
+           "expected_launches": expected,
+           "anomalies": summary["train_anomalies_loss"] + summary["train_anomalies_grad"]}
+    if len(losses) != int(spec["steps"]) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses {losses}")
+    if out["anomalies"]:
+        raise AssertionError(f"{out['anomalies']} anomalous steps")
+    if not abs(losses[0] - math.log(32000)) <= LOSS0_MARGIN:
+        raise AssertionError(f"step-0 loss {losses[0]} is not within {LOSS0_MARGIN} of "
+                             f"ln 32000")
+    if launches != expected:
+        raise AssertionError(f"flash launches {launches} != formula {expected}")
+    if summary["mfu"] is None:
+        raise AssertionError("no MFU: the card is not in the meter's peak table")
+    return out
+
+
+def train_compare_phase(torch, fa, spec: dict) -> dict:
+    """One microbatch (2 x seq) at full depth: loss and bf16 grads with
+    attn_impl flash against dense, from the same random init and batch,
+    which must agree, and again with each planted kernel fault, which must
+    not; then the profiler's split of a step into 32 microbatches and the
+    optimizer tail."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models import REGISTRY, transformer
+    from polyaxon_tpu_torch.models.transformer import flatten, unflatten
+    from polyaxon_tpu_torch.train.data import DataConfig, synthetic_lm_batches
+    from polyaxon_tpu_torch.train.optimizers import (
+        OptimizerConfig, global_norm, make_optimizer,
+    )
+    from polyaxon_tpu_torch.train.tasks import LMTask
+
+    cfg = replace(REGISTRY[spec["model"]][1], remat=spec["remat"],
+                  attn_block_q=spec["attn_block_q"], attn_block_k=spec["attn_block_k"],
+                  loss_chunk_tokens=spec["loss_chunk_tokens"])
+    micro = spec["batch_size"] // spec["microbatches"]
+    batch = next(synthetic_lm_batches(DataConfig(
+        batch_size=micro, seq_len=spec["seq_len"], vocab_size=cfg.vocab_size)))
+    batch = {name: t.cuda() for name, t in batch.items()}
+    paths, leaves = zip(*flatten(transformer.init(cfg, seed=0, device="cuda")))
+    leaves = [t.to(torch.bfloat16) for t in leaves]
+    def loss_and_grads(impl):
+        diff = [t.detach().requires_grad_() for t in leaves]
+        loss, _, _ = LMTask(replace(cfg, attn_impl=impl)).loss(
+            unflatten(paths, diff), None, batch)
+        return loss.item(), torch.autograd.grad(loss, diff)
+
+    ld, gd = loss_and_grads("dense")
+
+    def against_dense(lf, gf) -> dict:
+        rel = {"/".join(p): ((a.float() - b.float()).norm() / b.float().norm()).item()
+               for p, a, b in zip(paths, gf, gd)}
+        worst = max(rel, key=rel.get)
+        return {"loss": lf, "loss_diff": abs(lf - ld), "worst_grad_rel_err": rel[worst],
+                "worst_leaf": worst}
+
+    sound = against_dense(*loss_and_grads("flash"))
+    faults = {}
+    for fault, launcher in FLASH_FAULTS.items():
+        orig = getattr(fa, launcher)
+        setattr(fa, launcher, functools.partial(orig, walk_cut=1))
+        try:
+            faults[fault] = against_dense(*loss_and_grads("flash"))
+        finally:
+            setattr(fa, launcher, orig)
+    del gd
+
+    # where a step's time goes: the trainer's per-microbatch work (loss,
+    # grads, the add into the bf16 accumulator), which a step runs 32
+    # times, and its tail (divide, grad norm, AdamW with bf16 moments)
+    acc = [torch.zeros_like(t) for t in leaves]
+
+    def flash_microbatch():
+        diff = [t.detach().requires_grad_() for t in leaves]
+        loss, _, _ = LMTask(replace(cfg, attn_impl="flash")).loss(
+            unflatten(paths, diff), None, batch)
+        for a, g in zip(acc, torch.autograd.grad(loss, diff)):
+            a.add_(g)
+
+    profile = profile_steps(torch, flash_microbatch, steps=1,
+                            kernels=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    tx = make_optimizer(OptimizerConfig(
+        learning_rate=spec["learning_rate"], warmup_steps=spec["warmup_steps"],
+        total_steps=spec["steps"], mu_dtype=spec["mu_dtype"], nu_dtype=spec["nu_dtype"]))
+    masters = [t.float() for t in leaves]
+    opt_state = tx.init(masters)
+    k = spec["microbatches"]
+
+    def step_tail():
+        grads = [a / k for a in acc]
+        global_norm(grads)
+        updates, _ = tx.update(grads, opt_state, masters)
+        for p, u in zip(masters, updates):
+            p.add_(u)
+
+    tail = profile_steps(torch, step_tail, steps=1, kernels=())
+    split = {"microbatches": k, "microbatch_device_ms": profile["device_ms_per_step"],
+             "tail_device_ms": tail["device_ms_per_step"],
+             "tail_wall_ms": tail["wall_ms_per_step"],
+             "step_device_ms": k * profile["device_ms_per_step"]
+             + tail["device_ms_per_step"]}
+    out = {"loss_flash": sound["loss"], "loss_dense": ld, "loss_diff": sound["loss_diff"],
+           "loss_tol": TRAIN_LOSS_TOL, "worst_grad_rel_err": sound["worst_grad_rel_err"],
+           "worst_leaf": sound["worst_leaf"], "grad_rel_tol": TRAIN_GRAD_REL_TOL,
+           "planted_faults": faults, "tokens": micro * spec["seq_len"],
+           "microbatch_profile": profile, "step_split": split}
+    log("train_compare", **out)
+    if not (math.isfinite(sound["loss"]) and math.isfinite(ld)):
+        raise AssertionError(f"non-finite loss: flash {sound['loss']}, dense {ld}")
+    if not sound["loss_diff"] <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"flash vs dense loss differ by {sound['loss_diff']}")
+    if not sound["worst_grad_rel_err"] <= TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"flash vs dense grads of {sound['worst_leaf']} differ by "
+                             f"{sound['worst_grad_rel_err']} (relative)")
+    for fault, r in faults.items():
+        if r["loss_diff"] <= TRAIN_LOSS_TOL and r["worst_grad_rel_err"] <= TRAIN_GRAD_REL_TOL:
+            raise AssertionError(f"planted fault {fault} passes the flash vs dense "
+                                 f"compare ({r}); its limits cannot see it")
+    return out
 
 
 # -- main --------------------------------------------------------------------
@@ -535,15 +988,11 @@ def main() -> int:
     log("device", kind=kind, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    t0 = time.monotonic()
-    path = pa.PAGED_DECODE_LIB.build()
-    pa.PAGED_DECODE_LIB.load()
-    log("build", seconds=time.monotonic() - t0, library=path.name)
-    for line in pa.PAGED_DECODE_LIB.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            print("  " + line.strip(), flush=True)
+    fa = importlib.import_module("polyaxon_tpu_torch.ops.flash_attention")
+    build_phase([pa.PAGED_DECODE_LIB, fa.FLASH_FWD_LIB, fa.FLASH_BWD_LIB])
 
     kernel_rows = kernel_phase(torch, pa)
+    flash_rows = flash_kernel_phase(torch, fa)
 
     from polyaxon_tpu_torch.models import REGISTRY
 
@@ -564,9 +1013,16 @@ def main() -> int:
         raise AssertionError("KV refcount audit violations")
 
     log("compare", **compare_phase(torch, engine))
+    del engine
+    torch.cuda.empty_cache()
+
+    trained = train_phase(torch, fa, TRAIN_SPEC)
+    log("train", **trained)
+    torch.cuda.empty_cache()
+    train_compare_phase(torch, fa, TRAIN_SPEC)
 
     main_row = kernel_rows[0]  # D=64 bf16: the shape the main path gives it
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "paged_decode", "route": "cuda",
         "source": "polyaxon_tpu_torch/csrc/paged_decode.cu",
         "replaces": "polyaxon_tpu/ops/paged_attention.py:110",
@@ -575,7 +1031,20 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-    }]}), flush=True)
+    }]
+    flash_main = flash_rows[0]  # D=64 bf16: the training shape
+    for name, source, replaces in (
+            ("flash_fwd", "flash_fwd.cu", "polyaxon_tpu/ops/flash_attention.py:77"),
+            ("flash_bwd_dq", "flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:210"),
+            ("flash_bwd_dkv", "flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:262")):
+        r = flash_main[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"polyaxon_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": trained["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,13 +1,17 @@
-"""PyTorch/CUDA port of the polyaxon_tpu serving path.
+"""PyTorch/CUDA port of the polyaxon_tpu runtime: serving and training.
 
 A second package beside ``polyaxon_tpu`` (the JAX reference): the same
 model zoo layouts, paged KV cache, continuous-batching engine and HTTP
-routes, written in PyTorch for an NVIDIA H100. The one TPU kernel on the
-serving path, paged decode attention, is a hand-written CUDA kernel
-(``csrc/paged_decode.cu``) built with nvcc at first use.
+routes, and the same builtin training runtime (trainer, AdamW, data,
+remat policies), written in PyTorch for an NVIDIA H100. The TPU kernels on
+these paths — paged decode attention and the flash-attention forward, dQ
+and dK/dV — are hand-written CUDA kernels (``csrc/``) built with nvcc at
+first use.
 
 Layout mirrors the JAX package so each counterpart is found by name:
-``models/`` (configs, params, init), ``ops/`` (layers, paged attention),
-``serve/`` (kv cache, decode model, engine, server, runtime), ``obs/``
+``models/`` (configs, params, init, training forward), ``ops/`` (layers,
+attention, flash and paged attention), ``serve/`` (kv cache, decode model,
+engine, server, runtime), ``train/`` (optimizers, data, tasks, meter,
+watchdog, trainer), ``runtime/`` (the builtin training entry), ``obs/``
 (metrics). This package never imports JAX or ``polyaxon_tpu``.
 """

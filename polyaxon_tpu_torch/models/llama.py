@@ -12,8 +12,8 @@ from .transformer import TransformerConfig
 LLAMA2_7B = TransformerConfig(
     vocab_size=32000, hidden=4096, num_layers=32, num_heads=32,
     num_kv_heads=32, mlp_dim=11008, max_seq=4096, norm="rms", act="swiglu",
-    pos="rope", eps=1e-5, rope_theta=10000.0,
-    dtype=torch.bfloat16,
+    pos="rope", causal=True, eps=1e-5, rope_theta=10000.0,
+    dtype=torch.bfloat16, remat="dots",
 )
 
 LLAMA2_13B = replace(LLAMA2_7B, hidden=5120, num_layers=40, num_heads=40,
@@ -25,7 +25,8 @@ LLAMA2_70B = replace(LLAMA2_7B, hidden=8192, num_layers=80, num_heads=64,
 # Small config for tests: f32, 2 layers, GQA 4/2.
 LLAMA_TINY = replace(
     LLAMA2_7B, vocab_size=256, hidden=64, num_layers=2, num_heads=4,
-    num_kv_heads=2, mlp_dim=128, max_seq=128, dtype=torch.float32,
+    num_kv_heads=2, mlp_dim=128, max_seq=128, remat="none", dtype=torch.float32,
+    attn_impl="dense",
 )
 
 LLAMA_125M = replace(

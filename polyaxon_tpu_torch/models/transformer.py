@@ -1,22 +1,29 @@
-"""Transformer config, parameter layout and init for the port.
+"""Transformer config, parameter layout, init and the training forward
+of the port.
 
-Counterpart of ``polyaxon_tpu/models/transformer.py``, reduced to what the
-serving path needs: the config, the parameter tree (the same nested-dict
-layout with layer-stacked ``[L, ...]`` leaves, so weights carry across
-unchanged), the init law, the norm dispatch and the LM-head lookup.
-Parameters are a plain nested dict of tensors; the layer loop lives in
-``serve/model.py``.
+Counterpart of ``polyaxon_tpu/models/transformer.py`` for dense models on
+one device: the config, the parameter tree (the same nested-dict layout
+with layer-stacked ``[L, ...]`` leaves, so weights carry across
+unchanged), the init law, the layer body with its remat policies,
+``apply_hidden``/``apply`` and the (chunked) LM loss. Parameters are a
+plain nested dict of tensors. The decode-mode layer loop of the serving
+path lives in ``serve/model.py``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
-from ..ops.layers import layer_norm, rms_norm
+from ..ops.attention import attention
+from ..ops.layers import apply_rope, gelu, layer_norm, rms_norm, rope_frequencies, swiglu
 
 
 @dataclass(frozen=True)
@@ -38,6 +45,15 @@ class TransformerConfig:
     eps: float = 1e-5
     dtype: Any = torch.bfloat16                 # activation dtype
     param_dtype: Any = torch.float32
+    causal: bool = True
+    attn_impl: str = "auto"                     # "auto" | "dense" | "flash"
+    remat: str = "none"             # "none" | "full" | "attn" | "attn_qkv" | "dots"
+    attn_block_q: int = 512
+    attn_block_k: int = 512
+    # backward flash blocks; 0 = the forward's
+    attn_block_q_bwd: int = 0
+    attn_block_k_bwd: int = 0
+    loss_chunk_tokens: int = 4096               # blockwise-CE chunk; 0 = unchunked
 
     @property
     def kv_heads(self) -> int:
@@ -46,6 +62,16 @@ class TransformerConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.hidden // self.num_heads
+
+    def flops_per_token(self, seq_len: int) -> float:
+        """Approximate training FLOPs/token (fwd+bwd = 6N + attention
+        term); feeds the MFU meter."""
+        attn = 12 * self.num_layers * self.hidden * seq_len  # qk+av fwd+bwd
+        return 6 * self.active_params() + attn
+
+    def active_params(self) -> int:
+        """Params touched per token; every param, for a dense model."""
+        return self.num_params()
 
     def num_params(self) -> int:
         h, l = self.hidden, self.num_layers
@@ -167,3 +193,248 @@ def head_weights(params: dict, cfg: TransformerConfig) -> tuple[torch.Tensor, bo
     if cfg.tie_embeddings:
         return params["embed"]["tokens"], True
     return params["lm_head"]["w"], False
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def _qkv(x, lp, cfg: TransformerConfig, rope_tables):
+    """Norm, q/k/v projections and rope: [b, s, h] -> three [b, n, s, d]."""
+    b, s, h = x.shape
+    dt = cfg.dtype
+    ap = lp["attn"]
+    y = _norm(x, lp["attn_norm"], cfg)
+
+    def proj(w, bias):
+        n, d = w.shape[1], w.shape[2]
+        out = torch.matmul(y, w.to(dt).reshape(h, n * d)).view(b, s, n, d)
+        if bias is not None:
+            out = out + bias.to(dt)
+        return out.transpose(1, 2)
+
+    use = cfg.use_bias
+    q = proj(ap["wq"], ap["bq"] if use else None)
+    k = proj(ap["wk"], ap["bk"] if use else None)
+    v = proj(ap["wv"], ap["bv"] if use else None)
+    if cfg.pos == "rope":
+        cos, sin = rope_tables
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _attend(q, k, v, cfg: TransformerConfig):
+    """Causal GQA attention, heads merged: [b, s, n*d] (the JAX package's
+    ``attn_out`` save)."""
+    b, n, s, d = q.shape
+    o = attention(q, k, v, causal=cfg.causal, impl=cfg.attn_impl,
+                  block_q=min(cfg.attn_block_q, s), block_k=min(cfg.attn_block_k, k.shape[2]),
+                  block_q_bwd=cfg.attn_block_q_bwd or None,
+                  block_k_bwd=cfg.attn_block_k_bwd or None)
+    return o.transpose(1, 2).reshape(b, s, n * d)
+
+
+def _out_mlp(x, o, lp, cfg: TransformerConfig):
+    """Out projection, residual, norm, MLP, residual."""
+    dt = cfg.dtype
+    ap, mp = lp["attn"], lp["mlp"]
+    h = x.shape[-1]
+    o = torch.matmul(o, ap["wo"].to(dt).reshape(-1, h))
+    if cfg.use_bias:
+        o = o + ap["bo"].to(dt)
+    x = x + o
+    y = _norm(x, lp["mlp_norm"], cfg)
+    if cfg.act == "swiglu":
+        hidden = swiglu(torch.matmul(y, mp["wi"].to(dt)), torch.matmul(y, mp["wg"].to(dt)))
+    else:
+        hidden = torch.matmul(y, mp["wi"].to(dt))
+        if cfg.use_bias:
+            hidden = hidden + mp["bi"].to(dt)
+        hidden = gelu(hidden)
+    out = torch.matmul(hidden, mp["wo"].to(dt))
+    if cfg.use_bias:
+        out = out + mp["bo"].to(dt)
+    return x + out
+
+
+def _layer_body(x, lp, cfg: TransformerConfig, rope_tables):
+    """One transformer layer, no remat."""
+    return _out_mlp(x, _attend(*_qkv(x, lp, cfg, rope_tables), cfg), lp, cfg)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matrix products without batch dimensions (the
+    projections' ``torch.matmul`` folds to ``aten.mm``), recompute the rest."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _ckpt(fn, *args, **kwargs):
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
+def _remat_layer(x, lp, cfg: TransformerConfig, rope_tables):
+    """One layer under ``cfg.remat``. Each policy keeps for the backward
+    what the JAX policy saves and recomputes the rest (the layer input is
+    always kept, as the scan carry is):
+
+    - none: everything autograd saves;
+    - full: nothing more; the whole layer reruns in the backward;
+    - attn: the merged attention output (``attn_out``);
+    - attn_qkv: ``attn_out`` and the post-rope q/k/v (``qkv``);
+    - dots: the outputs of matrix products without batch dimensions.
+
+    Under every policy but none the flash forward reruns in the backward
+    (its LSE is not kept), as it does under the JAX policies.
+    """
+    if cfg.remat == "none":
+        return _layer_body(x, lp, cfg, rope_tables)
+    if cfg.remat == "full":
+        return _ckpt(lambda x: _layer_body(x, lp, cfg, rope_tables), x)
+    if cfg.remat == "attn":
+        o = _ckpt(lambda x: _attend(*_qkv(x, lp, cfg, rope_tables), cfg), x)
+        return _ckpt(lambda x, o: _out_mlp(x, o, lp, cfg), x, o)
+    if cfg.remat == "attn_qkv":
+        q, k, v = _ckpt(lambda x: _qkv(x, lp, cfg, rope_tables), x)
+        o = _ckpt(lambda q, k, v: _attend(q, k, v, cfg), q, k, v)
+        return _ckpt(lambda x, o: _out_mlp(x, o, lp, cfg), x, o)
+    if cfg.remat == "dots":
+        return _ckpt(lambda x: _layer_body(x, lp, cfg, rope_tables), x,
+                     context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                  _dots_policy))
+    raise ValueError(f"unknown remat policy {cfg.remat!r}; "
+                     f"valid: none|full|attn|attn_qkv|dots")
+
+
+def flatten(tree: dict, prefix: tuple = ()) -> list:
+    """(path, leaf) pairs of a param tree in sorted-key order (the JAX
+    tree's leaf order)."""
+    out = []
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            out.extend(flatten(value, prefix + (key,)))
+        else:
+            out.append((prefix + (key,), value))
+    return out
+
+
+def unflatten(paths, leaves) -> dict:
+    tree: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _unstack(tree: dict, n: int) -> list:
+    """Stacked ``[L, ...]`` layer params -> L per-layer trees. One unbind
+    per leaf, so the backward stacks the layers' grads once instead of
+    adding L full-size zero-padded slices."""
+    paths, leaves = zip(*flatten(tree))
+    parts = [torch.unbind(t, 0) for t in leaves]
+    return [unflatten(paths, [p[i] for p in parts]) for i in range(n)]
+
+
+def apply_hidden(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """Trunk forward: tokens [batch, seq] -> final-norm hidden states
+    [batch, seq, hidden] in the activation dtype. The vocab projection is
+    left to the caller (the training loss fuses it blockwise)."""
+    dt = cfg.dtype
+    x = params["embed"]["tokens"].to(dt)[tokens]
+    s = x.shape[1]
+    if cfg.pos == "learned":
+        x = x + params["embed"]["pos"].to(dt)[None, :s]
+    rope_tables = None
+    if cfg.pos == "rope":
+        if s > cfg.max_seq:
+            raise ValueError(f"sequence length {s} exceeds max_seq {cfg.max_seq}: RoPE "
+                             f"positions would silently clamp")
+        cos, sin = rope_frequencies(cfg.hd, cfg.max_seq, cfg.rope_theta, device=x.device)
+        rope_tables = (cos[:s], sin[:s])
+    for lp in _unstack(params["layers"], cfg.num_layers):
+        x = _remat_layer(x, lp, cfg, rope_tables)
+    return _norm(x, params["final_norm"], cfg)
+
+
+def apply(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """Full forward: tokens [batch, seq] -> logits [batch, seq, vocab] (f32)."""
+    x = apply_hidden(params, tokens, cfg)
+    w, vocab_major = head_weights(params, cfg)
+    w = w.to(cfg.dtype)
+    return torch.matmul(x, w.t() if vocab_major else w).float()
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross entropy in f32; mask=0 positions excluded."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _chunk_nll(x, w, labels, vocab_major: bool):
+    """Per-token NLL for one chunk: project to vocab in the activation
+    dtype, reduce in f32. The chunk's logits are the only vocab-sized live
+    tensor."""
+    w = w.to(x.dtype)
+    logits = torch.matmul(x, w.t() if vocab_major else w).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - gold
+
+
+def loss_chunks(batch: int, seq: int, chunk_tokens: int) -> int:
+    """Chunk count of the blockwise loss: the smallest count that divides
+    seq and keeps a chunk within the token budget (1 = unchunked)."""
+    if not chunk_tokens or batch * seq <= chunk_tokens:
+        return 1
+    return next((c for c in range(1, seq + 1)
+                 if seq % c == 0 and (seq // c) * batch <= chunk_tokens), seq)
+
+
+def lm_loss_from_hidden(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    labels: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    *,
+    vocab_major: bool = False,
+    chunk_tokens: int = 4096,
+) -> torch.Tensor:
+    """Blockwise fused vocab projection + cross entropy: sequence chunks of
+    ``x`` [batch, seq, hidden] against the head weight, so at most about
+    ``chunk_tokens`` x vocab f32 logits are live at once. Each chunk is
+    recomputed in the backward, so the same bound holds for gradients."""
+    b, s, _ = x.shape
+    mask_f = None if mask is None else mask.float()
+    nc = loss_chunks(b, s, chunk_tokens)
+    if nc == 1:
+        nll = _chunk_nll(x, w, labels, vocab_major)
+        if mask_f is None:
+            return nll.mean()
+        return (nll * mask_f).sum() / torch.clamp(mask_f.sum(), min=1.0)
+
+    def body(xc, lc, mc):
+        return (_chunk_nll(xc, w, lc, vocab_major) * mc).sum()
+
+    cs = s // nc
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(nc):
+        cols = slice(c * cs, (c + 1) * cs)
+        mc = (torch.ones(b, cs, dtype=torch.float32, device=x.device)
+              if mask_f is None else mask_f[:, cols])
+        total = total + _ckpt(body, x[:, cols], labels[:, cols], mc)
+        count = count + mc.sum()
+    return total / torch.clamp(count, min=1.0)

@@ -1,6 +1,9 @@
-"""Compute ops of the port: elementwise/normalization layers and paged
-decode attention (CUDA kernel + plain version)."""
+"""Compute ops of the port: elementwise/normalization layers, attention
+(dense reference, flash dispatch, GQA) with the flash-attention CUDA
+kernels, and paged decode attention (CUDA kernel + plain version)."""
 
+from .attention import attention, dense_attention, repeat_kv
+from .flash_attention import bwd_row_stats, flash_attention_bhsd
 from .layers import apply_rope, gelu, layer_norm, rms_norm, rope_frequencies, swiglu
 from .paged_attention import (
     dense_decode_attention, gather_blocks, launch_counts, paged_attention,
@@ -8,6 +11,11 @@ from .paged_attention import (
 )
 
 __all__ = [
+    "attention",
+    "dense_attention",
+    "repeat_kv",
+    "bwd_row_stats",
+    "flash_attention_bhsd",
     "apply_rope",
     "gelu",
     "layer_norm",

@@ -55,9 +55,12 @@ class _Library:
     ``(argtypes, restype)`` from ``signatures`` once, and is thread-safe."""
 
     def __init__(self, name: str, sources: tuple[str, ...],
-                 signatures: Optional[dict] = None):
+                 signatures: Optional[dict] = None,
+                 headers: tuple[str, ...] = ()):
         self.name = name
         self.sources = tuple(CSRC_DIR / s for s in sources)
+        #: headers the sources include: part of the hash, not of the command
+        self.headers = tuple(CSRC_DIR / h for h in headers)
         self.signatures = dict(signatures or {})
         self._lock = threading.Lock()
         self._handle = None
@@ -69,7 +72,7 @@ class _Library:
         h = hashlib.sha256()
         for flag in NVCC_FLAGS:
             h.update(flag.encode())
-        for src in self.sources:
+        for src in self.sources + self.headers:
             h.update(src.name.encode())
             h.update(src.read_bytes())
         return h.hexdigest()[:16]

@@ -1,0 +1,289 @@
+"""The training loop of the port — counterpart of
+``polyaxon_tpu/train/trainer.py`` on one device.
+
+One step = the microbatch loop (grads in ``grad_dtype``, summed in
+``accum_dtype`` and divided by k), the global norm of the unclipped grads,
+the divergence guard (a non-finite loss or grad norm keeps the old params
+and optimizer state, and freezes the schedule and Adam's count), then
+AdamW. ``fit`` runs the JAX package's policy around it: the throughput
+meter, the skip budget and ``TrainingDivergedError``, the step watchdog.
+
+Where the JAX step selects old or new values inside jit, this one reads
+the guard's verdict on the host once per step (before the update) and
+then updates params and moments in place: no second copy of the state is
+ever live. Since the host waits for that verdict anyway, ``fit`` applies
+the skip policy to each step's flags as soon as the step returns (the JAX
+package reads them one step late so as not to wait). Meshes, sharding,
+checkpoints and rollback wait for ROADMAP A4 and A6; the trainer refuses
+them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Iterator, Optional
+
+import torch
+
+from ..models.transformer import TransformerConfig, flatten, unflatten
+from .metrics import ThroughputMeter
+from .optimizers import AdamState, OptimizerConfig, global_norm, make_optimizer
+from .tasks import LMTask, Task
+
+
+@dataclass
+class TrainState:
+    params: dict          # f32 master params, updated in place
+    opt_state: AdamState
+    step: int             # attempted steps (== batches consumed)
+    extra: Any = None
+
+
+@dataclass(frozen=True)
+class TrainerConfig:
+    model: Any
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    batch_size: int = 8
+    seq_len: int = 128
+    parallelism: Optional[dict] = None   # one device only: None or {"data": 1}
+    num_slices: int = 1
+    checkpoint: Optional[Any] = None     # not ported (ROADMAP A4)
+    log_interval: int = 10
+    accelerator: Optional[str] = "h100"  # the meter's peak table; None: no MFU
+    # differentiate w.r.t. params cast to this dtype (grads land in it)
+    grad_dtype: Optional[str] = None
+    # split the batch into this many sequential microbatches, grads summed
+    microbatches: int = 1
+    accum_dtype: Optional[str] = None    # None = float32
+    anomaly_skip_budget: int = 3
+    watchdog: bool = False
+    watchdog_stall_factor: float = 10.0
+    watchdog_min_s: float = 120.0
+    watchdog_compile_grace_s: float = 1800.0
+
+
+class TrainingDivergedError(RuntimeError):
+    """``anomaly_skip_budget`` consecutive non-finite steps and no rollback
+    (the port keeps no checkpoints yet). Carries the anomaly history."""
+
+    def __init__(self, message: str, history: list, anomalies: dict, rollbacks: int):
+        super().__init__(message)
+        self.history = history
+        self.anomalies = anomalies
+        self.rollbacks = rollbacks
+
+
+def _check_one_device(cfg: TrainerConfig) -> None:
+    extra_axes = {k: v for k, v in (cfg.parallelism or {}).items() if int(v) != 1}
+    if extra_axes:
+        raise NotImplementedError(
+            f"parallelism {cfg.parallelism} is not ported: the port trains on one "
+            f"device (data/fsdp: ROADMAP A6; model/context: A8; stage: A9)")
+    if cfg.num_slices > 1:
+        raise NotImplementedError("num_slices > 1 is not ported (ROADMAP A6)")
+    if cfg.checkpoint is not None:
+        raise NotImplementedError("checkpoints are not ported (ROADMAP A4)")
+
+
+class Trainer:
+    """The JAX package's Trainer on one device: the Task supplies init and
+    loss; ``device`` is where params, state and batches live."""
+
+    def __init__(
+        self,
+        cfg: TrainerConfig,
+        *,
+        device: Any,
+        track: Optional[Callable[[int, dict], None]] = None,
+        task: Optional[Task] = None,
+        chaos: Optional[Any] = None,
+    ):
+        _check_one_device(cfg)
+        self.cfg = cfg
+        if task is None:
+            if not isinstance(cfg.model, TransformerConfig):
+                raise ValueError(
+                    f"model config {type(cfg.model).__name__} needs an explicit Task")
+            task = LMTask(cfg.model)
+        self.task = task
+        self.device = torch.device(device)
+        self.tx = make_optimizer(cfg.optimizer)
+        self.track = track
+        # duck-typed fault injection: pre_step(pos) and nan_due(pos)
+        self.chaos = chaos
+
+    # -- init ---------------------------------------------------------------
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        params, extra = self.task.init(seed, self.device)
+        return self.init_state_from(params, extra)
+
+    def init_state_from(self, params: dict, extra: Any = None) -> TrainState:
+        leaves = [leaf for _, leaf in flatten(params)]
+        return TrainState(params=params, opt_state=self.tx.init(leaves), step=0, extra=extra)
+
+    # -- the step -------------------------------------------------------------
+
+    def _loss(self, params, extra, batch, inject: bool):
+        loss, metrics, new_extra = self.task.loss(params, extra, batch)
+        if inject:
+            # poisons the loss and every gradient from it, as a real
+            # divergence would
+            loss = loss * float("nan")
+        return loss, {**metrics, "loss": loss}, new_extra
+
+    def make_step(self):
+        gd = getattr(torch, self.cfg.grad_dtype) if self.cfg.grad_dtype else None
+        ad = getattr(torch, self.cfg.accum_dtype) if self.cfg.accum_dtype else torch.float32
+        k = max(int(self.cfg.microbatches), 1)
+        if self.cfg.batch_size % k:
+            raise ValueError(f"batch_size {self.cfg.batch_size} not divisible by "
+                             f"microbatches {k}")
+
+        def step_fn(state: TrainState, batch: dict, inject: bool = False):
+            paths, leaves = zip(*flatten(state.params))
+            diff = [(p.detach().to(gd) if gd is not None and p.is_floating_point()
+                     else p.detach()).requires_grad_(p.is_floating_point())
+                    for p in leaves]
+            diff_tree = unflatten(paths, diff)
+            batch = {name: t.to(self.device) for name, t in batch.items()}
+            size = self.cfg.batch_size // k
+            grads, losses, extra = None, [], state.extra
+            for i in range(k):
+                mb = {name: t[i * size:(i + 1) * size] for name, t in batch.items()}
+                loss, _, extra = self._loss(diff_tree, extra, mb, inject)
+                g = torch.autograd.grad(loss, [t for t in diff if t.requires_grad],
+                                        allow_unused=True, materialize_grads=True)
+                losses.append(loss.detach())
+                if k == 1:
+                    grads = list(g)
+                elif grads is None:
+                    grads = [gi.to(ad) for gi in g]
+                else:
+                    for acc, gi in zip(grads, g):
+                        acc.add_(gi.to(ad))
+                del g, loss
+            if k > 1:
+                grads = [g / k for g in grads]
+            loss = torch.stack(losses).mean()
+            grad_norm = global_norm(grads)
+            loss_ok = torch.isfinite(loss)
+            grad_ok = torch.isfinite(grad_norm)
+            metrics = {
+                "loss": loss, "grad_norm": grad_norm,
+                "anomaly_loss": (~loss_ok).float(),
+                "anomaly_grad": (loss_ok & ~grad_ok).float(),
+            }
+            opt_state = state.opt_state
+            if bool(loss_ok & grad_ok):
+                masters = [p for p in leaves if p.is_floating_point()]
+                updates, opt_state = self.tx.update(grads, opt_state, masters)
+                with torch.no_grad():
+                    for p, u in zip(masters, updates):
+                        p.add_(u.to(p.dtype))
+                state.extra = extra
+            # a skipped step keeps the old params, moments, schedule and
+            # count; ``step`` counts attempted steps (== batches consumed)
+            return TrainState(state.params, opt_state, state.step + 1, state.extra), metrics
+
+        return step_fn
+
+    # -- the loop -------------------------------------------------------------
+
+    def _sync(self, metrics: dict) -> None:
+        float(metrics["loss"])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def fit(self, batches: Iterator[dict], num_steps: int,
+            state: Optional[TrainState] = None,
+            meter: Optional[ThroughputMeter] = None) -> tuple[TrainState, dict]:
+        if state is None:
+            state = self.init_state()
+        start = int(state.step)
+        step_fn = self.make_step()
+        if meter is None:
+            meter = ThroughputMeter(
+                tokens_per_step=self.task.tokens_per_step(self.cfg.batch_size,
+                                                          self.cfg.seq_len),
+                flops_per_token=self.task.flops_per_token(self.cfg.seq_len),
+                num_chips=1, accelerator=self.cfg.accelerator)
+        metrics: dict = {}
+        started = False
+
+        def log(line: str) -> None:
+            print(line, flush=True)
+
+        watchdog = None
+        if self.cfg.watchdog:
+            from .watchdog import StepWatchdog
+
+            watchdog = StepWatchdog(
+                stall_factor=self.cfg.watchdog_stall_factor,
+                min_s=self.cfg.watchdog_min_s,
+                compile_grace_s=self.cfg.watchdog_compile_grace_s,
+                p95_s=lambda: meter._interval_quantile(0.95), log=log)
+            watchdog.start()
+
+        skip_budget = max(int(self.cfg.anomaly_skip_budget), 1)
+        anomalies = {"loss": 0, "grad": 0}
+        history: list[dict] = []
+        consec = 0
+        data_pos = int(getattr(batches, "position", start))
+
+        def _resolve(at: int, m: dict) -> None:
+            """Read a step's anomaly flags and apply the skip policy;
+            raises TrainingDivergedError when the budget is gone (there is
+            no checkpoint to roll back to)."""
+            nonlocal consec
+            a_loss = bool(float(m["anomaly_loss"]))
+            a_grad = bool(float(m["anomaly_grad"]))
+            if not (a_loss or a_grad):
+                consec = 0
+                return
+            kind = "loss" if a_loss else "grad"
+            anomalies[kind] += 1
+            if len(history) < 256:
+                history.append({"step": at, "kind": kind})
+            consec += 1
+            log(f"[trainer] non-finite {kind} at step {at}: update skipped "
+                f"({consec}/{skip_budget} consecutive)")
+            if consec >= skip_budget:
+                raise TrainingDivergedError(
+                    f"{consec} consecutive non-finite steps at step {at} and no "
+                    f"checkpoint to roll back to (anomalies={anomalies}, "
+                    f"skip_budget={skip_budget})",
+                    history[-64:], dict(anomalies), 0)
+
+        try:
+            for i in range(start, num_steps):
+                if self.chaos is not None:
+                    self.chaos.pre_step(data_pos)
+                inject = self.chaos is not None and self.chaos.nan_due(data_pos)
+                batch = next(batches)
+                data_pos += 1
+                state, metrics = step_fn(state, batch, inject)
+                if watchdog is not None:
+                    watchdog.beat(i)
+                if not started:
+                    self._sync(metrics)  # the first step builds and warms up
+                    started = True
+                    meter.start()
+                else:
+                    if i == num_steps - 1:
+                        self._sync(metrics)  # close the last interval
+                    meter.step()
+                _resolve(i, metrics)
+                if self.track and (i % self.cfg.log_interval == 0 or i == num_steps - 1):
+                    logged = {name: float(v) for name, v in metrics.items()}
+                    logged.update(meter.summary())
+                    self.track(i, logged)
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
+        final = {name: float(v) for name, v in metrics.items()}
+        final.update(meter.summary())
+        final["train_anomalies_loss"] = anomalies["loss"]
+        final["train_anomalies_grad"] = anomalies["grad"]
+        final["train_rollbacks"] = 0  # no checkpoints, so no rollback
+        return state, final

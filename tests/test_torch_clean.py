@@ -40,7 +40,9 @@ def _imported_roots(path: Path) -> set[str]:
 def test_the_scan_sees_every_port_module():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for expected in ("ops/paged_attention.py", "serve/engine.py",
-                     "serve/server.py", "models/transformer.py", "convert.py"):
+                     "serve/server.py", "models/transformer.py", "convert.py",
+                     "ops/flash_attention.py", "ops/attention.py", "train/trainer.py",
+                     "train/optimizers.py", "train/watchdog.py", "runtime/builtin.py"):
         assert expected in names
 
 
@@ -79,3 +81,22 @@ print(json.dumps({"tokens": req.out_tokens, "bad": bad}))
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(out["tokens"]) == 3
     assert out["bad"] == []
+
+
+def test_a_cpu_training_run_runs_without_jax_in_sys_modules(tmp_path):
+    code = """
+import json, sys
+from polyaxon_tpu_torch.runtime.builtin import run_builtin
+run_builtin({"model": "llama-tiny", "platform": "cpu", "checkpoint": False, "steps": 2,
+             "batch_size": 2, "seq_len": 128, "remat": "attn_qkv", "watchdog": False})
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "flax", "orbax",
+                                    "polyaxon_tpu"))
+print(json.dumps({"bad": bad}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=90)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1])["bad"] == []

@@ -1,7 +1,7 @@
-"""The paged-decode CUDA kernel against its plain PyTorch version, on the
-card. Every test here needs a CUDA device (the kernel has no CPU build)
-and skips without one; this file imports nothing of JAX, so it runs on a
-machine with the card alone:
+"""The CUDA kernels (paged decode; flash forward, dQ and dK/dV) against
+their plain PyTorch versions, on the card. Every test here needs a CUDA
+device (the kernels have no CPU build) and skips without one; this file
+imports nothing of JAX, so it runs on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -94,3 +94,151 @@ def test_refused_arguments_raise(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         pa.paged_decode(q[..., :48].contiguous(), k[..., :48].contiguous(),
                         v[..., :48].contiguous(), tables, lengths)
+
+
+# -- flash attention (forward, dQ, dK/dV) --------------------------------------
+
+fa = importlib.import_module("polyaxon_tpu_torch.ops.flash_attention")
+ta = importlib.import_module("polyaxon_tpu_torch.ops.attention")
+
+# kernel vs plain, elementwise |out - ref| <= atol + rtol |ref|. f32: both
+# f32, only the order of the sums and the online-softmax split differ (the
+# kernel's 32-row tiles vs the plain version's blocks): 5e-5. bf16: p (and
+# dS) are rounded to bf16 against other running maxima or other f32 sums in
+# the two, and outputs round to bf16 (one place is <= 2^-7 relative): the
+# paged kernel's 3e-3 + 2^-6 |ref|.
+FLASH_TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (3e-3, 2.0 ** -6)}
+
+
+def _flash_inputs(dev, dtype, bh=3, sq=256, sk=256, d=64, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(bh, sq, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(bh, sk, d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    return q, k, v, do
+
+
+def _both_ways(q, k, v, do, qo, ko, causal, blocks=(128, 64), walk_cut=0):
+    """Every kernel output and its plain version on the same inputs (the
+    plain forward at ``blocks``, the plain backward at them swapped)."""
+    scale = q.shape[-1] ** -0.5
+    kw = dict(sm_scale=scale, causal=causal)
+    bq, bk = blocks
+    o, lse = fa.flash_fwd_cuda(q, k, v, qo, ko, walk_cut=walk_cut, **kw)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, qo, ko, block_q=bq, block_k=bk, **kw)
+    _, delta = fa.bwd_row_stats(o_p, lse_p, do)
+    args = (q, k, v, do, lse_p, delta, qo, ko)
+    dq = fa.flash_bwd_dq_cuda(*args, walk_cut=walk_cut, **kw)
+    dk, dv = fa.flash_bwd_dkv_cuda(*args, walk_cut=walk_cut, **kw)
+    dq_p = fa.flash_bwd_dq_plain(*args, block_q=bk, block_k=bq, **kw)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(*args, block_q=bk, block_k=bq, **kw)
+    torch.cuda.synchronize()
+    return {"o": (o, o_p), "lse": (lse, lse_p), "dq": (dq, dq_p), "dk": (dk, dk_p),
+            "dv": (dv, dv_p)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("offsets", [(0, 0, True), (64, 0, True), (0, 128, True),
+                                     (0, 0, False)])
+@pytest.mark.parametrize("lengths", [
+    (256, 256, (128, 64)),
+    (200, 200, (40, 50)),     # no multiple of either tile: partial last tiles
+    (96, 224, (32, 32)),      # sq != sk, both partial in bf16
+])
+def test_flash_kernels_match_plain(cuda, dtype, d, offsets, lengths):
+    # (0, 128): the first 128 q rows see no key, O = 0 and LSE = -inf there
+    qo, ko, causal = offsets
+    sq, sk, blocks = lengths
+    q, k, v, do = _flash_inputs(cuda, dtype, sq=sq, sk=sk, d=d, seed=d)
+    before = dict(fa.launch_counts)
+    pairs = _both_ways(q, k, v, do, qo, ko, causal, blocks)
+    assert all(fa.launch_counts[n] == before[n] + 1 for n in before)
+    atol, rtol = FLASH_TOL[dtype]
+    for name, (out, ref) in pairs.items():
+        if name == "lse":
+            assert torch.equal(torch.isinf(out), torch.isinf(ref)), name
+            out, ref = out.nan_to_num(neginf=0.0), ref.nan_to_num(neginf=0.0)
+            torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-5, msg=name)
+            continue
+        assert out.dtype == dtype, name
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol,
+                                   msg=name)
+    if ko > qo:
+        assert pairs["o"][0][:, :ko - qo].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_planted_faults_fail_the_tolerance(cuda, dtype):
+    # walk_cut=1: the forward and dQ stop before the diagonal kv tile, dK/dV
+    # starts one q tile late; the check must see each
+    q, k, v, do = _flash_inputs(cuda, dtype, seed=3)
+    pairs = _both_ways(q, k, v, do, 0, 0, True, walk_cut=1)
+    atol, rtol = FLASH_TOL[dtype]
+    for name in ("o", "dq", "dk", "dv"):
+        out, ref = pairs[name]
+        with pytest.raises(AssertionError):
+            torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,block", [(128, 64), (200, 40)])
+def test_flash_autograd_runs_the_kernels(cuda, s, block):
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, bh=2, sq=s, sk=s)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.reset_launch_counts()
+    o = fa.flash_attention_bhsd(*leaves, block_q=block, block_k=block)
+    o.backward(do)
+    assert fa.launch_counts == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    qc, kc, vc = (t.cpu() for t in (q, k, v))
+    ref = [t.float().requires_grad_() for t in (qc, kc, vc)]
+    o_ref = fa.flash_attention_bhsd(*ref, block_q=block, block_k=block)
+    o_ref.backward(do.cpu().float())
+    atol, rtol = (2e-2, 2.0 ** -5)  # bf16 kernel vs the f32 plain version
+    torch.testing.assert_close(o.float().cpu(), o_ref.detach(), atol=atol, rtol=rtol)
+    for leaf, r in zip(leaves, ref):
+        assert leaf.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(leaf.grad.float().cpu(), r.grad, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_refused_arguments_raise(cuda):
+    q, k, v, do = _flash_inputs(cuda, torch.float32, sq=96, sk=96, d=64)
+    lse = torch.zeros(3, 95, device=cuda)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_bwd_dq_cuda(q, k, v, do, lse, lse, 0, 0, sm_scale=0.125, causal=True)
+    q, k, v, _ = _flash_inputs(cuda, torch.float32, d=32)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd_cuda(q, k, v, 0, 0, sm_scale=0.125, causal=True)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_fwd_cuda(q.half(), k.half(), v.half(), 0, 0, sm_scale=0.125, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,block", [(128, 32), (160, 32), (200, 512)])
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16), (128, torch.float32)])
+def test_auto_follows_the_jax_rule_on_the_card(cuda, s, block, d, dtype):
+    # flash wherever the JAX package's rule picks it, partial tiles included
+    # (160 and 200 are no multiple of the 64-row bf16 tile)
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    q, k, v = (torch.randn(1, 2, s, d, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    fa.reset_launch_counts()
+    out = ta.attention(q, k, v, impl="auto", block_q=block, block_k=block)
+    assert fa.launch_counts["flash_fwd"] == 1
+    ref = ta.dense_attention(q, k, v)
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype,error", [
+    (32, torch.bfloat16, ValueError),    # no kernel for head dim 32
+    (64, torch.float16, TypeError),      # no kernel for float16
+])
+def test_auto_raises_where_the_kernels_do_not_run(cuda, d, dtype, error):
+    # a CUDA tensor never falls back to the plain or dense path
+    q = torch.randn(1, 2, 128, d, device=cuda).to(dtype)
+    with pytest.raises(error):
+        ta.attention(q, q, q, impl="auto", block_q=32, block_k=32)
