@@ -5,6 +5,7 @@
 //
 // - flash_bwd_dq_kernel  <- _bwd_dq_kernel:  dQ = sum_j dS K
 // - flash_bwd_dkv_kernel <- _bwd_dkv_kernel: dV = sum_i P^T dO, dK = sum_i dS^T Q
+//   (bf16: flash_bwd_dkv_wgmma_kernel)
 //
 // with, for each visible (i, j),
 //   P  = exp(q_i . k_j * scale - LSE_i)   (0 where LSE_i = -inf or hidden)
@@ -17,30 +18,46 @@
 //   q, do [BH, Sq, D]; k, v [BH, Sk, D]; lse, delta [BH, Sq] f32;
 //   dq [BH, Sq, D]; dk, dv [BH, Sk, D]; D = 64 or 128; bf16 or f32; any Sq, Sk.
 //
-// Design. As in the forward, a loop inside the CTA replaces the TPU's
-// sequential grid axis, and its bounds are the causal clamps: the dQ CTA of a
-// q tile walks kv tiles up to the last visible one (_kv_clamp); the dK/dV CTA
-// of a kv tile walks q tiles from the first that can see it (_q_clamp) to the
-// end. Tiles are 64 rows in bf16 (4 warps of 16 rows), 32 in f32 (2 warps).
-// The tiles streamed by the loop are staged in shared memory by the whole
-// CTA; each warp computes its 16-row blocks of S and dO V^T (or, in dK/dV, of
-// S^T = K Q^T and V dO^T, so that its rows are keys) with tensor-core mma, the
-// elementwise P and dS on the CUDA cores (two lanes per row), and adds its
-// products into f32 accumulators in shared memory. The dK/dV kernel needs
-// 186 KB of shared memory at D = 128 in bf16, above the 48 KB static limit,
-// so both kernels opt in to dynamic shared memory. A length that is no
-// multiple of the tile ends in a partial tile: its missing q/dO/K/V rows are
-// loaded as zeros, missing keys are hidden like masked ones, missing query
-// rows get LSE = -inf (so P = 0 there), and missing rows are not written.
+// As in the forward, a loop inside the CTA replaces the TPU's sequential
+// grid axis, and its bounds are the causal clamps: the dQ CTA of a q tile
+// walks kv tiles up to the last visible one (_kv_clamp); the dK/dV CTA of a
+// kv tile walks q tiles from the first that can see it (_q_clamp) to the
+// end, and the heaviest CTAs launch first. A length that is no multiple of
+// the tile ends in a partial tile: its missing q/dO/K/V rows are loaded as
+// zeros, missing keys are hidden like masked ones, missing query rows get
+// LSE = -inf (so P = 0 there), and missing rows are not written.
 //
 // Bound on the H100. dQ does 3 products (S, dO V^T, dS K) and dK/dV 4 (S,
 // dO V^T, P^T dO, dS^T Q), each 2 * Sq * Sk * D FLOP before the causal half:
 // at the llama-1b shape (BH 64, S 2048, D 64, bf16) 52.1 us and 69.5 us at
-// 989 TFLOP/s, above their byte bounds, so the tensor cores bound both. The
-// simple design is far from that for the reasons the forward gives (no
-// overlap of loads and products, shared-memory round trips, 4 warps per CTA).
+// 989 TFLOP/s, above their byte bounds, so the tensor cores bound both.
+//
+// dK/dV in bf16 (flash_bwd_dkv_wgmma_kernel): built for that bound from
+// Hopper's pieces (hopper.cuh). A CTA of three warpgroups takes 128 keys:
+// two consumer warpgroups of 64 keys each, whose K and V rows stay in shared
+// memory for the whole walk, and a producer warp that streams 64-row Q and
+// dO tiles by TMA, with their LSE (in base 2) and delta, into a
+// ring of two stages guarded by mbarriers; it gives its registers to the
+// consumers (setmaxnreg). Each consumer warpgroup computes S^T = K Q^T and
+// dP^T = V dO^T by wgmma from shared memory into registers, with keys as
+// rows, so that P^T and dS^T come out in the layout of wgmma's register A
+// operand; P^T and dS^T are computed in registers (LSE and delta read per
+// column from the stage); and dV += P^T dO and dK += dS^T Q are wgmma with A
+// in registers and B (dO, Q) read MN-major from the stage. The dK and dV
+// accumulators stay in registers for the whole walk. Shared memory: 67 KB
+// at D = 64, 131 KB at D = 128.
+//
+// dQ, and dK/dV in f32: 64-row tiles in bf16 (4 warps of 16 rows), 32 in
+// f32 (2 warps), staged in shared memory by the whole CTA; each warp computes
+// its 16-row blocks of S and dO V^T (or S^T = K Q^T and V dO^T) with
+// nvcuda::wmma in bf16 or on the CUDA cores in f32 (tensor cores would round
+// to tf32), the elementwise P and dS on the CUDA cores (two lanes per row),
+// and adds its products into f32 accumulators in shared memory (dynamic
+// shared memory, above the 48 KB static limit where needed). Loads do not
+// overlap the products; bf16 dQ is to take the dK/dV kernel's design next.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -57,9 +74,14 @@ struct BwdSmem {
   static constexpr size_t acc = pad128(sizeof(float) * kWarps * 16 * ldf_of<D>());
   // dQ: q, do, k, v; lse, delta; S, dP; dS; dQ
   static constexpr size_t dq_total = 4 * tile + 2 * rows + 2 * s + p + acc;
-  // dK/dV: the same plus P (in T) and a second accumulator
-  static constexpr size_t dkv_total = 4 * tile + 2 * rows + 2 * s + 2 * p + 2 * acc;
 };
+
+// dK/dV in f32: dQ's buffers plus P and a second accumulator
+template <int D>
+constexpr size_t dkv_f32_total() {
+  using L = BwdSmem<float, D>;
+  return L::dq_total + L::p + L::acc;
+}
 
 // The tile's elementwise step for one lane's half row: P and dS from the f32
 // products S (= q.k) and dP (= dO.v); `hidden(c)` says whether the pair at
@@ -128,8 +150,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
   for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) acc_w[r * LDA + c] = 0.f;
 
-  const int kend = kv_tiles_end(q0, kTile, tiles_of(sk, kTile), q_offset, k_offset, causal,
-                                walk_cut);
+  const int kend = kv_tiles_end(q0, kTile, kTile, tiles_of(sk, kTile), q_offset, k_offset,
+                                causal, walk_cut);
   const int row = warp * 16 + r;
   const int qid = q_offset + q0 + row;
 
@@ -160,14 +182,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     dq_row[c] = Traits<T>::from_f32(acc_w[r * LDA + c]);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(Traits<T>::kTile * 2)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+// ---- dK/dV in f32: CUDA cores, products and accumulators in shared memory ----
+
+template <int D>
+__global__ void __launch_bounds__(BwdSmem<float, D>::kWarps * 32)
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int q_offset,
-                     int k_offset, int causal, int walk_cut, float scale) {
-  using L = BwdSmem<T, D>;
+                     float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+                     int q_offset, int k_offset, int causal, int walk_cut, float scale) {
+  using L = BwdSmem<float, D>;
   constexpr int kTile = L::kTile;
   constexpr int kThreads = L::kWarps * 32;
   constexpr int LD = ld_of<D>();
@@ -177,16 +201,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* at = smem;
-  T* k_s = reinterpret_cast<T*>(at);
-  T* v_s = reinterpret_cast<T*>(at += L::tile);
-  T* q_s = reinterpret_cast<T*>(at += L::tile);
-  T* do_s = reinterpret_cast<T*>(at += L::tile);
+  float* k_s = reinterpret_cast<float*>(at);
+  float* v_s = reinterpret_cast<float*>(at += L::tile);
+  float* q_s = reinterpret_cast<float*>(at += L::tile);
+  float* do_s = reinterpret_cast<float*>(at += L::tile);
   float* lse_s = reinterpret_cast<float*>(at += L::tile);
   float* delta_s = reinterpret_cast<float*>(at += L::rows);
   float* st_all = reinterpret_cast<float*>(at += L::rows);
   float* dpt_all = reinterpret_cast<float*>(at += L::s);
-  T* pt_all = reinterpret_cast<T*>(at += L::s);
-  T* dst_all = reinterpret_cast<T*>(at += L::p);
+  float* pt_all = reinterpret_cast<float*>(at += L::s);
+  float* dst_all = reinterpret_cast<float*>(at += L::p);
   float* dk_all = reinterpret_cast<float*>(at += L::p);
   float* dv_all = reinterpret_cast<float*>(at += L::acc);
 
@@ -199,25 +223,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * kTile;
   float* st_w = st_all + warp * 16 * LDS;
   float* dpt_w = dpt_all + warp * 16 * LDS;
-  T* pt_w = pt_all + warp * 16 * LDP;
-  T* dst_w = dst_all + warp * 16 * LDP;
+  float* pt_w = pt_all + warp * 16 * LDP;
+  float* dst_w = dst_all + warp * 16 * LDP;
   float* dk_w = dk_all + warp * 16 * LDA;
   float* dv_w = dv_all + warp * 16 * LDA;
 
   const size_t key0 = static_cast<size_t>(bh) * sk + k0;
-  load_tile<T, D>(k_s, k + key0 * D, kTile, sk - k0, tid, kThreads);
-  load_tile<T, D>(v_s, v + key0 * D, kTile, sk - k0, tid, kThreads);
+  load_tile<float, D>(k_s, k + key0 * D, kTile, sk - k0, tid, kThreads);
+  load_tile<float, D>(v_s, v + key0 * D, kTile, sk - k0, tid, kThreads);
   for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) {
     dk_w[r * LDA + c] = 0.f;
     dv_w[r * LDA + c] = 0.f;
   }
 
-  // first q tile whose last row can see this kv tile's first key
-  // (_q_clamp), `walk_cut` tiles later (0 in use, 1 to plant the fault of a
-  // walk that starts one q tile late)
   const int nq = tiles_of(sq, kTile);
-  const int first =
-      (causal ? max(floor_div(k_offset + k0 - q_offset, kTile), 0) : 0) + walk_cut;
+  const int first = q_tiles_begin(k0, kTile, q_offset, k_offset, causal, walk_cut);
   const int row = warp * 16 + r;  // this lane's key within the tile
   const int kid = k_offset + k0 + row;
 
@@ -225,8 +245,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q0 = t * kTile;
     const size_t qrow0 = static_cast<size_t>(bh) * sq + q0;
     __syncthreads();
-    load_tile<T, D>(q_s, q + qrow0 * D, kTile, sq - q0, tid, kThreads);
-    load_tile<T, D>(do_s, dout + qrow0 * D, kTile, sq - q0, tid, kThreads);
+    load_tile<float, D>(q_s, q + qrow0 * D, kTile, sq - q0, tid, kThreads);
+    load_tile<float, D>(do_s, dout + qrow0 * D, kTile, sq - q0, tid, kThreads);
     for (int i = tid; i < kTile; i += kThreads) {
       const bool in = q0 + i < sq;
       lse_s[i] = in ? lse[qrow0 + i] : -CUDART_INF_F;
@@ -239,7 +259,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();
     // a key past the end is never written, so only the causal mask hides
     // pairs here; a query past the end has LSE = -inf
-    probs_and_ds<T, kTile>(
+    probs_and_ds<float, kTile>(
         st_w + r * LDS, dpt_w + r * LDS, pt_w + r * LDP, dst_w + r * LDP, half, scale,
         [&](int c) { return causal && q_offset + q0 + c < kid; },
         [&](int c) { return lse_s[c]; }, [&](int c) { return delta_s[c]; });
@@ -252,8 +272,218 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (k0 + row >= sk) return;  // a key past the end of a partial tile
   const size_t out = (key0 + row) * D;
   for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) {
-    dk[out + c] = Traits<T>::from_f32(dk_w[r * LDA + c]);
-    dv[out + c] = Traits<T>::from_f32(dv_w[r * LDA + c]);
+    dk[out + c] = dk_w[r * LDA + c];
+    dv[out + c] = dv_w[r * LDA + c];
+  }
+}
+
+// ---- dK/dV in bf16: wgmma, TMA, accumulators in registers ---------------------
+
+constexpr int kKeys = 128;      // keys per CTA: 64 per consumer warpgroup
+constexpr int kRowsQ = 64;      // q rows per streamed tile
+constexpr int kStages = 2;      // q tiles in flight
+constexpr int kConsumers = 2;   // warpgroups
+constexpr int kThreadsWG = (kConsumers + 1) * 128;
+
+template <int D>
+struct DkvTiles {
+  static constexpr uint32_t kv = hopper::tile_bytes<D, kKeys>();   // one of K, V
+  static constexpr uint32_t q = hopper::tile_bytes<D, kRowsQ>();   // one of Q, dO
+  static constexpr uint32_t stats = 2 * kRowsQ * sizeof(float);     // LSE, delta
+  static constexpr uint32_t stage = (2 * q + stats + 1023) / 1024 * 1024;
+  // tiles, then the barriers (K/V, full and empty per stage), plus the
+  // room to align the start to 1024 bytes
+  static constexpr size_t total = 2 * kv + kStages * stage + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsWG, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                           int sq, int sk, int q_offset, int k_offset, int causal, int walk_cut,
+                           float scale) {
+  using namespace hopper;
+  using L = DkvTiles<D>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* k_s = reinterpret_cast<bf16*>(smem);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + L::kv);
+  unsigned char* ring = smem + 2 * L::kv;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(ring + kStages * L::stage);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+  // stage s: Q, dO, then LSE * log2(e) and delta of its rows
+  auto q_of = [&](int s) { return reinterpret_cast<bf16*>(ring + s * L::stage); };
+  auto do_of = [&](int s) { return reinterpret_cast<bf16*>(ring + s * L::stage + L::q); };
+  auto lse_of = [&](int s) { return reinterpret_cast<float*>(ring + s * L::stage + 2 * L::q); };
+  auto delta_of = [&](int s) { return lse_of(s) + kRowsQ; };
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kKeys;  // the first kv tiles see the most q tiles
+  const int first = q_tiles_begin(k0, kRowsQ, q_offset, k_offset, causal, walk_cut);
+  const int nq = tiles_of(sq, kRowsQ);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    bar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 32);               // every producer lane writes LSE/delta
+      bar_init(&empty[s], kConsumers * 4);  // one arrival per consumer warp
+    }
+    fence_bar_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: the first warp; lane 0 issues the TMA loads, every lane
+    // writes two rows' LSE and delta
+    regs_dec<24>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x - kConsumers * 128 < 32) {
+      if (lane == 0) {
+        bar_arrive_expect_tx(kv_full, 2 * L::kv);
+        tma_tile<D, kKeys>(k_s, &k_map, kv_full, k0, bh);
+        tma_tile<D, kKeys>(v_s, &v_map, kv_full, k0, bh);
+      }
+      for (int t = first; t < nq; ++t) {
+        const int i = t - first;
+        const int s = i % kStages;
+        bar_wait(&empty[s], ((i / kStages) & 1) ^ 1);  // the first round finds it free
+        const int q0 = t * kRowsQ;
+        if (lane == 0) {
+          bar_expect_tx(&full[s], 2 * L::q);
+          tma_tile<D, kRowsQ>(q_of(s), &q_map, &full[s], q0, bh);
+          tma_tile<D, kRowsQ>(do_of(s), &do_map, &full[s], q0, bh);
+        }
+        for (int r = lane; r < kRowsQ; r += 32) {
+          const bool in = q0 + r < sq;
+          const size_t at = static_cast<size_t>(bh) * sq + q0 + r;
+          // a row that sees no key (LSE = -inf) or lies past the end gets
+          // +inf, so that its P = exp2(s - inf) is 0 with no test per score
+          const float x = in ? lse[at] : -CUDART_INF_F;
+          lse_of(s)[r] = x == -CUDART_INF_F ? CUDART_INF_F : x * kLog2e;
+          delta_of(s)[r] = in ? delta[at] : 0.f;
+        }
+        bar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: keys wg * 64 .. + 63 of the tile
+  regs_inc<240>();
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int row0 = wg * 64 + (tid / 32) * 16 + lane / 4;  // this thread's keys: row0, row0 + 8
+  const int col0 = 2 * (lane % 4);                         // and q columns col0, col0 + 1 of each 8
+  const int kid0 = k_offset + k0 + row0;
+  const float scale_log2 = scale * kLog2e;
+  const bf16* k_wg = k_s + wg * 64 * 64;  // this warpgroup's rows of each panel
+  const bf16* v_wg = v_s + wg * 64 * 64;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+  float st[kRowsQ / 2], dpt[kRowsQ / 2];  // S^T, dP^T; then P^T, dS^T
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRowsQ / 2; ++i) st[i] = dpt[i] = 0.f;
+  uint32_t p_op[kRowsQ / 16][4], ds_op[kRowsQ / 16][4];
+
+  bar_wait(kv_full, 0);
+  for (int t = first; t < nq; ++t) {
+    const int i = t - first;
+    const int s = i % kStages;
+    const int q0 = t * kRowsQ;
+    bar_wait(&full[s], (i / kStages) & 1);
+    const bf16* q_st = q_of(s);
+    const bf16* do_st = do_of(s);
+    const float* lse_st = lse_of(s);
+    const float* delta_st = delta_of(s);
+
+    // S^T = K Q^T and dP^T = V dO^T: k16 steps along D, 64 columns to a panel
+    hold(st);
+    hold(dpt);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int a = (kk / 4) * kKeys * 64 + (kk % 4) * 16;
+      const int b = (kk / 4) * kRowsQ * 64 + (kk % 4) * 16;
+      mma_ss<kRowsQ>(st, desc_k(k_wg + a), desc_k(q_st + b), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int a = (kk / 4) * kKeys * 64 + (kk % 4) * 16;
+      const int b = (kk / 4) * kRowsQ * 64 + (kk % 4) * 16;
+      mma_ss<kRowsQ>(dpt, desc_k(v_wg + a), desc_k(do_st + b), kk > 0);
+    }
+    mma_commit();
+    mma_wait<0>();
+    hold(st);
+    hold(dpt);
+
+    // P^T and dS^T: column c is q row q0 + c; a tile whose first row lies
+    // before this CTA's last key is masked
+    const bool masked = causal && q_offset + q0 < k_offset + k0 + kKeys - 1;
+#pragma unroll
+    for (int j = 0; j < kRowsQ / 8; ++j) {
+      const int c = 8 * j + col0;
+      const float2 lse2 = *reinterpret_cast<const float2*>(lse_st + c);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_st + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * j + e;
+        const float lse_c = (e & 1) ? lse2.y : lse2.x;
+        const float delta_c = (e & 1) ? dl.y : dl.x;
+        float p = exp2_fast(fmaf(st[idx], scale_log2, -lse_c));
+        if (masked && q_offset + q0 + c + (e & 1) < kid0 + 8 * (e >> 1)) p = 0.f;
+        st[idx] = p;
+        dpt[idx] = p * (dpt[idx] - delta_c) * scale;
+      }
+    }
+    to_a_operand<kRowsQ>(st, p_op);    // P^T in dO's dtype
+    to_a_operand<kRowsQ>(dpt, ds_op);  // dS^T in Q's dtype
+
+    // dV += P^T dO, dK += dS^T Q: k16 steps of 16 q rows (2048 bytes); the
+    // next 64 columns of D are the next panel
+    hold(dv_acc);
+    hold(dk_acc);
+    hold(p_op);
+    hold(ds_op);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRowsQ / 16; ++kk)
+      mma_rs<D>(dv_acc, p_op[kk], desc_mn(do_st + kk * 16 * 64, kRowsQ * 128));
+#pragma unroll
+    for (int kk = 0; kk < kRowsQ / 16; ++kk)
+      mma_rs<D>(dk_acc, ds_op[kk], desc_mn(q_st + kk * 16 * 64, kRowsQ * 128));
+    mma_commit();
+    mma_wait<0>();
+    hold(dv_acc);
+    hold(dk_acc);
+    hold(p_op);
+    hold(ds_op);
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+  // epilogue: the rows of keys inside Sk
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + row0 + 8 * h;
+    if (key >= sk) continue;
+    const size_t at = (static_cast<size_t>(bh) * sk + key) * D;
+    uint32_t* dk_row = reinterpret_cast<uint32_t*>(dk + at);
+    uint32_t* dv_row = reinterpret_cast<uint32_t*>(dv + at);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      dk_row[4 * j + lane % 4] = pack_bf16(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+      dv_row[4 * j + lane % 4] = pack_bf16(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+    }
   }
 }
 
@@ -279,30 +509,46 @@ int launch_dq(const Args& a) {
   return 0;
 }
 
-template <typename T, int D>
-int launch_dkv(const Args& a) {
-  using L = BwdSmem<T, D>;
-  static const cudaError_t attr = allow_smem(flash_bwd_dkv_kernel<T, D>, L::dkv_total);
+template <int D>
+int launch_dkv_f32(const Args& a) {
+  using L = BwdSmem<float, D>;
+  static const cudaError_t attr = allow_smem(flash_bwd_dkv_kernel<D>, dkv_f32_total<D>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  flash_bwd_dkv_kernel<T, D><<<dim3(tiles_of(a.sk, L::kTile), a.bh), L::kWarps * 32,
-                               L::dkv_total, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.sq, a.sk, a.q_offset, a.k_offset, a.causal, a.walk_cut,
-      a.scale);
+  flash_bwd_dkv_kernel<D><<<dim3(tiles_of(a.sk, L::kTile), a.bh), L::kWarps * 32,
+                            dkv_f32_total<D>(), a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq, a.sk, a.q_offset, a.k_offset,
+      a.causal, a.walk_cut, a.scale);
   return 0;
 }
 
-template <bool kDq, typename T>
-int dispatch(int head_dim, const Args& a) {
-  switch (head_dim) {
-    case 64:
-      return kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128:
-      return kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int D>
+int launch_dkv_wgmma(const Args& a) {
+  using L = DkvTiles<D>;
+  static const cudaError_t attr = allow_smem(flash_bwd_dkv_wgmma_kernel<D>, L::total);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap maps[4];
+  int rc = hopper::make_map(&maps[0], a.q, a.bh, a.sq, D, kRowsQ);
+  if (rc == 0) rc = hopper::make_map(&maps[1], a.k, a.bh, a.sk, D, kKeys);
+  if (rc == 0) rc = hopper::make_map(&maps[2], a.v, a.bh, a.sk, D, kKeys);
+  if (rc == 0) rc = hopper::make_map(&maps[3], a.dout, a.bh, a.sq, D, kRowsQ);
+  if (rc != 0) return rc;
+  flash_bwd_dkv_wgmma_kernel<D><<<dim3(tiles_of(a.sk, kKeys), a.bh), kThreadsWG, L::total,
+                                  a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.sq, a.sk, a.q_offset, a.k_offset, a.causal,
+      a.walk_cut, a.scale);
+  return 0;
+}
+
+// dtype 0 = f32, 1 = bf16; dK/dV in bf16 runs the wgmma kernel, the rest the
+// CUDA-core / wmma ones
+template <bool kDq, int D>
+int launch(int dtype, const Args& a) {
+  if (dtype == 0) return kDq ? launch_dq<float, D>(a) : launch_dkv_f32<D>(a);
+  if (dtype == 1) return kDq ? launch_dq<__nv_bfloat16, D>(a) : launch_dkv_wgmma<D>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool kDq>
@@ -311,14 +557,29 @@ int run(int head_dim, int dtype, const Args& a) {
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();  // start from a clean error state
   int rc;
-  if (dtype == 0)
-    rc = dispatch<kDq, float>(head_dim, a);
-  else if (dtype == 1)
-    rc = dispatch<kDq, __nv_bfloat16>(head_dim, a);
+  if (head_dim == 64)
+    rc = launch<kDq, 64>(dtype, a);
+  else if (head_dim == 128)
+    rc = launch<kDq, 128>(dtype, a);
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int resources_of(int kernel, int dtype, int* out) {
+  using B = BwdSmem<float, D>;
+  using H = BwdSmem<__nv_bfloat16, D>;
+  if (kernel == 0 && dtype == 0)
+    return resources(flash_bwd_dq_kernel<float, D>, B::kWarps * 32, B::dq_total, out);
+  if (kernel == 0 && dtype == 1)
+    return resources(flash_bwd_dq_kernel<__nv_bfloat16, D>, H::kWarps * 32, H::dq_total, out);
+  if (kernel == 1 && dtype == 0)
+    return resources(flash_bwd_dkv_kernel<D>, B::kWarps * 32, dkv_f32_total<D>(), out);
+  if (kernel == 1 && dtype == 1)
+    return resources(flash_bwd_dkv_wgmma_kernel<D>, kThreadsWG, DkvTiles<D>::total, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -349,6 +610,16 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                nullptr, dk, dv, bh, sq, sk, q_offset, k_offset, causal, walk_cut, scale,
                static_cast<cudaStream_t>(stream)};
   return run<false>(head_dim, dtype, a);
+}
+
+// What the kernel (0 = dQ, 1 = dK/dV) for (head_dim, dtype) holds on the
+// card, into out[5]: registers per thread at launch, shared memory per CTA,
+// CTAs per SM, threads per CTA, spilled bytes per thread. Returns 0 or a
+// CUDA error.
+int flash_bwd_resources(int kernel, int head_dim, int dtype, int* out) {
+  if (head_dim == 64) return resources_of<64>(kernel, dtype, out);
+  if (head_dim == 128) return resources_of<128>(kernel, dtype, out);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* flash_error_string(int code) {

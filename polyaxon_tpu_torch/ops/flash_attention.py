@@ -11,6 +11,11 @@ Three kernels, each the counterpart of a TPU kernel of the JAX package:
 - dK/dV (``csrc/flash_bwd.cu``, replacing ``_bwd_dkv_kernel``): dV = Σ Pᵀ·dO
   and dK = Σ dSᵀ·Q over the q tiles from the first causally visible one.
 
+In bf16 the forward and dK/dV are Hopper kernels (``csrc/hopper.cuh``): TMA
+loads into an mbarrier-guarded ring, wgmma products, accumulators and the
+softmax in registers. In f32, and for dQ, they are CUDA-core and wmma
+kernels that stage every tile in shared memory.
+
 δ = rowsum(dO∘O) is a plain tensor op outside the kernels
 (:func:`bwd_row_stats`), as it is XLA in the JAX package.
 
@@ -45,18 +50,21 @@ launch_counts = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 # scale; dtype; stream
 _DIMS = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
-FLASH_FWD_LIB = _Library("flash_fwd", ("flash_fwd.cu",), headers=("flash_common.cuh",),
-                         signatures={
+_HEADERS = ("flash_common.cuh", "hopper.cuh")
+FLASH_FWD_LIB = _Library("flash_fwd", ("flash_fwd.cu",), headers=_HEADERS, signatures={
     # q, k, v, o, lse
     "flash_fwd": ([ctypes.c_void_p] * 5 + _DIMS, ctypes.c_int),
+    # head_dim, dtype, int[5] out
+    "flash_fwd_resources": ([ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
     "flash_error_string": ([ctypes.c_int], ctypes.c_char_p),
 })
-FLASH_BWD_LIB = _Library("flash_bwd", ("flash_bwd.cu",), headers=("flash_common.cuh",),
-                         signatures={
+FLASH_BWD_LIB = _Library("flash_bwd", ("flash_bwd.cu",), headers=_HEADERS, signatures={
     # q, k, v, do, lse, delta, dq
     "flash_bwd_dq": ([ctypes.c_void_p] * 7 + _DIMS, ctypes.c_int),
     # q, k, v, do, lse, delta, dk, dv
     "flash_bwd_dkv": ([ctypes.c_void_p] * 8 + _DIMS, ctypes.c_int),
+    # kernel (0 dQ, 1 dK/dV), head_dim, dtype, int[5] out
+    "flash_bwd_resources": ([ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
     "flash_error_string": ([ctypes.c_int], ctypes.c_char_p),
 })
 
@@ -67,6 +75,23 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def kernel_resources(name: str, head_dim: int, dtype: torch.dtype) -> dict:
+    """What the kernel ``name`` (a key of :data:`launch_counts`) for
+    ``head_dim`` and ``dtype`` holds on the card: registers per thread at
+    launch, shared memory per CTA, CTAs per SM, threads per CTA and spilled
+    bytes per thread. Needs a CUDA device."""
+    out = (ctypes.c_int * 5)()
+    code = _KERNEL_DTYPES[dtype]
+    if name == "flash_fwd":
+        lib = FLASH_FWD_LIB.load()
+        rc = lib.flash_fwd_resources(head_dim, code, out)
+    else:
+        lib = FLASH_BWD_LIB.load()
+        rc = lib.flash_bwd_resources(int(name == "flash_bwd_dkv"), head_dim, code, out)
+    _raise_on(rc, lib, f"{name} resources")
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm", "threads", "spill_bytes"), out))
 
 
 def _blocks(sq: int, sk: int, block_q: int, block_k: int) -> tuple[int, int]:

@@ -1,7 +1,9 @@
 """The CUDA kernels (paged decode; flash forward, dQ and dK/dV) against
-their plain PyTorch versions, on the card. Every test here needs a CUDA
-device (the kernels have no CPU build) and skips without one; this file
-imports nothing of JAX, so it runs on a machine with the card alone:
+their plain PyTorch versions, on the card. In bf16 the flash forward and
+dK/dV kernels are the wgmma/TMA ones (128-row tiles), in f32 the CUDA-core
+ones (32-row tiles). Every test here needs a CUDA device (the kernels have
+no CPU build) and skips without one; this file imports nothing of JAX, so
+it runs on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -17,6 +19,7 @@ atol 3e-3, rtol 2^-6.
 from __future__ import annotations
 
 import importlib
+import math
 
 import pytest
 import torch
@@ -117,10 +120,10 @@ def _flash_inputs(dev, dtype, bh=3, sq=256, sk=256, d=64, seed=0):
     return q, k, v, do
 
 
-def _both_ways(q, k, v, do, qo, ko, causal, blocks=(128, 64), walk_cut=0):
+def _both_ways(q, k, v, do, qo, ko, causal, blocks=(128, 64), walk_cut=0, scale=None):
     """Every kernel output and its plain version on the same inputs (the
     plain forward at ``blocks``, the plain backward at them swapped)."""
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     kw = dict(sm_scale=scale, causal=causal)
     bq, bk = blocks
     o, lse = fa.flash_fwd_cuda(q, k, v, qo, ko, walk_cut=walk_cut, **kw)
@@ -140,20 +143,33 @@ def _both_ways(q, k, v, do, qo, ko, causal, blocks=(128, 64), walk_cut=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("offsets", [(0, 0, True), (64, 0, True), (0, 128, True),
-                                     (0, 0, False)])
+                                     (72, 0, True), (0, 0, False)])
 @pytest.mark.parametrize("lengths", [
     (256, 256, (128, 64)),
     (200, 200, (40, 50)),     # no multiple of either tile: partial last tiles
     (96, 224, (32, 32)),      # sq != sk, both partial in bf16
+    (127, 127, (127, 127)),   # one row short of the bf16 kernels' 128-row tiles
+    (129, 129, (129, 43)),    # one row past them
+    (383, 383, (383, 383)),   # three tiles, the last one row short
+    (64, 64, (64, 32)),       # shorter than one 128-row tile
 ])
 def test_flash_kernels_match_plain(cuda, dtype, d, offsets, lengths):
-    # (0, 128): the first 128 q rows see no key, O = 0 and LSE = -inf there
+    # (0, 128): the first 128 q rows see no key, O = 0 and LSE = -inf there;
+    # (72, 0): a q offset that is no multiple of any tile. BH is 3, so a
+    # tile that read past its head's end into the next head's rows would
+    # show in the partial lengths (the kernels' TMA maps are [BH, S, D]).
     qo, ko, causal = offsets
     sq, sk, blocks = lengths
     q, k, v, do = _flash_inputs(cuda, dtype, sq=sq, sk=sk, d=d, seed=d)
     before = dict(fa.launch_counts)
     pairs = _both_ways(q, k, v, do, qo, ko, causal, blocks)
     assert all(fa.launch_counts[n] == before[n] + 1 for n in before)
+    _assert_pairs_close(pairs, dtype)
+    if ko > qo:
+        assert pairs["o"][0][:, :ko - qo].abs().max().item() == 0.0
+
+
+def _assert_pairs_close(pairs, dtype):
     atol, rtol = FLASH_TOL[dtype]
     for name, (out, ref) in pairs.items():
         if name == "lse":
@@ -164,8 +180,24 @@ def test_flash_kernels_match_plain(cuda, dtype, d, offsets, lengths):
         assert out.dtype == dtype, name
         torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol,
                                    msg=name)
-    if ko > qo:
-        assert pairs["o"][0][:, :ko - qo].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("scale", [-0.125, 0.0, 0.125])
+def test_flash_kernels_take_a_scale_of_either_sign(cuda, dtype, d, scale):
+    # A negative scale makes a row's smallest raw score its largest scaled
+    # one. Key 0 lies far out along one axis, so its score 2000 q[i, 0] is
+    # exact in any order of summation, and it spreads many rows' scaled
+    # scores past 2^7 in base 2: a softmax that took its reference from the
+    # wrong end of the raw scores would overflow to inf in those rows.
+    q, k, v, do = _flash_inputs(cuda, dtype, sq=200, sk=200, d=d, seed=5)
+    k[:, 0] = 0.0
+    k[:, 0, 0] = 2000.0
+    spread = (2000.0 * q[..., 0].float()).abs() * abs(scale) * math.log2(math.e)
+    assert scale == 0.0 or (spread > 2.0 ** 7).float().mean().item() > 0.25
+    _assert_pairs_close(_both_ways(q, k, v, do, 0, 0, True, (40, 50), scale=scale), dtype)
 
 
 @pytest.mark.cuda
