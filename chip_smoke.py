@@ -10,15 +10,19 @@ non-zero:
 2. build  — nvcc builds the three kernel libraries from
    ``polyaxon_tpu_torch/csrc`` at once, one nvcc per source (seconds, and
    ptxas's register, spill and shared-memory report).
-3. kernel — the paged-decode kernel against its plain PyTorch version at
-   the llama-1b serving shape (B=8, KVH=4, G=8, D=64, bs=128, T=16, ragged
-   lengths incl. 0/1/127/128/129/2048, one table aliasing another row's
-   leading blocks), and again at D=128, each in bf16 and f32: max abs
-   error and its tolerance, the kernel's time, the plain version's time,
+3. kernel — the paged-decode kernels against their plain PyTorch version
+   at the llama-1b serving shape (B=8, KVH=4, G=8, D=64, bs=128, T=16,
+   ragged lengths incl. 0/1/127/128/129/2048, one table aliasing another
+   row's leading blocks), and again at D=128, each in bf16 and f32: max
+   abs error and its tolerance, the kernel's time (its launches captured
+   in a CUDA graph and replayed, so that the wrapper's host work does not
+   pace them; also as launched from the host), the plain version's time,
    one PyTorch call's time (scaled_dot_product_attention over the gathered
-   cache, a yardstick the port never calls) and the bound (live K/V bytes
-   over 3.35 TB/s). Two planted faults (the long row's last tile skipped,
-   one of its blocks read off by one) must fail the same check.
+   cache, a yardstick the port never calls, timed both ways), the bound
+   (live K/V bytes over 3.35 TB/s), the splits of the bf16 walk, and the
+   kernel's registers, shared memory per CTA, CTAs per SM and spills. Two
+   planted faults (the long row's last tile skipped, one of its blocks
+   read off by one) must fail the same check.
 4. flash kernels — the forward, dQ and dK/dV kernels against their plain
    versions at the llama-1b training shape (BH = 2 x 32 heads, S = 2048,
    D = 64, causal) and at D = 128, in bf16 and f32, with cold L2, plus
@@ -27,7 +31,7 @@ non-zero:
    kernel, plain and library times (scaled_dot_product_attention with
    is_causal, and the median of five timings of its backward for dQ +
    dK/dV), the bounds, the previous design's time beside each redesigned
-   kernel's (bf16 forward and dK/dV: wgmma and TMA), and each kernel's
+   kernel's (bf16: wgmma and TMA), and each kernel's
    registers, shared memory per CTA and CTAs per SM. Three faults planted
    in the kernels (``walk_cut=1``: the forward and dQ stop before the
    diagonal kv tile, dK/dV starts one q tile late) must fail the same
@@ -59,6 +63,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import functools
+import gc
 import importlib
 import json
 import math
@@ -117,13 +122,15 @@ FLASH_BLOCK = 1024   # the recipe's attn_block_q/k: the plain versions' blocks
 # paged kernel's 3e-3 + 2^-6 |ref|. LSE is f32 in both: 1e-4 absolute.
 FLASH_TOL = {"bfloat16": (3e-3, 2.0 ** -6), "float32": (5e-5, 5e-5)}
 LSE_TOL = (1e-4, 1e-5)
-# the bf16 kernels' previous design (nvcuda::wmma tiles, scores and
-# accumulators in shared memory, synchronous loads) is no longer built, so
-# this run cannot time it: its time at D=64 bf16, from an earlier run of this
-# script on an NVIDIA H100 80GB HBM3 (700 W) as PERF.md records it, stands in
-# each redesigned kernel's log row as a recorded figure, never on the
-# `kernels` line
-PREV_MS_RECORDED = {"flash_fwd": 0.9156, "flash_bwd_dkv": 2.2295}
+# the bf16 kernels' previous designs (flash: nvcuda::wmma tiles, scores and
+# accumulators in shared memory, synchronous loads; paged decode: one CTA
+# per sequence and KV head) are no longer built, so this run cannot time
+# them: each one's time at D=64 bf16, from an earlier run of this script on
+# an NVIDIA H100 80GB HBM3 (700 W) as PERF.md records it, stands in the
+# redesigned kernel's log row as a recorded figure, never on the `kernels`
+# line
+PREV_MS_RECORDED = {"flash_fwd": 0.9156, "flash_bwd_dq": 1.0534, "flash_bwd_dkv": 2.2295,
+                    "paged_decode": 0.0930}
 # SDPA's backward, the yardstick for dQ + dK/dV, moves from timing to
 # timing: its median of this many
 LIBRARY_BWD_TIMINGS = 5
@@ -278,6 +285,35 @@ def time_ms(torch, fn, args_list, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(torch, fn, args_list, iters: int) -> float:
+    """Mean device time of ``fn(*args)`` over ``iters`` launches cycling
+    through ``args_list`` as in time_ms, captured in one CUDA graph and
+    replayed: the launches run back to back with no host work between
+    them, so a kernel that is shorter than its wrapper's host work is timed
+    by its own work (each kernel's launch within the graph included)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as capture asks
+        for args in args_list:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*args_list[i % len(args_list)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 def worst_ratio(out, ref, tol) -> float:
     """max of |out - ref| / (atol + rtol |ref|): the check passes at <= 1."""
     atol, rtol = tol
@@ -350,15 +386,28 @@ def kernel_phase(torch, pa) -> list[dict]:
             plain = lambda *a: pa.paged_decode_plain(*a, sm_scale=scale)  # noqa: E731
             lib = lambda *a: F.scaled_dot_product_attention(  # noqa: E731
                 *a[:3], attn_mask=a[3], scale=scale, enable_gqa=True)
+            # ms, plain_ms and library_ms are launched from the host, as in
+            # every slice; a call this short is paced by its wrapper's host
+            # work, so the log row adds both from a CUDA graph replay
             ms = time_ms(torch, kern, pools, 200)
+            ms_graph = graph_time_ms(torch, kern, pools, 200)
             plain_ms = time_ms(torch, plain, pools, 20)
             library_ms = time_ms(torch, lib, gathered, 200)
+            library_ms_graph = graph_time_ms(torch, lib, gathered, 200)
             b_ms, b_by = bound_ms(q, tables, lengths, head_dim, name)
+            splits = pa.split_workspace(s["batch"], s["kv_heads"], s["groups"], head_dim,
+                                        s["max_blocks"], s["block_size"],
+                                        pa.split_tokens())[0]
             row = {"head_dim": head_dim, "dtype": name, "max_abs_err": err,
                    "atol": tol[0], "rtol": tol[1], "tol_ratio": ratio,
-                   "planted_fault_ratios": faults, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "bound_ms": b_ms,
-                   "bound_us": b_ms * 1e3, "bound_by": b_by}
+                   "planted_fault_ratios": faults, "ms": ms, "ms_graph": ms_graph,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library_ms_graph": library_ms_graph, "bound_ms": b_ms,
+                   "bound_us": b_ms * 1e3, "bound_by": b_by,
+                   "splits": splits if dtype == torch.bfloat16 else None,
+                   **pa.kernel_resources(head_dim, dtype)}
+            if (head_dim, name) == (64, "bfloat16"):
+                row["prev_ms_recorded"] = PREV_MS_RECORDED["paged_decode"]
             log("kernel", **row)
             results.append(row)
             del pools, gathered
@@ -584,11 +633,14 @@ def compare_phase(torch, engine, lengths=(1, 127, 128, 129, 300, 700, 1000, 1900
 
 
 def profile_steps(torch, fn, steps: int = 3,
-                  kernels: tuple = ("paged_decode",)) -> dict:
+                  kernels: tuple = ("paged_decode", "paged_decode_combine")) -> dict:
     """Device time of ``steps`` calls of ``fn`` by kernel, from
     torch.profiler: the per-step device time, each named kernel's time and
-    share of it, the device's idle share of the wall time, and the largest
-    kernels."""
+    share of it (``name`` counts every ``name_*kernel<...>`` of the port, so
+    ``paged_decode`` holds the bf16 split and combine kernels together), the
+    device's idle share of the wall time, and the largest kernels."""
+    import re
+
     from torch.profiler import ProfilerActivity, profile
 
     def device_us(evt):
@@ -616,9 +668,8 @@ def profile_steps(torch, fn, steps: int = 3,
         "device_idle_share": (1.0 - total / wall_us) if total else None,
     }
     for name in kernels:
-        # the bf16 flash forward and dK/dV kernels are named *_wgmma_kernel
-        t = sum(r[1] for r in rows
-                if f"{name}_kernel<" in r[0] or f"{name}_wgmma_kernel<" in r[0])
+        named = re.compile(rf"\b{name}_(\w+_)?kernel<")
+        t = sum(r[1] for r in rows if named.search(r[0]))
         out[f"{name}_ms_per_step"] = t / steps / 1e3
         out[f"{name}_share"] = t / total if total else None
     # cuBLAS's kernels: gemm*, gemv*, cutlass*, sm90_xmma*, nvjet*
@@ -851,6 +902,7 @@ def train_phase(torch, fa, spec: dict) -> dict:
     logged = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start_gib = torch.cuda.memory_allocated() / 2**30  # left by the earlier phases
     fa.reset_launch_counts()
     t0 = time.monotonic()
     summary = run_builtin(dict(spec), track=lambda step, m: logged.append((step, m)))
@@ -865,7 +917,8 @@ def train_phase(torch, fa, spec: dict) -> dict:
            "step_time_ms": summary["step_time_ms"], "timed_steps": summary["steps"],
            "tokens_per_sec": summary["tokens_per_sec"], "mfu": summary["mfu"],
            "achieved_tflops": summary["achieved_tflops_per_chip"],
-           "peak_mem_gib": peak_gib, "wall_s": wall_s, "launches": launches,
+           "peak_mem_gib": peak_gib, "mem_at_start_gib": start_gib, "wall_s": wall_s,
+           "launches": launches,
            "expected_launches": expected,
            "anomalies": summary["train_anomalies_loss"] + summary["train_anomalies_grad"]}
     if len(losses) != int(spec["steps"]) or not all(math.isfinite(x) for x in losses):
@@ -1038,6 +1091,7 @@ def main() -> int:
 
     log("compare", **compare_phase(torch, engine))
     del engine
+    gc.collect()  # serving's objects may hold the weights in reference cycles
     torch.cuda.empty_cache()
 
     trained = train_phase(torch, fa, TRAIN_SPEC)

@@ -1,22 +1,18 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the causal walk bounds, and for the kernels that stage tiles by hand (every
-// f32 kernel and the bf16 dQ kernel; the bf16 forward and dK/dV kernels are
-// built from hopper.cuh) dtype conversions, tile sizes per dtype, a tile copy
+// the causal walk bounds, and for the f32 kernels, which stage tiles by hand
+// (the bf16 kernels are built from hopper.cuh), their tile size, a tile copy
 // from device memory to shared memory, and their one matrix-product
 // primitive.
 //
-// Every product in those kernels has one shape: a warp owns 16 rows and
+// Every product in the f32 kernels has one shape: a warp owns 16 rows and
 // computes C[16 x N] (+)= A[16 x K] * B', all three in shared memory, where
-// B' is B ([K x N], row-major) or B transposed (B stored [N x K], row-major).
-// In bf16 that is tensor-core mma (nvcuda::wmma, 16x16x16 tiles, bf16 inputs,
-// f32 sums); in f32 it is a plain loop on the CUDA cores, so an f32 call stays
-// f32 throughout (wmma would round its inputs to tf32).
+// B' is B ([K x N], row-major) or B transposed (B stored [N x K], row-major),
+// as a plain loop on the CUDA cores, so an f32 call stays f32 throughout
+// (tensor cores would round its inputs to tf32).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
 
 #include <cstddef>
 #include <cstdint>
@@ -28,32 +24,11 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;  // the bf16 kernels' softmax runs in base 2
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <typename T>
-struct Traits;
-
-// bf16: 64-row tiles, 4 warps (16 rows each) per CTA
-template <>
-struct Traits<__nv_bfloat16> {
-  static constexpr int kTile = 64;
-  static __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-  // round to nearest even, as XLA's astype(bfloat16)
-  static __device__ __forceinline__ __nv_bfloat16 from_f32(float x) {
-    return __float2bfloat16_rn(x);
-  }
-};
-
-// f32: 32-row tiles, 2 warps per CTA (the f32 tiles are twice as wide in
-// shared memory)
-template <>
-struct Traits<float> {
-  static constexpr int kTile = 32;
-  static __device__ __forceinline__ float to_f32(float x) { return x; }
-  static __device__ __forceinline__ float from_f32(float x) { return x; }
-};
+// f32 tiles: 32 rows, 2 warps per CTA
+constexpr int kTileF32 = 32;
 
 // leading dimension (elements) of a tile of D-wide rows in shared memory:
-// padded by 8 so that rows start on other banks, and every 16-row block stays
-// 32-byte aligned for wmma
+// padded by 8 so that rows start on other banks
 template <int D>
 __host__ __device__ constexpr int ld_of() {
   return D + 8;
@@ -68,15 +43,15 @@ __host__ __device__ constexpr int ldf_of() {
 // starts 128-byte aligned)
 __host__ __device__ constexpr size_t pad128(size_t bytes) { return (bytes + 127) / 128 * 128; }
 
-// Copy `rows` contiguous rows of D elements (a tile of a contiguous [S, D]
+// Copy `rows` contiguous rows of D floats (a tile of a contiguous [S, D]
 // array) into shared memory with leading dimension ld_of<D>(), 16 bytes a
 // thread at a time, by all `nthreads` threads of the CTA. Rows from `valid`
 // on lie past the end of the sequence (the last tile of a length that is no
 // multiple of the tile) and are filled with zeros.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int rows, int valid,
-                                          int tid, int nthreads) {
-  constexpr int kVec = 16 / sizeof(T);
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int rows,
+                                          int valid, int tid, int nthreads) {
+  constexpr int kVec = 4;
   constexpr int kPerRow = D / kVec;
   const int n = rows * kPerRow;
   for (int i = tid; i < n; i += nthreads) {
@@ -93,36 +68,6 @@ __host__ __device__ constexpr int tiles_of(int n, int tile) { return (n + tile -
 
 // C[16 x N] (+)= A[16 x K] * B' for one warp. kBT: B is stored [N x K] and
 // used transposed; otherwise B is [K x N]. All row-major in shared memory.
-template <bool kBT, int N, int K>
-__device__ __forceinline__ void warp_mma(float* C, int ldc, const __nv_bfloat16* A, int lda,
-                                         const __nv_bfloat16* B, int ldb, bool accumulate) {
-  using namespace nvcuda;
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[K / 16];
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) wmma::load_matrix_sync(a[k0 / 16], A + k0, lda);
-#pragma unroll
-  for (int n0 = 0; n0 < N; n0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (accumulate)
-      wmma::load_matrix_sync(c, C + n0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      if constexpr (kBT) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, B + n0 * ldb + k0, ldb);
-        wmma::mma_sync(c, a[k0 / 16], b, c);
-      } else {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + k0 * ldb + n0, ldb);
-        wmma::mma_sync(c, a[k0 / 16], b, c);
-      }
-    }
-    wmma::store_matrix_sync(C + n0, c, ldc, wmma::mem_row_major);
-  }
-}
-
 template <bool kBT, int N, int K>
 __device__ __forceinline__ void warp_mma(float* C, int ldc, const float* A, int lda,
                                          const float* B, int ldb, bool accumulate) {

@@ -70,7 +70,7 @@ using namespace flash;
 
 template <int D>
 struct FwdSmem {
-  static constexpr int kTile = Traits<float>::kTile;
+  static constexpr int kTile = kTileF32;
   static constexpr int kWarps = kTile / 16;
   static constexpr size_t q = pad128(sizeof(float) * kTile * ld_of<D>());
   static constexpr size_t kv = q;  // each of K and V
@@ -116,8 +116,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* o_w = o_all + warp * 16 * LDO;
   const float* q_w = q_s + warp * 16 * LD;
 
-  load_tile<float, D>(q_s, q + (static_cast<size_t>(bh) * sq + q0) * D, kTile, sq - q0, tid,
-                      kThreads);
+  load_tile<D>(q_s, q + (static_cast<size_t>(bh) * sq + q0) * D, kTile, sq - q0, tid, kThreads);
   for (int c = half * kHalfD; c < (half + 1) * kHalfD; ++c) o_w[r * LDO + c] = 0.f;
 
   const int kend = kv_tiles_end(q0, kTile, kTile, tiles_of(sk, kTile), q_offset, k_offset,
@@ -130,10 +129,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < kend; ++t) {
     const int k0 = t * kTile;
     __syncthreads();  // the previous tile's K/V are no longer read
-    load_tile<float, D>(k_s, k + (static_cast<size_t>(bh) * sk + k0) * D, kTile, sk - k0, tid,
-                        kThreads);
-    load_tile<float, D>(v_s, v + (static_cast<size_t>(bh) * sk + k0) * D, kTile, sk - k0, tid,
-                        kThreads);
+    const size_t key0 = static_cast<size_t>(bh) * sk + k0;
+    load_tile<D>(k_s, k + key0 * D, kTile, sk - k0, tid, kThreads);
+    load_tile<D>(v_s, v + key0 * D, kTile, sk - k0, tid, kThreads);
     __syncthreads();
     // key c of the tile is hidden: past the end, or past the row's position
     auto hidden = [&](int c) { return k0 + c >= sk || (causal && qid < k_offset + k0 + c); };

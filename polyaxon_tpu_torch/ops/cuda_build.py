@@ -84,10 +84,11 @@ class _Library:
         out = self.path()
         if out.exists():
             return out
+        nvcc = _nvcc()  # before the temporary file, which a missing nvcc would leave
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, self.sources)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, self.sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)

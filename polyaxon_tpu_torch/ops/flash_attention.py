@@ -11,10 +11,10 @@ Three kernels, each the counterpart of a TPU kernel of the JAX package:
 - dK/dV (``csrc/flash_bwd.cu``, replacing ``_bwd_dkv_kernel``): dV = Σ Pᵀ·dO
   and dK = Σ dSᵀ·Q over the q tiles from the first causally visible one.
 
-In bf16 the forward and dK/dV are Hopper kernels (``csrc/hopper.cuh``): TMA
-loads into an mbarrier-guarded ring, wgmma products, accumulators and the
-softmax in registers. In f32, and for dQ, they are CUDA-core and wmma
-kernels that stage every tile in shared memory.
+In bf16 all three are Hopper kernels (``csrc/hopper.cuh``): TMA loads into
+an mbarrier-guarded ring, wgmma products, accumulators and the softmax in
+registers. In f32 they are CUDA-core kernels that stage every tile in
+shared memory.
 
 δ = rowsum(dO∘O) is a plain tensor op outside the kernels
 (:func:`bwd_row_stats`), as it is XLA in the JAX package.

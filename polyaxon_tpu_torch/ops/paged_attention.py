@@ -7,10 +7,12 @@ Two implementations behind one signature:
   run the masked dense math of :func:`dense_decode_attention`. Plain
   PyTorch on any device.
 - ``impl="flash"`` — :func:`paged_decode`: on a CUDA tensor the hand-written
-  kernel ``csrc/paged_decode.cu`` (replacing the TPU kernel
-  ``_decode_kernel``), which walks each row's block table up to its length
-  with an f32 online softmax; on a CPU tensor its plain version
-  :func:`paged_decode_plain`, the same walk as a block-by-block tile loop.
+  kernels of ``csrc/paged_decode.cu`` (replacing the TPU kernel
+  ``_decode_kernel``), which walk each row's block table up to its length
+  with an f32 online softmax (in bf16 the walk is split over CTAs of 256
+  tokens and their partials merged by a second kernel); on a CPU tensor its
+  plain version :func:`paged_decode_plain`, the same walk as a
+  block-by-block tile loop.
 
 Shapes (G = query heads per KV head, GQA):
     q           [B, KVH, G, D]    one decode token per sequence
@@ -25,6 +27,7 @@ read the pool.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -38,24 +41,78 @@ MASK_VALUE = -1e30
 #: and reads it back to show the main path went through the kernel
 launch_counts = {"paged_decode": 0}
 
-PAGED_DECODE_LIB = _Library("paged_decode", ("paged_decode.cu",), signatures={
-    # q, k_pool, v_pool, tables, lengths, out; batch, kv_heads, groups,
-    # head_dim, num_blocks, block_size, max_blocks; sm_scale; dtype; stream
-    "paged_decode": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-                     ctypes.c_int),
-    "paged_decode_error_string": ([ctypes.c_int], ctypes.c_char_p),
-})
+PAGED_DECODE_LIB = _Library(
+    "paged_decode", ("paged_decode.cu",), headers=("flash_common.cuh", "hopper.cuh"),
+    signatures={
+        # q, k_pool, v_pool, tables, lengths, out, part_acc, part_ml; batch,
+        # kv_heads, groups, head_dim, num_blocks, block_size, max_blocks,
+        # splits; sm_scale; dtype; stream
+        "paged_decode": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+                         ctypes.c_int),
+        # head_dim, dtype, int[5] out
+        "paged_decode_resources": ([ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
+        "paged_decode_split_tokens": ([], ctypes.c_int),
+        "paged_decode_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    })
 
-#: query heads per KV head the kernel takes (its shared-memory sizing)
+#: query heads per KV head the kernels take (their shared-memory sizing)
 KERNEL_MAX_GROUPS = 8
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: the bf16 walk's f32 workspace, one flat buffer per (device, stream)
+_workspaces: dict = {}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+def split_tokens() -> int:
+    """Tokens per CTA of the bf16 kernel's split walk, as the kernel
+    library reports it. Needs a CUDA device."""
+    return PAGED_DECODE_LIB.load().paged_decode_split_tokens()
+
+
+def split_workspace(batch: int, kv_heads: int, groups: int, head_dim: int,
+                    max_blocks: int, block_size: int,
+                    tokens_per_split: int) -> tuple[int, tuple, tuple]:
+    """The bf16 kernel's split walk for a table of ``max_blocks`` blocks of
+    ``block_size`` tokens: the number of splits (CTAs of
+    ``tokens_per_split`` tokens that cover the table's capacity) and the
+    shapes of its f32 workspace, each split's unnormalised accumulator and
+    its (m, l)."""
+    splits = -(-max_blocks * block_size // tokens_per_split)
+    return (splits, (batch, kv_heads, splits, groups, head_dim),
+            (batch, kv_heads, splits, groups, 2))
+
+
+def workspace(device: torch.device, stream: int, numel: int) -> torch.Tensor:
+    """``numel`` f32 elements of the buffer kept for ``stream`` on
+    ``device``, grown when a call needs more. Calls on one stream run in
+    order, so each reuses the buffer the previous one is done with, and a
+    decode step's layers allocate nothing."""
+    buf = _workspaces.get((device, stream))
+    if buf is None or buf.numel() < numel:
+        buf = torch.empty(numel, dtype=torch.float32, device=device)
+        _workspaces[(device, stream)] = buf
+    return buf[:numel]
+
+
+def kernel_resources(head_dim: int, dtype: torch.dtype) -> dict:
+    """What the kernel for ``head_dim`` and ``dtype`` (bf16: the split
+    kernel) holds on the card: registers per thread at launch, shared
+    memory per CTA, CTAs per SM, threads per CTA and spilled bytes per
+    thread. Needs a CUDA device."""
+    out = (ctypes.c_int * 5)()
+    lib = PAGED_DECODE_LIB.load()
+    rc = lib.paged_decode_resources(head_dim, _KERNEL_DTYPES[dtype], out)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode resources failed: CUDA error {rc} "
+                           f"({lib.paged_decode_error_string(rc).decode()})")
+    return dict(zip(("registers", "smem_bytes", "ctas_per_sm", "threads", "spill_bytes"), out))
 
 
 def dense_decode_attention(
@@ -171,9 +228,10 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, lengths):
 
 def paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths, *,
                       sm_scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (builds the library at
-    first use). Raises on anything the kernel does not take, and when the
-    launch is refused."""
+    """Launch the CUDA kernels on the current stream (builds the library at
+    first use); in bf16 the split walk's workspace comes from
+    :func:`split_workspace`, kept per stream by :func:`workspace`. Raises on anything the kernels do not take, and
+    when a launch is refused."""
     _check_kernel_args(q, k_pool, v_pool, block_tables, lengths)
     lib = PAGED_DECODE_LIB.load()
     out = torch.empty_like(q)
@@ -181,11 +239,21 @@ def paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths, *,
     if b == 0 or kvh == 0:
         return out
     n, bs = k_pool.shape[0], k_pool.shape[1]
+    t = block_tables.shape[1]
+    splits, acc_shape, ml_shape = split_workspace(b, kvh, g, d, t, bs,
+                                                  lib.paged_decode_split_tokens())
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    part_acc = part_ml = None
+    if q.dtype == torch.bfloat16:
+        n_acc, n_ml = math.prod(acc_shape), math.prod(ml_shape)
+        buf = workspace(q.device, stream, n_acc + n_ml)
+        part_acc, part_ml = buf[:n_acc], buf[n_acc:]
     rc = lib.paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, kvh, g, d, n, bs, block_tables.shape[1], float(sm_scale),
+        None if part_acc is None else part_acc.data_ptr(),
+        None if part_ml is None else part_ml.data_ptr(),
+        b, kvh, g, d, n, bs, t, splits, float(sm_scale),
         _KERNEL_DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(

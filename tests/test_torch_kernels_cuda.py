@@ -1,16 +1,18 @@
 """The CUDA kernels (paged decode; flash forward, dQ and dK/dV) against
-their plain PyTorch versions, on the card. In bf16 the flash forward and
-dK/dV kernels are the wgmma/TMA ones (128-row tiles), in f32 the CUDA-core
-ones (32-row tiles). Every test here needs a CUDA device (the kernels have
-no CPU build) and skips without one; this file imports nothing of JAX, so
-it runs on a machine with the card alone:
+their plain PyTorch versions, on the card. In bf16 the flash kernels are
+the wgmma/TMA ones (tiles of 64 or 128 rows; dQ streams 128-key tiles at
+D = 64, 64 at D = 128) and paged decode is split over CTAs of 256 tokens; in f32 they
+are the CUDA-core ones (32-row tiles; one paged CTA per sequence and KV
+head). Every test here needs a CUDA device (the kernels have no CPU build)
+and skips without one; this file imports nothing of JAX, so it runs on a
+machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances, elementwise |out - ref| <= atol + rtol |ref|: both versions
 compute in f32. In f32 they differ only in the order of the sums (1e-5).
-In bf16 they split the online softmax differently (each warp's 32-token
-tiles vs whole blocks in order), so p is rounded to bf16 against other
+In bf16 they split the softmax differently (each warp's 32-token tiles vs
+whole blocks in order), so p is rounded to bf16 against other
 running maxima (~1e-3 absolute at most on the output for unit-normal
 inputs), and the output rounds to bf16 (one place is <= 2^-7 relative):
 atol 3e-3, rtol 2^-6.
@@ -37,7 +39,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, dtype, b=5, kvh=2, g=4, d=64, bs=16, t=6, seed=0):
+def _inputs(dev, dtype, b=5, kvh=2, g=4, d=64, bs=16, t=6, seed=0, lengths=None):
+    """One row per length (by default a full table, 0, 1, one block and one
+    past it) over disjoint blocks of a t-block table, except the last row,
+    whose first two blocks are the first row's."""
+    lengths = [t * bs, 0, 1, bs, bs + 1][:b] if lengths is None else lengths
+    b = len(lengths)
     gen = torch.Generator(device=dev).manual_seed(seed)
     n = b * t + 1
     q = torch.randn(b, kvh, g, d, generator=gen, device=dev).to(dtype)
@@ -46,8 +53,7 @@ def _inputs(dev, dtype, b=5, kvh=2, g=4, d=64, bs=16, t=6, seed=0):
     tables = torch.randperm(n - 1, generator=gen, device=dev)[:b * t]
     tables = tables.reshape(b, t).to(torch.int32)
     tables[b - 1, :2] = tables[0, :2]          # an aliased prefix
-    lengths = torch.tensor([t * bs, 0, 1, bs, bs + 1][:b], dtype=torch.int32,
-                           device=dev)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return q, k, v, tables.contiguous(), lengths
 
 
@@ -87,6 +93,54 @@ def test_kernel_query_groups_and_gather_path(cuda, g):
     out = pa.paged_attention(q, k, v, tables, lengths, impl="flash")
     ref = pa.paged_attention(q, k, v, tables, lengths, impl="gather")
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
+def _assert_matches_plain(q, k, v, tables, lengths):
+    out = pa.paged_decode(q, k, v, tables, lengths)
+    torch.cuda.synchronize()
+    ref = pa.paged_decode_plain(q, k, v, tables, lengths, sm_scale=q.shape[-1] ** -0.5)
+    atol, rtol = TOL[q.dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("g", [1, 8])
+def test_kernel_length_edges(cuda, dtype, d, bs, g):
+    # a 768-token table (three splits in bf16): lengths 0 and 1, one block
+    # and one past it, each split boundary and one either side, the
+    # capacity, and a length past it (which attends over the capacity); the
+    # last row aliases the first row's leading blocks
+    t = 768 // bs
+    cap, split = t * bs, pa.split_tokens()
+    lengths = [cap, 0, 1, bs, bs + 1, split - 1, split, split + 1, 2 * split - 1,
+               2 * split + 1, cap - 1, cap + 5, 200]
+    out = _assert_matches_plain(*_inputs(cuda, dtype, g=g, d=d, bs=bs, t=t, seed=bs + g,
+                                         lengths=lengths))
+    assert out[1].abs().max().item() == 0.0          # length 0 -> zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_batch_of_empty_rows_gives_zeros(cuda, dtype):
+    q, k, v, tables, lengths = _inputs(cuda, dtype, g=8, bs=128, t=4, lengths=[0, 0, 0])
+    out = pa.paged_decode(q, k, v, tables, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_kernel_one_long_row(cuda, dtype, d):
+    # B = 1: the whole 2048-token table, every split of it live
+    t = 16
+    q, k, v, tables, lengths = _inputs(cuda, dtype, g=8, d=d, bs=128, t=t, seed=d,
+                                       lengths=[t * 128])
+    _assert_matches_plain(q, k, v, tables, lengths)
 
 
 @pytest.mark.cuda
@@ -198,6 +252,21 @@ def test_flash_kernels_take_a_scale_of_either_sign(cuda, dtype, d, scale):
     spread = (2000.0 * q[..., 0].float()).abs() * abs(scale) * math.log2(math.e)
     assert scale == 0.0 or (spread > 2.0 ** 7).float().mean().item() > 0.25
     _assert_pairs_close(_both_ways(q, k, v, do, 0, 0, True, (40, 50), scale=scale), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("q_offset", [0, 72])
+@pytest.mark.parametrize("length", [63, 64, 65, 127, 128, 129, 255, 256, 257])
+def test_flash_tile_edges(cuda, d, q_offset, length):
+    # the bf16 kernels' tiles: 128 q rows (the forward at D = 128), 64 q
+    # rows (the forward at D = 64, dQ, dK/dV's streamed tiles), 128 keys
+    # (the forward, dQ at D = 64, dK/dV) and 64 keys (dQ at D = 128): lengths
+    # one short of, equal to and one past each, once and twice over
+    q, k, v, do = _flash_inputs(cuda, torch.bfloat16, sq=length, sk=length, d=d,
+                                seed=length + q_offset)
+    pairs = _both_ways(q, k, v, do, q_offset, 0, True, (length, length))
+    _assert_pairs_close(pairs, torch.bfloat16)
 
 
 @pytest.mark.cuda

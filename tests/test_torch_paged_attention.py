@@ -180,6 +180,42 @@ class TestDispatch:
             pa._check_kernel_args(q, k, v, tables, lengths)
 
 
+class TestSplitWorkspace:
+    """The bf16 kernel's host rule: the wrapper sizes the split walk from the
+    table alone (the lengths live on the card) and allocates its f32
+    workspace."""
+
+    @pytest.mark.parametrize("t,bs,splits", [
+        (16, 128, 8),    # the llama-1b serving table: 2048 tokens
+        (17, 128, 9),
+        (6, 16, 1),      # 96 tokens: one split
+        (16, 16, 1),     # exactly one split
+        (17, 16, 2),     # one block past it
+        (1, 8, 1),
+    ])
+    def test_splits_cover_the_table(self, t, bs, splits):
+        n, acc, ml = pa.split_workspace(8, 4, 8, 64, t, bs, 256)
+        assert n == splits
+        assert (n - 1) * 256 < t * bs <= n * 256
+        assert acc == (8, 4, n, 8, 64)
+        assert ml == (8, 4, n, 8, 2)
+
+    def test_workspace_is_kept_per_stream_and_grows(self, monkeypatch):
+        monkeypatch.setattr(pa, "_workspaces", {})
+        cpu = torch.device("cpu")
+        first = pa.workspace(cpu, 7, 100)
+        assert first.dtype == torch.float32 and first.numel() == 100
+        smaller = pa.workspace(cpu, 7, 60)
+        assert smaller.numel() == 60
+        assert smaller.data_ptr() == first.data_ptr()       # reused, not allocated
+        grown = pa.workspace(cpu, 7, 300)
+        assert grown.numel() == 300
+        assert pa.workspace(cpu, 7, 100).data_ptr() == grown.data_ptr()
+        other = pa.workspace(cpu, 8, 100)                   # another stream's own
+        assert other.data_ptr() != grown.data_ptr()
+        assert len(pa._workspaces) == 2
+
+
 class TestBuild:
     def test_library_path_is_keyed_by_the_sources(self, tmp_path, monkeypatch):
         lib = pa._Library("paged_decode", ("paged_decode.cu",))
@@ -192,6 +228,22 @@ class TestBuild:
         first = other.digest()
         src.write_text("// two\n")
         assert other.digest() != first
+
+    def test_a_missing_nvcc_leaves_no_temporary_file(self, monkeypatch, tmp_path):
+        from polyaxon_tpu_torch.ops import cuda_build
+
+        def missing():
+            raise cuda_build.KernelBuildError("nvcc not found")
+
+        monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(cuda_build, "_nvcc", missing)
+        src = tmp_path / "k.cu"
+        src.write_text("// one\n")
+        lib = pa._Library("k", ())
+        lib.sources = (src,)
+        with pytest.raises(cuda_build.KernelBuildError, match="nvcc"):
+            lib.build()
+        assert not (tmp_path / "build").exists() or not any((tmp_path / "build").iterdir())
 
     def test_missing_nvcc_raises_a_build_error(self, monkeypatch, tmp_path):
         from polyaxon_tpu_torch.ops import cuda_build
