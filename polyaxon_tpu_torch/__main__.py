@@ -20,7 +20,7 @@ def _parser() -> argparse.ArgumentParser:
     s.add_argument("--model", "-m", default="llama-tiny",
                    help="model zoo name (causal LM families only)")
     s.add_argument("--checkpoint", default=None,
-                   help="checkpoint dir (restore is not ported yet); "
+                   help="checkpoint dir, restored read-only; "
                         "absent: random init")
     s.add_argument("--port", type=int, default=8000)
     s.add_argument("--bind", default="127.0.0.1")

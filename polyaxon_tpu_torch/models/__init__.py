@@ -1,10 +1,11 @@
-"""Model zoo of the port: the dense Llama causal-LM configs on the shared
-transformer layout."""
+"""Model zoo of the port: the dense Llama and GPT-2 causal-LM configs on
+the shared transformer layout. BERT, ViT and ResNet wait for ROADMAP A11."""
 
-from . import llama, transformer
+from . import gpt2, llama, transformer
 from .transformer import TransformerConfig
 
 # name -> (family, config) for runtime lookup (`model: ...` spec key)
-REGISTRY: dict = {name: ("lm", cfg) for name, cfg in llama.CONFIGS.items()}
+REGISTRY: dict = {name: ("lm", cfg)
+                  for mod in (llama, gpt2) for name, cfg in mod.CONFIGS.items()}
 
-__all__ = ["llama", "transformer", "TransformerConfig", "REGISTRY"]
+__all__ = ["gpt2", "llama", "transformer", "TransformerConfig", "REGISTRY"]

@@ -8,11 +8,18 @@ release their blocks the same iteration they complete, and a long prompt
 prefills in bounded chunks interleaved with decode so it can never stall
 the running batch for more than one chunk's worth of compute.
 
-The scheduler is host Python, the same as the JAX package's; only the two
-device calls differ (:meth:`ServeEngine._prefill_step` and
-:meth:`ServeEngine._decode_batch` call the port's ``prefill_chunk`` and
-``decode_step`` on the engine's device). Sampling stays on the host
-(numpy).
+The scheduler is host Python, the same as the JAX package's; only the
+device calls differ (:meth:`ServeEngine._prefill_step`,
+:meth:`ServeEngine._decode_batch` and :meth:`ServeEngine._decode_batch_spec`
+call the port's ``prefill_chunk``, ``decode_step`` and ``verify_step`` on
+the engine's device). Sampling stays on the host (numpy).
+
+Speculative decoding (``draft_params``, ``draft_cfg``, ``spec_k``): a small
+draft proposes ``spec_k`` tokens per iteration, greedily, over its own
+mirrored paged cache; the target scores pending token + proposals in one
+batched ``verify_step``, and each greedy row emits the longest agreeing
+prefix plus the target's own correction — token for token what plain
+decode emits, with fewer target steps per token.
 
 Block accounting is worst-case at admission (prompt + max_new_tokens): a
 request that admits can always finish. Request-path fault tolerance:
@@ -40,7 +47,7 @@ import torch
 from ..models.transformer import TransformerConfig
 from ..obs.metrics import MetricsRegistry
 from .kv_cache import OutOfBlocksError, SequenceBlocks
-from .model import decode_step, init_cache, prefill_chunk, serving_params
+from .model import decode_step, init_cache, prefill_chunk, serving_params, verify_step
 
 
 #: finished request ids kept resumable by id (``/result/{id}``)
@@ -117,6 +124,10 @@ class GenRequest:
     # minus the pending next_token); None for a first admission
     _resume_prefix: Optional[list] = None
     _rng: Optional[np.random.Generator] = None
+    # speculative decoding: the draft model's mirror of this sequence in
+    # the draft KV cache, with its own prefill cursor
+    draft_seq: SequenceBlocks = field(default_factory=SequenceBlocks)
+    draft_prefilled: int = 0
 
     @property
     def rng(self) -> np.random.Generator:
@@ -173,6 +184,9 @@ class ServeEngine:
         max_waiting: int = 128,
         preempt_grace_s: float = 2.0,
         enable_prefix_cache: bool = True,
+        draft_params: Any = None,
+        draft_cfg: Optional[TransformerConfig] = None,
+        spec_k: int = 0,
     ):
         self.device = params_device(params)
         self.cfg = cfg
@@ -193,6 +207,35 @@ class ServeEngine:
                                 block_size=self.block_size,
                                 enable_prefix_cache=enable_prefix_cache,
                                 device=self.device)
+        # -- speculative decoding ---------------------------------------------
+        # the draft keeps its own (mirrored) paged cache on the same device;
+        # worst-case reservations carry a +spec_k margin because a verify
+        # writes K/V up to spec_k positions past the accepted length
+        # (masked garbage until the next step overwrites it)
+        self.spec_k = int(spec_k) if draft_params is not None else 0
+        self.draft_params = None
+        self.draft_cfg = None
+        self.draft_cache = None
+        if self.spec_k > 0:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs draft_cfg")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}: proposals would be meaningless")
+            if draft_cfg.max_seq < self.max_seq_len:
+                from dataclasses import replace
+
+                draft_cfg = replace(draft_cfg, max_seq=self.max_seq_len)
+            if params_device(draft_params) != self.device:
+                raise ValueError(
+                    f"draft params live on {params_device(draft_params)}, the "
+                    f"target's on {self.device}")
+            self.draft_cfg = draft_cfg
+            self.draft_params = serving_params(draft_params, draft_cfg)
+            self.draft_cache = init_cache(
+                draft_cfg, num_blocks=int(num_blocks), block_size=self.block_size,
+                enable_prefix_cache=enable_prefix_cache, device=self.device)
         self._slots: list[Optional[GenRequest]] = [None] * self.max_slots
         self._waiting: collections.deque[GenRequest] = collections.deque()
         self._ids = itertools.count(1)
@@ -260,7 +303,14 @@ class ServeEngine:
         self._c_cow = self.metrics.counter(
             "polyaxon_serve_cow_copies_total",
             "Copy-on-write block copies (a write into a shared block)",
-            value_fn=lambda: float(self.cache.cow_copies))
+            value_fn=lambda: float(self.cache.cow_copies + (
+                self.draft_cache.cow_copies if self.draft_cache is not None else 0)))
+        self._c_spec_proposed = self.metrics.counter(
+            "polyaxon_serve_spec_tokens_proposed_total",
+            "Draft tokens proposed to the speculative verify step")
+        self._c_spec_accepted = self.metrics.counter(
+            "polyaxon_serve_spec_tokens_accepted_total",
+            "Draft tokens accepted by the target's verify step")
         self._decode_steps = 0
         self._started_at = time.monotonic()
 
@@ -276,7 +326,9 @@ class ServeEngine:
 
     @property
     def decode_steps(self) -> int:
-        """Batched decode iterations run so far (one ``decode_step`` each)."""
+        """Batched decode iterations run so far (one ``decode_step`` each;
+        a speculative iteration is one ``verify_step`` after ``spec_k + 1``
+        draft decode steps)."""
         return self._decode_steps
 
     @property
@@ -347,7 +399,10 @@ class ServeEngine:
                                    if deadline_s else None))
         if not prompt:
             return self._fail_new(req, "empty prompt"), True
-        total = len(prompt) + sampling.max_new_tokens
+        # +spec_k: a speculative verify writes K/V up to spec_k positions
+        # past the accepted length, so reservations (and the max-seq bound)
+        # carry that margin
+        total = len(prompt) + sampling.max_new_tokens + self.spec_k
         if total > self.max_seq_len:
             return self._fail_new(
                 req, f"prompt+max_new_tokens {total} exceeds "
@@ -404,7 +459,7 @@ class ServeEngine:
         for i, r in enumerate(self._slots):
             if r is req:
                 self._slots[i] = None
-        self.cache.release(req.seq)
+        self._release(req)
         req.state = "failed"
         req.error = reason
         req.finished_at = time.monotonic()
@@ -471,24 +526,32 @@ class ServeEngine:
             if not self._waiting or self._slots[i] is not None:
                 continue
             req = self._waiting[0]
-            total = len(req.prompt) + req.sampling.max_new_tokens
+            total = (len(req.prompt) + req.sampling.max_new_tokens
+                     + self.spec_k)
             # a preempted request re-prefills its whole emitted prefix
             # (recompute-on-readmit) minus the pending next_token, whose
             # K/V the first post-resume decode step writes
             src = (req.prompt + req.out_tokens[:-1]
                    if req.out_tokens else req.prompt)
             shared = self.cache.share_prefix(req.seq, src)
+            d_shared = (self.draft_cache.share_prefix(req.draft_seq, src)
+                        if self.draft_cache is not None else 0)
             try:
                 self.cache.ensure(req.seq, total)
+                if self.draft_cache is not None:
+                    self.draft_cache.ensure(req.draft_seq, total)
                 start = min(shared, len(src) - 1)
                 if shared > start:
                     # fully-covered prompt: prefill still recomputes the
                     # last token (its logits seed generation) — the write
                     # into the shared tail block must COW first
                     self.cache.ensure_writable(req.seq, start)
+                d_start = min(d_shared, len(src) - 1)
+                if d_shared > d_start and self.draft_cache is not None:
+                    self.draft_cache.ensure_writable(req.draft_seq, d_start)
             except OutOfBlocksError:
                 # roll the mapping back (decref) and keep FIFO order
-                self.cache.release(req.seq)
+                self._release(req)
                 return
             bs = self.block_size
             self._c_prefix_hits.inc(shared // bs)
@@ -499,6 +562,9 @@ class ServeEngine:
             req._resume_prefix = src if req.out_tokens else None
             req.prefilled = start
             req.seq.length = start
+            if self.draft_cache is not None:
+                req.draft_prefilled = d_start
+                req.draft_seq.length = d_start
             self._blocked_since = None
             self._slots[i] = req
 
@@ -524,7 +590,8 @@ class ServeEngine:
         if not any(s is None for s in self._slots):
             self._blocked_since = None  # slot-starved, not block-starved
             return
-        total = len(head.prompt) + head.sampling.max_new_tokens
+        total = (len(head.prompt) + head.sampling.max_new_tokens
+                 + self.spec_k)
         short = self.cache.blocks_short(head.seq, total)
         if self.cache.free_plus_evictable() >= short:
             # admission's own eviction path will reclaim index-only blocks
@@ -551,8 +618,9 @@ class ServeEngine:
     def _preempt_locked(self, slot: int, req: GenRequest) -> None:
         # release is a DECREF: blocks the victim shared with the prefix
         # index or another sequence survive at their remaining refcount
-        self.cache.release(req.seq)
+        self._release(req)
         req.prefilled = 0
+        req.draft_prefilled = 0
         req.state = "waiting"
         req.preemptions += 1
         self._slots[slot] = None
@@ -574,48 +642,69 @@ class ServeEngine:
     def _tensor(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
 
-    def _prefill_step(self, seq: SequenceBlocks, src: list, prefilled: int):
-        """One bounded prefill chunk of ``src`` starting at ``prefilled``;
-        returns (last-chunk logits, new prefilled)."""
+    def _release(self, req: GenRequest) -> None:
+        """Return a request's blocks (target and draft) to the pools."""
+        self.cache.release(req.seq)
+        if self.draft_cache is not None:
+            self.draft_cache.release(req.draft_seq)
+
+    def _prefill_step(self, params, cfg, cache, seq: SequenceBlocks,
+                      src: list, prefilled: int):
+        """One bounded prefill chunk of ``src`` into ``cache`` starting at
+        ``prefilled``; returns (last-chunk logits, new prefilled)."""
         c = self.prefill_chunk
         chunk = src[prefilled:prefilled + c]
         padded = np.zeros((1, c), np.int64)
         padded[0, :len(chunk)] = chunk
-        tables = self._tensor(self.cache.block_table_array(
+        tables = self._tensor(cache.block_table_array(
             [seq], self.max_blocks_per_seq))
         logits = prefill_chunk(
-            self.params, self._tensor(padded), prefilled, len(chunk),
-            self.cache.k, self.cache.v, tables, cfg=self.cfg)
+            params, self._tensor(padded), prefilled, len(chunk),
+            cache.k, cache.v, tables, cfg=cfg)
         return logits, prefilled + len(chunk)
 
     def _prefill_one(self) -> bool:
-        """Advance the first mid-prefill request by one bounded chunk.
-        Returns True when it advanced one."""
+        """Advance the first mid-prefill request by one bounded chunk —
+        the target's prompt first, then (speculative mode) the draft's
+        mirror of it. Returns True when it advanced one."""
         req = next((r for r in self._slots
                     if r is not None and r.state == "prefill"), None)
         if req is None:
             return False
         src = (req._resume_prefix if req._resume_prefix is not None
                else req.prompt)
-        logits, req.prefilled = self._prefill_step(req.seq, src, req.prefilled)
-        # readiness flips BEFORE any token is emitted: a client that got
-        # its answer may probe /healthz before the end of this iteration
-        self._ready.set()
-        req.seq.length = req.prefilled
-        if req.prefilled >= len(src):
-            # the prompt's full blocks are frozen from here (writes only
-            # ever land past len(src)): publish them so later prompts
-            # sharing the prefix skip their re-prefill
-            self.cache.publish_prefix(req.seq, req.prompt)
-            if req.out_tokens:
-                # resumed after a preemption: every emitted token already
-                # left through the stream — rearm the pending next_token
-                req.next_token = req.out_tokens[-1]
-            else:
-                tok = sample_token(logits[0].cpu().numpy(), req.sampling,
-                                   req.rng)
-                req.next_token = tok
-                self._emit(req, tok)
+        if req.prefilled < len(src):
+            logits, req.prefilled = self._prefill_step(
+                self.params, self.cfg, self.cache, req.seq, src, req.prefilled)
+            # readiness flips BEFORE any token is emitted: a client that
+            # got its answer may probe /healthz before the end of this
+            # iteration
+            self._ready.set()
+            req.seq.length = req.prefilled
+            if req.prefilled >= len(src):
+                # the prompt's full blocks are frozen from here (writes
+                # only ever land past len(src)): publish them so later
+                # prompts sharing the prefix skip their re-prefill
+                self.cache.publish_prefix(req.seq, req.prompt)
+                if req.out_tokens:
+                    # resumed after a preemption: every emitted token
+                    # already left through the stream — rearm the pending
+                    # next_token
+                    req.next_token = req.out_tokens[-1]
+                else:
+                    tok = sample_token(logits[0].cpu().numpy(), req.sampling,
+                                       req.rng)
+                    req.next_token = tok
+                    self._emit(req, tok)
+        elif self.draft_cache is not None:
+            _, req.draft_prefilled = self._prefill_step(
+                self.draft_params, self.draft_cfg, self.draft_cache,
+                req.draft_seq, src, req.draft_prefilled)
+            req.draft_seq.length = req.draft_prefilled
+            if req.draft_prefilled >= len(src):
+                self.draft_cache.publish_prefix(req.draft_seq, req.prompt)
+        if req.prefilled >= len(src) and (
+                self.draft_cache is None or req.draft_prefilled >= len(src)):
             req.state = "running"
             req._resume_prefix = None
         return True
@@ -623,6 +712,8 @@ class ServeEngine:
     def _decode_batch(self) -> int:
         """One decode iteration over every running slot. Returns tokens
         emitted."""
+        if self.draft_cache is not None:
+            return self._decode_batch_spec()
         running = [(i, r) for i, r in enumerate(self._slots)
                    if r is not None and r.state == "running"]
         if not running:
@@ -664,6 +755,106 @@ class ServeEngine:
                 self._finish(i, r)
         return emitted
 
+    def _decode_batch_spec(self) -> int:
+        """One SPECULATIVE iteration: the draft greedily proposes
+        ``spec_k`` tokens per running row, the target scores pending token
+        + proposals in ONE batched :func:`verify_step`, and each greedy row
+        emits the longest prefix of proposals agreeing with the target's
+        own greedy choices plus one correction token. Sampled rows sample
+        from the verify step's first-position logits (the plain-decode
+        logits) with their own generator and ignore the proposals.
+
+        Rejected positions' K/V (target and draft) stay behind as masked
+        garbage: ``seq.length`` only advances over accepted tokens, and the
+        next iteration's writes overwrite them before any mask reaches
+        them."""
+        running = [(i, r) for i, r in enumerate(self._slots)
+                   if r is not None and r.state == "running"]
+        if not running:
+            return 0
+        b, k = self.max_slots, self.spec_k
+        tokens0 = np.zeros(b, np.int64)
+        pos0 = np.zeros(b, np.int64)
+        active = np.zeros(b, bool)
+        for i, r in running:
+            tokens0[i] = r.next_token
+            pos0[i] = r.seq.length
+            active[i] = True
+        t_tables = self._tensor(self.cache.block_table_array(
+            [r.seq if r is not None else None for r in self._slots],
+            self.max_blocks_per_seq))
+        d_tables = self._tensor(self.draft_cache.block_table_array(
+            [r.draft_seq if r is not None else None for r in self._slots],
+            self.max_blocks_per_seq))
+        tokens0_t, pos0_t = self._tensor(tokens0), self._tensor(pos0)
+        active_t = self._tensor(active)
+        # 1) the draft proposes k tokens, greedy, writing its own cache, in
+        # k+1 steps: step j consumes [pending, p1..pk][j], so the LAST step
+        # only deposits p_k's K/V — without it a fully accepted window
+        # would leave the draft's copy of the last accepted position
+        # unwritten. The argmax stays on the device between the steps: a
+        # host read per step would wait for every draft step in turn.
+        d_tok, d_pos = tokens0_t, pos0_t
+        prop_parts = []
+        for j in range(k + 1):
+            d_logits = decode_step(
+                self.draft_params, d_tok, d_pos, self.draft_cache.k,
+                self.draft_cache.v, d_tables, active_t, cfg=self.draft_cfg,
+                impl=self.attn_impl)
+            d_pos = d_pos + 1
+            if j == k:
+                break
+            d_tok = torch.argmax(d_logits, dim=-1)
+            prop_parts.append(d_tok)
+        proposals_t = torch.stack(prop_parts, dim=1)                  # [B, k]
+        # 2) the target verifies pending + proposals in one batched step
+        logits = verify_step(
+            self.params, torch.cat([tokens0_t[:, None], proposals_t], dim=1),
+            pos0_t, self.cache.k, self.cache.v, t_tables, active_t, cfg=self.cfg)
+        proposals = proposals_t.cpu().numpy()                         # [B, k]
+        logits_np = logits.cpu().numpy()                              # [B, k+1, V]
+        self._decode_steps += 1
+        emitted = 0
+        for i, r in running:
+            r.seq.length += 1  # the pending token's K/V just landed
+            sp = r.sampling
+            done = len(r.out_tokens) >= sp.max_new_tokens or (
+                sp.stop_token is not None
+                and r.out_tokens and r.out_tokens[-1] == sp.stop_token)
+            if done:
+                self._finish(i, r)
+                continue
+            self._c_spec_proposed.inc(k)
+            if sp.temperature > 0.0:
+                # sampled rows take the plain-decode path off the verify
+                # logits' first position
+                cands = [sample_token(logits_np[i, 0], sp, r.rng)]
+            else:
+                greedy = np.argmax(logits_np[i], axis=-1)             # [k+1]
+                m = 0
+                while m < k and proposals[i, m] == greedy[m]:
+                    m += 1
+                self._c_spec_accepted.inc(m)
+                cands = [int(t) for t in proposals[i, :m]] + [int(greedy[m])]
+            finished = False
+            for ci, tok in enumerate(cands):
+                r.next_token = tok
+                self._emit(r, tok)
+                emitted += 1
+                if len(r.out_tokens) >= sp.max_new_tokens or (
+                        sp.stop_token is not None and tok == sp.stop_token):
+                    self._finish(i, r)
+                    finished = True
+                    break
+                if ci < len(cands) - 1:
+                    # every accepted (non-final) token's K/V was verified
+                    # into the cache this step; only the final emitted
+                    # token stays pending
+                    r.seq.length += 1
+            if not finished:
+                r.draft_seq.length = r.seq.length
+        return emitted
+
     def _emit(self, req: GenRequest, tok: int) -> None:
         now = time.monotonic()
         req.out_tokens.append(tok)
@@ -695,7 +886,7 @@ class ServeEngine:
         admits a waiting request on the NEXT step, no global pause."""
         req.state = "done"
         req.finished_at = time.monotonic()
-        self.cache.release(req.seq)
+        self._release(req)
         self._slots[slot] = None
         self._c_requests.inc()
         req.stream.put(None)
@@ -734,7 +925,7 @@ class ServeEngine:
                             r.state = "failed"
                             r.error = repr(e)
                             r.finished_at = time.monotonic()
-                            self.cache.release(r.seq)
+                            self._release(r)
                             self._slots[i] = None
                             r.stream.put(None)
                             r.done.set()
@@ -764,8 +955,12 @@ class ServeEngine:
             "prefix_cache_misses": int(self._c_prefix_misses.value),
             "shared_kv_blocks": int(self.cache.allocator.shared_count),
             "cow_copies": int(self._c_cow.value),
+            "spec_tokens_proposed": int(self._c_spec_proposed.value),
+            "spec_tokens_accepted": int(self._c_spec_accepted.value),
             "kv_audit_violations": int(
-                self.cache.allocator.audit_violations),
+                self.cache.allocator.audit_violations + (
+                    self.draft_cache.allocator.audit_violations
+                    if self.draft_cache is not None else 0)),
             "draining": bool(self._draining),
             "drained": bool(self.drained) if self._draining else False,
             "ready": self.ready,

@@ -1,7 +1,7 @@
 """Decode-mode transformer over the paged KV cache — port of
 ``polyaxon_tpu/serve/model.py``.
 
-Two entry points over ``(params, pools)``:
+Three entry points over ``(params, pools)``:
 
 - :func:`prefill_chunk` — a chunk of one request's prompt: writes the
   chunk's K/V into pre-allocated blocks and attends causally over the
@@ -9,6 +9,9 @@ Two entry points over ``(params, pools)``:
 - :func:`decode_step` — one token for every running slot, batched: cache
   write + paged attention (``impl="gather"`` or the ``"flash"`` CUDA
   kernel, ``ops/paged_attention.py``).
+- :func:`verify_step` — speculative decoding's target step: a window of
+  S tokens for every running slot, batched (gathered blocks and dense f32
+  products, as the JAX package computes it outside any kernel).
 
 Where the JAX functions donate the pools and return new ones, these write
 the pools in place (``index_put_``) and return only the logits. The math
@@ -254,6 +257,102 @@ def prefill_chunk(
     hidden = _norm(x, params["final_norm"], cfg)                    # [1, C, h]
     last = min(max(chunk_len - 1, 0), c - 1)
     return _logits(params, hidden[:, last, :], cfg)
+
+
+@torch.no_grad()
+def verify_step(
+    params: dict,
+    tokens: torch.Tensor,        # [B, S] int — pending token + S-1 proposals
+    positions: torch.Tensor,     # [B] int — cache position of tokens[:, 0]
+    k_pool: torch.Tensor,        # written in place
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, T] int32
+    active: torch.Tensor,        # [B] bool
+    *,
+    cfg: TransformerConfig,
+) -> torch.Tensor:
+    """Speculative VERIFY: the target model scores a draft's S-token
+    window (pending token + S-1 proposals) per running row in one batched
+    multi-token step. Returns logits [B, S, V] f32: ``logits[:, j]`` is
+    the next-token distribution after ``tokens[:, j]``, the same layer
+    math as :func:`decode_step` at that position.
+
+    All S positions' K/V are written in place (inactive rows to the trash
+    block); the engine advances ``seq.length`` only over the ACCEPTED
+    prefix, so rejected positions are masked garbage the next step
+    overwrites. Attention is the JAX package's: gathered blocks and a
+    dense f32 product, NaN rows (a row that sees no key) set to 0."""
+    dt = cfg.dtype
+    dev = k_pool.device
+    block_size = k_pool.shape[2]
+    tokens = tokens.to(dev).long()
+    positions = positions.to(dev).long()
+    active = active.to(dev)
+    block_tables = block_tables.to(dev)
+    b, s = tokens.shape
+    offs = torch.arange(s, device=dev)
+    positions_2d = positions[:, None] + offs[None, :]               # [B, S]
+    live = active[:, None].expand(b, s)
+    pos_safe = positions_2d.clamp(0, cfg.max_seq - 1)
+    x = params["embed"]["tokens"].to(dt)[tokens]                    # [B, S, h]
+    if cfg.pos == "learned":
+        x = x + params["embed"]["pos"].to(dt)[pos_safe]
+    rope_tables = _rope_tables(cfg, dev)
+    blk, slot = _write_coords(pos_safe, block_tables, block_size, live,
+                              k_pool.shape[1] - 1)
+    capacity = block_tables.shape[1] * block_size
+    k_ids = torch.arange(capacity, device=dev)
+    mask = k_ids[None, None, :] <= positions_2d[..., None]          # [B, S, C_cap]
+    scale = cfg.hd ** -0.5
+
+    for i in range(cfg.num_layers):
+        lp = _layer(params, i)
+        q, k, v = _layer_qkv(x, lp, cfg, rope_tables, pos_safe)
+        _write_kv(k_pool[i], k.transpose(1, 2), blk, slot)
+        _write_kv(v_pool[i], v.transpose(1, 2), blk, slot)
+        kc = gather_blocks(k_pool[i], block_tables)                 # [B,C_cap,KVH,D]
+        vc = gather_blocks(v_pool[i], block_tables)
+        kvh, d = cfg.kv_heads, cfg.hd
+        g = cfg.num_heads // kvh
+        # a KV head's G query heads x S positions as the rows of one product
+        # (a broadcast over G would copy the gathered cache G times)
+        qg = _regroup(q, kvh).reshape(b, kvh, g * s, d)             # [B,KVH,G*S,D]
+        scores = torch.matmul(qg.float(), kc.float().permute(0, 2, 3, 1)) * scale
+        scores = scores.reshape(b, kvh, g, s, capacity)
+        scores = scores.masked_fill(~mask[:, None, None, :, :], float("-inf"))
+        probs = torch.nan_to_num(torch.softmax(scores, dim=-1), nan=0.0)
+        o = torch.matmul(probs.reshape(b, kvh, g * s, capacity),
+                         vc.float().permute(0, 2, 1, 3)).to(dt)     # [B,KVH,G*S,D]
+        o = o.reshape(b, kvh * g, s, d).transpose(1, 2).reshape(b, s, kvh * g * d)
+        x = _layer_mlp(x, o, lp, cfg)
+    hidden = _norm(x, params["final_norm"], cfg)                    # [B, S, h]
+    return _logits(params, hidden, cfg)
+
+
+def extend_with_identity_layers(params: dict, cfg: TransformerConfig,
+                                extra_layers: int):
+    """A target model that provably agrees with its draft: append
+    ``extra_layers`` IDENTITY layers (copies of the last layer with the
+    attention and MLP output projections — and their biases — zeroed, so
+    each appended layer is ``x -> x + 0 + 0``) to the stacked ``params``.
+    The extended model's logits equal the original's while it costs
+    ``(L + extra) / L`` the compute — the speculative fixture with 100%
+    draft agreement by construction. Returns (params, cfg)."""
+    from dataclasses import replace
+
+    zeroed = {("attn", "wo"), ("attn", "bo"), ("mlp", "wo"), ("mlp", "bo")}
+
+    def extend(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: extend(v, path + (k,)) for k, v in tree.items()}
+        tail = tree[-1:].expand(extra_layers, *tree.shape[1:])
+        if path[-2:] in zeroed:
+            tail = torch.zeros_like(tail)
+        return torch.cat([tree, tail], dim=0)
+
+    out = dict(params)
+    out["layers"] = extend(params["layers"])
+    return out, replace(cfg, num_layers=cfg.num_layers + extra_layers)
 
 
 def dense_reference_decode(params, cfg: TransformerConfig, prompts,

@@ -6,16 +6,18 @@ One step = the microbatch loop (grads in ``grad_dtype``, summed in
 the divergence guard (a non-finite loss or grad norm keeps the old params
 and optimizer state, and freezes the schedule and Adam's count), then
 AdamW. ``fit`` runs the JAX package's policy around it: the throughput
-meter, the skip budget and ``TrainingDivergedError``, the step watchdog.
+meter, periodic and final checkpoint saves, the skip budget, the rollback
+to the newest complete checkpoint (``anomaly_rollback_budget``) and
+``TrainingDivergedError``, the step watchdog.
 
 Where the JAX step selects old or new values inside jit, this one reads
 the guard's verdict on the host once per step (before the update) and
 then updates params and moments in place: no second copy of the state is
 ever live. Since the host waits for that verdict anyway, ``fit`` applies
 the skip policy to each step's flags as soon as the step returns (the JAX
-package reads them one step late so as not to wait). Meshes, sharding,
-checkpoints and rollback wait for ROADMAP A4 and A6; the trainer refuses
-them.
+package reads them one step late so as not to wait), and a save at a
+step boundary covers only resolved-clean steps. Meshes and sharding wait
+for ROADMAP A6; the trainer refuses them.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Any, Callable, Iterator, Optional
 import torch
 
 from ..models.transformer import TransformerConfig, flatten, unflatten
+from .checkpoint import CheckpointConfig, Checkpointer
 from .metrics import ThroughputMeter
 from .optimizers import AdamState, OptimizerConfig, global_norm, make_optimizer
 from .tasks import LMTask, Task
@@ -47,7 +50,7 @@ class TrainerConfig:
     seq_len: int = 128
     parallelism: Optional[dict] = None   # one device only: None or {"data": 1}
     num_slices: int = 1
-    checkpoint: Optional[Any] = None     # not ported (ROADMAP A4)
+    checkpoint: Optional[CheckpointConfig] = None
     log_interval: int = 10
     accelerator: Optional[str] = "h100"  # the meter's peak table; None: no MFU
     # differentiate w.r.t. params cast to this dtype (grads land in it)
@@ -56,6 +59,9 @@ class TrainerConfig:
     microbatches: int = 1
     accum_dtype: Optional[str] = None    # None = float32
     anomaly_skip_budget: int = 3
+    # rollbacks to the newest complete checkpoint allowed before fit()
+    # fails loudly with the anomaly history
+    anomaly_rollback_budget: int = 2
     watchdog: bool = False
     watchdog_stall_factor: float = 10.0
     watchdog_min_s: float = 120.0
@@ -63,8 +69,9 @@ class TrainerConfig:
 
 
 class TrainingDivergedError(RuntimeError):
-    """``anomaly_skip_budget`` consecutive non-finite steps and no rollback
-    (the port keeps no checkpoints yet). Carries the anomaly history."""
+    """The run burned its anomaly budgets: ``anomaly_skip_budget``
+    consecutive non-finite steps with no rollback left (or no complete
+    checkpoint to roll back to). Carries the anomaly history."""
 
     def __init__(self, message: str, history: list, anomalies: dict, rollbacks: int):
         super().__init__(message)
@@ -81,8 +88,6 @@ def _check_one_device(cfg: TrainerConfig) -> None:
             f"device (data/fsdp: ROADMAP A6; model/context: A8; stage: A9)")
     if cfg.num_slices > 1:
         raise NotImplementedError("num_slices > 1 is not ported (ROADMAP A6)")
-    if cfg.checkpoint is not None:
-        raise NotImplementedError("checkpoints are not ported (ROADMAP A4)")
 
 
 class Trainer:
@@ -111,6 +116,7 @@ class Trainer:
         self.track = track
         # duck-typed fault injection: pre_step(pos) and nan_due(pos)
         self.chaos = chaos
+        self.checkpointer = Checkpointer(cfg.checkpoint) if cfg.checkpoint else None
 
     # -- init ---------------------------------------------------------------
 
@@ -121,6 +127,33 @@ class Trainer:
     def init_state_from(self, params: dict, extra: Any = None) -> TrainState:
         leaves = [leaf for _, leaf in flatten(params)]
         return TrainState(params=params, opt_state=self.tx.init(leaves), step=0, extra=extra)
+
+    def restore_or_init(self, seed: int = 0,
+                        init_params: Optional[dict] = None) -> tuple[TrainState, int]:
+        """Latest complete checkpoint wins (resume); else ``init_params``
+        (checkpoint import, fork) when given; else a fresh init."""
+        if init_params is not None:
+            state = self.init_state_from(init_params)
+        else:
+            state = self.init_state(seed)
+        if self.checkpointer and self.checkpointer.latest_step() is not None:
+            try:
+                # skips torn steps via the checksum manifests and restores
+                # the newest COMPLETE one
+                return self.restore(state)
+            except FileNotFoundError:
+                # every candidate failed verification: a fresh start beats
+                # training from (or crashing on) a torn checkpoint
+                print("[trainer] no complete checkpoint survived "
+                      "verification; starting from step 0", flush=True)
+        return state, 0
+
+    def restore(self, state: TrainState, step: Optional[int] = None) -> tuple[TrainState, int]:
+        """Restore the newest complete checkpoint (or ``step``) into
+        ``state``'s tensors in place; returns the restored state and its
+        step."""
+        tree, s = self.checkpointer.restore(state_tree(state), step=step)
+        return state_from_tree(tree), s
 
     # -- the step -------------------------------------------------------------
 
@@ -199,8 +232,9 @@ class Trainer:
             state: Optional[TrainState] = None,
             meter: Optional[ThroughputMeter] = None) -> tuple[TrainState, dict]:
         if state is None:
-            state = self.init_state()
-        start = int(state.step)
+            state, start = self.restore_or_init()
+        else:
+            start = int(state.step)
         step_fn = self.make_step()
         if meter is None:
             meter = ThroughputMeter(
@@ -229,18 +263,27 @@ class Trainer:
         anomalies = {"loss": 0, "grad": 0}
         history: list[dict] = []
         consec = 0
+        rollbacks = 0
+        # absolute batch index the stream yields next; == the loop index
+        # while the stream is seekable and rollbacks rewind it
         data_pos = int(getattr(batches, "position", start))
 
-        def _resolve(at: int, m: dict) -> None:
-            """Read a step's anomaly flags and apply the skip policy;
-            raises TrainingDivergedError when the budget is gone (there is
-            no checkpoint to roll back to)."""
+        def _diverged(msg: str) -> TrainingDivergedError:
+            return TrainingDivergedError(
+                f"{msg} (anomalies={anomalies}, rollbacks={rollbacks}, "
+                f"skip_budget={skip_budget})",
+                history[-64:], dict(anomalies), rollbacks)
+
+        def _resolve(at: int, m: dict) -> Optional[int]:
+            """Read a step's anomaly flags and apply the policy. Returns
+            the step to rewind the loop to when a rollback happened, else
+            None; raises TrainingDivergedError when the budgets are gone."""
             nonlocal consec
             a_loss = bool(float(m["anomaly_loss"]))
             a_grad = bool(float(m["anomaly_grad"]))
             if not (a_loss or a_grad):
                 consec = 0
-                return
+                return None
             kind = "loss" if a_loss else "grad"
             anomalies[kind] += 1
             if len(history) < 256:
@@ -248,15 +291,49 @@ class Trainer:
             consec += 1
             log(f"[trainer] non-finite {kind} at step {at}: update skipped "
                 f"({consec}/{skip_budget} consecutive)")
-            if consec >= skip_budget:
-                raise TrainingDivergedError(
-                    f"{consec} consecutive non-finite steps at step {at} and no "
-                    f"checkpoint to roll back to (anomalies={anomalies}, "
-                    f"skip_budget={skip_budget})",
-                    history[-64:], dict(anomalies), 0)
+            if consec < skip_budget:
+                return None
+            if (self.checkpointer is None
+                    or rollbacks >= self.cfg.anomaly_rollback_budget):
+                raise _diverged(f"{consec} consecutive non-finite steps at step "
+                                f"{at} and no rollback budget left")
+            return _rollback(at)
+
+        def _rollback(at_step: int) -> int:
+            """Roll back to the newest COMPLETE checkpoint: restore it
+            (purging newer, possibly poisoned steps, so the replay's saves
+            at those step numbers go through), rewind the data stream to
+            it, and return it as the new loop index. The replayed window
+            trains on the batches the uninterrupted run saw."""
+            nonlocal state, consec, rollbacks, data_pos
+            if watchdog is not None:
+                watchdog.beat(at_step)  # the restore itself may be slow
+            self.checkpointer.wait()  # settle an in-flight save
+            try:
+                state, s = self.restore(state)
+            except FileNotFoundError as e:
+                raise _diverged(f"anomaly streak at step {at_step} but no complete "
+                                f"checkpoint survived verification") from e
+            rollbacks += 1
+            consec = 0
+            seek = getattr(batches, "seek", None)
+            if callable(seek):
+                seek(s)
+                data_pos = s
+            else:
+                log("[trainer] data stream is not seekable: resuming forward "
+                    "from the current position, without exact parity")
+            log(f"[trainer] rolled back to checkpoint step {s} after anomaly "
+                f"streak at step {at_step} (rollback {rollbacks}/"
+                f"{self.cfg.anomaly_rollback_budget})")
+            meter.start()  # the restore pause is not a step interval
+            if watchdog is not None:
+                watchdog.beat(s)
+            return s
 
         try:
-            for i in range(start, num_steps):
+            i = start
+            while i < num_steps:
                 if self.chaos is not None:
                     self.chaos.pre_step(data_pos)
                 inject = self.chaos is not None and self.chaos.nan_due(data_pos)
@@ -273,17 +350,49 @@ class Trainer:
                     if i == num_steps - 1:
                         self._sync(metrics)  # close the last interval
                     meter.step()
-                _resolve(i, metrics)
+                rewind = _resolve(i, metrics)
+                if rewind is not None:
+                    i = rewind
+                    continue
                 if self.track and (i % self.cfg.log_interval == 0 or i == num_steps - 1):
                     logged = {name: float(v) for name, v in metrics.items()}
                     logged.update(meter.summary())
                     self.track(i, logged)
+                # the label covers resolved-clean steps only: a step inside
+                # an anomaly streak is never published
+                if self.checkpointer and consec == 0 \
+                        and self.checkpointer.should_save(i + 1):
+                    self.checkpointer.maybe_save(i + 1, state_tree(state))
+                    if watchdog is not None:
+                        watchdog.beat(i)  # a long save is progress, not a stall
+                i += 1
         finally:
             if watchdog is not None:
                 watchdog.stop()
+        if self.checkpointer:
+            if self.checkpointer.latest_step() != num_steps:
+                self.checkpointer.maybe_save(num_steps, state_tree(state), force=True)
+            self.checkpointer.wait()
         final = {name: float(v) for name, v in metrics.items()}
         final.update(meter.summary())
         final["train_anomalies_loss"] = anomalies["loss"]
         final["train_anomalies_grad"] = anomalies["grad"]
-        final["train_rollbacks"] = 0  # no checkpoints, so no rollback
+        final["train_rollbacks"] = rollbacks
         return state, final
+
+
+def state_tree(state: TrainState) -> dict:
+    """A TrainState as the checkpoint's tree: params, Adam's count and
+    moments, step and extra (the tensors are the state's own)."""
+    opt = state.opt_state
+    return {"params": state.params,
+            "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
+            "step": int(state.step), "extra": state.extra}
+
+
+def state_from_tree(tree: dict) -> TrainState:
+    opt = tree["opt_state"]
+    return TrainState(params=tree["params"],
+                      opt_state=AdamState(count=int(opt["count"]), mu=list(opt["mu"]),
+                                          nu=list(opt["nu"])),
+                      step=int(tree["step"]), extra=tree.get("extra"))

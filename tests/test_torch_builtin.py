@@ -1,7 +1,12 @@
 """The port's builtin training runtime (``polyaxon_tpu_torch.runtime.builtin``)
 on the CPU: the llama-tiny run prints the JAX runtime's ``{"final": ...}``
 line with the meter's keys, every key the port does not support raises,
-and the default platform needs a CUDA device.
+and the default platform needs a CUDA device. Then checkpoints: on by
+default, a run killed after its fourth step resumes onto the uninterrupted
+loss curve exactly, a planted NaN burst rolls back and replays to parity
+(``tests/test_selfheal.py`` TestDivergenceGuard, on the port), ``import:``
+and ``fork_from:`` start from the given params, and a ``checkpoint:``
+restore serves the trained params through ``build_engine``.
 
 Its numbers are held against the JAX package by the trainer parity tests
 (``tests/test_torch_train_step.py``); these check the entry point."""
@@ -14,10 +19,20 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from polyaxon_tpu_torch.models import REGISTRY, transformer
+from polyaxon_tpu_torch.partition.convert import save_flat
 from polyaxon_tpu_torch.runtime.builtin import run_builtin
+from polyaxon_tpu_torch.serve.engine import SamplingParams, ServeEngine
+from polyaxon_tpu_torch.serve.runtime import build_engine
+from polyaxon_tpu_torch.train import (
+    DataConfig, OptimizerConfig, Trainer, TrainerConfig, TrainingDivergedError,
+    make_batches, task_for,
+)
+from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = {"model": "llama-tiny", "platform": "cpu", "checkpoint": False, "steps": 3,
@@ -42,9 +57,9 @@ def test_cpu_run_prints_the_final_line_with_the_meter_keys(capsys):
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("checkpoint", {"save_interval_steps": 2}, "A4"),
-    ("checkpoint", True, "A4"),
-    ("import", {"path": "/x"}, "A12"),
+    ("checkpoint", {"save_every": 2}, "unknown keys"),
+    ("fork_from", "/parent/run", "needs a mapping"),
+    ("import", {"path": "/x", "shards": 2}, "unknown keys"),
     ("lora", {"rank": 4}, "A12"),
     ("parallelism", {"data": 2}, "A6"),
     ("num_slices", 2, "A6"),
@@ -55,13 +70,11 @@ def test_cpu_run_prints_the_final_line_with_the_meter_keys(capsys):
     ("moe_dispatch", "a2a", "A10"),
     ("chaos", {"nan_at_step": 1}, "A5"),
     ("partition_rules", [["a", "b"]], "A6"),
-    ("anomaly_rollback_budget", 2, "A4"),
+    ("resources", True, "A5"),
     ("unknown_knob", 1, "unknown spec key"),
 ])
 def test_unsupported_keys_raise_naming_their_roadmap_item(key, value, match):
     spec = dict(TINY, **{key: value})
-    if key == "checkpoint" and value is True:
-        spec.pop("checkpoint")  # absent means the JAX default: checkpoints on
     with pytest.raises(SystemExit, match=match):
         run_builtin(spec)
 
@@ -85,3 +98,190 @@ def test_module_entry_reads_the_spec_and_writes_final_json(tmp_path):
     final = json.loads(proc.stdout.strip().splitlines()[-1])["final"]
     assert json.loads((tmp_path / "outputs" / "final.json").read_text()) == final
     assert final["steps"] == 1
+
+
+# -- checkpoints, resume, rollback, import, fork --------------------------------
+
+RUN = dict(TINY, microbatches=1, batch_size=2, steps=5)
+
+
+def _losses(spec):
+    losses = {}
+    summary = run_builtin(dict(spec), track=lambda i, m: losses.__setitem__(i, m["loss"]))
+    return summary, losses
+
+
+def _step0_loss(params, spec=RUN):
+    """The loss a run's first step reports for ``params``: batch 0 of its
+    data stream through the task's loss."""
+    cfg = REGISTRY[spec["model"]][1]
+    batch = next(make_batches(DataConfig(batch_size=spec["batch_size"],
+                                         seq_len=spec["seq_len"],
+                                         vocab_size=cfg.vocab_size)))
+    with torch.no_grad():
+        return float(task_for("lm", cfg).loss(params, None, batch)[0])
+
+
+def test_checkpoints_are_on_by_default(tmp_path, monkeypatch):
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path))
+    spec = {k: v for k, v in RUN.items() if k != "checkpoint"}
+    run_builtin(spec)
+    ck = Checkpointer(CheckpointConfig(directory=str(tmp_path / "outputs" / "checkpoints")),
+                      read_only=True)
+    # steps // 4 = 1: every step, the newest three kept, each with its manifest
+    assert ck.all_steps() == [3, 4, 5] == ck.complete_steps_desc()[::-1]
+    raw, step = ck.restore_raw()
+    assert step == 5 and raw["step"] == 5 and raw["opt_state"]["count"] == 5
+
+
+class _Kill(Exception):
+    pass
+
+
+def test_kill_after_step_3_then_resume_matches_the_uninterrupted_curve(tmp_path,
+                                                                      monkeypatch):
+    spec = dict(RUN, checkpoint={"save_interval_steps": 1, "async_save": False})
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path / "oracle"))
+    _, oracle = _losses(spec)
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path / "run"))
+    killed = {}
+
+    def kill_after_step_3(i, m):
+        killed[i] = m["loss"]
+        if i == 3:
+            raise _Kill()  # step 3 ran; its checkpoint (label 4) never lands
+
+    with pytest.raises(_Kill):
+        run_builtin(dict(spec), track=kill_after_step_3)
+    summary, resumed = _losses(spec)
+    assert summary["resumed_from_step"] == 3
+    assert sorted(resumed) == [3, 4]
+    assert {**killed, **resumed} == oracle   # exactly, step by step
+    assert summary["loss"] == oracle[4]
+
+
+class _NanBurst:
+    """NaN losses at data positions [at, at + count), once each: a replay
+    after a rollback runs clean (the fault budget is spent)."""
+
+    def __init__(self, at: int, count: int):
+        self.due = set(range(at, at + count))
+
+    def pre_step(self, pos):
+        pass
+
+    def nan_due(self, pos):
+        if pos in self.due:
+            self.due.discard(pos)
+            return True
+        return False
+
+
+def _trainer(ckpt_dir=None, chaos=None, skip_budget=3, rollback_budget=2, steps=12):
+    cfg = TrainerConfig(
+        model=REGISTRY["llama-tiny"][1],
+        optimizer=OptimizerConfig(learning_rate=1e-3, warmup_steps=2, total_steps=steps),
+        batch_size=2, seq_len=32, accelerator=None,
+        checkpoint=(CheckpointConfig(directory=ckpt_dir, save_interval_steps=3,
+                                     max_to_keep=5, async_save=False)
+                    if ckpt_dir else None),
+        anomaly_skip_budget=skip_budget, anomaly_rollback_budget=rollback_budget)
+    return Trainer(cfg, device="cpu", chaos=chaos)
+
+
+def _lm_data():
+    return make_batches(DataConfig(batch_size=2, seq_len=32, vocab_size=256, seed=7))
+
+
+class TestDivergenceGuard:
+    STEPS = 12
+
+    @pytest.fixture(scope="class")
+    def oracle(self):
+        _, m = _trainer(steps=self.STEPS).fit(_lm_data(), num_steps=self.STEPS)
+        return m
+
+    def test_nan_burst_rolls_back_and_replays_to_exact_parity(self, tmp_path, oracle):
+        tr = _trainer(ckpt_dir=str(tmp_path / "ck"), chaos=_NanBurst(7, 2),
+                      skip_budget=2, steps=self.STEPS)
+        _, m = tr.fit(_lm_data(), num_steps=self.STEPS)
+        assert m["train_anomalies_loss"] == 2
+        assert m["train_rollbacks"] == 1
+        assert np.isfinite(m["loss"])
+        assert m["loss"] == oracle["loss"]
+        # the replay's saves reuse the rolled-back labels; the final step too
+        assert tr.checkpointer.latest_complete_step() == self.STEPS
+
+    def test_isolated_anomaly_skipped_without_rollback(self, oracle):
+        tr = _trainer(chaos=_NanBurst(5, 1), skip_budget=3, steps=self.STEPS)
+        _, m = tr.fit(_lm_data(), num_steps=self.STEPS)
+        assert m["train_anomalies_loss"] == 1 and m["train_rollbacks"] == 0
+        assert np.isfinite(m["loss"])
+        assert m["loss"] == pytest.approx(oracle["loss"], rel=0.05)
+        assert m["loss"] != oracle["loss"]  # one update is missing
+
+    def test_exhausted_budgets_fail_loudly_with_history(self, tmp_path):
+        tr = _trainer(ckpt_dir=str(tmp_path / "ck"), chaos=_NanBurst(4, 40),
+                      skip_budget=2, rollback_budget=1, steps=self.STEPS)
+        with pytest.raises(TrainingDivergedError) as exc:
+            tr.fit(_lm_data(), num_steps=self.STEPS)
+        err = exc.value
+        assert err.rollbacks == 1 and err.anomalies["loss"] >= 4
+        assert [h["step"] for h in err.history][:2] == [4, 5]
+
+
+def test_import_starts_from_the_given_params_and_resume_beats_it(tmp_path, monkeypatch,
+                                                                  capsys):
+    cfg = REGISTRY["llama-tiny"][1]
+    given = transformer.init(cfg, seed=5, device="cpu")
+    save_flat(given, str(tmp_path / "export"))
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path / "run"))
+    spec = dict(RUN, steps=2, checkpoint={"save_interval_steps": 1},
+                **{"import": {"path": str(tmp_path / "export"), "layout": "flat"}})
+    _, losses = _losses(spec)
+    assert losses[0] == _step0_loss(given)
+    summary, _ = _losses(dict(spec, steps=3))
+    assert summary["resumed_from_step"] == 2
+    assert "complete checkpoint found; skipping import" in capsys.readouterr().out
+
+
+def test_fork_from_starts_from_the_parent_checkpoint(tmp_path, monkeypatch):
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path / "parent"))
+    run_builtin(dict(RUN, steps=3, checkpoint={"save_interval_steps": 1, "max_to_keep": 5}))
+    parent = str(tmp_path / "parent" / "outputs" / "checkpoints")
+    ro = Checkpointer(CheckpointConfig(directory=parent), read_only=True)
+    for pinned, want_step in ((None, 3), (2, 2)):
+        raw, step = ro.restore_raw(step=want_step)
+        fork = {"path": parent} if pinned is None else {"path": parent, "step": pinned}
+        monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path / f"child{pinned}"))
+        summary, losses = _losses(dict(RUN, steps=1, **{"fork_from": fork}))
+        assert summary["resumed_from_step"] == 0
+        assert losses[0] == _step0_loss(raw["params"])
+    # the parent's directory is untouched by its readers
+    assert ro.all_steps() == [1, 2, 3]
+
+
+def test_checkpoint_restore_serves_the_trained_params(tmp_path, monkeypatch):
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path))
+    run_builtin(dict(RUN, steps=2, checkpoint={"save_interval_steps": 1}))
+    ckdir = str(tmp_path / "outputs" / "checkpoints")
+    raw, step = Checkpointer(CheckpointConfig(directory=ckdir), read_only=True).restore_raw()
+    engine = build_engine({"model": "llama-tiny", "platform": "cpu", "block_size": 8,
+                           "max_seq_len": 64, "prefill_chunk": 16,
+                           "checkpoint": {"path": ckdir}})
+    assert engine.provenance == {"restored_from": ckdir, "restored_step": 2}
+    for (path, a), (_, b) in zip(transformer.flatten(engine.params),
+                                 transformer.flatten(raw["params"])):
+        assert torch.equal(a, b), path
+    direct = ServeEngine(raw["params"], REGISTRY["llama-tiny"][1], block_size=8,
+                         max_seq_len=64, prefill_chunk=16)
+    prompt = list(range(3, 14))
+    for e in (engine, direct):
+        e.start()
+    try:
+        got = [e.generate(prompt, SamplingParams(max_new_tokens=6), timeout=60).out_tokens
+               for e in (engine, direct)]
+    finally:
+        for e in (engine, direct):
+            e.stop()
+    assert got[0] == got[1] and len(got[0]) == 6

@@ -42,7 +42,9 @@ def test_the_scan_sees_every_port_module():
     for expected in ("ops/paged_attention.py", "serve/engine.py",
                      "serve/server.py", "models/transformer.py", "convert.py",
                      "ops/flash_attention.py", "ops/attention.py", "train/trainer.py",
-                     "train/optimizers.py", "train/watchdog.py", "runtime/builtin.py"):
+                     "train/optimizers.py", "train/watchdog.py", "runtime/builtin.py",
+                     "train/checkpoint.py", "partition/__init__.py", "partition/rules.py",
+                     "partition/convert.py", "models/gpt2.py"):
         assert expected in names
 
 
@@ -100,3 +102,40 @@ print(json.dumps({"bad": bad}))
                           capture_output=True, text=True, timeout=90)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1])["bad"] == []
+
+
+def test_cpu_speculative_serving_and_checkpoint_restore_run_without_jax(tmp_path):
+    code = """
+import json, os, sys
+from polyaxon_tpu_torch.runtime.builtin import run_builtin
+from polyaxon_tpu_torch.serve.runtime import build_engine
+from polyaxon_tpu_torch.serve.engine import SamplingParams
+from polyaxon_tpu_torch.partition.convert import export_hf_llama
+run_builtin({"model": "llama-tiny", "platform": "cpu", "steps": 2, "batch_size": 2,
+             "seq_len": 32, "watchdog": False, "checkpoint": {"save_interval_steps": 1}})
+base = {"model": "llama-tiny", "platform": "cpu", "block_size": 8, "max_seq_len": 64,
+        "prefill_chunk": 16}
+ck = os.path.join(os.environ["PLX_ARTIFACTS_PATH"], "outputs", "checkpoints")
+restored = build_engine({**base, "checkpoint": ck,
+                         "speculative": {"draft": "llama-tiny", "k": 3}})
+export_hf_llama(restored.params, restored.cfg, "hf")
+imported = build_engine({**base, "import": {"path": "hf", "layout": "hf-llama"}})
+out = []
+for engine in (restored, imported):
+    engine.start()
+    out.append(engine.generate([1, 2, 3], SamplingParams(max_new_tokens=4), timeout=60).out_tokens)
+    engine.stop()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "flax", "orbax",
+                                    "polyaxon_tpu", "safetensors", "ml_dtypes"))
+print(json.dumps({"tokens": out, "step": restored.provenance["restored_step"],
+                  "bad": bad}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT), PLX_ARTIFACTS_PATH=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=90)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["step"] == 2 and out["bad"] == []
+    assert len(out["tokens"][0]) == 4 and out["tokens"][0] == out["tokens"][1]

@@ -343,3 +343,104 @@ def test_auto_raises_where_the_kernels_do_not_run(cuda, d, dtype, error):
     q = torch.randn(1, 2, 128, d, device=cuda).to(dtype)
     with pytest.raises(error):
         ta.attention(q, q, q, impl="auto", block_q=32, block_k=32)
+
+
+# -- speculative verify and checkpoints on the card -----------------------------
+
+
+def _small_llama(dtype):
+    """llama-tiny widened to a head dim the paged kernel takes (64)."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models import REGISTRY
+
+    return replace(REGISTRY["llama-tiny"][1], hidden=256, num_heads=4, num_kv_heads=2,
+                   mlp_dim=512, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,impl", [(torch.float32, "gather"), (torch.float32, "flash"),
+                                        (torch.bfloat16, "flash")])
+def test_verify_step_matches_decode_step_on_the_card(cuda, dtype, impl):
+    """verify_step's logits[:, j] against decode_step's (gather, or the
+    paged kernel) at the same positions, on pools prefilled on the card.
+    f32: the two differ in the order of their sums (1e-4 absolute on
+    logits of ~0.3). bf16: each layer rounds its activations to bf16 after
+    products of different shapes, 2^-5 of the largest logit."""
+    from polyaxon_tpu_torch.models import transformer
+    from polyaxon_tpu_torch.serve import model as tm
+    from polyaxon_tpu_torch.serve.kv_cache import SequenceBlocks
+
+    cfg = _small_llama(dtype)
+    params = tm.serving_params(transformer.init(cfg, seed=0, device=cuda), cfg)
+    bs, window = 16, 5
+    prompts = [list(range(2, 2 + n)) for n in (7, 16, 33, 60)]
+    t = -(-(max(map(len, prompts)) + window) // bs)
+    cache = tm.init_cache(cfg, num_blocks=len(prompts) * t + 1, block_size=bs, device=cuda)
+    seqs = []
+    for p in prompts:
+        seq = SequenceBlocks()
+        cache.ensure(seq, len(p) + window)
+        tm.prefill_chunk(params, torch.tensor([p], device=cuda), 0, len(p), cache.k, cache.v,
+                         torch.as_tensor(cache.block_table_array([seq], t), device=cuda),
+                         cfg=cfg)
+        seqs.append(seq)
+    tables = torch.as_tensor(cache.block_table_array(seqs + [None], t), device=cuda)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (5, window), generator=gen).to(cuda)
+    positions = torch.tensor([len(p) for p in prompts] + [0], device=cuda)
+    active = torch.tensor([True] * 4 + [False], device=cuda)
+    k2, v2 = cache.k.clone(), cache.v.clone()
+    verify = tm.verify_step(params, tokens, positions, cache.k, cache.v, tables, active,
+                            cfg=cfg)
+    for j in range(window):
+        decode = tm.decode_step(params, tokens[:, j], positions + j, k2, v2, tables, active,
+                                cfg=cfg, impl=impl)
+        ref = decode[:4].float()
+        atol = 1e-4 if dtype == torch.float32 else 2.0 ** -5 * ref.abs().max().item()
+        torch.testing.assert_close(verify[:4, j], ref, atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """An async save of CUDA tensors (f32 params, bf16 moments) restores bit
+    for bit into CUDA tensors; a trainer resumes its state on the card."""
+    from polyaxon_tpu_torch.models import REGISTRY
+    from polyaxon_tpu_torch.partition.rules import tree_paths
+    from polyaxon_tpu_torch.train import (
+        DataConfig, OptimizerConfig, Trainer, TrainerConfig, make_batches,
+    )
+    from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+    from polyaxon_tpu_torch.train.trainer import state_tree
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.randn(64, 128, generator=gen, device=cuda)
+    state = {"params": {"w": w}, "opt_state": {"count": 3, "mu": [w.to(torch.bfloat16)]},
+             "step": 3}
+    ck = Checkpointer(CheckpointConfig(directory=str(tmp_path / "ck"), async_save=True))
+    assert ck.maybe_save(3, state, force=True)
+    ck.wait()
+    like = {"params": {"w": torch.zeros_like(w)},
+            "opt_state": {"count": 0, "mu": [torch.zeros_like(w, dtype=torch.bfloat16)]},
+            "step": 0}
+    restored, step = ck.restore(like)
+    assert step == 3 and restored["step"] == 3 and restored["opt_state"]["count"] == 3
+    assert restored["params"]["w"].device == w.device
+    assert torch.equal(restored["params"]["w"], w)
+    assert torch.equal(restored["opt_state"]["mu"][0], w.to(torch.bfloat16))
+
+    cfg = TrainerConfig(model=REGISTRY["llama-tiny"][1], batch_size=2, seq_len=32,
+                        optimizer=OptimizerConfig(warmup_steps=1, total_steps=3,
+                                                  mu_dtype="bfloat16"),
+                        checkpoint=CheckpointConfig(directory=str(tmp_path / "run"),
+                                                    save_interval_steps=1))
+    data = DataConfig(batch_size=2, seq_len=32, vocab_size=256)
+    final, _ = Trainer(cfg, device=cuda).fit(make_batches(data), num_steps=2)
+    resumed, start = Trainer(cfg, device=cuda).restore_or_init()
+    assert start == 2
+    for (path, a), (_, b) in zip(tree_paths(state_tree(final)),
+                                 tree_paths(state_tree(resumed))):
+        if isinstance(a, torch.Tensor):
+            assert b.device == a.device and torch.equal(a, b), path
+        else:
+            assert a == b, path

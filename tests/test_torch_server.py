@@ -176,12 +176,13 @@ class TestBuildEngine:
         assert engine.provenance == {"restored_step": -1, "init_seed": 0}
 
     @pytest.mark.parametrize("key,value", [
-        ("speculative", {"draft": "llama-tiny", "k": 4}),
-        ("checkpoint", "/some/dir"),
-        ("import", {"path": "/some/export"}),
+        ("report_interval", 2),
+        ("watchdog", {"min_s": 5}),
+        ("chaos", {"hang_after_requests": 3}),
+        ("num_cpu_devices", 8),
     ])
     def test_unported_keys_are_refused(self, key, value):
-        with pytest.raises(SystemExit, match="not ported"):
+        with pytest.raises(SystemExit, match=r"not ported .*\(ROADMAP A[67] "):
             runtime.build_engine({**TINY_SPEC, key: value})
 
     def test_unknown_model_and_platform(self):
@@ -249,6 +250,42 @@ class TestServeProcess:
             proc.stderr.close()
 
 
+    def test_module_entry_serves_the_env_spec_speculatively(self, tmp_path):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env.update(PYTHONPATH=str(ROOT), PLX_SERVE_SPEC=json.dumps(
+            {**TINY_SPEC, "port": 0, "speculative": {"draft": "llama-tiny", "k": 3}}))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "polyaxon_tpu_torch.serve.runtime"],
+            cwd=tmp_path, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            serving = json.loads(proc.stdout.readline())["serving"]
+            base = f"http://127.0.0.1:{serving['port']}"
+            deadline = time.monotonic() + 60
+            while _get(base + "/healthz")[0] != 200:
+                assert time.monotonic() < deadline, "never became ready"
+                time.sleep(0.1)
+            status, body, _ = _post(base + "/generate",
+                                    {"prompt": "hi", "max_new_tokens": 5})
+            assert status == 200 and len(json.loads(body)["tokens"]) == 5
+            stats = json.loads(_get(base + "/stats")[1])
+            # the draft is the target itself: every proposal is accepted
+            assert stats["spec_tokens_accepted"] == stats["spec_tokens_proposed"] > 0
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=30) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+            proc.stdout.close()
+            proc.stderr.close()
+        env.pop("PLX_SERVE_SPEC")
+        missing = subprocess.run([sys.executable, "-m", "polyaxon_tpu_torch.serve.runtime"],
+                                 cwd=tmp_path, env=env, capture_output=True, text=True,
+                                 timeout=60)
+        assert missing.returncode != 0 and "PLX_SERVE_SPEC not set" in missing.stderr
+
+
 class TestChipSmokeRehearsal:
     """chip_smoke.py's main-path phases, at llama-tiny size on the CPU: the
     same concurrent requests, the same staggered prefix sharer, the same
@@ -273,3 +310,20 @@ class TestChipSmokeRehearsal:
                                        timed_steps=1)
         # f32 on the CPU: the plain version and gather agree to f32 noise
         assert cmp["max_logit_diff"] < 1e-5
+
+    def test_spec_phase(self, monkeypatch):
+        """The spec phase at llama-tiny with itself as the draft: every
+        proposal accepted, every row's tokens back, no audit violation."""
+        sys.path.insert(0, str(ROOT))
+        try:
+            import chip_smoke
+        finally:
+            sys.path.remove(str(ROOT))
+        monkeypatch.setattr(chip_smoke, "PROMPT_LENGTHS", (10, 23, 40, 55))
+        monkeypatch.setattr(chip_smoke, "SHARED_PREFIX", 8)
+        spec = {**TINY_SPEC, "max_slots": 4, "max_seq_len": 128,
+                "speculative": {"draft": "llama-tiny", "k": 3}}
+        out = chip_smoke.spec_phase(torch, spec, chip_smoke.make_prompts(256), 6)
+        assert out["iterations"] > 0 and out["launches"] == 0
+        assert out["acceptance"] == 1.0 and out["kv_audit_violations"] == 0
+        assert out["timed_rows"] == 4 and len(out["iteration_host_ms"]) == 8

@@ -222,7 +222,7 @@ def test_exhausted_skip_budget_raises_with_history(jax_run):
 
 
 @pytest.mark.parametrize("over", [dict(parallelism={"data": 2}), dict(num_slices=2),
-                                  dict(checkpoint={"directory": "x"})])
+                                  dict(parallelism={"fsdp": 2})])
 def test_the_trainer_refuses_what_is_not_ported(over):
     _, tcfg = _configs(**over)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
