@@ -75,13 +75,30 @@ non-zero:
    ``export_hf_llama``, its ``import:`` must equal those of an engine on
    the in-memory params, bit for bit. The files go in a temporary
    directory that is removed after.
-10. profiles — ``torch.profiler``'s split of the compare phase's decode
+10. bridge — the control-plane bridge, reporting to an in-process stdlib
+   recorder of the API (``PLX_API_HOST``) with a temporary artifacts
+   directory (removed after). bridge_train: the train phase's
+   ``run_builtin`` with ``progress_interval`` and ``resources: {interval:
+   1}``: the recorder must receive ``running`` then ``succeeded``,
+   progress heartbeats carrying the step, outputs whose ``mfu`` and
+   ``tokens_per_sec_per_chip`` equal the ``{"final"}`` summary; the run's
+   events must hold ``gpu0_mem_gib``; the flash launches must still equal
+   their formula; it prints the host seconds spent inside the bridge's
+   callbacks per step. bridge_serve: ``start_replica`` with
+   ``report_interval: 0.5`` and the watchdog on, 8 requests of 128 new
+   tokens: heartbeats carry the ``serve`` payload, a
+   ``serve-drain-0.json`` marker written while they decode flips /healthz
+   to 503 and refuses a new request while they finish, removing it
+   reopens admission, and the paged launches equal decode steps x 22.
+11. profiles — ``torch.profiler``'s split of the compare phase's decode
    step per impl, of a training microbatch and the AdamW tail, and of a
-   speculative iteration's draft steps against its verify step. They run
-   last: once the profiler has run, every later kernel launch in the
-   process pays CUPTI's overhead, which would inflate the host-clock
-   readings of the phases above.
-11. the ``{"kernels": [...]}`` line, then the last line
+   speculative iteration's draft steps against its verify step, then
+   bridge_profile: ``run_builtin`` with ``profile: {steps: 1}`` must write
+   a non-empty Chrome trace under ``outputs/profile`` and post its
+   ``profile`` artifact. They run last: once the profiler has run, every
+   later kernel launch in the process pays CUPTI's overhead, which would
+   inflate the host-clock readings of the phases above.
+12. the ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs one card and the repository checkout around this file; imports
@@ -1514,6 +1531,281 @@ def restore_phase(torch, fa, train_spec: dict, serve_spec: dict) -> dict:
     return out
 
 
+# -- the control-plane bridge ----------------------------------------------------
+
+# what the bridge phase adds to the train phase's spec: a progress beat at
+# most every second and resource samples every second (chaos stays off)
+BRIDGE_TRAIN_KEYS = {"progress_interval": 1.0, "resources": {"interval": 1}}
+# the serve phase's settings, the reporter beating twice a second, the
+# decode watchdog on (its defaults)
+BRIDGE_SERVE_KEYS = {"report_interval": 0.5, "watchdog": True}
+# the drain check's requests: long enough that they are still decoding
+# when the reporter reads the marker (it reads every report_interval)
+BRIDGE_MAX_NEW = 2 * MAX_NEW
+# the profile run: the train spec's widths and depth, fewer microbatches,
+# the last of its steps traced
+PROFILE_SPEC = {"steps": 3, "batch_size": 4, "microbatches": 2, "profile": {"steps": 1}}
+
+
+class ApiRecorder:
+    """The control plane's API as a pod sees it, on the standard library:
+    every POST answers 200 and is recorded as (verb, body), the verb being
+    the path's last segment (statuses, heartbeat, outputs, lineage)."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.records: list = []
+        lock = threading.Lock()
+        records = self.records
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length") or 0)
+                raw = self.rfile.read(n) if n else b""
+                with lock:
+                    records.append((self.path.rsplit("/", 1)[-1],
+                                    json.loads(raw) if raw else None))
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def bodies(self, verb: str) -> list:
+        return [b for v, b in list(self.records) if v == verb]
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class BridgeEnv:
+    """A recorder as the API host and a temporary artifacts directory, in
+    the environment the control plane gives a pod; both removed after."""
+
+    KEYS = ("PLX_API_HOST", "PLX_ARTIFACTS_PATH", "PLX_RUN_UUID", "PLX_PROJECT")
+
+    def __init__(self, run_uuid: str):
+        import tempfile
+
+        self.recorder = ApiRecorder()
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_bridge_")
+        self._saved = {k: os.environ.get(k) for k in self.KEYS}
+        os.environ.update(PLX_API_HOST=self.recorder.url, PLX_ARTIFACTS_PATH=self.dir,
+                          PLX_RUN_UUID=run_uuid, PLX_PROJECT="chip-smoke")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        import shutil
+
+        for k, v in self._saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        self.recorder.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def bridge_train_phase(torch, fa, spec: dict) -> dict:
+    """The train phase's ``run_builtin`` with the tracking bridge on,
+    reporting to the recorder: the statuses, progress heartbeats and
+    outputs it received, the GPU samples in the run's events, and the
+    flash launches against their formula. ``bridge_host_s_per_step`` is
+    the host time spent inside the bridge's callbacks, per step."""
+    from polyaxon_tpu_torch.models import REGISTRY
+    from polyaxon_tpu_torch.runtime.builtin import run_builtin
+    from polyaxon_tpu_torch.tracking import read_events
+
+    spec = {**spec, **BRIDGE_TRAIN_KEYS}
+    with BridgeEnv("chip-smoke-train") as env:
+        fa.reset_launch_counts()
+        t0 = time.monotonic()
+        summary = run_builtin(dict(spec))
+        wall_s = time.monotonic() - t0
+        launches = dict(fa.launch_counts)
+        rec = env.recorder
+        statuses = [b["status"] for b in rec.bodies("statuses")]
+        beats = [b for b in rec.bodies("heartbeat") if b and "step" in b]
+        outputs: dict = {}
+        for b in rec.bodies("outputs"):
+            outputs.update(b)
+        gpu_mem = [e.metric for e in read_events(env.dir, "metric", "gpu0_mem_gib")]
+        gpu_peak = [e.metric for e in read_events(env.dir, "metric", "gpu0_mem_peak_gib")]
+        lineage = [b["name"] for b in rec.bodies("lineage")]
+    expected = flash_launch_formula(spec, REGISTRY[spec["model"]][1].num_layers)
+    out = {"statuses": statuses, "progress_steps": [b["step"] for b in beats],
+           "outputs_mfu": outputs.get("mfu"),
+           "outputs_tokens_per_sec_per_chip": outputs.get("tokens_per_sec_per_chip"),
+           "final_mfu": summary["mfu"],
+           "final_tokens_per_sec_per_chip": summary["tokens_per_sec_per_chip"],
+           "gpu0_mem_gib_samples": len(gpu_mem),
+           "gpu0_mem_gib_max": max(gpu_mem, default=None),
+           "gpu0_mem_peak_gib_max": max(gpu_peak, default=None),
+           "lineage": lineage, "launches": launches, "expected_launches": expected,
+           "step_time_p50_ms": summary["step_time_p50_ms"], "wall_s": wall_s,
+           "bridge_host_s": summary["bridge_host_s"],
+           "bridge_host_s_per_step": summary["bridge_host_s"] / int(spec["steps"]),
+           "posts": len(rec.records)}
+    if statuses != ["running", "succeeded"]:
+        raise AssertionError(f"statuses received {statuses}, want running then succeeded")
+    if not beats or not any(b["step"] >= 0 for b in beats):
+        raise AssertionError("no progress heartbeat carried a step")
+    if beats[-1]["step"] != int(spec["steps"]):
+        raise AssertionError(f"last progress step {beats[-1]['step']} != {spec['steps']}")
+    if "mfu" not in outputs or outputs["mfu"] != summary["mfu"] \
+            or outputs.get("tokens_per_sec_per_chip") != summary["tokens_per_sec_per_chip"]:
+        raise AssertionError(f"outputs mfu/tokens {outputs.get('mfu')}/"
+                             f"{outputs.get('tokens_per_sec_per_chip')} != final "
+                             f"{summary['mfu']}/{summary['tokens_per_sec_per_chip']}")
+    return out
+
+
+def _healthz(base: str) -> int:
+    try:
+        with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def _wait_healthz(base: str, status: int, timeout: float = 30.0) -> float:
+    t0 = time.monotonic()
+    while _healthz(base) != status:
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"/healthz never answered {status}")
+        time.sleep(0.02)
+    return time.monotonic() - t0
+
+
+def bridge_serve_phase(torch, spec: dict, prompts: list, max_new: int) -> dict:
+    """``start_replica`` (the serve runtime's replica, as a pod runs it)
+    with the reporter and the watchdog, reporting to the recorder: the
+    heartbeats carry the ``serve`` payload; a drain marker written while
+    requests decode flips /healthz to 503 and refuses a new request while
+    the in-flight ones finish; removing it reopens admission; the paged
+    kernel's launches equal decode steps x layers."""
+    from polyaxon_tpu_torch.serve.runtime import start_replica
+
+    pa = importlib.import_module("polyaxon_tpu_torch.ops.paged_attention")
+    with BridgeEnv("chip-smoke-serve") as env:
+        rep = start_replica({**spec, **BRIDGE_SERVE_KEYS, "port": 0})
+        engine, base = rep.engine, f"http://127.0.0.1:{rep.port}"
+        try:
+            wait_healthy(base)
+            pa.reset_launch_counts()
+            steps0, done0 = engine.decode_steps, engine.snapshot()["requests_total"]
+            results: list = []
+            # every request at once (no staggered prefix sharer): all are
+            # accepted before the marker closes admission
+            sender = threading.Thread(
+                target=lambda: results.extend(
+                    drive_requests(base, prompts, max_new, shared_rows=(-1, -1))),
+                daemon=True)
+            sender.start()
+            deadline = time.monotonic() + 300
+            while (engine.running_count + engine.waiting_count
+                   + engine.snapshot()["requests_total"] - done0) < len(prompts):
+                if time.monotonic() > deadline or not sender.is_alive():
+                    raise TimeoutError("the requests were not all accepted")
+                time.sleep(0.002)
+            marker = os.path.join(env.dir, "serve-drain-0.json")
+            with open(marker, "w", encoding="utf-8") as f:
+                json.dump({"replica": 0, "expires_at": time.time() + 600}, f)
+            t_marker = time.monotonic()
+            while not engine.draining:
+                if time.monotonic() - t_marker > 30:
+                    raise TimeoutError("the reporter never read the drain marker")
+                time.sleep(0.001)
+            in_flight = engine.running_count + engine.waiting_count
+            drain_s = time.monotonic() - t_marker
+            _wait_healthz(base, 503)
+            try:
+                with _post(base + "/generate", {"tokens": [1, 2, 3], "max_new_tokens": 2}):
+                    refused = None
+            except urllib.error.HTTPError as e:
+                refused = e.code
+            sender.join(timeout=600)
+            if sender.is_alive():
+                raise TimeoutError("the in-flight requests did not finish while draining")
+            os.unlink(marker)
+            reopen_s = _wait_healthz(base, 200)
+            launches = pa.launch_counts["paged_decode"]
+            steps = engine.decode_steps - steps0
+            time.sleep(2 * BRIDGE_SERVE_KEYS["report_interval"])
+        finally:
+            rep.close()
+            rep.run.end()
+        rec = env.recorder
+        beats = [b for b in rec.bodies("heartbeat") if b and "serve" in b]
+        outputs: dict = {}
+        for b in rec.bodies("outputs"):
+            outputs.update(b)
+        statuses = [(b["status"], b.get("reason")) for b in rec.bodies("statuses")]
+    layers = engine.cfg.num_layers
+    out = {"heartbeats": len(beats), "draining_beats": sum(b["serve"]["draining"] for b in beats),
+           "history_series": len((beats[-1].get("metrics") or {}).get("series", []))
+           if beats else 0,
+           "statuses": statuses, "drain_503_after_s": drain_s, "in_flight_at_503": in_flight,
+           "new_request_during_drain": refused, "reopen_200_after_s": reopen_s,
+           "requests_done": len(results), "launches": launches, "decode_steps": steps,
+           "layers": layers, "serve_tokens_per_sec": outputs.get("serve_tokens_per_sec"),
+           "serve_ttft_p50_ms": outputs.get("serve_ttft_p50_ms"),
+           "serve_ttft_p95_ms": outputs.get("serve_ttft_p95_ms"),
+           "watchdog_fired": rep.watchdog.fired}
+    if not beats:
+        raise AssertionError("no heartbeat carried the serve payload")
+    if not out["draining_beats"]:
+        raise AssertionError("no heartbeat reported the drain")
+    if in_flight <= 0:
+        raise AssertionError("the marker's drain began after the requests had finished")
+    if refused != 503:
+        raise AssertionError(f"a request during the drain answered {refused}, not 503")
+    if len(results) != len(prompts) or any(len(r["tokens"]) != max_new for r in results):
+        raise AssertionError("an in-flight request did not finish during the drain")
+    if steps <= 0:
+        raise AssertionError("no decode step ran")
+    if outputs.get("serve_tokens_per_sec") is None or outputs.get("serve_ttft_p50_ms") is None:
+        raise AssertionError(f"serve outputs missing: {sorted(outputs)}")
+    if rep.watchdog.fired:
+        raise AssertionError("the decode watchdog fired")
+    return out
+
+
+def bridge_profile_phase(torch, spec: dict) -> dict:
+    """``profile: {steps: 1}`` through ``run_builtin``: a non-empty
+    Chrome trace under ``outputs/profile`` and its ``profile`` artifact."""
+    from polyaxon_tpu_torch.runtime.builtin import run_builtin
+
+    spec = {**spec, **PROFILE_SPEC}
+    with BridgeEnv("chip-smoke-profile") as env:
+        summary = run_builtin(dict(spec))
+        trace = os.path.join(env.dir, "outputs", "profile", "trace.json")
+        size = os.path.getsize(trace) if os.path.exists(trace) else 0
+        with open(trace, encoding="utf-8") as f:
+            events = json.load(f).get("traceEvents", [])
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        lineage = [b["name"] for b in env.recorder.bodies("lineage")]
+    out = {"trace_bytes": size, "trace_events": len(events), "kernel_events": kernels,
+           "lineage": lineage, "measured_steps": summary["steps"]}
+    if size <= 0 or not events:
+        raise AssertionError("the profile trace is empty")
+    if "profile" not in lineage:
+        raise AssertionError(f"no profile artifact in the lineage posts {lineage}")
+    return out
+
+
 # -- main --------------------------------------------------------------------
 
 
@@ -1593,6 +1885,25 @@ def main() -> int:
     log("restore", **restore_phase(torch, fa, TRAIN_SPEC, SERVE_SPEC))
     gc.collect()
     torch.cuda.empty_cache()
+    bridged = bridge_train_phase(torch, fa, TRAIN_SPEC)
+    log("bridge_train", **bridged)
+    if not bridged["outputs_mfu"]:
+        raise AssertionError("the bridged run's outputs carry no MFU")
+    if not bridged["gpu0_mem_gib_samples"]:
+        raise AssertionError("no gpu0_mem_gib in the run's resource events")
+    if bridged["launches"] != bridged["expected_launches"]:
+        raise AssertionError(f"bridged flash launches {bridged['launches']} != formula "
+                             f"{bridged['expected_launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    drained = bridge_serve_phase(torch, SERVE_SPEC, make_prompts(vocab), BRIDGE_MAX_NEW)
+    log("bridge_serve", **drained)
+    if drained["launches"] != drained["decode_steps"] * drained["layers"]:
+        raise AssertionError(f"paged_decode launched {drained['launches']} times over "
+                             f"{drained['decode_steps']} decode steps x "
+                             f"{drained['layers']} layers (bridged)")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # the profiler last: once torch.profiler has run, every later kernel
     # launch in the process pays CUPTI's overhead (a tiny launch's host
@@ -1606,6 +1917,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log("spec_profile", **spec_profile_phase(torch, SPEC_SPEC, make_prompts(vocab)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("bridge_profile", **bridge_profile_phase(torch, TRAIN_SPEC))
 
     main_row = kernel_rows[0]  # D=64 bf16: the shape the main path gives it
     kernels = [{

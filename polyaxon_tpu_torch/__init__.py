@@ -13,5 +13,8 @@ Layout mirrors the JAX package so each counterpart is found by name:
 attention, flash and paged attention), ``serve/`` (kv cache, decode model,
 engine, server, runtime), ``train/`` (optimizers, data, tasks, meter,
 watchdog, trainer), ``runtime/`` (the builtin training entry), ``obs/``
-(metrics). This package never imports JAX or ``polyaxon_tpu``.
+(metrics, the heartbeat's history buffer), ``tracking/`` (run events,
+outputs, heartbeats and the API client a pod reports through),
+``resilience/`` (the HTTP retry policy, trainer and serving fault
+injection). This package never imports JAX or ``polyaxon_tpu``.
 """

@@ -26,18 +26,41 @@ Spec keys (the JAX runtime's, as far as the port goes):
         newest complete one); resume beats re-fork too.
     platform: "cuda" (the default; raises without a CUDA device) or "cpu",
     which must be asked for.
+    progress_interval: seconds between progress heartbeats (default 2).
+    chaos: {hang_at_step, nan_at_step, nan_count, straggler_at_step,
+        straggler_sleep_s, hang_sleep_s} — trainer fault injection, its
+        budgets kept in the artifacts directory across attempts.
+    resources: host and GPU memory telemetry into the run's events every
+        10 s (the default, true); false disables, {interval: N} tunes.
+    profile: true or {steps: N} (3) — after the measured steps, trace the
+        last N steps with ``torch.profiler`` into ``outputs/profile`` as a
+        Chrome trace. The summary's meter keys read the steps before the
+        profiler: once it has run, every launch in the process costs more
+        host time.
 
 Every other key raises, naming the ROADMAP item that ports it: a key is
-never ignored. The tracking bridge (run metrics, spans, outputs) waits for
-ROADMAP A5; until then each logged step prints a ``{"step": ...}`` line,
-the summary prints as ``{"final": {...}}`` and, when
-``PLX_ARTIFACTS_PATH`` is set, lands in ``outputs/final.json`` there.
+never ignored.
+
+Tracking. When the control plane launched the process (``PLX_RUN_UUID``,
+``PLX_ARTIFACTS_PATH`` or ``PLX_API_HOST`` is set), the primary process
+owns a tracked run (``polyaxon_tpu_torch.tracking``), as the JAX runtime
+does: the logged steps' metrics go to its events and the meter keys to its
+outputs, spans mark the first step, the train window, saves, rollbacks and
+a stall, progress heartbeats carry the step, and the end sends the summary
+as outputs with the ``checkpoints`` artifact. The run also reports its own
+``running`` and ``succeeded`` statuses (the JAX runtime leaves both to the
+agent; under an agent they are no-change edges). Each logged step also prints
+a ``{"step": ...}`` line, and the summary prints as ``{"final": {...}}``
+and, when ``PLX_ARTIFACTS_PATH`` is set, lands in ``outputs/final.json``
+there.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import time
 from dataclasses import replace
 from typing import Any, Callable, Optional
 
@@ -48,16 +71,12 @@ from ..train.checkpoint import CheckpointConfig
 #: keys of the JAX runtime the port does not take yet -> ROADMAP item
 _NOT_PORTED = {
     "lora": "A12 (LoRA)",
-    "profile": "A5 (profiling into run artifacts)",
     "partition_rules": "A6 (sharding rules)",
     "pp_microbatches": "A9 (pipeline)",
     "pp_remat_ticks": "A9 (pipeline)",
     "pp_gate": "A9 (pipeline)",
     "moe_dispatch": "A10 (MoE)",
     "moe_cap_block": "A10 (MoE)",
-    "chaos": "A5 (trainer chaos injection)",
-    "resources": "A5 (resource telemetry)",
-    "progress_interval": "A5 (progress heartbeats)",
     "num_cpu_devices": "A6 (device meshes)",
     "image_size": "A11 (vision models)",
 }
@@ -69,33 +88,44 @@ _KNOWN = {
     "nu_dtype", "grad_dtype", "accum_dtype", "microbatches", "data", "log_interval",
     "anomaly_skip_budget", "anomaly_rollback_budget", "watchdog", "parallelism",
     "num_slices", "checkpoint", "import", "fork_from", "platform",
+    "progress_interval", "chaos", "resources", "profile",
 }
 _CHECKPOINT_KEYS = {"save_interval_steps", "max_to_keep", "async_save"}
 _IMPORT_KEYS = {"path", "layout", "dtype", "key_map", "transpose"}
 _FORK_KEYS = {"path", "step"}
+_CHAOS_KEYS = {"hang_at_step", "nan_at_step", "nan_count", "straggler_at_step",
+               "straggler_sleep_s", "hang_sleep_s"}
+#: the meter's keys, which every tracked interval also sends as run outputs
+METER_KEYS = ("steps", "step_time_ms", "step_time_p50_ms", "step_time_p95_ms",
+              "tokens_per_sec", "tokens_per_sec_per_chip", "achieved_tflops_per_chip",
+              "mfu")
 
 
 def _refuse_unsupported(spec: dict) -> None:
     """Raise on every key or value the port does not support."""
     for key, value in spec.items():
         if key in _NOT_PORTED:
-            # `resources: false` asks for what the port does anyway
-            if key == "resources" and value is False:
+            # an empty rule list is the one-device default the compiler
+            # may pass on from the run
+            if key == "partition_rules" and not value:
                 continue
             raise SystemExit(f"{key}: not ported to polyaxon_tpu_torch yet "
                              f"(ROADMAP {_NOT_PORTED[key]})")
         if key not in _KNOWN:
             raise SystemExit(f"unknown spec key {key!r} for the port's builtin runtime")
     for key, allowed in (("checkpoint", _CHECKPOINT_KEYS), ("import", _IMPORT_KEYS),
-                         ("fork_from", _FORK_KEYS)):
+                         ("fork_from", _FORK_KEYS), ("chaos", _CHAOS_KEYS),
+                         ("resources", {"interval"}), ("profile", {"steps"})):
         value = spec.get(key)
         if isinstance(value, dict):
             unknown = set(value) - allowed
             if unknown:
                 raise SystemExit(f"{key}: unknown keys {sorted(unknown)}; "
                                  f"valid: {sorted(allowed)}")
-        elif key != "checkpoint" and value is not None:
+        elif key in ("import", "fork_from") and value is not None:
             raise SystemExit(f"{key}: needs a mapping with a path, got {value!r}")
+        elif key == "chaos" and value is not None:
+            raise SystemExit(f"chaos: needs a mapping, got {value!r}")
     for key in ("import", "fork_from"):
         if spec.get(key) is not None and not spec[key].get("path"):
             raise SystemExit(f"{key}: needs a path")
@@ -138,10 +168,14 @@ def _accelerator(device: torch.device) -> Optional[str]:
 
 
 def build_trainer(spec: dict[str, Any],
-                  track: Optional[Callable[[int, dict], None]] = None):
+                  track: Optional[Callable[[int, dict], None]] = None,
+                  bridge: Optional["TrackingBridge"] = None,
+                  artifacts_dir: Optional[str] = None):
     """The spec's Trainer and its data stream (at batch 0), as
     :func:`run_builtin` trains them; raises on every key the port does not
-    support."""
+    support. ``bridge`` hooks a tracked run into the trainer;
+    ``artifacts_dir`` (default ``$PLX_ARTIFACTS_PATH``, else the working
+    directory) holds the checkpoints and the chaos budgets."""
     from ..models import REGISTRY
     from ..train import (
         DataConfig, OptimizerConfig, Trainer, TrainerConfig, make_batches, task_for,
@@ -173,7 +207,8 @@ def build_trainer(spec: dict[str, Any],
 
     steps = int(spec.get("steps", 100))
     batch_size = int(spec.get("batch_size", 8))
-    artifacts_dir = os.environ.get("PLX_ARTIFACTS_PATH", os.getcwd())
+    if artifacts_dir is None:
+        artifacts_dir = os.environ.get("PLX_ARTIFACTS_PATH", os.getcwd())
     ckpt_spec = spec.get("checkpoint")
     ckpt_kw = ckpt_spec if isinstance(ckpt_spec, dict) else {}
     ckpt = CheckpointConfig(
@@ -214,10 +249,20 @@ def build_trainer(spec: dict[str, Any],
 
     def _track(step: int, metrics: dict) -> None:
         print(json.dumps({"step": step, **metrics}), flush=True)
+        if bridge is not None:
+            bridge.track(step, metrics)
         if track is not None:
             track(step, metrics)
 
-    trainer = Trainer(tcfg, device=device, task=task, track=_track)
+    from ..resilience.chaos import TrainerChaos
+
+    hooks = {} if bridge is None else dict(
+        on_span=bridge.on_span, on_progress=bridge.on_progress,
+        on_stalled=bridge.on_stalled, log_line=bridge.log_line)
+    trainer = Trainer(tcfg, device=device, task=task, track=_track,
+                      chaos=TrainerChaos.from_spec(spec.get("chaos"),
+                                                   state_dir=artifacts_dir),
+                      **hooks)
     data_spec = dict(spec.get("data") or {})
     batches = make_batches(DataConfig(
         kind=data_spec.get("kind", task.default_data_kind), batch_size=batch_size,
@@ -225,27 +270,161 @@ def build_trainer(spec: dict[str, Any],
     return trainer, batches
 
 
+def _timed(method):
+    """Add the host time spent inside ``method`` to the bridge's ``host_s``."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            self.host_s += time.perf_counter() - t0
+    return wrapper
+
+
+class TrackingBridge:
+    """The trainer's hooks into a tracked run, as the JAX runtime wires
+    them: each logged step's metrics into the run's events and the meter
+    keys into its outputs, spans, rate-limited progress heartbeats, and a
+    ``TrainingStalled`` status before the watchdog's hard exit. ``host_s``
+    is the host time spent inside these callbacks (the bridge's cost)."""
+
+    def __init__(self, run, progress_interval: float = 2.0):
+        self.run = run
+        self.progress_interval = float(progress_interval)
+        self._last_beat = float("-inf")
+        self.host_s = 0.0
+
+    @_timed
+    def track(self, step: int, metrics: dict) -> None:
+        self.run.log_metrics(step=step, **{
+            k: v for k, v in metrics.items() if isinstance(v, (int, float))})
+        self.run.log_outputs(**{k: metrics[k] for k in METER_KEYS if k in metrics})
+
+    @_timed
+    def on_span(self, name: str, start: float, end: float, **meta: Any) -> None:
+        self.run.log_span(name, start, end, **meta)
+
+    @_timed
+    def on_progress(self, step: int, anomalies: dict, rollbacks: int) -> None:
+        now = time.monotonic()
+        if now - self._last_beat < self.progress_interval:
+            return
+        self._last_beat = now
+        self.run.report_progress(step, anomalies=dict(anomalies), rollbacks=rollbacks)
+
+    def on_stalled(self, step: int, waited: float, limit: float) -> None:
+        # a structured status and a durable flush: the watchdog hard-exits
+        # right after this, and the epitaph must survive the process
+        self.run.log_status(
+            "running", reason="TrainingStalled",
+            message=f"no step completed for {waited:.1f}s (limit {limit:.1f}s, "
+                    f"last step {step}); watchdog hard-exit -> retry budget")
+        self.run.flush()
+
+    @_timed
+    def log_line(self, line: str) -> None:
+        self.run.log_line(line)
+        print(line, flush=True)
+
+
+def _is_primary() -> bool:
+    """Rank 0 of a process group, or the only process."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def _tracked_run():
+    """The process's tracked run when the control plane launched it and
+    this is the primary process, else None (a library call with no PLX_*
+    environment writes no run directory)."""
+    from .. import tracking
+    from ..tracking.run import ENV_API_HOST, ENV_ARTIFACTS_PATH, ENV_RUN_UUID
+
+    launched = any(os.environ.get(k) for k in (ENV_RUN_UUID, ENV_ARTIFACTS_PATH,
+                                               ENV_API_HOST))
+    return tracking.get_run() if launched and _is_primary() else None
+
+
 def run_builtin(spec: dict[str, Any],
                 track: Optional[Callable[[int, dict], None]] = None) -> dict[str, Any]:
     """Train ``spec['model']`` for ``spec['steps']`` steps and return the
     summary. ``track(step, metrics)``, when given, also receives each
-    logged step's metrics (a library caller's stand-in for tracking)."""
+    logged step's metrics."""
+    _refuse_unsupported(spec)  # before a run directory or a device is touched
+    run = _tracked_run()
+    try:
+        return _run_builtin(spec, track, run)
+    except BaseException:
+        if run is not None:
+            run.end()  # flush and close the writers of a failed attempt
+        raise
+
+
+def _run_builtin(spec: dict, track, run) -> dict[str, Any]:
     from ..train.trainer import TrainingDivergedError
 
-    trainer, batches = build_trainer(spec, track)
+    artifacts_dir = (run.run_dir if run is not None
+                     else os.environ.get("PLX_ARTIFACTS_PATH", os.getcwd()))
+    bridge = None
+    if run is not None:
+        # a leftover progress.json describes a dead attempt
+        try:
+            os.unlink(os.path.join(artifacts_dir, run.PROGRESS_FILE))
+        except OSError:
+            pass
+        bridge = TrackingBridge(run, float(spec.get("progress_interval", 2.0)))
+    trainer, batches = build_trainer(spec, track, bridge=bridge,
+                                     artifacts_dir=artifacts_dir)
+    if run is not None:
+        # the pod reports its own lifecycle edges; under an agent they are
+        # no-change edges the control plane answers 200 to
+        run.log_status("running", reason="Training",
+                       message=f"{spec.get('model', 'llama-tiny')} on {trainer.device}")
     device, steps = trainer.device, trainer.cfg.optimizer.total_steps
+    t_restore = time.time()
     state, start_step = trainer.restore_or_init(
         init_params=_initial_params(spec, trainer, trainer.cfg.model, device))
+    if run is not None:
+        run.log_span("restore", t_restore, time.time(), resumed_from_step=int(start_step))
     # a resumed run continues the data stream where the checkpoint left it
     batches.skip(start_step)
+    res_spec = spec.get("resources", True)
+    res_logger = None
+    if run is not None and res_spec is not False:
+        from ..tracking import ResourceLogger
+
+        interval = float(res_spec.get("interval", 10.0)) if isinstance(res_spec, dict) else 10.0
+        res_logger = ResourceLogger(run, interval=interval).start()
     try:
-        _, metrics = trainer.fit(batches, num_steps=steps, state=state)
+        metrics = _fit(spec, trainer, batches, state, steps, artifacts_dir, run)
     except TrainingDivergedError as e:
+        if run is not None:
+            run.log_outputs(
+                diverged=True,
+                train_anomalies_loss=int(e.anomalies.get("loss", 0)),
+                train_anomalies_grad=int(e.anomalies.get("grad", 0)),
+                train_rollbacks=int(e.rollbacks), anomaly_history=e.history,
+                resumed_from_step=int(start_step))
+            run.log_status("failed", reason="TrainingDiverged", message=str(e))
         raise SystemExit(f"training diverged: {e}") from e
+    finally:
+        if res_logger is not None:
+            res_logger.stop()
     summary = {k: v for k, v in metrics.items() if isinstance(v, (int, float)) or v is None}
     summary["resumed_from_step"] = int(start_step)
     summary["device"] = (torch.cuda.get_device_name(device) if device.type == "cuda"
                          else "cpu")
+    if run is not None:
+        summary["bridge_host_s"] = bridge.host_s
+        # the final beat lands the store's heartbeat step on the last step
+        run.report_progress(
+            steps, anomalies={"loss": summary.get("train_anomalies_loss", 0),
+                              "grad": summary.get("train_anomalies_grad", 0)},
+            rollbacks=int(summary.get("train_rollbacks", 0)))
+        run.log_outputs(**summary)
+        if trainer.checkpointer is not None:
+            run.log_artifact("checkpoints", "outputs/checkpoints", kind="checkpoint")
     artifacts = os.environ.get("PLX_ARTIFACTS_PATH")
     if artifacts:
         out_dir = os.path.join(artifacts, "outputs")
@@ -253,7 +432,42 @@ def run_builtin(spec: dict[str, Any],
         with open(os.path.join(out_dir, "final.json"), "w") as f:
             json.dump(summary, f)
     print(json.dumps({"final": summary}), flush=True)
+    if run is not None:
+        # last: once the control plane reads `succeeded` it may reap the pod
+        run.end(status="succeeded")
     return summary
+
+
+def _fit(spec: dict, trainer, batches, state, steps: int, artifacts_dir: str,
+         run) -> dict:
+    """Train to ``steps``; with ``profile``, trace the last N steps with
+    ``torch.profiler`` into ``outputs/profile``. The meter keys of the
+    result read the steps before the profiler (its CUPTI tracing slows
+    every later launch); the loss and the anomaly counts cover all."""
+    profile = spec.get("profile")
+    if not profile:
+        return trainer.fit(batches, num_steps=steps, state=state)[1]
+    prof_steps = int(profile.get("steps", 3)) if isinstance(profile, dict) else 3
+    split = max(steps - prof_steps, int(state.step))
+    measured = None
+    if split > state.step:
+        state, measured = trainer.fit(batches, num_steps=split, state=state)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if trainer.device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof_dir = os.path.join(artifacts_dir, "outputs", "profile")
+    os.makedirs(prof_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        state, profiled = trainer.fit(batches, num_steps=steps, state=state)
+    prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
+    if run is not None:
+        run.log_artifact("profile", "outputs/profile", kind="profile")
+    if measured is None:
+        return profiled
+    merged = {**profiled, **{k: measured[k] for k in METER_KEYS}}
+    for k in ("train_anomalies_loss", "train_anomalies_grad", "train_rollbacks"):
+        merged[k] = measured[k] + profiled[k]
+    return merged
 
 
 def _initial_params(spec: dict, trainer, mcfg, device) -> Optional[dict]:

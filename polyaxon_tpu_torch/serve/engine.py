@@ -26,8 +26,10 @@ request that admits can always finish. Request-path fault tolerance:
 idempotency ids (``request_id``), deadlines and server-side cancel, a
 bounded waiting queue with a throughput-derived Retry-After
 (:class:`EngineOverloadedError`), KV-pressure preemption of the newest
-running sequence, and drain (``begin_drain``). Prefix sharing maps cached
-full prompt blocks into a new request's table at admission.
+running sequence, and drain (``begin_drain`` / ``end_drain``). Prefix
+sharing maps cached full prompt blocks into a new request's table at
+admission. The loop beats an optional step ``watchdog`` and gives an
+optional ``chaos`` hook its chance to hang after each iteration.
 """
 
 from __future__ import annotations
@@ -252,6 +254,22 @@ class ServeEngine:
         self._draining = False
         self._ready = threading.Event()    # first successful step done
         self._blocked_since: Optional[float] = None  # head-of-line starving
+        # working-step durations feeding the watchdog's p95-scaled stall
+        # deadline; the first two worked steps build and warm the kernels
+        # and are left out, or one slow sample would lift the deadline for
+        # the replica's whole life
+        self._worked_steps = 0
+        self._step_durations: collections.deque = collections.deque(maxlen=256)
+        #: optional train.watchdog.StepWatchdog the loop beats; attach
+        #: before start()
+        self.watchdog = None
+        #: optional resilience.ServeChaos hook (fault injection)
+        self.chaos = None
+        # raw TTFT / inter-token samples since the last heartbeat drain
+        # (bounded: a replica whose reporter is slow keeps the newest)
+        self._obs_lock = threading.Lock()
+        self._ttft_obs: collections.deque = collections.deque(maxlen=512)
+        self._itl_obs: collections.deque = collections.deque(maxlen=2048)
 
         # -- meters ----------------------------------------------------------
         self.metrics = MetricsRegistry()
@@ -353,6 +371,11 @@ class ServeEngine:
         with self._lock:
             self._draining = True
         self._work.set()
+
+    def end_drain(self) -> None:
+        """Reopen admission (a cancelled scale-down)."""
+        with self._lock:
+            self._draining = False
 
     def await_drain(self, timeout: float = 30.0) -> bool:
         deadline = time.monotonic() + timeout
@@ -860,9 +883,15 @@ class ServeEngine:
         req.out_tokens.append(tok)
         if req.first_token_at is None:
             req.first_token_at = now
-            self._h_ttft.observe(now - req.created_at)
+            ttft = now - req.created_at
+            self._h_ttft.observe(ttft)
+            with self._obs_lock:
+                self._ttft_obs.append(round(ttft, 6))
         else:
-            self._h_itl.observe(now - req.last_token_at)
+            itl = now - req.last_token_at
+            self._h_itl.observe(itl)
+            with self._obs_lock:
+                self._itl_obs.append(round(itl, 6))
         req.last_token_at = now
         self._c_tokens.inc()
         req.stream.put(tok)
@@ -907,12 +936,39 @@ class ServeEngine:
                     or any(r is not None for r in self._slots)):
                 self._work.set()
             if prefilled or emitted:
+                # the engine pushed work through the model: readiness for
+                # /healthz, and a step-time sample for the watchdog
+                self._worked_steps += 1
+                if self._worked_steps > 2:
+                    self._step_durations.append(time.monotonic() - t0)
                 self._ready.set()
         return emitted
+
+    def step_p95_s(self) -> float:
+        """p95 of recent working-step durations (0 while empty) — the
+        watchdog's scaling input."""
+        if not self._step_durations:
+            return 0.0
+        return float(np.percentile(np.asarray(self._step_durations), 95))
+
+    def _beat_watchdog(self) -> None:
+        # beats start once the engine is READY: before the first worked
+        # step the watchdog's compile_grace_s applies (the first request
+        # builds and warms the kernels), and an early beat would end that
+        # window and read the build as a stall
+        if self.watchdog is None:
+            return
+        if self._ready.is_set():
+            self.watchdog.beat(self._decode_steps)
+        else:
+            # idle before any traffic: refresh the silence clock but keep
+            # the build window open for the first request
+            self.watchdog.touch()
 
     def _loop(self) -> None:
         while not self._stop.is_set():
             if not self._work.wait(timeout=0.5):
+                self._beat_watchdog()  # idle is not a stall
                 continue
             self._work.clear()
             try:
@@ -930,11 +986,18 @@ class ServeEngine:
                             r.stream.put(None)
                             r.done.set()
                             self._note_done_locked(r)
+            if self.chaos is not None:
+                # outside the scheduling lock: a wedged decode loop still
+                # ACCEPTS requests (they pile into the bounded queue and
+                # shed), as a device call that never returns would
+                self.chaos.maybe_hang(int(self._c_requests.value))
+            self._beat_watchdog()
 
     # -- traffic snapshot ------------------------------------------------------
 
     def snapshot(self) -> dict:
-        """Cumulative counters + instantaneous gauges (the /stats body)."""
+        """Cumulative counters + instantaneous gauges (the /stats body and
+        the heartbeat's ``serve`` payload)."""
         elapsed = max(time.monotonic() - self._started_at, 1e-9)
         return {
             "running": self.running_count,
@@ -965,6 +1028,17 @@ class ServeEngine:
             "drained": bool(self.drained) if self._draining else False,
             "ready": self.ready,
         }
+
+    def drain_observations(self, max_each: int = 256) -> dict:
+        """Raw TTFT / inter-token samples since the last drain (bounded):
+        the heartbeat ships them so the control plane's histograms observe
+        real values, not a lossy re-aggregation."""
+        with self._obs_lock:
+            ttft = [self._ttft_obs.popleft()
+                    for _ in range(min(max_each, len(self._ttft_obs)))]
+            itl = [self._itl_obs.popleft()
+                   for _ in range(min(max_each, len(self._itl_obs)))]
+        return {"ttft": ttft, "itl": itl}
 
 
 def params_device(params: dict) -> torch.device:

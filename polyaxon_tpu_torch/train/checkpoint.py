@@ -29,6 +29,13 @@ Orbax save is: ``maybe_save`` copies the state to the host and returns;
 a thread writes, publishes, hashes and rotates (``max_to_keep``).
 ``wait()`` joins it. ``read_only=True`` (a serving replica borrowing a
 training run's directory) never creates a directory and never writes.
+
+The JAX package's Orbax checkpointer writes the same manifests over steps
+the port cannot read (``_CHECKPOINT_METADATA`` and ``default/``, no
+``state.pt``). Such a foreign step is refused by name
+(:class:`ForeignCheckpointError`) by every restore, and no manifest flush,
+rotation or purge touches it: a run moved from the JAX runtime to the
+port must not lose its resume point silently.
 """
 
 from __future__ import annotations
@@ -46,6 +53,13 @@ from typing import Any, Optional
 import torch
 
 STATE_FILE = "state.pt"
+#: what an Orbax step directory of the JAX package holds instead
+ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "default")
+
+
+class ForeignCheckpointError(RuntimeError):
+    """The directory holds steps in the JAX package's Orbax format. The
+    port cannot read them, and it never purges or quarantines them."""
 
 
 @dataclass(frozen=True)
@@ -153,6 +167,28 @@ class Checkpointer:
         if self._writing is not None:
             steps.add(self._writing)
         return sorted(steps)
+
+    def foreign_steps(self) -> list[int]:
+        """Published steps in the JAX package's Orbax format: no
+        ``state.pt``, but Orbax's ``_CHECKPOINT_METADATA`` or ``default/``."""
+        out = []
+        for s in self.all_steps():
+            root = self._step_dir(s)
+            if s == self._writing or os.path.exists(os.path.join(root, STATE_FILE)):
+                continue
+            if any(os.path.exists(os.path.join(root, m)) for m in ORBAX_MARKERS):
+                out.append(s)
+        return out
+
+    def _refuse_foreign(self) -> None:
+        foreign = self.foreign_steps()
+        if foreign:
+            raise ForeignCheckpointError(
+                f"checkpoint steps {foreign} under {self.cfg.directory} are in the "
+                f"JAX package's Orbax format (_CHECKPOINT_METADATA, default/), which "
+                f"the port cannot read; export the params with the reference's "
+                f"partition tooling (polyaxon_tpu.partition.convert.save_flat or "
+                f"export_hf_llama) and start from them with `import: {{path: ...}}`")
 
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
@@ -263,7 +299,8 @@ class Checkpointer:
         if self.read_only:
             return
         with self._flush_lock:
-            live = [s for s in self.all_steps() if s != self._writing]
+            foreign = set(self.foreign_steps())  # never rotated, hashed or unlinked
+            live = [s for s in self.all_steps() if s != self._writing and s not in foreign]
             keep = int(self.cfg.max_to_keep or 0)
             if keep > 0 and len(live) > keep:
                 for s in live[:-keep]:
@@ -279,7 +316,8 @@ class Checkpointer:
             for name in os.listdir(self.directory):
                 if name.startswith("manifest-") and name.endswith(".json"):
                     s = name[len("manifest-"):-len(".json")]
-                    if s.isdigit() and int(s) not in live and int(s) != self._writing:
+                    if s.isdigit() and int(s) not in live and int(s) != self._writing \
+                            and int(s) not in foreign:
                         try:
                             os.unlink(os.path.join(self.directory, name))
                         except OSError:
@@ -311,6 +349,7 @@ class Checkpointer:
         """Restorable steps, newest first. With manifests: only steps that
         verify. Without any manifest (a directory written before
         manifests): every step, trusting the atomic publish."""
+        self._refuse_foreign()
         if not self.read_only:
             self._join()
             self._flush_manifests()
@@ -341,7 +380,10 @@ class Checkpointer:
         Every successful restore — explicit ``step=`` included (the
         divergence rollback targets an older step) — purges or
         quarantines the steps NEWER than the restored one, so the resumed
-        run's own saves at those step numbers are not refused."""
+        run's own saves at those step numbers are not refused. A directory
+        with Orbax steps of the JAX package raises
+        :class:`ForeignCheckpointError` and is left as it is."""
+        self._refuse_foreign()
         candidates = [step] if step is not None else self.complete_steps_desc()
         if not candidates:
             if step is None:
@@ -373,6 +415,7 @@ class Checkpointer:
         optimizer state to restore into). Same torn-step walk as
         :meth:`restore`; with ``read_only=True`` entirely side-effect
         free."""
+        self._refuse_foreign()
         candidates = [step] if step is not None else self.complete_steps_desc()
         if not candidates:
             raise FileNotFoundError(
@@ -400,7 +443,8 @@ class Checkpointer:
         if self.read_only:
             return
         self._join()
-        for bad in [s for s in self.all_steps() if s > step]:
+        foreign = set(self.foreign_steps())
+        for bad in [s for s in self.all_steps() if s > step and s not in foreign]:
             proven_torn = (os.path.exists(self._manifest_path(bad))
                            and not self.verify_step(bad))
             if not proven_torn:

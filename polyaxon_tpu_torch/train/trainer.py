@@ -22,6 +22,7 @@ for ROADMAP A6; the trainer refuses them.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator, Optional
 
@@ -102,6 +103,10 @@ class Trainer:
         track: Optional[Callable[[int, dict], None]] = None,
         task: Optional[Task] = None,
         chaos: Optional[Any] = None,
+        on_span: Optional[Callable[..., None]] = None,
+        on_progress: Optional[Callable[[int, dict, int], None]] = None,
+        on_stalled: Optional[Callable[[int, float, float], None]] = None,
+        log_line: Optional[Callable[[str], None]] = None,
     ):
         _check_one_device(cfg)
         self.cfg = cfg
@@ -116,6 +121,16 @@ class Trainer:
         self.track = track
         # duck-typed fault injection: pre_step(pos) and nan_due(pos)
         self.chaos = chaos
+        # the tracking bridge, as in the JAX trainer: on_span(name, start,
+        # end, **meta) for the first step, the train window, saves,
+        # rollbacks and a stall; on_progress(step, anomaly counts,
+        # rollbacks) after every step; on_stalled(step, waited, limit)
+        # before the watchdog's hard exit; log_line for the loop's lines.
+        # They are given host values only: no hook syncs the device.
+        self.on_span = on_span
+        self.on_progress = on_progress
+        self.on_stalled = on_stalled
+        self.log_line = log_line
         self.checkpointer = Checkpointer(cfg.checkpoint) if cfg.checkpoint else None
 
     # -- init ---------------------------------------------------------------
@@ -131,7 +146,10 @@ class Trainer:
     def restore_or_init(self, seed: int = 0,
                         init_params: Optional[dict] = None) -> tuple[TrainState, int]:
         """Latest complete checkpoint wins (resume); else ``init_params``
-        (checkpoint import, fork) when given; else a fresh init."""
+        (checkpoint import, fork) when given; else a fresh init. A
+        directory of the JAX package's Orbax steps raises
+        :class:`~.checkpoint.ForeignCheckpointError` instead of starting
+        over."""
         if init_params is not None:
             state = self.init_state_from(init_params)
         else:
@@ -243,20 +261,29 @@ class Trainer:
                 flops_per_token=self.task.flops_per_token(self.cfg.seq_len),
                 num_chips=1, accelerator=self.cfg.accelerator)
         metrics: dict = {}
-        started = False
-
-        def log(line: str) -> None:
-            print(line, flush=True)
+        t_fit = time.time()  # span clock: epoch, as the control plane's
+        t_train: Optional[float] = None
+        log = self.log_line or (lambda line: print(line, flush=True))
 
         watchdog = None
         if self.cfg.watchdog:
             from .watchdog import StepWatchdog
 
+            def _stall(step: int, waited: float, limit: float) -> None:
+                now = time.time()
+                if self.on_span:
+                    # the span covers the silent window itself
+                    self.on_span("training_stalled", now - waited, now,
+                                 step=step, limit_s=round(limit, 3))
+                if self.on_stalled:
+                    self.on_stalled(step, waited, limit)
+
             watchdog = StepWatchdog(
                 stall_factor=self.cfg.watchdog_stall_factor,
                 min_s=self.cfg.watchdog_min_s,
                 compile_grace_s=self.cfg.watchdog_compile_grace_s,
-                p95_s=lambda: meter._interval_quantile(0.95), log=log)
+                p95_s=lambda: meter._interval_quantile(0.95),
+                on_stall=_stall, log=log)
             watchdog.start()
 
         skip_budget = max(int(self.cfg.anomaly_skip_budget), 1)
@@ -306,6 +333,7 @@ class Trainer:
             it, and return it as the new loop index. The replayed window
             trains on the batches the uninterrupted run saw."""
             nonlocal state, consec, rollbacks, data_pos
+            t0 = time.time()
             if watchdog is not None:
                 watchdog.beat(at_step)  # the restore itself may be slow
             self.checkpointer.wait()  # settle an in-flight save
@@ -326,6 +354,9 @@ class Trainer:
             log(f"[trainer] rolled back to checkpoint step {s} after anomaly "
                 f"streak at step {at_step} (rollback {rollbacks}/"
                 f"{self.cfg.anomaly_rollback_budget})")
+            if self.on_span:
+                self.on_span("rollback", t0, time.time(), step=s,
+                             from_step=at_step, rollbacks=rollbacks)
             meter.start()  # the restore pause is not a step interval
             if watchdog is not None:
                 watchdog.beat(s)
@@ -342,9 +373,13 @@ class Trainer:
                 state, metrics = step_fn(state, batch, inject)
                 if watchdog is not None:
                     watchdog.beat(i)
-                if not started:
+                if self.on_progress is not None:
+                    self.on_progress(i, anomalies, rollbacks)
+                if t_train is None:
                     self._sync(metrics)  # the first step builds and warms up
-                    started = True
+                    t_train = time.time()
+                    if self.on_span:
+                        self.on_span("first-step-compiled", t_fit, t_train, step=i)
                     meter.start()
                 else:
                     if i == num_steps - 1:
@@ -362,16 +397,26 @@ class Trainer:
                 # an anomaly streak is never published
                 if self.checkpointer and consec == 0 \
                         and self.checkpointer.should_save(i + 1):
+                    t_save = time.time()
                     self.checkpointer.maybe_save(i + 1, state_tree(state))
+                    if self.on_span:
+                        # async: the span covers the copy to the host and
+                        # the hand-off to the writer thread
+                        self.on_span("checkpoint-save", t_save, time.time(), step=i + 1)
                     if watchdog is not None:
                         watchdog.beat(i)  # a long save is progress, not a stall
                 i += 1
         finally:
             if watchdog is not None:
                 watchdog.stop()
+        if t_train is not None and self.on_span:
+            self.on_span("train", t_train, time.time(), steps=num_steps - start)
         if self.checkpointer:
             if self.checkpointer.latest_step() != num_steps:
-                self.checkpointer.maybe_save(num_steps, state_tree(state), force=True)
+                t_save = time.time()
+                if self.checkpointer.maybe_save(num_steps, state_tree(state), force=True) \
+                        and self.on_span:
+                    self.on_span("checkpoint-save", t_save, time.time(), step=num_steps)
             self.checkpointer.wait()
         final = {name: float(v) for name, v in metrics.items()}
         final.update(meter.summary())

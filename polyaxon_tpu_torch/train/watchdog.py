@@ -84,6 +84,14 @@ class StepWatchdog(threading.Thread):
             self._last_step = int(step)
             self._last_t = time.monotonic()
 
+    def touch(self) -> None:
+        """Refresh the silence clock WITHOUT closing the build window: a
+        serving engine idle before its first request is neither building
+        nor stalled, but that request still gets the full
+        ``compile_grace_s``, which a ``beat`` here would forfeit."""
+        with self._lock:
+            self._last_t = time.monotonic()
+
     def stop(self) -> None:
         self._stop.set()
 

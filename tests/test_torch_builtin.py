@@ -63,20 +63,48 @@ def test_cpu_run_prints_the_final_line_with_the_meter_keys(capsys):
     ("lora", {"rank": 4}, "A12"),
     ("parallelism", {"data": 2}, "A6"),
     ("num_slices", 2, "A6"),
-    ("profile", True, "A5"),
+    ("profile", {"every": 2}, "unknown keys"),
     ("optimizer", "lion", "A4"),
     ("data", {"kind": "tokens-file", "path": "/x.npy"}, "A4"),
     ("pp_microbatches", 4, "A9"),
     ("moe_dispatch", "a2a", "A10"),
-    ("chaos", {"nan_at_step": 1}, "A5"),
+    ("chaos", {"hang_after_requests": 3}, "unknown keys"),
     ("partition_rules", [["a", "b"]], "A6"),
-    ("resources", True, "A5"),
+    ("resources", {"period": 5}, "unknown keys"),
     ("unknown_knob", 1, "unknown spec key"),
 ])
 def test_unsupported_keys_raise_naming_their_roadmap_item(key, value, match):
     spec = dict(TINY, **{key: value})
     with pytest.raises(SystemExit, match=match):
         run_builtin(spec)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("profile", {"steps": 1}),
+    ("chaos", {"nan_at_step": 1}),
+    ("resources", {"interval": 0.05}),
+])
+def test_bridge_keys_are_taken(key, value, tmp_path, monkeypatch):
+    """The keys the tracking bridge brought: a profile trace of the last
+    step as a `profile` artifact, a NaN planted at step 1 and skipped with
+    its budget kept in the artifacts directory, resource telemetry in the
+    run's events."""
+    from polyaxon_tpu_torch.tracking import read_events
+
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path))
+    summary = run_builtin(dict(TINY, steps=4, **{key: value}))
+    if key == "profile":
+        trace = tmp_path / "outputs" / "profile" / "trace.json"
+        assert trace.stat().st_size > 0 and json.loads(trace.read_text())["traceEvents"]
+        assert [e.artifact.path for e in read_events(str(tmp_path), "artifact", "profile")] \
+            == ["outputs/profile"]
+        # the meter reads the steps before the profiled one
+        assert summary["steps"] == 2
+    elif key == "chaos":
+        assert summary["train_anomalies_loss"] == 1
+        assert json.loads((tmp_path / "chaos-train.json").read_text())["nans"] == 1
+    else:
+        assert read_events(str(tmp_path), "metric", "host_mem_used_gib")
 
 
 def test_the_default_platform_needs_a_cuda_device():
@@ -211,6 +239,32 @@ class TestDivergenceGuard:
         assert m["loss"] == oracle["loss"]
         # the replay's saves reuse the rolled-back labels; the final step too
         assert tr.checkpointer.latest_complete_step() == self.STEPS
+
+    def test_the_tracking_hooks_see_each_step_save_and_the_rollback(self, tmp_path, oracle):
+        """The JAX trainer's hooks, fired at its places: progress after every
+        dispatched step (the replay included), spans for the first step,
+        each save, the rollback and the train window, the loop's lines
+        through log_line — and the run's numbers unchanged by them."""
+        spans, progress, lines = [], [], []
+        tr = _trainer(ckpt_dir=str(tmp_path / "ck"), chaos=_NanBurst(7, 2),
+                      skip_budget=2, steps=self.STEPS)
+        tr.on_span = lambda name, start, end, **meta: spans.append((name, meta, end >= start))
+        tr.on_progress = lambda i, anomalies, rollbacks: progress.append(
+            (i, dict(anomalies), rollbacks))
+        tr.log_line = lines.append
+        _, m = tr.fit(_lm_data(), num_steps=self.STEPS)
+        assert m["loss"] == oracle["loss"]
+        assert all(ok for _, _, ok in spans)
+        # saves: the first always goes, then every 3rd label, the replay's
+        # re-save of a rolled-back label, and the final one
+        assert [(n, meta.get("step")) for n, meta, _ in spans] == [
+            ("first-step-compiled", 0), ("checkpoint-save", 1), ("checkpoint-save", 3),
+            ("checkpoint-save", 6), ("rollback", 6), ("checkpoint-save", 9),
+            ("checkpoint-save", 12), ("train", None)]
+        assert spans[4][1] == {"step": 6, "from_step": 8, "rollbacks": 1}
+        assert [i for i, _, _ in progress] == list(range(9)) + list(range(6, 12))
+        assert progress[-1] == (11, {"loss": 2, "grad": 0}, 1)
+        assert any("rolled back to checkpoint step 6" in x for x in lines)
 
     def test_isolated_anomaly_skipped_without_rollback(self, oracle):
         tr = _trainer(chaos=_NanBurst(5, 1), skip_budget=3, steps=self.STEPS)

@@ -287,3 +287,58 @@ class TestAgainstTheJaxCheckpointer:
         assert torch.equal(raw["w"], self._port_state(step)["w"])
         assert np.array_equal(raw["m"].float().numpy(),
                               self._port_state(step)["m"].float().numpy())
+
+
+class TestForeignOrbaxDirectory:
+    """A directory the JAX package's (Orbax) Checkpointer wrote: the port
+    cannot read its steps, so every entry that resumes or restores from it
+    refuses loudly, naming the format and the ``import:`` route, and leaves
+    every file as it was — no purge, no quarantine, no fresh start."""
+
+    SPEC = {"model": "llama-tiny", "platform": "cpu", "steps": 2, "batch_size": 2,
+            "seq_len": 32, "watchdog": False}
+
+    @staticmethod
+    def _tree(path):
+        out = {}
+        for d, _, names in os.walk(path):
+            for n in names:
+                p = os.path.join(d, n)
+                with open(p, "rb") as f:
+                    out[os.path.relpath(p, path)] = f.read()
+        return out
+
+    @pytest.mark.parametrize("entry", ["trainer", "runtime", "serving"])
+    def test_refused_and_left_byte_identical(self, tmp_path, monkeypatch, entry):
+        from polyaxon_tpu_torch.runtime.builtin import build_trainer, run_builtin
+        from polyaxon_tpu_torch.serve.runtime import build_engine
+        from polyaxon_tpu_torch.train.checkpoint import ForeignCheckpointError
+
+        ckdir = tmp_path / "outputs" / "checkpoints"
+        jck = TestAgainstTheJaxCheckpointer._jax(ckdir)
+        for step in (1, 2):
+            jck.maybe_save(step, TestAgainstTheJaxCheckpointer._jax_state(step), force=True)
+            jck.wait()
+        jck.close()
+        before = self._tree(tmp_path)
+        assert any(n.endswith("_CHECKPOINT_METADATA") for n in before)
+        monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path))
+        with pytest.raises(ForeignCheckpointError) as err:
+            if entry == "trainer":
+                trainer, _ = build_trainer(dict(self.SPEC), artifacts_dir=str(tmp_path))
+                trainer.restore_or_init()
+            elif entry == "runtime":
+                run_builtin(dict(self.SPEC))
+            else:
+                build_engine({"model": "llama-tiny", "platform": "cpu",
+                              "checkpoint": str(ckdir)})
+        msg = str(err.value)
+        assert "Orbax" in msg and "import:" in msg and "[1, 2]" in msg
+        after = self._tree(tmp_path)
+        if entry == "runtime":
+            # the runtime's tracked run adds its own files (events, logs)
+            # beside the checkpoints
+            after = {k: v for k, v in after.items()
+                     if k.startswith(os.path.join("outputs", "checkpoints"))}
+        assert after == before
+        assert not [n for n in os.listdir(ckdir) if n.startswith("quarantine")]

@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``polyaxon_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, its relatives, or anything of the JAX
-package — by an AST scan of every source, and by a fresh interpreter that
-builds and runs a CPU engine with nothing of JAX in ``sys.modules``."""
+``chip_smoke.py``) imports JAX, its relatives, anything of the JAX
+package, or the libraries the card's machine lacks (pydantic, requests,
+aiohttp) — by an AST scan of every source, and by fresh interpreters that
+build and run a CPU engine, a training run and the control-plane bridge
+with none of them in ``sys.modules``."""
 
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "polyaxon_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "polyaxon_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "polyaxon_tpu",
+             "pydantic", "requests", "aiohttp")
 
 
 def _sources():
@@ -44,7 +47,11 @@ def test_the_scan_sees_every_port_module():
                      "ops/flash_attention.py", "ops/attention.py", "train/trainer.py",
                      "train/optimizers.py", "train/watchdog.py", "runtime/builtin.py",
                      "train/checkpoint.py", "partition/__init__.py", "partition/rules.py",
-                     "partition/convert.py", "models/gpt2.py"):
+                     "partition/convert.py", "models/gpt2.py",
+                     "resilience/retry.py", "resilience/chaos.py", "tracking/events.py",
+                     "tracking/writer.py", "tracking/spool.py", "tracking/client.py",
+                     "tracking/run.py", "tracking/__init__.py", "tracking/resources.py",
+                     "obs/history.py"):
         assert expected in names
 
 
@@ -139,3 +146,50 @@ print(json.dumps({"tokens": out, "step": restored.provenance["restored_step"],
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["step"] == 2 and out["bad"] == []
     assert len(out["tokens"][0]) == 4 and out["tokens"][0] == out["tokens"][1]
+
+
+def test_the_bridge_runs_without_jax_pydantic_requests_or_aiohttp(tmp_path):
+    """A tracked training run and a tracked replica, both reporting to a
+    stdlib stub of the API: statuses, heartbeats and outputs arrive, and
+    the interpreter never loaded any forbidden module."""
+    code = """
+import json, os, sys, threading, time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+seen = []
+class H(BaseHTTPRequestHandler):
+    def do_POST(self):
+        n = int(self.headers.get("Content-Length") or 0)
+        seen.append(self.path.rsplit("/", 1)[-1])
+        self.rfile.read(n)
+        self.send_response(200)
+        self.send_header("Content-Length", "2")
+        self.end_headers()
+        self.wfile.write(b"{}")
+    def log_message(self, *a):
+        pass
+srv = ThreadingHTTPServer(("127.0.0.1", 0), H)
+threading.Thread(target=srv.serve_forever, daemon=True).start()
+os.environ.update(PLX_API_HOST=f"http://127.0.0.1:{srv.server_address[1]}",
+                  PLX_RUN_UUID="u", PLX_ARTIFACTS_PATH=os.getcwd())
+from polyaxon_tpu_torch.runtime.builtin import run_builtin
+from polyaxon_tpu_torch.serve.runtime import start_replica
+run_builtin({"model": "llama-tiny", "platform": "cpu", "steps": 2, "batch_size": 2,
+             "seq_len": 32, "watchdog": False, "progress_interval": 0})
+rep = start_replica({"model": "llama-tiny", "platform": "cpu", "port": 0, "block_size": 8,
+                     "max_seq_len": 64, "prefill_chunk": 16, "report_interval": 0.05})
+time.sleep(0.3)
+rep.close()
+rep.run.end()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "flax", "orbax",
+                                    "polyaxon_tpu", "pydantic", "requests", "aiohttp"))
+print(json.dumps({"verbs": sorted(set(seen)), "bad": bad}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["bad"] == []
+    assert out["verbs"] == ["heartbeat", "lineage", "outputs", "statuses"]

@@ -176,14 +176,44 @@ class TestBuildEngine:
         assert engine.provenance == {"restored_step": -1, "init_seed": 0}
 
     @pytest.mark.parametrize("key,value", [
-        ("report_interval", 2),
-        ("watchdog", {"min_s": 5}),
-        ("chaos", {"hang_after_requests": 3}),
         ("num_cpu_devices", 8),
     ])
     def test_unported_keys_are_refused(self, key, value):
         with pytest.raises(SystemExit, match=r"not ported .*\(ROADMAP A[67] "):
             runtime.build_engine({**TINY_SPEC, key: value})
+
+    @pytest.mark.parametrize("key,value", [
+        ("report_interval", 0.1),
+        ("watchdog", {"min_s": 5}),
+        ("chaos", {"hang_after_requests": 3}),
+    ])
+    def test_bridge_keys_are_taken(self, key, value, tmp_path, monkeypatch):
+        """A replica the control plane launched takes the bridge's keys: a
+        reporter at the asked interval whose beats land the `serve_*`
+        outputs, the decode watchdog on the engine, the chaos hook with its
+        budget in the run directory."""
+        monkeypatch.setenv("PLX_RUN_UUID", "bridge-keys")
+        monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path))
+        monkeypatch.delenv("PLX_API_HOST", raising=False)
+        rep = runtime.start_replica({**TINY_SPEC, "port": 0, "warmup": False,
+                                     key: value})
+        try:
+            if key == "report_interval":
+                assert rep.reporter.interval == 0.1
+                deadline = time.monotonic() + 30
+                while "serve_requests_total" not in rep.run._outputs:
+                    assert time.monotonic() < deadline, "no report"
+                    time.sleep(0.05)
+                assert rep.run._outputs["serve_port"] == rep.port
+            elif key == "watchdog":
+                assert rep.engine.watchdog is rep.watchdog and rep.watchdog.is_alive()
+                assert rep.watchdog.min_s == 5
+            else:
+                assert rep.engine.chaos.hang_after_requests == 3
+                assert rep.engine.chaos.state_dir == str(tmp_path)
+        finally:
+            rep.close()
+            rep.run.end()
 
     def test_unknown_model_and_platform(self):
         with pytest.raises(SystemExit, match="Unknown model"):
@@ -327,3 +357,40 @@ class TestChipSmokeRehearsal:
         assert out["iterations"] > 0 and out["launches"] == 0
         assert out["acceptance"] == 1.0 and out["kv_audit_violations"] == 0
         assert out["timed_rows"] == 4 and len(out["iteration_host_ms"]) == 8
+
+    def test_bridge_phases(self, monkeypatch):
+        """The bridge phases at llama-tiny on the CPU: the recorder gets the
+        statuses, progress beats and outputs of a training run and the
+        serve beats of a replica whose drain marker closes and reopens
+        admission while its requests finish; a profile trace is written.
+        (Launch counts, MFU and the GPU's memory samples are the card's.)"""
+        sys.path.insert(0, str(ROOT))
+        try:
+            import chip_smoke
+        finally:
+            sys.path.remove(str(ROOT))
+        fa = __import__("importlib").import_module("polyaxon_tpu_torch.ops.flash_attention")
+        train = {"model": "llama-tiny", "platform": "cpu", "steps": 3, "batch_size": 2,
+                 "seq_len": 32, "checkpoint": False, "log_interval": 1}
+        out = chip_smoke.bridge_train_phase(torch, fa, train)
+        assert out["statuses"] == ["running", "succeeded"] and out["progress_steps"][-1] == 3
+        assert out["outputs_tokens_per_sec_per_chip"] == out["final_tokens_per_sec_per_chip"] > 0
+        assert out["gpu0_mem_gib_samples"] == 0 and out["bridge_host_s"] > 0
+        monkeypatch.setattr(chip_smoke, "PROMPT_LENGTHS", (10, 23, 40, 55))
+        monkeypatch.setattr(chip_smoke, "SHARED_PREFIX", 8)
+        monkeypatch.setattr(chip_smoke, "BRIDGE_SERVE_KEYS",
+                            {**chip_smoke.BRIDGE_SERVE_KEYS, "report_interval": 0.02})
+        # a decode iteration as slow as the card's llama-1b step (~25 ms), so
+        # that the requests are still decoding when the marker is read
+        from polyaxon_tpu_torch.serve.engine import ServeEngine
+
+        step = ServeEngine.step
+        monkeypatch.setattr(ServeEngine, "step",
+                            lambda self: (time.sleep(0.025), step(self))[1])
+        spec = {**TINY_SPEC, "max_slots": 4, "max_seq_len": 256, "warmup": True}
+        out = chip_smoke.bridge_serve_phase(torch, spec, chip_smoke.make_prompts(256), 64)
+        assert out["requests_done"] == 4 and out["in_flight_at_503"] > 0
+        assert out["new_request_during_drain"] == 503 and out["draining_beats"] > 0
+        assert out["decode_steps"] > 0 and out["launches"] == 0
+        out = chip_smoke.bridge_profile_phase(torch, train)
+        assert out["trace_bytes"] > 0 and out["lineage"] == ["profile"]
