@@ -36,7 +36,13 @@ non-zero:
    in the kernels (``walk_cut=1``: the forward and dQ stop before the
    diagonal kv tile, dK/dV starts one q tile late) must fail the same
    check.
-5. serve — the port's ``build_engine`` at llama-1b full width (22 layers,
+5. flash_bidir — the three kernels non-causal in bf16 at the new
+   families' shapes: BERT-base (BH = 16 x 12, S = 512) and ViT-B/16 (BH =
+   32 x 12, S = 197 = 128 + 69, a partial last q and kv tile on every
+   walk), against their plain versions, with cold-L2 kernel, plain and
+   SDPA (is_causal=False) times and the bounds; ``walk_cut=1`` must fail
+   the same check at both shapes.
+6. serve — the port's ``build_engine`` at llama-1b full width (22 layers,
    hidden 2048, bf16, random init from seed 0) with the
    examples/llama1b_service.yaml runtime settings and attn_impl flash,
    served by the port's HTTP server on an ephemeral port: 8 concurrent
@@ -45,7 +51,7 @@ non-zero:
    over that run must equal decode steps x 22. Then one decode_step with
    impl flash against impl gather on the same pools, and the time of a
    decode step on each path.
-6. train — ``run_builtin`` (the port's builtin runtime) on llama-1b at full
+7. train — ``run_builtin`` (the port's builtin runtime) on llama-1b at full
    width with the examples/llama1b_tpujob.yaml runtime keys (steps cut from
    8 to 3): every loss finite, no anomaly, the step-0 loss near ln 32000,
    each flash kernel's launch count equal to its formula; step time p50,
@@ -53,21 +59,33 @@ non-zero:
    microbatch (2 x 2048) at full depth, loss and grads with attn_impl flash
    against dense, which must agree; with each of the three planted faults
    in turn they must not.
-7. spec — ``build_engine`` with the serve phase's settings plus
+8. families — ``run_builtin`` with the runtime keys of
+   examples/bert_tfjob.yaml (bert-base, seq 512, batch 64: 256 over 4
+   workers), examples/vit_hyperband.yaml's trial (vit-b16, batch 128) and
+   examples/resnet50_ddp.yaml (resnet50-cifar, 32 px, batch 256, sgd), one
+   process each, 3 steps: losses finite, the step-0 loss within 0.5 of ln
+   of the vocab or the classes, the flash launches equal their formula (12
+   layers), step p50, samples/s, MFU and peak memory; ViT's and ResNet's
+   accuracy in the final metrics and the host seconds per batch of their
+   image stream, timed apart from the step; every ResNet batch statistic
+   moves in one step. Then BERT's and ViT's one microbatch at full depth,
+   flash against dense with the planted faults, within their own limits
+   (FAMILY_COMPARE_TOL). Their profiles run with the others, last.
+9. spec — ``build_engine`` with the serve phase's settings plus
    ``speculative: {draft: llama-125m, k: 4}`` (both random-init), the same
    8 requests over HTTP: the paged kernel's launches must equal
    speculative iterations x (k+1) x 12 draft layers (the target never
    runs ``decode_step`` then), no KV audit violation; acceptance (near 0
    for two random models: nothing is claimed from it), tokens/s, the host
    clock of an iteration with every row running.
-8. spec_accept — scripts/serve_bench.py's fixture at full width: a
+10. spec_accept — scripts/serve_bench.py's fixture at full width: a
    llama-1b draft (seed 0) and the same model plus 22 identity layers as
    the target. First ``verify_step``'s logits against ``decode_step``'s
    at the same positions (gather and flash, within the compare phase's
    0.125); then speculative and plain decode of the target for each impl:
    acceptance (at least 0.5 with gather), rows token-identical to plain
    decode, tokens/s of both, and the flash runs' launch counts.
-9. restore — one llama-1b training step through the builtin runtime's
+11. restore — one llama-1b training step through the builtin runtime's
    trainer, the state (f32 params, bf16 AdamW moments, step) saved with
    the port's ``Checkpointer`` (bytes, seconds, GB/s) and restored into a
    fresh state, every leaf bit-equal; then one decode step's logits
@@ -75,7 +93,7 @@ non-zero:
    ``export_hf_llama``, its ``import:`` must equal those of an engine on
    the in-memory params, bit for bit. The files go in a temporary
    directory that is removed after.
-10. bridge — the control-plane bridge, reporting to an in-process stdlib
+12. bridge — the control-plane bridge, reporting to an in-process stdlib
    recorder of the API (``PLX_API_HOST``) with a temporary artifacts
    directory (removed after). bridge_train: the train phase's
    ``run_builtin`` with ``progress_interval`` and ``resources: {interval:
@@ -90,16 +108,18 @@ non-zero:
    ``serve-drain-0.json`` marker written while they decode flips /healthz
    to 503 and refuses a new request while they finish, removing it
    reopens admission, and the paged launches equal decode steps x 22.
-11. profiles — ``torch.profiler``'s split of the compare phase's decode
+13. profiles — ``torch.profiler``'s split of the compare phase's decode
    step per impl, of a training microbatch and the AdamW tail, and of a
    speculative iteration's draft steps against its verify step, then
    bridge_profile: ``run_builtin`` with ``profile: {steps: 1}`` must write
    a non-empty Chrome trace under ``outputs/profile`` and post its
    ``profile`` artifact. They run last: once the profiler has run, every
    later kernel launch in the process pays CUPTI's overhead, which would
-   inflate the host-clock readings of the phases above.
-12. the ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+   inflate the host-clock readings of the phases above. Last, one step of
+   each new family's trainer (BERT, ViT, ResNet) by kernel.
+14. the ``{"kernels": [...]}`` line (each flash kernel's launches are the
+   llama-1b train phase's; ``launches_by_path`` adds train_bert's and
+   train_vit's), then the last line ``{"ok": true, "device": {...}}``.
 
 Needs one card and the repository checkout around this file; imports
 nothing of JAX.
@@ -180,6 +200,11 @@ PREV_MS_RECORDED = {"flash_fwd": 0.9156, "flash_bwd_dq": 1.0534, "flash_bwd_dkv"
 # SDPA's backward, the yardstick for dQ + dK/dV, moves from timing to
 # timing: its median of this many
 LIBRARY_BWD_TIMINGS = 5
+# the non-causal shapes of the new training families, D = 64 bf16: BERT-base
+# at seq 512 (12 heads, a batch of 16) and ViT-B/16 at 197 tokens (12 heads,
+# a batch of 32), where 197 = 128 + 69 ends in a partial tile on every walk
+BIDIR_CASES = {"bert-base": dict(batch=16, heads=12, seq=512),
+               "vit-b16": dict(batch=32, heads=12, seq=197)}
 
 TRAIN_SPEC = {
     # examples/llama1b_tpujob.yaml runtime, steps cut from 8 to 3, on the card
@@ -208,6 +233,11 @@ LOSS0_MARGIN = 0.5
 # must see them: each limit is about the geometric mean of the two sides.
 TRAIN_LOSS_TOL = 0.002
 TRAIN_GRAD_REL_TOL = 0.15
+# leaves whose exact gradient is zero, left out of the grad compare: a key
+# bias (BERT's, ViT's) shifts each query row's scores by one constant, which
+# the softmax removes, so its computed grad is rounding noise (~1e-7 of the
+# others) and its relative error between two roundings means nothing
+ZERO_GRAD_LEAVES = ("attn/bk",)
 # the faults a check must see, planted in the kernels with walk_cut=1: the
 # launcher each is planted in
 FLASH_FAULTS = {
@@ -215,6 +245,39 @@ FLASH_FAULTS = {
     "dq_skips_diagonal_tile": "flash_bwd_dq_cuda",
     "dkv_starts_one_q_tile_late": "flash_bwd_dkv_cuda",
 }
+
+# -- the other training families (examples/bert_tfjob.yaml, vit_hyperband.yaml,
+# resnet50_ddp.yaml) on one process: each recipe's runtime keys at its
+# per-replica batch, steps cut to 3 (the first untimed), no checkpoints
+
+BERT_SPEC = {
+    # bert_tfjob.yaml: 256 over 4 workers -> 64 per process
+    "model": "bert-base", "steps": 3, "batch_size": 64, "seq_len": 512,
+    "learning_rate": 1.0e-4, "warmup_steps": 1000, "data": {"kind": "synthetic-mlm"},
+    "checkpoint": False, "log_interval": 1, "platform": "cuda",
+}
+VIT_SPEC = {
+    # vit_hyperband.yaml's trial at its default batch
+    "model": "vit-b16", "steps": 3, "batch_size": 128, "learning_rate": 1.0e-3,
+    "data": {"kind": "synthetic-image"}, "checkpoint": False, "log_interval": 1,
+    "platform": "cuda",
+}
+RESNET_SPEC = {
+    # resnet50_ddp.yaml: its 256 on one process
+    "model": "resnet50-cifar", "image_size": 32, "steps": 3, "batch_size": 256,
+    "learning_rate": 0.1, "optimizer": "sgd", "data": {"kind": "synthetic-image"},
+    "checkpoint": False, "log_interval": 1, "platform": "cuda",
+}
+# flash vs dense on one microbatch at full depth, f32 grads: (loss, worst
+# per-leaf grad relative error) limits, each about the geometric mean of the
+# sound reading and the nearest planted fault's. On an H100 80GB HBM3 (700
+# W) they read: bert-base sound, loss 9.5e-5 and grad 0.029 (embed/tokens);
+# the forward fault, loss 0.0014 and grad 1.16 (bv); the dQ fault, grad
+# 0.35 (wq); the dK/dV fault, grad 0.36. vit-b16 sound, loss 4.8e-4 and
+# grad 0.015 (patch/w); the forward fault, loss 0.0051 and grad 0.68 (wo);
+# dQ, grad 0.53 (wq); dK/dV, grad 1.0 (bv). The backward faults leave the
+# loss as it is, so the grad limit must see them.
+FAMILY_COMPARE_TOL = {"bert-base": (3.5e-4, 0.10), "vit-b16": (1.5e-3, 0.09)}
 
 # -- speculative decoding and checkpoints -------------------------------------------
 
@@ -861,12 +924,14 @@ def flash_check(torch, fa, q, k, v, do, q_offset, k_offset, causal, dtype_name) 
     return {"checks": out, "refs": (o_p, dq_p, dk_p, dv_p), "row_stats": (lse_p, delta)}
 
 
-def flash_planted_faults(torch, fa, q, k, v, do, checked, dtype_name) -> dict:
+def flash_planted_faults(torch, fa, q, k, v, do, checked, dtype_name,
+                         causal: bool = True) -> dict:
     """The three faults planted in the kernels (walk_cut=1: the forward and
-    dQ stop before the diagonal kv tile, dK/dV starts one q tile late),
-    held against the true plain outputs by the same check: each must fail
-    it (ratio > 1)."""
-    kw = dict(sm_scale=q.shape[-1] ** -0.5, causal=True, walk_cut=1)
+    dQ stop one kv tile short, before the diagonal when causal, before the
+    end of the keys when not; dK/dV starts one q tile late), held against
+    the true plain outputs by the same check: each must fail it (ratio >
+    1)."""
+    kw = dict(sm_scale=q.shape[-1] ** -0.5, causal=causal, walk_cut=1)
     o_p, dq_p, dk_p, dv_p = checked["refs"]
     lse_p, delta = checked["row_stats"]
     tol = FLASH_TOL[dtype_name]
@@ -886,80 +951,93 @@ def flash_planted_faults(torch, fa, q, k, v, do, checked, dtype_name) -> dict:
     return ratios
 
 
-def flash_kernel_phase(torch, fa) -> list[dict]:
+def flash_case(torch, fa, bh: int, seq: int, head_dim: int, dtype, causal: bool,
+               heads: int, seed: int) -> dict:
+    """One shape of the three kernels: each against its plain version and
+    with its planted fault, then its time with cold L2, the plain version's
+    time, SDPA's (forward, and the median of LIBRARY_BWD_TIMINGS timings of
+    its backward, the yardstick for dQ + dK/dV), the bound and the
+    kernel's resources. ``heads`` splits ``bh`` for SDPA's 4-D view."""
     import torch.nn.functional as F
 
+    name = str(dtype).split(".")[1]
+    q, k, v, do = flash_inputs(torch, bh, seq, head_dim, dtype, seed=seed)
+    checked = flash_check(torch, fa, q, k, v, do, 0, 0, causal, name)
+    faults = flash_planted_faults(torch, fa, q, k, v, do, checked, name, causal=causal)
+    lse_p, delta = checked["row_stats"]
+    scale = head_dim ** -0.5
+    kw = dict(sm_scale=scale, causal=causal)
+    blocks = dict(block_q=min(FLASH_BLOCK, seq), block_k=min(FLASH_BLOCK, seq))
+
+    # cold L2: rotate through copies of the inputs
+    one = 4 * q.numel() * q.element_size()
+    copies = [[t.clone() for t in (q, k, v, do)] + [lse_p, delta]
+              for _ in range(max(2, math.ceil(200e6 / one)))]
+    fwd_args = [(c[0], c[1], c[2], 0, 0) for c in copies]
+    bwd_args = [(c[0], c[1], c[2], c[3], c[4], c[5], 0, 0) for c in copies]
+    ms = {
+        "flash_fwd": adaptive_time_ms(
+            torch, lambda *a: fa.flash_fwd_cuda(*a, **kw), fwd_args),
+        "flash_bwd_dq": adaptive_time_ms(
+            torch, lambda *a: fa.flash_bwd_dq_cuda(*a, **kw), bwd_args),
+        "flash_bwd_dkv": adaptive_time_ms(
+            torch, lambda *a: fa.flash_bwd_dkv_cuda(*a, **kw), bwd_args),
+    }
+    plain_ms = {
+        "flash_fwd": time_ms(
+            torch, lambda *a: fa.flash_fwd_plain(*a, **kw, **blocks), fwd_args, 3),
+        "flash_bwd_dq": time_ms(
+            torch, lambda *a: fa.flash_bwd_dq_plain(*a, **kw, **blocks), bwd_args, 3),
+        "flash_bwd_dkv": time_ms(
+            torch, lambda *a: fa.flash_bwd_dkv_plain(*a, **kw, **blocks), bwd_args, 3),
+    }
+    # the yardstick the port never calls: one SDPA call, and its backward
+    # for dQ + dK/dV together
+    as4 = lambda t: t.view(bh // heads, heads, seq, head_dim)  # noqa: E731
+    lib_fwd = adaptive_time_ms(
+        torch, lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=causal, scale=scale),
+        [tuple(as4(t) for t in c[:3]) for c in copies])
+    graphs = []
+    for c in copies:
+        leaves = [as4(t).detach().requires_grad_() for t in c[:3]]
+        graphs.append((F.scaled_dot_product_attention(
+            *leaves, is_causal=causal, scale=scale), *leaves, as4(c[3])))
+    lib_bwd_all = sorted(adaptive_time_ms(
+        torch, lambda out, a, b, c, g: torch.autograd.grad(
+            out, (a, b, c), g, retain_graph=True), graphs)
+        for _ in range(LIBRARY_BWD_TIMINGS))
+    lib_bwd = lib_bwd_all[len(lib_bwd_all) // 2]
+    bounds = flash_bounds(bh, seq, seq, head_dim, q.element_size(), 0, 0, causal, name)
+    row = {"bh": bh, "seq": seq, "head_dim": head_dim, "dtype": name, "causal": causal,
+           "atol": FLASH_TOL[name][0], "rtol": FLASH_TOL[name][1],
+           "planted_fault_ratios": faults, "library_fwd_ms": lib_fwd,
+           "library_bwd_ms": lib_bwd, "library_bwd_ms_all": lib_bwd_all}
+    for kname, (e, ratio) in checked["checks"].items():
+        row[kname] = {"max_abs_err": e, "tol_ratio": ratio, "ms": ms[kname],
+                      "plain_ms": plain_ms[kname], "bound_ms": bounds[kname][0],
+                      "bound_us": bounds[kname][0] * 1e3,
+                      "bound_by": bounds[kname][1],
+                      "library_ms": lib_fwd if kname == "flash_fwd" else lib_bwd,
+                      **fa.kernel_resources(kname, head_dim, dtype)}
+    del copies, graphs, fwd_args, bwd_args
+    torch.cuda.empty_cache()
+    return row
+
+
+def flash_kernel_phase(torch, fa) -> list[dict]:
     results = []
     bh, seq = FLASH_SHAPE["bh"], FLASH_SHAPE["seq"]
     for head_dim in (64, 128):
         for dtype in (torch.bfloat16, torch.float32):
-            name = str(dtype).split(".")[1]
-            q, k, v, do = flash_inputs(torch, bh, seq, head_dim, dtype, seed=head_dim)
-            checked = flash_check(torch, fa, q, k, v, do, 0, 0, True, name)
-            faults = flash_planted_faults(torch, fa, q, k, v, do, checked, name)
-            lse_p, delta = checked["row_stats"]
-            scale = head_dim ** -0.5
-            kw = dict(sm_scale=scale, causal=True)
-            blocks = dict(block_q=FLASH_BLOCK, block_k=FLASH_BLOCK)
-
-            # cold L2: rotate through copies of the inputs
-            one = 4 * q.numel() * q.element_size()
-            copies = [[t.clone() for t in (q, k, v, do)] + [lse_p, delta]
-                      for _ in range(max(2, math.ceil(200e6 / one)))]
-            fwd_args = [(c[0], c[1], c[2], 0, 0) for c in copies]
-            bwd_args = [(c[0], c[1], c[2], c[3], c[4], c[5], 0, 0) for c in copies]
-            ms = {
-                "flash_fwd": adaptive_time_ms(
-                    torch, lambda *a: fa.flash_fwd_cuda(*a, **kw), fwd_args),
-                "flash_bwd_dq": adaptive_time_ms(
-                    torch, lambda *a: fa.flash_bwd_dq_cuda(*a, **kw), bwd_args),
-                "flash_bwd_dkv": adaptive_time_ms(
-                    torch, lambda *a: fa.flash_bwd_dkv_cuda(*a, **kw), bwd_args),
-            }
-            plain_ms = {
-                "flash_fwd": time_ms(
-                    torch, lambda *a: fa.flash_fwd_plain(*a, **kw, **blocks), fwd_args, 3),
-                "flash_bwd_dq": time_ms(
-                    torch, lambda *a: fa.flash_bwd_dq_plain(*a, **kw, **blocks), bwd_args, 3),
-                "flash_bwd_dkv": time_ms(
-                    torch, lambda *a: fa.flash_bwd_dkv_plain(*a, **kw, **blocks), bwd_args, 3),
-            }
-            # the yardstick the port never calls: one SDPA call, and its
-            # backward for dQ + dK/dV together
-            heads = 32
-            as4 = lambda t: t.view(bh // heads, heads, seq, head_dim)  # noqa: E731
-            lib_fwd = adaptive_time_ms(
-                torch, lambda a, b, c: F.scaled_dot_product_attention(
-                    a, b, c, is_causal=True, scale=scale),
-                [tuple(as4(t) for t in c[:3]) for c in copies])
-            graphs = []
-            for c in copies:
-                leaves = [as4(t).detach().requires_grad_() for t in c[:3]]
-                graphs.append((F.scaled_dot_product_attention(
-                    *leaves, is_causal=True, scale=scale), *leaves, as4(c[3])))
-            lib_bwd_all = sorted(adaptive_time_ms(
-                torch, lambda out, a, b, c, g: torch.autograd.grad(
-                    out, (a, b, c), g, retain_graph=True), graphs)
-                for _ in range(LIBRARY_BWD_TIMINGS))
-            lib_bwd = lib_bwd_all[len(lib_bwd_all) // 2]
-            bounds = flash_bounds(bh, seq, seq, head_dim, q.element_size(), 0, 0, True, name)
-            row = {"head_dim": head_dim, "dtype": name, "atol": FLASH_TOL[name][0],
-                   "rtol": FLASH_TOL[name][1], "planted_fault_ratios": faults,
-                   "library_fwd_ms": lib_fwd, "library_bwd_ms": lib_bwd,
-                   "library_bwd_ms_all": lib_bwd_all}
-            for kname, (e, ratio) in checked["checks"].items():
-                row[kname] = {"max_abs_err": e, "tol_ratio": ratio, "ms": ms[kname],
-                              "plain_ms": plain_ms[kname], "bound_ms": bounds[kname][0],
-                              "bound_us": bounds[kname][0] * 1e3,
-                              "bound_by": bounds[kname][1],
-                              "library_ms": lib_fwd if kname == "flash_fwd" else lib_bwd,
-                              **fa.kernel_resources(kname, head_dim, dtype)}
-                if (head_dim, name) == (64, "bfloat16") and kname in PREV_MS_RECORDED:
-                    row[kname]["prev_ms_recorded"] = PREV_MS_RECORDED[kname]
+            row = flash_case(torch, fa, bh, seq, head_dim, dtype, True, heads=32,
+                             seed=head_dim)
+            if (head_dim, row["dtype"]) == (64, "bfloat16"):
+                for kname, prev in PREV_MS_RECORDED.items():
+                    if kname in row:
+                        row[kname]["prev_ms_recorded"] = prev
             log("flash_kernel", **row)
             results.append(row)
-            del copies, graphs, fwd_args, bwd_args
-            torch.cuda.empty_cache()
     # small cases with nonzero offsets, one of them hiding the first rows'
     # every key (O = 0, LSE = -inf there), and lengths that end in a partial
     # tile in both dtypes (128- and 64-row tiles in bf16, 32 in f32): 64 is
@@ -977,6 +1055,21 @@ def flash_kernel_phase(torch, fa) -> list[dict]:
     return results
 
 
+def flash_bidir_phase(torch, fa) -> list[dict]:
+    """The three kernels non-causal at the new families' shapes (BIDIR_CASES):
+    BERT-base's 512 keys and ViT-B/16's 197, whose last q and kv tiles are
+    partial; each against its plain version and with walk_cut=1, which must
+    fail there too."""
+    rows = []
+    for case, shape in BIDIR_CASES.items():
+        row = flash_case(torch, fa, shape["batch"] * shape["heads"], shape["seq"], 64,
+                         torch.bfloat16, False, heads=shape["heads"], seed=shape["seq"])
+        row["case"] = case
+        log("flash_bidir", **row)
+        rows.append(row)
+    return rows
+
+
 # -- phase 6: train ----------------------------------------------------------------
 
 
@@ -989,9 +1082,21 @@ def flash_launch_formula(spec: dict, layers: int) -> dict:
     return {"flash_fwd": per * rerun, "flash_bwd_dq": per, "flash_bwd_dkv": per}
 
 
+def model_shape(name: str) -> tuple[str, int, int]:
+    """(family, layers that run attention, classes of the loss: the vocab
+    or the labels) of a registry model."""
+    from polyaxon_tpu_torch.models import REGISTRY
+
+    family, cfg = REGISTRY[name]
+    if family in ("lm", "mlm"):
+        return family, cfg.num_layers, cfg.vocab_size
+    if family == "vit":
+        return family, cfg.encoder.num_layers, cfg.num_classes
+    return family, 0, cfg.num_classes
+
+
 def train_phase(torch, fa, spec: dict) -> dict:
     """The port's builtin runtime on the card; returns its measurements."""
-    from polyaxon_tpu_torch.models import REGISTRY
     from polyaxon_tpu_torch.runtime.builtin import run_builtin
 
     logged = []
@@ -1004,25 +1109,29 @@ def train_phase(torch, fa, spec: dict) -> dict:
     wall_s = time.monotonic() - t0
     launches = dict(fa.launch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    layers = REGISTRY[spec["model"]][1].num_layers
+    family, layers, classes = model_shape(spec["model"])
     expected = flash_launch_formula(spec, layers)
     losses = [m["loss"] for _, m in sorted(logged, key=lambda e: e[0])]
+    per_sample = int(spec["seq_len"]) if family in ("lm", "mlm") else 1
     out = {"losses": losses, "grad_norms": [m["grad_norm"] for _, m in logged],
            "step_time_p50_ms": summary["step_time_p50_ms"],
            "step_time_ms": summary["step_time_ms"], "timed_steps": summary["steps"],
-           "tokens_per_sec": summary["tokens_per_sec"], "mfu": summary["mfu"],
+           "tokens_per_sec": summary["tokens_per_sec"],
+           "samples_per_sec": summary["tokens_per_sec"] / per_sample, "mfu": summary["mfu"],
            "achieved_tflops": summary["achieved_tflops_per_chip"],
            "peak_mem_gib": peak_gib, "mem_at_start_gib": start_gib, "wall_s": wall_s,
            "launches": launches,
            "expected_launches": expected,
            "anomalies": summary["train_anomalies_loss"] + summary["train_anomalies_grad"]}
+    if "accuracy" in summary:
+        out["accuracy"] = summary["accuracy"]
     if len(losses) != int(spec["steps"]) or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train losses {losses}")
     if out["anomalies"]:
         raise AssertionError(f"{out['anomalies']} anomalous steps")
-    if not abs(losses[0] - math.log(32000)) <= LOSS0_MARGIN:
+    if not abs(losses[0] - math.log(classes)) <= LOSS0_MARGIN:
         raise AssertionError(f"step-0 loss {losses[0]} is not within {LOSS0_MARGIN} of "
-                             f"ln 32000")
+                             f"ln {classes}")
     if launches != expected:
         raise AssertionError(f"flash launches {launches} != formula {expected}")
     if summary["mfu"] is None:
@@ -1038,25 +1147,37 @@ def train_compare_phase(torch, fa, spec: dict) -> dict:
     run)."""
     from dataclasses import replace
 
-    from polyaxon_tpu_torch.models.transformer import unflatten
     from polyaxon_tpu_torch.train.tasks import LMTask
 
     cfg, micro, batch, paths, leaves = train_compare_setup(torch, spec)
+    return flash_dense_compare(
+        torch, fa, "train_compare", lambda impl: LMTask(replace(cfg, attn_impl=impl)),
+        batch, paths, leaves, TRAIN_LOSS_TOL, TRAIN_GRAD_REL_TOL,
+        tokens=micro * spec["seq_len"])
+
+
+def flash_dense_compare(torch, fa, phase: str, task_for_impl, batch: dict, paths, leaves,
+                        loss_tol: float, grad_tol: float, **extra) -> dict:
+    """The loss and grads of ``task_for_impl(impl).loss`` on ``batch`` with
+    attn_impl flash against dense, from the same leaves: they must agree
+    within (loss_tol, grad_tol), and with each planted kernel fault
+    (FLASH_FAULTS) they must not. Logs the readings under ``phase`` first."""
+    from polyaxon_tpu_torch.models.transformer import unflatten
 
     def loss_and_grads(impl):
         diff = [t.detach().requires_grad_() for t in leaves]
-        loss, _, _ = LMTask(replace(cfg, attn_impl=impl)).loss(
-            unflatten(paths, diff), None, batch)
+        loss, _, _ = task_for_impl(impl).loss(unflatten(paths, diff), None, batch)
         return loss.item(), torch.autograd.grad(loss, diff)
 
     ld, gd = loss_and_grads("dense")
 
     def against_dense(lf, gf) -> dict:
         rel = {"/".join(p): ((a.float() - b.float()).norm() / b.float().norm()).item()
-               for p, a, b in zip(paths, gf, gd)}
-        worst = max(rel, key=rel.get)
-        return {"loss": lf, "loss_diff": abs(lf - ld), "worst_grad_rel_err": rel[worst],
-                "worst_leaf": worst}
+               for p, a, b in zip(paths, gf, gd)
+               if not "/".join(p).endswith(ZERO_GRAD_LEAVES)}
+        ranked = sorted(rel, key=rel.get, reverse=True)
+        return {"loss": lf, "loss_diff": abs(lf - ld), "worst_grad_rel_err": rel[ranked[0]],
+                "worst_leaf": ranked[0], "next_leaves": {k: rel[k] for k in ranked[1:3]}}
 
     sound = against_dense(*loss_and_grads("flash"))
     faults = {}
@@ -1069,19 +1190,19 @@ def train_compare_phase(torch, fa, spec: dict) -> dict:
             setattr(fa, launcher, orig)
     del gd
     out = {"loss_flash": sound["loss"], "loss_dense": ld, "loss_diff": sound["loss_diff"],
-           "loss_tol": TRAIN_LOSS_TOL, "worst_grad_rel_err": sound["worst_grad_rel_err"],
-           "worst_leaf": sound["worst_leaf"], "grad_rel_tol": TRAIN_GRAD_REL_TOL,
-           "planted_faults": faults, "tokens": micro * spec["seq_len"]}
-    log("train_compare", **out)
+           "loss_tol": loss_tol, "worst_grad_rel_err": sound["worst_grad_rel_err"],
+           "worst_leaf": sound["worst_leaf"], "grad_rel_tol": grad_tol,
+           "planted_faults": faults, **extra}
+    log(phase, **out)
     if not (math.isfinite(sound["loss"]) and math.isfinite(ld)):
         raise AssertionError(f"non-finite loss: flash {sound['loss']}, dense {ld}")
-    if not sound["loss_diff"] <= TRAIN_LOSS_TOL:
+    if not sound["loss_diff"] <= loss_tol:
         raise AssertionError(f"flash vs dense loss differ by {sound['loss_diff']}")
-    if not sound["worst_grad_rel_err"] <= TRAIN_GRAD_REL_TOL:
+    if not sound["worst_grad_rel_err"] <= grad_tol:
         raise AssertionError(f"flash vs dense grads of {sound['worst_leaf']} differ by "
                              f"{sound['worst_grad_rel_err']} (relative)")
     for fault, r in faults.items():
-        if r["loss_diff"] <= TRAIN_LOSS_TOL and r["worst_grad_rel_err"] <= TRAIN_GRAD_REL_TOL:
+        if r["loss_diff"] <= loss_tol and r["worst_grad_rel_err"] <= grad_tol:
             raise AssertionError(f"planted fault {fault} passes the flash vs dense "
                                  f"compare ({r}); its limits cannot see it")
     return out
@@ -1154,6 +1275,96 @@ def train_profile_phase(torch, spec: dict) -> dict:
              "step_device_ms": k * profile["device_ms_per_step"]
              + tail["device_ms_per_step"]}
     return {"microbatch_profile": profile, "step_split": split}
+
+
+# -- BERT-base MLM, ViT-B/16 and ResNet-50 training ----------------------------------
+
+
+def image_stream_s(torch, spec: dict, batches: int = 3) -> float:
+    """Host seconds per batch that the spec's synthetic image stream takes
+    to draw its images (numpy), apart from the step: the mean of
+    ``batches`` draws, the first included."""
+    from polyaxon_tpu_torch.runtime.builtin import build_trainer
+
+    _, stream = build_trainer(dict(spec, checkpoint=False))
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(stream)
+    return (time.perf_counter() - t0) / batches
+
+
+def family_compare_phase(torch, fa, spec: dict) -> dict:
+    """One microbatch of the spec's run at full depth (f32 leaves, as the run
+    differentiates them): flash against dense, with the planted faults."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models import REGISTRY, transformer, vit
+    from polyaxon_tpu_torch.models.transformer import flatten
+    from polyaxon_tpu_torch.runtime.builtin import build_trainer
+    from polyaxon_tpu_torch.train.tasks import task_for
+
+    family, cfg = REGISTRY[spec["model"]]
+    micro = int(spec["batch_size"]) // int(spec.get("microbatches", 1))
+    _, stream = build_trainer(dict(spec, checkpoint=False, batch_size=micro))
+    batch = {name: t.cuda() for name, t in next(stream).items()}
+    if family == "vit":
+        params = vit.init(cfg, seed=0, device="cuda")
+
+        def task_for_impl(impl):
+            return task_for(family, replace(cfg, encoder=replace(cfg.encoder, attn_impl=impl)))
+    else:
+        params = transformer.init(cfg, seed=0, device="cuda")
+
+        def task_for_impl(impl):
+            return task_for(family, replace(cfg, attn_impl=impl))
+    paths, leaves = zip(*flatten(params))
+    loss_tol, grad_tol = FAMILY_COMPARE_TOL[spec["model"]]
+    tokens = micro * (int(spec["seq_len"]) if family == "mlm" else cfg.num_patches + 1)
+    out = flash_dense_compare(torch, fa, f"train_{family}_compare", task_for_impl, batch,
+                              paths, list(leaves), loss_tol, grad_tol, tokens=tokens)
+    del params, leaves
+    return out
+
+
+def family_profile_phase(torch, spec: dict) -> dict:
+    """Where one step of the spec's trainer spends its device time (its
+    batch drawn beforehand, so the host's image draw is not in it): the
+    profiler's split by kernel, the flash kernels' and cuBLAS's shares and
+    the device's idle share of the step's wall time."""
+    from polyaxon_tpu_torch.runtime.builtin import build_trainer
+
+    trainer, stream = build_trainer(dict(spec, checkpoint=False))
+    step = trainer.make_step()
+    warm, batch = next(stream), next(stream)
+    state, _ = step(trainer.init_state(seed=0), warm)  # warm-up
+    held = [state]
+
+    def one_step():
+        held[0], metrics = step(held[0], batch)
+        float(metrics["loss"])
+
+    return profile_steps(torch, one_step, steps=1,
+                         kernels=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+
+def resnet_stats_phase(torch, spec: dict) -> dict:
+    """One step of the spec's trainer from a fresh init: every batch
+    statistic in ``extra`` must move."""
+    from polyaxon_tpu_torch.partition.rules import tree_paths
+    from polyaxon_tpu_torch.runtime.builtin import build_trainer
+
+    trainer, stream = build_trainer(dict(spec, checkpoint=False))
+    state = trainer.init_state(seed=0)
+    before = {path: t.clone() for path, t in tree_paths(state.extra)}
+    state, metrics = trainer.make_step()(state, next(stream))
+    after = dict(tree_paths(state.extra))
+    moved = [path for path, t in before.items() if not torch.equal(t, after[path])]
+    out = {"stats": len(before), "moved": len(moved), "loss": float(metrics["loss"]),
+           "accuracy": float(metrics["accuracy"])}
+    if len(moved) != len(before):
+        raise AssertionError(f"{len(before) - len(moved)} batch statistics did not move "
+                             f"after one step")
+    return out
 
 
 # -- phases 8-9: speculative decoding -----------------------------------------------
@@ -1836,6 +2047,7 @@ def main() -> int:
 
     kernel_rows = kernel_phase(torch, pa)
     flash_rows = flash_kernel_phase(torch, fa)
+    flash_bidir_phase(torch, fa)
 
     from polyaxon_tpu_torch.models import REGISTRY
 
@@ -1866,6 +2078,28 @@ def main() -> int:
     train_compare_phase(torch, fa, TRAIN_SPEC)
     gc.collect()
     torch.cuda.empty_cache()
+
+    families = {}
+    for phase, spec in (("train_bert", BERT_SPEC), ("train_vit", VIT_SPEC),
+                        ("train_resnet", RESNET_SPEC)):
+        run = train_phase(torch, fa, spec)
+        family = model_shape(spec["model"])[0]
+        if family in ("vit", "resnet"):
+            if "accuracy" not in run:
+                raise AssertionError(f"{phase}: no accuracy in the final metrics")
+            run["image_stream_s_per_batch"] = image_stream_s(torch, spec)
+            run["image_stream_share_of_step"] = (run["image_stream_s_per_batch"] * 1e3
+                                                 / run["step_time_p50_ms"])
+        if family == "resnet":
+            run["stats"] = resnet_stats_phase(torch, spec)
+        log(phase, **run)
+        families[phase] = run
+        gc.collect()
+        torch.cuda.empty_cache()
+        if family != "resnet":
+            family_compare_phase(torch, fa, spec)
+            gc.collect()
+            torch.cuda.empty_cache()
 
     spec = spec_phase(torch, SPEC_SPEC, make_prompts(vocab), MAX_NEW)
     log("spec", **spec)
@@ -1920,6 +2154,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log("bridge_profile", **bridge_profile_phase(torch, TRAIN_SPEC))
+    for phase, spec in (("train_bert", BERT_SPEC), ("train_vit", VIT_SPEC),
+                        ("train_resnet", RESNET_SPEC)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{phase}_profile", **family_profile_phase(torch, spec))
 
     main_row = kernel_rows[0]  # D=64 bf16: the shape the main path gives it
     kernels = [{
@@ -1943,7 +2182,11 @@ def main() -> int:
             "replaces": replaces, "launches": trained["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "launches_by_path": {"train": trained["launches"][name],
+                                 **{phase: run["launches"][name]
+                                    for phase, run in families.items()
+                                    if run["expected_launches"][name]}}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,10 +1,12 @@
 """Carry a JAX param tree into the port.
 
-``params_from_jax(tree)`` takes the JAX package's parameter tree with its
-leaves as numpy arrays (the ``abstract_params`` layout: nested dicts,
-layer-stacked ``[L, ...]`` leaves) and returns the same tree of torch
-tensors on ``device``. The layouts are identical, so the conversion is
-leaf by leaf; the tests use it to give both packages the same weights.
+``params_from_jax(tree)`` takes a JAX package's tree with its leaves as
+numpy arrays and returns the same tree of torch tensors on ``device``: the
+transformer's (nested dicts, layer-stacked ``[L, ...]`` leaves), ViT's (no
+``embed.tokens``), ResNet's ``(params, batch_stats)`` pair (HWIO kernels).
+The port keeps every JAX layout, so the conversion is leaf by leaf and a
+converted tree means the same thing in both packages; the tests use it to
+give both the same weights.
 """
 
 from __future__ import annotations
@@ -25,9 +27,14 @@ def _leaf(x, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax(tree: Any, *, device: Any) -> dict:
-    """Nested dict of array-likes -> the same nested dict of tensors
-    (same dtypes) on ``device``."""
+def params_from_jax(tree: Any, *, device: Any) -> Any:
+    """Nested dicts, lists and tuples of array-likes -> the same structure
+    of tensors (same dtypes) on ``device``; None stays None (a model
+    without batch statistics)."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device=device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device=device) for v in tree)
     return _leaf(tree, torch.device(device))

@@ -226,8 +226,8 @@ def _qkv(x, lp, cfg: TransformerConfig, rope_tables):
 
 
 def _attend(q, k, v, cfg: TransformerConfig):
-    """Causal GQA attention, heads merged: [b, s, n*d] (the JAX package's
-    ``attn_out`` save)."""
+    """GQA attention (causal or not, as ``cfg.causal`` says), heads merged:
+    [b, s, n*d] (the JAX package's ``attn_out`` save)."""
     b, n, s, d = q.shape
     o = attention(q, k, v, causal=cfg.causal, impl=cfg.attn_impl,
                   block_q=min(cfg.attn_block_q, s), block_k=min(cfg.attn_block_k, k.shape[2]),
@@ -341,12 +341,28 @@ def _unstack(tree: dict, n: int) -> list:
     return [unflatten(paths, [p[i] for p in parts]) for i in range(n)]
 
 
-def apply_hidden(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+def run_trunk(x: torch.Tensor, layers: dict, cfg: TransformerConfig,
+              rope_tables=None) -> torch.Tensor:
+    """The stacked layers over ``x`` [batch, seq, hidden] under
+    ``cfg.remat``; shared by :func:`apply_hidden` and encoder-only models
+    (ViT)."""
+    for lp in _unstack(layers, cfg.num_layers):
+        x = _remat_layer(x, lp, cfg, rope_tables)
+    return x
+
+
+def apply_hidden(params: dict, tokens: Optional[torch.Tensor], cfg: TransformerConfig, *,
+                 inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Trunk forward: tokens [batch, seq] -> final-norm hidden states
-    [batch, seq, hidden] in the activation dtype. The vocab projection is
-    left to the caller (the training loss fuses it blockwise)."""
+    [batch, seq, hidden] in the activation dtype. ``inputs_embeds``
+    [batch, seq, hidden] takes the place of the token embedding. The vocab
+    projection is left to the caller (the training loss fuses it
+    blockwise)."""
     dt = cfg.dtype
-    x = params["embed"]["tokens"].to(dt)[tokens]
+    if inputs_embeds is None:
+        x = params["embed"]["tokens"].to(dt)[tokens]
+    else:
+        x = inputs_embeds.to(dt)
     s = x.shape[1]
     if cfg.pos == "learned":
         x = x + params["embed"]["pos"].to(dt)[None, :s]
@@ -357,8 +373,7 @@ def apply_hidden(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> 
                              f"positions would silently clamp")
         cos, sin = rope_frequencies(cfg.hd, cfg.max_seq, cfg.rope_theta, device=x.device)
         rope_tables = (cos[:s], sin[:s])
-    for lp in _unstack(params["layers"], cfg.num_layers):
-        x = _remat_layer(x, lp, cfg, rope_tables)
+    x = run_trunk(x, params["layers"], cfg, rope_tables)
     return _norm(x, params["final_norm"], cfg)
 
 

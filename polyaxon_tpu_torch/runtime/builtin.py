@@ -1,26 +1,33 @@
 """Built-in training entry of the port — counterpart of
-``polyaxon_tpu/runtime/builtin.py`` for dense causal LMs on one device.
+``polyaxon_tpu/runtime/builtin.py`` on one device, for every family of the
+port's model zoo: causal LMs, BERT MLM, ViT and ResNet.
 
     PLX_BUILTIN_SPEC='{"model": "llama-tiny", "platform": "cpu",
                        "steps": 5}' \\
         python -m polyaxon_tpu_torch.runtime.builtin
 
 Spec keys (the JAX runtime's, as far as the port goes):
-    model (a dense LM of the registry), steps, batch_size, seq_len,
-    learning_rate, warmup_steps, schedule, optimizer ("adamw"), remat,
-    attn_block_q / attn_block_k / attn_block_q_bwd / attn_block_k_bwd,
-    loss_chunk_tokens, mu_dtype / nu_dtype / grad_dtype / accum_dtype,
-    microbatches, data {kind: synthetic-lm, seed}, log_interval,
+    model (a name of the registry), steps, batch_size, learning_rate,
+    warmup_steps, schedule, optimizer (adamw | sgd | lion | adafactor),
+    mu_dtype / nu_dtype / grad_dtype / accum_dtype, microbatches,
+    data {kind (synthetic-lm | synthetic-mlm | synthetic-image |
+    tokens-file; the task's own by default), path, seed}, log_interval,
     anomaly_skip_budget, anomaly_rollback_budget, watchdog (true, false or
     {stall_factor, min_s, compile_grace_s}), parallelism ({data: 1}),
     num_slices (1).
+    Language models (lm, mlm) also take seq_len, remat, attn_block_q /
+    attn_block_k / attn_block_q_bwd / attn_block_k_bwd and
+    loss_chunk_tokens; ResNet takes image_size (32 or 224 by the config's
+    ``small_inputs``). ViT's sequence (patches + CLS) and image size are
+    its config's.
     checkpoint: on by default, under ``$PLX_ARTIFACTS_PATH/outputs/
         checkpoints`` (the working directory without it): false, or
         {save_interval_steps (steps // 4), max_to_keep (3), async_save
         (true)}. A restarted run resumes from its newest complete step.
     import: {path, layout (flat | hf-llama | auto), dtype, key_map,
-        transpose} — start from a foreign checkpoint; a complete
-        checkpoint of the run itself wins (resume beats re-import).
+        transpose} — start from a foreign checkpoint (language models
+        only); a complete checkpoint of the run itself wins (resume beats
+        re-import).
     fork_from: {path, step?} — start from another run's checkpoint,
         restored read-only (a torn pinned step falls back to the parent's
         newest complete one); resume beats re-fork too.
@@ -67,6 +74,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..train.checkpoint import CheckpointConfig
+from ..train.optimizers import OPTIMIZERS
 
 #: keys of the JAX runtime the port does not take yet -> ROADMAP item
 _NOT_PORTED = {
@@ -78,7 +86,6 @@ _NOT_PORTED = {
     "moe_dispatch": "A10 (MoE)",
     "moe_cap_block": "A10 (MoE)",
     "num_cpu_devices": "A6 (device meshes)",
-    "image_size": "A11 (vision models)",
 }
 
 _KNOWN = {
@@ -88,8 +95,13 @@ _KNOWN = {
     "nu_dtype", "grad_dtype", "accum_dtype", "microbatches", "data", "log_interval",
     "anomaly_skip_budget", "anomaly_rollback_budget", "watchdog", "parallelism",
     "num_slices", "checkpoint", "import", "fork_from", "platform",
-    "progress_interval", "chaos", "resources", "profile",
+    "progress_interval", "chaos", "resources", "profile", "image_size",
 }
+#: keys only a language model (family lm or mlm) reads
+_LM_KEYS = {"seq_len", "remat", "attn_block_q", "attn_block_k", "attn_block_q_bwd",
+            "attn_block_k_bwd", "loss_chunk_tokens"}
+_DATA_KEYS = {"kind", "path", "seed"}
+_DATA_KINDS = ("synthetic-lm", "synthetic-mlm", "synthetic-image", "tokens-file")
 _CHECKPOINT_KEYS = {"save_interval_steps", "max_to_keep", "async_save"}
 _IMPORT_KEYS = {"path", "layout", "dtype", "key_map", "transpose"}
 _FORK_KEYS = {"path", "step"}
@@ -129,9 +141,9 @@ def _refuse_unsupported(spec: dict) -> None:
     for key in ("import", "fork_from"):
         if spec.get(key) is not None and not spec[key].get("path"):
             raise SystemExit(f"{key}: needs a path")
-    if spec.get("optimizer", "adamw") != "adamw":
-        raise SystemExit(f"optimizer {spec['optimizer']!r}: only adamw is ported "
-                         f"(ROADMAP A4)")
+    if spec.get("optimizer", "adamw") not in OPTIMIZERS:
+        raise SystemExit(f"optimizer {spec['optimizer']!r}: unknown; valid: "
+                         f"{'|'.join(OPTIMIZERS)}")
     para = spec.get("parallelism")
     if para is not None and any(int(v) != 1 for v in dict(para).values()):
         raise SystemExit(f"parallelism {para}: the port trains on one device; "
@@ -139,12 +151,25 @@ def _refuse_unsupported(spec: dict) -> None:
     if int(spec.get("num_slices", 1)) != 1:
         raise SystemExit("num_slices > 1: multislice waits for ROADMAP A6")
     data = dict(spec.get("data") or {})
-    if data.get("kind", "synthetic-lm") != "synthetic-lm" or "path" in data:
-        raise SystemExit(f"data {data}: only synthetic-lm is ported (tokens-file "
-                         f"data waits for ROADMAP A4)")
-    unknown = set(data) - {"kind", "seed"}
+    unknown = set(data) - _DATA_KEYS
     if unknown:
-        raise SystemExit(f"data keys {sorted(unknown)} are not ported (ROADMAP A4)")
+        raise SystemExit(f"data: unknown keys {sorted(unknown)}; valid: {sorted(_DATA_KEYS)}")
+    if data.get("kind") is not None and data["kind"] not in _DATA_KINDS:
+        raise SystemExit(f"data kind {data['kind']!r}: unknown; valid: {'|'.join(_DATA_KINDS)}")
+    if data.get("kind") == "tokens-file" and not data.get("path"):
+        raise SystemExit("data kind tokens-file needs a path")
+
+
+def _refuse_family_keys(spec: dict, family: str) -> None:
+    """Raise on a key that the model's family does not read."""
+    if family not in ("lm", "mlm"):
+        keys = sorted(_LM_KEYS & set(spec))
+        if keys:
+            raise SystemExit(f"{keys}: only language models take them; {family} "
+                             f"models do not")
+    if family != "resnet" and "image_size" in spec:
+        raise SystemExit(f"image_size: only resnet models take it ({family} models do "
+                         f"not; a vit's is its config's)")
 
 
 def resolve_device(spec: dict) -> torch.device:
@@ -186,24 +211,38 @@ def build_trainer(spec: dict[str, Any],
     if name not in REGISTRY:
         raise SystemExit(f"Unknown model {name!r}; available: {sorted(REGISTRY)}")
     family, mcfg = REGISTRY[name]
-    if family != "lm":
-        raise SystemExit(f"no builtin task for model family {family!r} in the port")
+    _refuse_family_keys(spec, family)
     device = resolve_device(spec)
 
-    overrides: dict[str, Any] = {}
-    if spec.get("remat"):
-        overrides["remat"] = spec["remat"]
-    if spec.get("loss_chunk_tokens") is not None:
-        overrides["loss_chunk_tokens"] = int(spec["loss_chunk_tokens"])
-    for knob in ("attn_block_q", "attn_block_k", "attn_block_q_bwd", "attn_block_k_bwd"):
-        if spec.get(knob) is not None:
-            overrides[knob] = int(spec[knob])
-    seq_len = int(spec.get("seq_len", min(2048, mcfg.max_seq)))
-    if seq_len > mcfg.max_seq:
-        overrides["max_seq"] = seq_len
-    if overrides:
-        mcfg = replace(mcfg, **overrides)
-    task = task_for(family, mcfg)
+    data_kwargs: dict[str, Any] = {}
+    if family in ("lm", "mlm"):
+        overrides: dict[str, Any] = {}
+        if spec.get("remat"):
+            overrides["remat"] = spec["remat"]
+        if spec.get("loss_chunk_tokens") is not None:
+            overrides["loss_chunk_tokens"] = int(spec["loss_chunk_tokens"])
+        for knob in ("attn_block_q", "attn_block_k", "attn_block_q_bwd",
+                     "attn_block_k_bwd"):
+            if spec.get(knob) is not None:
+                overrides[knob] = int(spec[knob])
+        seq_len = int(spec.get("seq_len", min(2048, mcfg.max_seq)))
+        if seq_len > mcfg.max_seq:
+            overrides["max_seq"] = seq_len
+        if overrides:
+            mcfg = replace(mcfg, **overrides)
+        task = task_for(family, mcfg)
+        data_kwargs["vocab_size"] = mcfg.vocab_size
+    elif family == "vit":
+        seq_len = mcfg.num_patches + 1
+        task = task_for(family, mcfg)
+        data_kwargs.update(image_size=mcfg.image_size, num_classes=mcfg.num_classes)
+    elif family == "resnet":
+        image_size = int(spec.get("image_size", 32 if mcfg.small_inputs else 224))
+        seq_len = 1
+        task = task_for(family, mcfg, image_size=image_size)
+        data_kwargs.update(image_size=image_size, num_classes=mcfg.num_classes)
+    else:
+        raise SystemExit(f"no builtin task for model family {family!r} in the port")
 
     steps = int(spec.get("steps", 100))
     batch_size = int(spec.get("batch_size", 8))
@@ -265,8 +304,9 @@ def build_trainer(spec: dict[str, Any],
                       **hooks)
     data_spec = dict(spec.get("data") or {})
     batches = make_batches(DataConfig(
-        kind=data_spec.get("kind", task.default_data_kind), batch_size=batch_size,
-        seq_len=seq_len, vocab_size=mcfg.vocab_size, seed=int(data_spec.get("seed", 0))))
+        kind=data_spec.get("kind") or task.default_data_kind, batch_size=batch_size,
+        seq_len=seq_len, path=data_spec.get("path"), seed=int(data_spec.get("seed", 0)),
+        **data_kwargs))
     return trainer, batches
 
 
@@ -362,6 +402,7 @@ def run_builtin(spec: dict[str, Any],
 
 
 def _run_builtin(spec: dict, track, run) -> dict[str, Any]:
+    from ..train.data import skip_batches
     from ..train.trainer import TrainingDivergedError
 
     artifacts_dir = (run.run_dir if run is not None
@@ -383,12 +424,13 @@ def _run_builtin(spec: dict, track, run) -> dict[str, Any]:
                        message=f"{spec.get('model', 'llama-tiny')} on {trainer.device}")
     device, steps = trainer.device, trainer.cfg.optimizer.total_steps
     t_restore = time.time()
-    state, start_step = trainer.restore_or_init(
-        init_params=_initial_params(spec, trainer, trainer.cfg.model, device))
+    init_params, init_extra = _initial_params(spec, trainer, trainer.cfg.model, device)
+    state, start_step = trainer.restore_or_init(init_params=init_params,
+                                                init_extra=init_extra)
     if run is not None:
         run.log_span("restore", t_restore, time.time(), resumed_from_step=int(start_step))
     # a resumed run continues the data stream where the checkpoint left it
-    batches.skip(start_step)
+    skip_batches(batches, start_step)
     res_spec = spec.get("resources", True)
     res_logger = None
     if run is not None and res_spec is not False:
@@ -470,22 +512,28 @@ def _fit(spec: dict, trainer, batches, state, steps: int, artifacts_dir: str,
     return merged
 
 
-def _initial_params(spec: dict, trainer, mcfg, device) -> Optional[dict]:
-    """Params to start from instead of a fresh init: ``import:`` (a foreign
-    checkpoint) or ``fork_from:`` (another run's checkpoint, read-only).
-    None when neither is asked for, or when the run has a complete
+def _initial_params(spec: dict, trainer, mcfg, device) -> tuple[Optional[dict], Any]:
+    """(params, extra) to start from instead of a fresh init: ``import:``
+    (a foreign checkpoint; no extra) or ``fork_from:`` (another run's
+    checkpoint, read-only, with its extra: ResNet's batch statistics).
+    (None, None) when neither is asked for, or when the run has a complete
     checkpoint of its own — resume beats re-import and re-fork."""
     import_spec, fork_spec = spec.get("import"), spec.get("fork_from")
     if not (import_spec or fork_spec):
-        return None
+        return None, None
     if trainer.checkpointer is not None \
             and trainer.checkpointer.latest_complete_step() is not None:
         print("[builtin] complete checkpoint found; skipping "
               f"{'import' if import_spec else 'fork restore'}", flush=True)
-        return None
-    params = None
+        return None, None
+    params = extra = None
     if import_spec:
         from ..partition import convert as pconvert
+        from ..train.tasks import LMTask
+
+        if not isinstance(trainer.task, LMTask):
+            raise SystemExit(f"import: is only supported for LM/MLM models "
+                             f"(got {spec.get('model')!r})")
 
         params = pconvert.import_params(
             import_spec["path"], mcfg, device=device,
@@ -510,9 +558,11 @@ def _initial_params(spec: dict, trainer, mcfg, device) -> Optional[dict]:
             print(f"[builtin] fork step {fork_step} not restorable ({e}); "
                   f"using parent step {restored}", flush=True)
         params = to_device(raw["params"], device)
+        if raw.get("extra") is not None:
+            extra = to_device(raw["extra"], device)
         print(f"[builtin] forked from {fork_spec['path']} @ step {restored}",
               flush=True)
-    return params
+    return params, extra
 
 
 def main() -> None:

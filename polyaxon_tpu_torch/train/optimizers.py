@@ -1,28 +1,32 @@
-"""AdamW and its learning-rate schedules for the port — counterpart of
-``polyaxon_tpu/train/optimizers.py`` (optax there).
+"""Optimizers and their learning-rate schedules for the port — counterpart
+of ``polyaxon_tpu/train/optimizers.py`` (optax there).
 
-Plain functions over lists of tensors, not ``torch.optim``: the update is
-the JAX package's optax chain step for step — clip by the global norm, Adam
-with moments stored in their own dtypes (bf16 moments for f32 params, which
-``torch.optim.AdamW`` cannot hold), decoupled weight decay on every leaf,
-then the scheduled -lr. The schedule reads the update count before it is
-incremented, as optax's does, so with warmup the first update is zero.
-Only AdamW is ported; the other optimizers of the JAX package wait for
-ROADMAP A4.
+Plain functions over lists of tensors, not ``torch.optim``: each update is
+the JAX package's optax chain step for step, with the clip by the global
+norm first. ``adamw`` is optax.adamw with moments stored in their own
+dtypes (bf16 moments for f32 params, which ``torch.optim.AdamW`` cannot
+hold), decoupled weight decay on every leaf, then the scheduled -lr;
+``sgd`` is optax.sgd with momentum (a trace, nesterov off, no decay);
+``lion`` is optax.lion; ``adafactor`` is optax.adafactor at its defaults
+(factored second moments over each leaf's two largest dims, the update
+clipped to RMS 1 and scaled by the param's RMS). Every schedule reads the
+update count before it is incremented, as optax's does, so with warmup the
+first update is zero.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    name: str = "adamw"               # adamw (the only one ported)
+    name: str = "adamw"               # adamw | sgd | lion | adafactor
     learning_rate: float = 3e-4
     warmup_steps: int = 100
     total_steps: int = 10000
@@ -32,6 +36,7 @@ class OptimizerConfig:
     b1: float = 0.9
     b2: float = 0.95
     grad_clip: float = 1.0
+    momentum: float = 0.9             # sgd
     # reduced-precision moments: storage only, the moment math runs in f32
     mu_dtype: Optional[str] = None    # e.g. "bfloat16"; None = param dtype
     nu_dtype: Optional[str] = None    # e.g. "bfloat16"; None = param dtype
@@ -97,6 +102,50 @@ class AdamState:
     nu: list
 
 
+@dataclass
+class SgdState:
+    """The momentum trace (param dtype) and the schedule's count."""
+    count: int
+    trace: list
+
+
+@dataclass
+class LionState:
+    """Lion's momentum (``mu_dtype``) and the schedule's count."""
+    count: int
+    mu: list
+
+
+@dataclass
+class AdafactorState:
+    """optax's ``FactoredState``: per param, the row and column second
+    moments of a factored leaf, or the full second moment of one that is
+    not, with a ``(1,)`` placeholder in the other slots."""
+    count: int
+    v_row: list
+    v_col: list
+    v: list
+
+
+#: every optimizer state; a checkpoint's ``opt_state`` names its fields
+OPT_STATES = (AdamState, SgdState, LionState, AdafactorState)
+
+
+def opt_state_tree(state) -> dict:
+    """An optimizer state as a checkpoint's tree: its fields by name (the
+    tensors are the state's own)."""
+    return {f.name: getattr(state, f.name) for f in fields(state)}
+
+
+def opt_state_from_tree(tree: dict):
+    """The optimizer state whose fields the tree's keys name."""
+    for cls in OPT_STATES:
+        if {f.name for f in fields(cls)} == set(tree):
+            return cls(count=int(tree["count"]),
+                       **{k: list(v) for k, v in tree.items() if k != "count"})
+    raise ValueError(f"no optimizer state has the fields {sorted(tree)}")
+
+
 def global_norm(tensors: list) -> torch.Tensor:
     """optax's ``global_norm``: each leaf's squares in its dtype, summed
     (in f32, rounded to the leaf's dtype), then summed across leaves in
@@ -141,18 +190,38 @@ def scale_by_adam_lowmem(g, m, v, *, c1: float, c2: float, b1: float, b2: float,
     return u, m_new, v_new
 
 
-class AdamW:
-    """``make_optimizer(cfg)`` for ``name: adamw``: clip -> Adam -> decay
-    -> -lr. ``init(params)`` gives the state; ``update(grads, state,
-    params)`` returns (updates, new state), the updates in f32 for the
-    caller to add to the f32 master params."""
+class _Optimizer:
+    """``init(params)`` gives the state; ``update(grads, state, params)``
+    clips the grads by their global norm and returns (updates, new state),
+    the updates for the caller to add to the f32 master params."""
 
     def __init__(self, cfg: OptimizerConfig):
-        if cfg.name != "adamw":
-            raise ValueError(f"optimizer {cfg.name!r} is not ported; only adamw "
-                             f"(ROADMAP A4)")
         self.cfg = cfg
         self.schedule = make_schedule(cfg)
+
+    def init(self, params: list):
+        raise NotImplementedError
+
+    def update(self, grads: list, state, params: list):
+        if self.cfg.grad_clip and self.cfg.grad_clip > 0:
+            grads = clip_by_global_norm(grads, self.cfg.grad_clip)
+        return self._update(grads, state, params, self.schedule(state.count))
+
+    def _update(self, grads: list, state, params: list, lr: float):
+        raise NotImplementedError
+
+
+def _times_lr(lr: float, u: torch.Tensor) -> torch.Tensor:
+    """optax's ``scale_by_learning_rate``: -lr in the update's dtype, times
+    the update."""
+    return torch.tensor(-lr, dtype=u.dtype, device=u.device) * u
+
+
+class AdamW(_Optimizer):
+    """clip -> Adam -> decay -> -lr."""
+
+    def __init__(self, cfg: OptimizerConfig):
+        super().__init__(cfg)
         self.mu_dtype = _dtype(cfg.mu_dtype)
         # with nu_dtype set the JAX package runs scale_by_adam_lowmem;
         # without it, optax.adamw (whose nu stays in the param dtype)
@@ -165,23 +234,133 @@ class AdamW:
             mu=[torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for p in params],
             nu=[torch.zeros_like(p, dtype=self.nu_dtype or p.dtype) for p in params])
 
-    def update(self, grads: list, state: AdamState, params: list):
+    def _update(self, grads, state: AdamState, params, lr):
         cfg = self.cfg
-        if cfg.grad_clip and cfg.grad_clip > 0:
-            grads = clip_by_global_norm(grads, cfg.grad_clip)
         count = state.count + 1
         consts = dict(c1=_f32(1 - cfg.b1 ** count), c2=_f32(1 - cfg.b2 ** count),
                       b1=cfg.b1, b2=cfg.b2)
-        lr = self.schedule(state.count)
         mus, nus, updates = [], [], []
         for g, m, v, p in zip(grads, state.mu, state.nu, params):
             u, m_new, v_new = self.adam(g, m, v, **consts)
             mus.append(m_new)
             nus.append(v_new)
-            u = u + cfg.weight_decay * p
-            updates.append(torch.tensor(-lr, dtype=u.dtype, device=u.device) * u)
+            updates.append(_times_lr(lr, u + cfg.weight_decay * p))
         return updates, AdamState(count=count, mu=mus, nu=nus)
 
 
-def make_optimizer(cfg: OptimizerConfig) -> AdamW:
-    return AdamW(cfg)
+class Sgd(_Optimizer):
+    """clip -> ``optax.trace(momentum)`` (t = g + momentum * t) -> -lr."""
+
+    def init(self, params: list) -> SgdState:
+        return SgdState(count=0, trace=[torch.zeros_like(p) for p in params])
+
+    def _update(self, grads, state: SgdState, params, lr):
+        traces = [g + _scaled(self.cfg.momentum, t) for g, t in zip(grads, state.trace)]
+        updates = [_times_lr(lr, t) for t in traces]
+        return updates, SgdState(count=state.count + 1, trace=traces)
+
+
+class Lion(_Optimizer):
+    """clip -> ``optax.scale_by_lion`` (sign of b1's interpolation; the
+    momentum an EMA at b2, stored in ``mu_dtype``) -> decay -> -lr."""
+
+    def init(self, params: list) -> LionState:
+        dt = _dtype(self.cfg.mu_dtype)
+        return LionState(count=0, mu=[torch.zeros_like(p, dtype=dt or p.dtype)
+                                      for p in params])
+
+    def _update(self, grads, state: LionState, params, lr):
+        cfg = self.cfg
+        mus, updates = [], []
+        for g, m, p in zip(grads, state.mu, params):
+            u = torch.sign(_scaled(1.0 - cfg.b1, g) + _scaled(cfg.b1, m))
+            mus.append((_scaled(1 - cfg.b2, g) + _scaled(cfg.b2, m)).to(m.dtype))
+            updates.append(_times_lr(lr, u + cfg.weight_decay * p))
+        return updates, LionState(count=state.count + 1, mu=mus)
+
+
+#: optax.adafactor's defaults (optax 0.2.6)
+ADAFACTOR_MIN_DIM_TO_FACTOR = 128
+ADAFACTOR_DECAY_RATE = 0.8
+ADAFACTOR_EPS = 1e-30
+ADAFACTOR_CLIP_RMS = 1.0
+ADAFACTOR_MIN_PARAM_RMS = 1e-3
+
+
+def factored_dims(shape) -> Optional[tuple[int, int]]:
+    """optax's ``_factored_dims``: (d1, d0), the second largest and the
+    largest dim, by numpy's argsort of the shape (its order among equal
+    sizes too), or None when the leaf has one dim or its second largest
+    is under 128. A layer-stacked ``[L, h, m]`` leaf factors over h and m."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < ADAFACTOR_MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _rms(t: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.mean(t * t))
+
+
+class Adafactor(_Optimizer):
+    """clip -> ``optax.scale_by_factored_rms`` -> ``clip_by_block_rms(1)``
+    -> lr -> times the param's RMS (at least 1e-3) -> negate."""
+
+    def init(self, params: list) -> AdafactorState:
+        state = AdafactorState(count=0, v_row=[], v_col=[], v=[])
+        for p in params:
+            dims = factored_dims(p.shape)
+            one = torch.zeros(1, dtype=p.dtype, device=p.device)
+            if dims is None:
+                state.v_row.append(one)
+                state.v_col.append(one.clone())
+                state.v.append(torch.zeros_like(p))
+            else:
+                d1, d0 = dims
+                state.v_row.append(torch.zeros_like(p.select(d0, 0)))
+                state.v_col.append(torch.zeros_like(p.select(d1, 0)))
+                state.v.append(one)
+        return state
+
+    def _update(self, grads, state: AdafactorState, params, lr):
+        # the decay of the second moments, 1 - (count + 1)^-0.8, and its
+        # complement, each an f32 value (optax computes both in f32)
+        t = torch.tensor(state.count + 1, dtype=torch.float32)
+        decay = float(1.0 - t ** -ADAFACTOR_DECAY_RATE)
+        keep = _f32(1.0 - decay)
+        new = AdafactorState(count=state.count + 1, v_row=[], v_col=[], v=[])
+        updates = []
+        for g, vr, vc, v, p in zip(grads, state.v_row, state.v_col, state.v, params):
+            sq = g * g + ADAFACTOR_EPS
+            dims = factored_dims(p.shape)
+            if dims is None:
+                v = (decay * v + keep * sq).to(p.dtype)
+                u = g * v ** -0.5
+            else:
+                d1, d0 = dims
+                vr = (decay * vr + keep * sq.mean(dim=d0)).to(p.dtype)
+                vc = (decay * vc + keep * sq.mean(dim=d1)).to(p.dtype)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row = (vr / vr.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                u = g * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
+            new.v_row.append(vr)
+            new.v_col.append(vc)
+            new.v.append(v)
+            u = u / torch.clamp(_rms(u) / ADAFACTOR_CLIP_RMS, min=1.0)
+            u = torch.tensor(lr, dtype=u.dtype, device=u.device) * u
+            p_rms = _rms(p)
+            u = u * torch.where(p_rms <= ADAFACTOR_MIN_PARAM_RMS,
+                                torch.full_like(p_rms, ADAFACTOR_MIN_PARAM_RMS), p_rms)
+            updates.append(-u)
+        return updates, new
+
+
+OPTIMIZERS = {"adamw": AdamW, "sgd": Sgd, "lion": Lion, "adafactor": Adafactor}
+
+
+def make_optimizer(cfg: OptimizerConfig) -> _Optimizer:
+    if cfg.name not in OPTIMIZERS:
+        raise ValueError(f"Unknown optimizer {cfg.name!r}; valid: {'|'.join(OPTIMIZERS)}")
+    return OPTIMIZERS[cfg.name](cfg)

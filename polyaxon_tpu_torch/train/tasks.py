@@ -1,17 +1,19 @@
-"""Training tasks of the port — counterpart of ``polyaxon_tpu/train/tasks.py``
-for the dense causal LM. A Task owns init, the loss and the throughput
-units the meter needs; the MLM, ViT and ResNet tasks and MoE's router loss
-wait for ROADMAP A11 and A10.
+"""Training tasks of the port — counterpart of ``polyaxon_tpu/train/tasks.py``.
+A Task owns init, the loss (with its metrics and the new non-param state)
+and the throughput units the meter needs: tokens for the language models,
+samples for vision. MoE's router loss waits for ROADMAP A10.
 """
 
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
+from ..models import resnet as resnet_mod
 from ..models import transformer
+from ..models import vit as vit_mod
 from ..models.transformer import TransformerConfig
 
 
@@ -37,8 +39,13 @@ class Task(ABC):
     def flops_per_token(self, seq_len: int) -> float: ...
 
 
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (torch.argmax(logits, dim=-1) == labels).float().mean()
+
+
 class LMTask(Task):
-    """Next-token language modeling on the shared transformer core."""
+    """Next-token (causal) or masked (bidirectional, when the batch carries
+    a loss mask) language modeling on the shared transformer core."""
 
     def __init__(self, cfg: TransformerConfig):
         if getattr(cfg, "num_experts", 0):
@@ -63,8 +70,72 @@ class LMTask(Task):
         return self.cfg.flops_per_token(seq_len)
 
 
-def task_for(family: str, model_cfg: Any) -> Task:
+class MLMTask(LMTask):
+    """BERT-style MLM: the same core, a bidirectional config, masked batches
+    (data kind synthetic-mlm supplies inputs, labels and mask)."""
+
+    default_data_kind = "synthetic-mlm"
+
+
+class ViTTask(Task):
+    """Image classification with a ViT encoder."""
+
+    default_data_kind = "synthetic-image"
+
+    def __init__(self, cfg: vit_mod.ViTConfig):
+        self.cfg = cfg
+
+    def init(self, seed, device):
+        return vit_mod.init(self.cfg, seed=seed, device=device), None
+
+    def loss(self, params, extra, batch):
+        logits = vit_mod.apply(params, batch["images"], self.cfg)
+        loss = resnet_mod.classification_loss(logits, batch["labels"])
+        return loss, {"loss": loss, "accuracy": _accuracy(logits, batch["labels"])}, None
+
+    def tokens_per_step(self, batch_size, seq_len):
+        return batch_size  # samples
+
+    def flops_per_token(self, seq_len):
+        # per image: the encoder's FLOPs at its sequence (patches + CLS)
+        tokens = self.cfg.num_patches + 1
+        return self.cfg.encoder.flops_per_token(tokens) * tokens
+
+
+class ResNetTask(Task):
+    """ResNet classification; the batch statistics are ``extra``, updated by
+    every microbatch's forward."""
+
+    default_data_kind = "synthetic-image"
+
+    def __init__(self, cfg: resnet_mod.ResNetConfig, image_size: Optional[int] = None):
+        self.cfg = cfg
+        self.image_size = image_size or (32 if cfg.small_inputs else 224)
+
+    def init(self, seed, device):
+        return resnet_mod.init(self.cfg, seed=seed, device=device)
+
+    def loss(self, params, extra, batch):
+        logits, new_stats = resnet_mod.apply(params, extra, batch["images"], self.cfg,
+                                             train=True)
+        loss = resnet_mod.classification_loss(logits, batch["labels"])
+        return loss, {"loss": loss, "accuracy": _accuracy(logits, batch["labels"])}, new_stats
+
+    def tokens_per_step(self, batch_size, seq_len):
+        return batch_size  # samples
+
+    def flops_per_token(self, seq_len):
+        return resnet_mod.flops_per_image(self.cfg, self.image_size)
+
+
+def task_for(family: str, model_cfg: Any, **kwargs: Any) -> Task:
     """Model-zoo family name -> Task (REGISTRY's family tags)."""
     if family == "lm":
         return LMTask(model_cfg)
-    raise ValueError(f"no task for model family {family!r} in the port")
+    if family == "mlm":
+        return MLMTask(model_cfg)
+    if family == "vit":
+        return ViTTask(model_cfg)
+    if family == "resnet":
+        return ResNetTask(model_cfg, **kwargs)
+    raise ValueError(f"no task for model family {family!r}")

@@ -2,13 +2,15 @@
 ``polyaxon_tpu/train/trainer.py`` on one device.
 
 One step = the microbatch loop (grads in ``grad_dtype``, summed in
-``accum_dtype`` and divided by k), the global norm of the unclipped grads,
-the divergence guard (a non-finite loss or grad norm keeps the old params
-and optimizer state, and freezes the schedule and Adam's count), then
-AdamW. ``fit`` runs the JAX package's policy around it: the throughput
-meter, periodic and final checkpoint saves, the skip budget, the rollback
-to the newest complete checkpoint (``anomaly_rollback_budget``) and
-``TrainingDivergedError``, the step watchdog.
+``accum_dtype`` and divided by k; the task's metrics averaged over the
+microbatches), the global norm of the unclipped grads, the divergence
+guard (a non-finite loss or grad norm keeps the old params, optimizer
+state and extra, and freezes the schedule and the optimizer's count),
+then the optimizer. ``fit`` runs the JAX package's policy around it: the
+throughput meter, periodic and final checkpoint saves, the skip budget,
+the rollback to the newest complete checkpoint
+(``anomaly_rollback_budget``) and ``TrainingDivergedError``, the step
+watchdog.
 
 Where the JAX step selects old or new values inside jit, this one reads
 the guard's verdict on the host once per step (before the update) and
@@ -31,14 +33,16 @@ import torch
 from ..models.transformer import TransformerConfig, flatten, unflatten
 from .checkpoint import CheckpointConfig, Checkpointer
 from .metrics import ThroughputMeter
-from .optimizers import AdamState, OptimizerConfig, global_norm, make_optimizer
+from .optimizers import (
+    OptimizerConfig, global_norm, make_optimizer, opt_state_from_tree, opt_state_tree,
+)
 from .tasks import LMTask, Task
 
 
 @dataclass
 class TrainState:
     params: dict          # f32 master params, updated in place
-    opt_state: AdamState
+    opt_state: Any        # the optimizer's state (train/optimizers.py)
     step: int             # attempted steps (== batches consumed)
     extra: Any = None
 
@@ -143,15 +147,15 @@ class Trainer:
         leaves = [leaf for _, leaf in flatten(params)]
         return TrainState(params=params, opt_state=self.tx.init(leaves), step=0, extra=extra)
 
-    def restore_or_init(self, seed: int = 0,
-                        init_params: Optional[dict] = None) -> tuple[TrainState, int]:
+    def restore_or_init(self, seed: int = 0, init_params: Optional[dict] = None,
+                        init_extra: Any = None) -> tuple[TrainState, int]:
         """Latest complete checkpoint wins (resume); else ``init_params``
-        (checkpoint import, fork) when given; else a fresh init. A
-        directory of the JAX package's Orbax steps raises
+        and ``init_extra`` (checkpoint import, fork) when given; else a
+        fresh init. A directory of the JAX package's Orbax steps raises
         :class:`~.checkpoint.ForeignCheckpointError` instead of starting
         over."""
         if init_params is not None:
-            state = self.init_state_from(init_params)
+            state = self.init_state_from(init_params, init_extra)
         else:
             state = self.init_state(seed)
         if self.checkpointer and self.checkpointer.latest_step() is not None:
@@ -199,13 +203,13 @@ class Trainer:
             diff_tree = unflatten(paths, diff)
             batch = {name: t.to(self.device) for name, t in batch.items()}
             size = self.cfg.batch_size // k
-            grads, losses, extra = None, [], state.extra
+            grads, per_micro, extra = None, [], state.extra
             for i in range(k):
                 mb = {name: t[i * size:(i + 1) * size] for name, t in batch.items()}
-                loss, _, extra = self._loss(diff_tree, extra, mb, inject)
+                loss, m, extra = self._loss(diff_tree, extra, mb, inject)
                 g = torch.autograd.grad(loss, [t for t in diff if t.requires_grad],
                                         allow_unused=True, materialize_grads=True)
-                losses.append(loss.detach())
+                per_micro.append({name: v.detach() for name, v in m.items()})
                 if k == 1:
                     grads = list(g)
                 elif grads is None:
@@ -213,15 +217,20 @@ class Trainer:
                 else:
                     for acc, gi in zip(grads, g):
                         acc.add_(gi.to(ad))
-                del g, loss
+                del g, loss, m
             if k > 1:
                 grads = [g / k for g in grads]
-            loss = torch.stack(losses).mean()
+            # the task's metrics, each the mean over the microbatches (as the
+            # JAX step's scan averages them); tensors, so no device sync
+            task_metrics = (per_micro[0] if k == 1 else
+                            {name: torch.stack([m[name] for m in per_micro]).mean()
+                             for name in per_micro[0]})
+            loss = task_metrics["loss"]
             grad_norm = global_norm(grads)
             loss_ok = torch.isfinite(loss)
             grad_ok = torch.isfinite(grad_norm)
             metrics = {
-                "loss": loss, "grad_norm": grad_norm,
+                **task_metrics, "grad_norm": grad_norm,
                 "anomaly_loss": (~loss_ok).float(),
                 "anomaly_grad": (loss_ok & ~grad_ok).float(),
             }
@@ -427,17 +436,13 @@ class Trainer:
 
 
 def state_tree(state: TrainState) -> dict:
-    """A TrainState as the checkpoint's tree: params, Adam's count and
-    moments, step and extra (the tensors are the state's own)."""
-    opt = state.opt_state
-    return {"params": state.params,
-            "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
+    """A TrainState as the checkpoint's tree: params, the optimizer state's
+    fields (count and per-param tensors), step and extra (the tensors are
+    the state's own)."""
+    return {"params": state.params, "opt_state": opt_state_tree(state.opt_state),
             "step": int(state.step), "extra": state.extra}
 
 
 def state_from_tree(tree: dict) -> TrainState:
-    opt = tree["opt_state"]
-    return TrainState(params=tree["params"],
-                      opt_state=AdamState(count=int(opt["count"]), mu=list(opt["mu"]),
-                                          nu=list(opt["nu"])),
+    return TrainState(params=tree["params"], opt_state=opt_state_from_tree(tree["opt_state"]),
                       step=int(tree["step"]), extra=tree.get("extra"))

@@ -64,8 +64,11 @@ def test_cpu_run_prints_the_final_line_with_the_meter_keys(capsys):
     ("parallelism", {"data": 2}, "A6"),
     ("num_slices", 2, "A6"),
     ("profile", {"every": 2}, "unknown keys"),
-    ("optimizer", "lion", "A4"),
-    ("data", {"kind": "tokens-file", "path": "/x.npy"}, "A4"),
+    ("optimizer", "adam8bit", "unknown; valid: adamw"),
+    ("data", {"kind": "tokens-file"}, "needs a path"),
+    ("data", {"kind": "tfrecords"}, "unknown; valid"),
+    ("data", {"shuffle": True}, "unknown keys"),
+    ("image_size", 64, "only resnet models take it"),
     ("pp_microbatches", 4, "A9"),
     ("moe_dispatch", "a2a", "A10"),
     ("chaos", {"hang_after_requests": 3}, "unknown keys"),
@@ -339,3 +342,134 @@ def test_checkpoint_restore_serves_the_trained_params(tmp_path, monkeypatch):
         for e in (engine, direct):
             e.stop()
     assert got[0] == got[1] and len(got[0]) == 6
+
+
+# -- every family and optimizer through the runtime ------------------------------
+
+FAMILY_BASE = {"platform": "cpu", "steps": 5, "batch_size": 2, "log_interval": 1,
+               "watchdog": False, "warmup_steps": 1,
+               "checkpoint": {"save_interval_steps": 1, "async_save": False}}
+FAMILY_RUNS = {
+    "bert-tiny": dict(model="bert-tiny", seq_len=32),
+    "vit-tiny": dict(model="vit-tiny", microbatches=2),
+    "resnet18-cifar": dict(model="resnet18-cifar", optimizer="sgd", learning_rate=0.1),
+    "llama-tiny-sgd": dict(model="llama-tiny", seq_len=32, optimizer="sgd"),
+    "llama-tiny-lion": dict(model="llama-tiny", seq_len=32, optimizer="lion",
+                            mu_dtype="bfloat16"),
+    "llama-tiny-adafactor": dict(model="llama-tiny", seq_len=32, optimizer="adafactor"),
+}
+
+
+def _final_state(tmp_path, run):
+    ck = Checkpointer(CheckpointConfig(directory=str(tmp_path / run / "outputs" /
+                                                     "checkpoints")), read_only=True)
+    return ck.restore_raw()
+
+
+@pytest.mark.parametrize("case", sorted(FAMILY_RUNS))
+def test_each_family_and_optimizer_resumes_onto_the_uninterrupted_curve(case, tmp_path,
+                                                                       monkeypatch):
+    """A run killed after its fourth step resumes from the port's checkpoint
+    (params, the optimizer's state, ResNet's batch statistics in ``extra``)
+    onto the uninterrupted loss curve, step for step, and ends in the same
+    state, bit for bit."""
+    from polyaxon_tpu_torch.partition.rules import tree_paths
+
+    spec = {**FAMILY_BASE, **FAMILY_RUNS[case]}
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path / "oracle"))
+    summary, oracle = _losses(spec)
+    assert sorted(oracle) == [0, 1, 2, 3, 4]
+    assert all(np.isfinite(v) for v in oracle.values())
+    vision = REGISTRY[spec["model"]][0] in ("vit", "resnet")
+    assert ("accuracy" in summary) == vision
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path / "run"))
+    killed = {}
+
+    def kill_after_step_3(i, m):
+        killed[i] = m["loss"]
+        if i == 3:
+            raise _Kill()
+
+    with pytest.raises(_Kill):
+        run_builtin(dict(spec), track=kill_after_step_3)
+    resumed_summary, resumed = _losses(spec)
+    assert resumed_summary["resumed_from_step"] == 3
+    assert {**killed, **resumed} == oracle
+    (want, _), (got, _) = _final_state(tmp_path, "oracle"), _final_state(tmp_path, "run")
+    want_leaves, got_leaves = tree_paths(want), tree_paths(got)
+    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+    for (path, a), (_, b) in zip(got_leaves, want_leaves):
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b), path
+        else:
+            assert a == b, path
+    if case == "resnet18-cifar":
+        stats = dict(tree_paths(got["extra"]))
+        assert not torch.equal(stats["stem_bn/var"], torch.ones_like(stats["stem_bn/var"]))
+
+
+def test_a_resnet_fork_starts_from_the_parent_s_params_and_batch_statistics(tmp_path,
+                                                                            monkeypatch):
+    from polyaxon_tpu_torch.partition.rules import tree_paths
+
+    spec = {**FAMILY_BASE, **FAMILY_RUNS["resnet18-cifar"], "steps": 2}
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path / "parent"))
+    run_builtin(dict(spec))
+    parent = str(tmp_path / "parent" / "outputs" / "checkpoints")
+    raw, _ = Checkpointer(CheckpointConfig(directory=parent), read_only=True).restore_raw()
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path / "child"))
+    seen = {}
+
+    class Probe(Trainer):
+        def restore_or_init(self, *args, **kwargs):
+            state, step = super().restore_or_init(*args, **kwargs)
+            seen["extra"] = {p: t.clone() for p, t in tree_paths(state.extra)}
+            return state, step
+
+    import polyaxon_tpu_torch.train as train_pkg
+
+    monkeypatch.setattr(train_pkg, "Trainer", Probe)
+    summary = run_builtin({**spec, "steps": 1, "fork_from": {"path": parent}})
+    assert summary["resumed_from_step"] == 0 and np.isfinite(summary["loss"])
+    parent_stats = dict(tree_paths(raw["extra"]))
+    assert seen["extra"].keys() == parent_stats.keys()
+    assert all(torch.equal(t, parent_stats[p]) for p, t in seen["extra"].items())
+
+
+def test_vision_accuracy_reaches_the_tracked_run(tmp_path, monkeypatch):
+    from polyaxon_tpu_torch.tracking import read_events
+
+    monkeypatch.setenv("PLX_ARTIFACTS_PATH", str(tmp_path))
+    summary = run_builtin({**FAMILY_BASE, "model": "vit-tiny", "checkpoint": False,
+                           "steps": 3, "microbatches": 2})
+    events = read_events(str(tmp_path), "metric", "accuracy")
+    assert [e.step for e in events] == [0, 1, 2]
+    assert events[-1].metric == summary["accuracy"]
+    outputs = json.loads((tmp_path / "outputs.json").read_text())
+    assert outputs["accuracy"] == summary["accuracy"]
+
+
+@pytest.mark.parametrize("model,key,value,match", [
+    ("vit-tiny", "import", {"path": "/x"}, "only supported for LM/MLM"),
+    ("resnet18-cifar", "import", {"path": "/x"}, "only supported for LM/MLM"),
+    ("vit-tiny", "seq_len", 64, "only language models take them"),
+    ("resnet18-cifar", "remat", "full", "only language models take them"),
+    ("vit-tiny", "image_size", 64, "only resnet models take it"),
+    ("bert-tiny", "parallelism", {"data": 4}, "A6"),
+])
+def test_family_refusals(model, key, value, match):
+    spec = {**FAMILY_BASE, "model": model, "checkpoint": False, key: value}
+    with pytest.raises(SystemExit, match=match):
+        run_builtin(spec)
+
+
+def test_resnet_image_size_sets_the_stream_and_the_flops():
+    from polyaxon_tpu_torch.runtime.builtin import build_trainer
+
+    trainer, batches = build_trainer({**FAMILY_BASE, "model": "resnet18-cifar",
+                                      "checkpoint": False, "image_size": 40})
+    assert tuple(next(batches)["images"].shape) == (2, 40, 40, 3)
+    assert trainer.task.image_size == 40
+    trainer, batches = build_trainer({**FAMILY_BASE, "model": "vit-tiny", "checkpoint": False})
+    assert tuple(next(batches)["images"].shape) == (2, 32, 32, 3)
+    assert trainer.cfg.seq_len == 17

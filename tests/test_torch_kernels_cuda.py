@@ -206,6 +206,7 @@ def _both_ways(q, k, v, do, qo, ko, causal, blocks=(128, 64), walk_cut=0, scale=
     (129, 129, (129, 43)),    # one row past them
     (383, 383, (383, 383)),   # three tiles, the last one row short
     (64, 64, (64, 32)),       # shorter than one 128-row tile
+    (197, 197, (197, 197)),   # ViT-B/16's 196 patches + CLS: 128 + 69
 ])
 def test_flash_kernels_match_plain(cuda, dtype, d, offsets, lengths):
     # (0, 128): the first 128 q rows see no key, O = 0 and LSE = -inf there;

@@ -118,8 +118,8 @@ def test_batches_are_bit_identical(index):
 
 
 def test_other_data_kinds_are_refused():
-    with pytest.raises(ValueError, match="not ported"):
-        data.make_batches(data.DataConfig(kind="tokens-file"))
+    with pytest.raises(ValueError, match="Unknown data kind 'tfrecords'"):
+        data.make_batches(data.DataConfig(kind="tfrecords"))
 
 
 STEPS = 5
