@@ -108,7 +108,24 @@ non-zero:
    ``serve-drain-0.json`` marker written while they decode flips /healthz
    to 503 and refuses a new request while they finish, removing it
    reopens admission, and the paged launches equal decode steps x 22.
-13. profiles — ``torch.profiler``'s split of the compare phase's decode
+13. dist — data and fsdp over ``torch.distributed``, each run in child
+   processes of this script (``--dist-child``), so no process group
+   outlives its phase. dist_env: the GPU count, NCCL's version, the
+   cards' names and power limits. dist_train_1rank: bert-base (the
+   bert_tfjob keys, 64 x 512, ``{data: 1}``), resnet50-cifar (the
+   resnet50_ddp keys at one replica's 64, ``{data: 1}``) and llama-1b (the
+   llama1b_tpujob keys, batch 16 in 4 microbatches, ``{fsdp: 1}``), each
+   twice without a group and once under a 1-rank NCCL group (the mesh
+   path: global counts and metrics, all-reduced batch norms and grads;
+   fsdp's per-layer gather and reduce-scatter around B1-B3): the group's
+   losses must be bit-equal to the run without one, or within that run's
+   spread against itself; step p50 with and without the group, peak
+   memory, flash launches. dist_train_multi: with 2+ GPUs, min(GPUs, 4)
+   ranks from the PLX_* env of bert-base ``{data: W}`` and llama-1b
+   ``{fsdp: W}`` at the same global batch, step-0/1 losses against the
+   1-rank run's (DIST_MULTI_RTOL); with one GPU it prints ``{"skipped":
+   "1 GPU"}``.
+14. profiles — ``torch.profiler``'s split of the compare phase's decode
    step per impl, of a training microbatch and the AdamW tail, and of a
    speculative iteration's draft steps against its verify step, then
    bridge_profile: ``run_builtin`` with ``profile: {steps: 1}`` must write
@@ -117,9 +134,10 @@ non-zero:
    later kernel launch in the process pays CUPTI's overhead, which would
    inflate the host-clock readings of the phases above. Last, one step of
    each new family's trainer (BERT, ViT, ResNet) by kernel.
-14. the ``{"kernels": [...]}`` line (each flash kernel's launches are the
-   llama-1b train phase's; ``launches_by_path`` adds train_bert's and
-   train_vit's), then the last line ``{"ok": true, "device": {...}}``.
+15. the ``{"kernels": [...]}`` line (each flash kernel's launches are the
+   llama-1b train phase's; ``launches_by_path`` adds train_bert's,
+   train_vit's and the 1-rank group runs' of dist_train_1rank), then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Needs one card and the repository checkout around this file; imports
 nothing of JAX.
@@ -2020,9 +2038,195 @@ def bridge_profile_phase(torch, spec: dict) -> dict:
 # -- main --------------------------------------------------------------------
 
 
+# -- the distributed phases (slice 8): data and fsdp over torch.distributed ------
+
+# each recipe at one replica's share, under a declared mesh axis of size 1:
+# bert_tfjob.yaml's 256 over 4 workers (64 x 512), resnet50_ddp.yaml's "64
+# per replica" (6 steps: its ~0.1 s steps vary by tens of ms), and
+# llama1b_tpujob.yaml's keys with fsdp, its batch cut from 64 to 16 in 4
+# microbatches of 4 x 2048 (a multi-GPU run splits each microbatch over up
+# to 4 ranks)
+DIST_SPECS = {
+    "bert-base": {**BERT_SPEC, "parallelism": {"data": 1}},
+    "resnet50-cifar": {**RESNET_SPEC, "batch_size": 64, "steps": 6,
+                       "parallelism": {"data": 1}},
+    "llama-1b": {**TRAIN_SPEC, "batch_size": 16, "microbatches": 4,
+                 "parallelism": {"fsdp": 1}},
+}
+# the multi-GPU phase: min(GPUs, 4) ranks over each spec's global batch
+DIST_MULTI = ("bert-base", "llama-1b")
+DIST_MULTI_AXIS = {"bert-base": "data", "llama-1b": "fsdp"}
+# W ranks against one at the same global batch: step 0 differs only by the
+# order of the loss's and the metrics' sums over ranks and the bf16
+# products' row blocks (~1e-4 relative); step 1 adds the bf16 grads'
+# reduction over ranks, rounded in bf16 as XLA rounds it
+DIST_MULTI_RTOL = (1e-3, 5e-3)
+DIST_RESULT = "dist_result"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_env_phase(torch) -> dict:
+    """What the distributed phases run on: the card count, NCCL's version,
+    the card's name and power limit."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return {"device_count": torch.cuda.device_count(),
+            "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+            "cards": smi.stdout.strip().splitlines()}
+
+
+def dist_child(plan: dict) -> int:
+    """One process of a distributed phase (``chip_smoke.py --dist-child
+    <plan>``), so that no group outlives its phase. ``1rank``: each spec
+    twice without a group (the spread of a run against itself), then each
+    under a 1-rank NCCL group; ``multi``: this rank of a group joined from
+    the PLX_* env. Prints one ``{"dist_result": ...}`` line (rank 0)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from polyaxon_tpu_torch import parallel
+
+    fa = importlib.import_module("polyaxon_tpu_torch.ops.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist = torch.distributed
+    out: dict = {}
+    if plan["mode"] == "1rank":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        for name in plan["models"]:
+            out[name] = {"alone": [train_phase(torch, fa, DIST_SPECS[name])
+                                   for _ in range(2)]}
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{plan['port']}",
+                                world_size=1, rank=0, device_id=dev)
+        try:
+            for name in plan["models"]:
+                out[name]["group"] = train_phase(torch, fa, DIST_SPECS[name])
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    else:
+        dev = torch.device("cuda", parallel.local_rank())
+        torch.cuda.set_device(dev)
+        parallel.initialize(device=dev)
+        world = dist.get_world_size()
+        try:
+            for name in plan["models"]:
+                spec = {**DIST_SPECS[name], "parallelism": {DIST_MULTI_AXIS[name]: world}}
+                out[name] = train_phase(torch, fa, spec)
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            parallel.shutdown()
+        if int(os.environ["PLX_PROCESS_ID"]) != 0:
+            return 0
+    print(json.dumps({DIST_RESULT: out}), flush=True)
+    return 0
+
+
+def run_children(envs: list, plan: dict, timeout: float) -> dict:
+    """Run one ``--dist-child`` per env, wait for all, and return rank 0's
+    result; any child's failure raises with its output."""
+    children = []
+    for env in envs:
+        children.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dist-child", json.dumps(plan)],
+            env={**os.environ, **env}, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outputs = []
+    try:
+        for child in children:
+            outputs.append(child.communicate(timeout=timeout)[0])
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    for child, text in zip(children, outputs):
+        if child.returncode != 0:
+            raise AssertionError(f"dist child exited {child.returncode}:\n{text[-6000:]}")
+    for line in outputs[0].splitlines():
+        if line.startswith('{"' + DIST_RESULT):
+            return json.loads(line)[DIST_RESULT]
+    raise AssertionError(f"dist child printed no result:\n{outputs[0][-6000:]}")
+
+
+def _max_abs(a: list, b: list) -> float:
+    return max(abs(x - y) for x, y in zip(a, b))
+
+
+def dist_train_1rank_phase() -> dict:
+    """Each DIST_SPECS model through ``run_builtin`` under a 1-rank NCCL
+    group (the mesh path: global counts and metrics, all-reduced batch
+    norms and grads; llama-1b's fsdp gathers each layer and reduce-scatters
+    its grads, B1-B3 inside) against the same spec without a group: the
+    losses must be bit-equal or within the no-group run's spread against
+    itself; step p50 with and without the group, peak memory, launches."""
+    t0 = time.monotonic()
+    res = run_children([{}], {"mode": "1rank", "port": free_port(),
+                              "models": list(DIST_SPECS)}, timeout=600)
+    out = {"seconds": time.monotonic() - t0}
+    for name, r in res.items():
+        a, b, g = r["alone"][0], r["alone"][1], r["group"]
+        spread = _max_abs(a["losses"], b["losses"])
+        diff = _max_abs(g["losses"], a["losses"])
+        out[name] = {
+            "losses_group": g["losses"], "losses_alone": a["losses"],
+            "alone_spread": spread, "group_vs_alone": diff,
+            "step_p50_ms_group": g["step_time_p50_ms"],
+            "step_p50_ms_alone": [a["step_time_p50_ms"], b["step_time_p50_ms"]],
+            "peak_gib_group": g["peak_mem_gib"], "peak_gib_alone": a["peak_mem_gib"],
+            "launches": g["launches"]}
+        if diff > spread:
+            raise AssertionError(f"{name}: the 1-rank group's losses {g['losses']} differ "
+                                 f"from the run without one {a['losses']} by {diff}, "
+                                 f"beyond its spread {spread}")
+    return out
+
+
+def dist_train_multi_phase(torch, single: dict) -> dict:
+    """min(GPUs, 4) ranks of bert-base {data: W} and llama-1b {fsdp: W} at
+    the 1-rank runs' global batch, their step-0/1 losses against the 1-rank
+    group's; a statement, not a failure, when the machine has one GPU."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        return {"skipped": f"{count} GPU"}
+    world = min(count, 4)
+    port = free_port()
+    envs = [{"PLX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "PLX_NUM_PROCESSES": str(world),
+             "PLX_PROCESS_ID": str(r), "LOCAL_RANK": str(r)} for r in range(world)]
+    t0 = time.monotonic()
+    res = run_children(envs, {"mode": "multi", "models": list(DIST_MULTI)}, timeout=600)
+    out = {"world": world, "seconds": time.monotonic() - t0}
+    for name, r in res.items():
+        one = single[name]["losses_group"]
+        rel = [abs(x / y - 1) for x, y in zip(r["losses"][:2], one[:2])]
+        out[name] = {"losses": r["losses"], "losses_1rank": one, "rel": rel,
+                     "step_p50_ms": r["step_time_p50_ms"], "peak_gib": r["peak_mem_gib"],
+                     "launches": r["launches"]}
+        if any(x > tol for x, tol in zip(rel, DIST_MULTI_RTOL)):
+            raise AssertionError(f"{name}: {world} ranks' losses {r['losses'][:2]} vs one "
+                                 f"rank's {one[:2]} (relative {rel}, limits "
+                                 f"{DIST_MULTI_RTOL})")
+    return out
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--dist-child":
+        return dist_child(json.loads(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one GPU",
               file=sys.stderr)
@@ -2139,6 +2343,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # the distributed phases, each in processes of its own (no group
+    # outlives its phase), before the profiler
+    log("dist_env", **dist_env_phase(torch))
+    dist_1rank = dist_train_1rank_phase()
+    log("dist_train_1rank", **dist_1rank)
+    log("dist_train_multi", **dist_train_multi_phase(torch, dist_1rank))
+
     # the profiler last: once torch.profiler has run, every later kernel
     # launch in the process pays CUPTI's overhead (a tiny launch's host
     # cost 5.1-5.4 -> 7.1-10.0 us, a decode step's 16-20 -> 26-33 ms, on
@@ -2186,7 +2397,10 @@ def main() -> int:
             "launches_by_path": {"train": trained["launches"][name],
                                  **{phase: run["launches"][name]
                                     for phase, run in families.items()
-                                    if run["expected_launches"][name]}}})
+                                    if run["expected_launches"][name]},
+                                 **{f"dist_train_1rank/{model}": run["launches"][name]
+                                    for model, run in dist_1rank.items()
+                                    if isinstance(run, dict) and run["launches"][name]}}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,5 +16,7 @@ watchdog, trainer), ``runtime/`` (the builtin training entry), ``obs/``
 (metrics, the heartbeat's history buffer), ``tracking/`` (run events,
 outputs, heartbeats and the API client a pod reports through),
 ``resilience/`` (the HTTP retry policy, trainer and serving fault
-injection). This package never imports JAX or ``polyaxon_tpu``.
+injection), ``parallel/`` (the ``PLX_*`` rendezvous into
+``torch.distributed``, the process mesh, sharding rules and fsdp). This
+package never imports JAX or ``polyaxon_tpu``.
 """

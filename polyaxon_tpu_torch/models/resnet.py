@@ -11,8 +11,12 @@ The numerics follow the JAX model:
   lo``: asymmetric at stride 2 (the 7x7/2 stem on 224 pads (2, 3), a 3x3/2
   conv (0, 1)), and the 3x3/2 max-pool pads (0, 1) with -inf. Symmetric
   padding would shift every strided output by one pixel.
-- BatchNorm in f32 with the biased batch variance; the running statistics
-  move as ``momentum * old + (1 - momentum) * batch``.
+- BatchNorm in f32 with the biased batch variance, in two passes as
+  ``jnp.var`` takes it (the mean, then the mean of squared deviations);
+  the running statistics move as ``momentum * old + (1 - momentum) *
+  batch``. Over a mesh both sums are the whole batch's, summed over the
+  ranks by a differentiable all-reduce, as XLA's psum makes them; on one
+  rank the same expression gives the same bits as no mesh.
 - Convolutions in ``cfg.dtype`` (bf16); pooling and the head in f32.
 """
 
@@ -115,29 +119,37 @@ def _conv(x: torch.Tensor, p: dict, stride: int = 1) -> torch.Tensor:
     return F.conv2d(_pad_same(x, w.shape[2], stride), w, stride=stride)
 
 
-def _bn(x, params, stats, cfg: ResNetConfig, train: bool, new_stats: dict, name: str):
+def _bn(x, params, stats, cfg: ResNetConfig, train: bool, new_stats: dict, name: str,
+        mesh=None):
     x32 = x.float()
+    col = lambda t: t[None, :, None, None]  # noqa: E731
     if train:
-        mean = x32.mean(dim=(0, 2, 3))
-        var = x32.var(dim=(0, 2, 3), unbiased=False)
+        n = x32.numel() // x32.shape[1]
+
+        def over_batch(local_sum):
+            return local_sum / n if mesh is None else mesh.batch_mean(local_sum, n)
+
+        mean = over_batch(x32.sum(dim=(0, 2, 3)))
+        var = over_batch(((x32 - col(mean)) ** 2).sum(dim=(0, 2, 3)))
         m = cfg.bn_momentum
         new_stats[name] = {"mean": m * stats[name]["mean"] + (1 - m) * mean.detach(),
                            "var": m * stats[name]["var"] + (1 - m) * var.detach()}
     else:
         mean, var = stats[name]["mean"], stats[name]["var"]
     inv = torch.rsqrt(var + cfg.bn_eps)
-    col = lambda t: t[None, :, None, None]  # noqa: E731
     out = (x32 - col(mean)) * col(inv) * col(params[name]["scale"]) + col(params[name]["bias"])
     return out.to(x.dtype)
 
 
 def apply(params: dict, stats: dict, images: torch.Tensor, cfg: ResNetConfig, *,
-          train: bool = True) -> tuple[torch.Tensor, dict]:
-    """images [B, H, W, 3] -> (logits [B, classes] f32, updated batch stats)."""
+          train: bool = True, mesh=None) -> tuple[torch.Tensor, dict]:
+    """images [B, H, W, 3] -> (logits [B, classes] f32, updated batch stats).
+    With a ``mesh`` the images are this rank's rows of the batch and the
+    batch statistics are the whole batch's."""
     new_stats: dict = dict(stats)
 
     def bn(y, name):
-        return _bn(y, params, stats, cfg, train, new_stats, name)
+        return _bn(y, params, stats, cfg, train, new_stats, name, mesh)
 
     x = images.to(cfg.dtype).permute(0, 3, 1, 2)  # NHWC memory: channels-last NCHW
     x = _conv(x, params["stem"], stride=1 if cfg.small_inputs else 2)
@@ -193,8 +205,18 @@ def flops_per_image(cfg: ResNetConfig, image_size: int) -> float:
     return 3.0 * total
 
 
-def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross entropy of [B, classes] logits."""
+def batch_mean(values: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The mean of ``values`` (their sum over their count); with a
+    ``mesh``, this rank's share of the whole batch's mean (its sum over the
+    batch's count)."""
+    count = torch.full((), float(values.numel()), device=values.device)
+    return values.sum() / (count if mesh is None else mesh.batch_count(count))
+
+
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
+                        mesh=None) -> torch.Tensor:
+    """Mean cross entropy of [B, classes] logits (a rank's share of the
+    batch's under a ``mesh``)."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
-    return (logz - gold).mean()
+    return batch_mean(logz - gold, mesh)

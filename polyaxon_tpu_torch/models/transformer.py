@@ -24,6 +24,8 @@ from torch.utils.checkpoint import (
 
 from ..ops.attention import attention
 from ..ops.layers import apply_rope, gelu, layer_norm, rms_norm, rope_frequencies, swiglu
+from ..parallel.fsdp import fresh
+from ..parallel.mesh import ShardingRules
 
 
 @dataclass(frozen=True)
@@ -139,6 +141,23 @@ def abstract_params(cfg: TransformerConfig) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": ((h, cfg.vocab_size), ("embed", "vocab"))}
     return params
+
+
+def _is_leaf(x) -> bool:
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[0], tuple)
+
+
+def param_specs(cfg: TransformerConfig, rules: Optional[ShardingRules] = None) -> dict:
+    """The PartitionSpec tree matching :func:`init`'s params, from each
+    leaf's logical axes (the JAX package's ``param_specs``)."""
+    rules = rules or ShardingRules()
+
+    def build(tree):
+        if _is_leaf(tree):
+            return rules.spec(tree[1])
+        return {k: build(v) for k, v in tree.items()}
+
+    return build(abstract_params(cfg))
 
 
 def _trunc_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -288,21 +307,24 @@ def _remat_layer(x, lp, cfg: TransformerConfig, rope_tables):
     - dots: the outputs of matrix products without batch dimensions.
 
     Under every policy but none the flash forward reruns in the backward
-    (its LSE is not kept), as it does under the JAX policies.
+    (its LSE is not kept), as it does under the JAX policies. Under fsdp
+    (``lp`` a :class:`~..parallel.fsdp.ShardedTree`) each recomputed part
+    reads a fresh view, so the backward gathers its params again instead
+    of keeping the gathered layer.
     """
     if cfg.remat == "none":
         return _layer_body(x, lp, cfg, rope_tables)
     if cfg.remat == "full":
-        return _ckpt(lambda x: _layer_body(x, lp, cfg, rope_tables), x)
+        return _ckpt(lambda x: _layer_body(x, fresh(lp), cfg, rope_tables), x)
     if cfg.remat == "attn":
-        o = _ckpt(lambda x: _attend(*_qkv(x, lp, cfg, rope_tables), cfg), x)
-        return _ckpt(lambda x, o: _out_mlp(x, o, lp, cfg), x, o)
+        o = _ckpt(lambda x: _attend(*_qkv(x, fresh(lp), cfg, rope_tables), cfg), x)
+        return _ckpt(lambda x, o: _out_mlp(x, o, fresh(lp), cfg), x, o)
     if cfg.remat == "attn_qkv":
-        q, k, v = _ckpt(lambda x: _qkv(x, lp, cfg, rope_tables), x)
+        q, k, v = _ckpt(lambda x: _qkv(x, fresh(lp), cfg, rope_tables), x)
         o = _ckpt(lambda q, k, v: _attend(q, k, v, cfg), q, k, v)
-        return _ckpt(lambda x, o: _out_mlp(x, o, lp, cfg), x, o)
+        return _ckpt(lambda x, o: _out_mlp(x, o, fresh(lp), cfg), x, o)
     if cfg.remat == "dots":
-        return _ckpt(lambda x: _layer_body(x, lp, cfg, rope_tables), x,
+        return _ckpt(lambda x: _layer_body(x, fresh(lp), cfg, rope_tables), x,
                      context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                   _dots_policy))
     raise ValueError(f"unknown remat policy {cfg.remat!r}; "
@@ -345,8 +367,11 @@ def run_trunk(x: torch.Tensor, layers: dict, cfg: TransformerConfig,
               rope_tables=None) -> torch.Tensor:
     """The stacked layers over ``x`` [batch, seq, hidden] under
     ``cfg.remat``; shared by :func:`apply_hidden` and encoder-only models
-    (ViT)."""
-    for lp in _unstack(layers, cfg.num_layers):
+    (ViT). fsdp shards (a ``ShardedTree``) unstack into per-layer views
+    that gather each layer's params when it runs."""
+    unstack = getattr(layers, "unstack", None)
+    per_layer = unstack(cfg.num_layers) if unstack else _unstack(layers, cfg.num_layers)
+    for lp in per_layer:
         x = _remat_layer(x, lp, cfg, rope_tables)
     return x
 
@@ -426,19 +451,29 @@ def lm_loss_from_hidden(
     *,
     vocab_major: bool = False,
     chunk_tokens: int = 4096,
+    mesh=None,
 ) -> torch.Tensor:
     """Blockwise fused vocab projection + cross entropy: sequence chunks of
     ``x`` [batch, seq, hidden] against the head weight, so at most about
     ``chunk_tokens`` x vocab f32 logits are live at once. Each chunk is
-    recomputed in the backward, so the same bound holds for gradients."""
+    recomputed in the backward, so the same bound holds for gradients.
+
+    The loss is the NLL sum over the token (or mask) count. With a
+    ``mesh`` the rows are this rank's share of the batch, and the count is
+    the whole batch's, as JAX divides a sharded batch's sum by its global
+    count: the ranks' shares sum to the loss."""
     b, s, _ = x.shape
     mask_f = None if mask is None else mask.float()
     nc = loss_chunks(b, s, chunk_tokens)
     if nc == 1:
         nll = _chunk_nll(x, w, labels, vocab_major)
         if mask_f is None:
-            return nll.mean()
-        return (nll * mask_f).sum() / torch.clamp(mask_f.sum(), min=1.0)
+            total, count = nll.sum(), torch.full((), float(nll.numel()), device=x.device)
+        else:
+            total, count = (nll * mask_f).sum(), mask_f.sum()
+        if mesh is not None:
+            count = mesh.batch_count(count)
+        return total / torch.clamp(count, min=1.0)
 
     def body(xc, lc, mc):
         return (_chunk_nll(xc, w, lc, vocab_major) * mc).sum()
@@ -452,4 +487,6 @@ def lm_loss_from_hidden(
               if mask_f is None else mask_f[:, cols])
         total = total + _ckpt(body, x[:, cols], labels[:, cols], mc)
         count = count + mc.sum()
+    if mesh is not None:
+        count = mesh.batch_count(count)
     return total / torch.clamp(count, min=1.0)

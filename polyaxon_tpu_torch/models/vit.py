@@ -11,10 +11,11 @@ embedding and the head run in the encoder's dtype; only the logits are f32.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
+from ..parallel.mesh import ShardingRules
 from . import transformer
 from .transformer import TransformerConfig, _trunc_normal
 
@@ -86,6 +87,21 @@ def init(cfg: ViTConfig, *, seed: int = 0, device: Any) -> dict:
         "cls": zeros(1, 1, h),
         "head": {"w": _trunc_normal((h, cfg.num_classes), gen, device) * 0.02,
                  "b": zeros(cfg.num_classes)},
+    }
+
+
+def param_specs(cfg: ViTConfig, rules: Optional[ShardingRules] = None) -> dict:
+    """The PartitionSpec tree matching :func:`init`'s params (the JAX
+    package's)."""
+    rules = rules or ShardingRules()
+    enc = transformer.param_specs(cfg.encoder, rules)
+    del enc["embed"]["tokens"]
+    enc["embed"]["pos"] = rules.spec((None, "embed"))
+    return {
+        "encoder": enc,
+        "patch": {"w": rules.spec((None, "embed")), "b": rules.spec((None,))},
+        "cls": rules.spec((None, None, None)),
+        "head": {"w": rules.spec(("embed", "classes")), "b": rules.spec(("classes",))},
     }
 
 

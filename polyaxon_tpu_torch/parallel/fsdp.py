@@ -1,0 +1,86 @@
+"""fsdp (ZeRO-3) params of the port: each rank holds its block of every
+``embed``-sharded leaf, and the model reads the full leaf only where it
+uses it.
+
+:class:`ShardedTree` is the param tree the model sees under fsdp. Reading
+a leaf gathers it (once per view); a subtree is a view of its own. The
+layer stack is never gathered whole: ``run_trunk`` calls :meth:`unstack`
+for one view per layer, whose leaves gather when that layer runs, and a
+remat policy rereads a :meth:`fresh` view in its recompute, so the
+backward gathers the layer again instead of keeping it. Each gather's
+backward reduce-scatters the grad to the shard.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from .mesh import sharded_dim
+
+
+def leaf_dims(specs: Any, params: dict, fsdp_size: int) -> dict:
+    """The tree of fsdp-sharded dims (None: replicated) of ``params``
+    under the tree of PartitionSpecs ``specs``. A sharded dim that does
+    not divide by the fsdp size raises, as JAX's NamedSharding does."""
+    if isinstance(params, dict):
+        return {k: leaf_dims(specs[k], v, fsdp_size) for k, v in params.items()}
+    d = sharded_dim(specs)
+    if d is not None and params.shape[d] % fsdp_size:
+        raise ValueError(
+            f"the sharding {tuple(specs)} implies that the global size of its dimension "
+            f"{d} should be divisible by {fsdp_size}, but it is equal to "
+            f"{params.shape[d]} (full shape: {tuple(params.shape)})")
+    return d
+
+
+class ShardedTree:
+    """A read-only view of a tree of fsdp shards whose leaves read as full
+    tensors: ``gather(shard, dim)`` joins a sharded leaf when it is read
+    (a replicated leaf reads as it is)."""
+
+    def __init__(self, tree: dict, dims: dict,
+                 gather: Callable[[torch.Tensor, int], torch.Tensor]):
+        self._tree, self._dims, self._gather = tree, dims, gather
+        self._read: dict = {}
+
+    def __getitem__(self, key: str) -> Any:
+        if key in self._read:
+            return self._read[key]
+        value, dim = self._tree[key], self._dims[key]
+        if isinstance(value, dict):
+            out = ShardedTree(value, dim, self._gather)
+        else:
+            out = value if dim is None else self._gather(value, dim)
+        self._read[key] = out
+        return out
+
+    def get(self, key: str, default: Optional[Any] = None) -> Any:
+        return self[key] if key in self._tree else default
+
+    def __contains__(self, key: object) -> bool:
+        return key in self._tree
+
+    def fresh(self) -> "ShardedTree":
+        """A new view of the same shards: its reads gather again."""
+        return ShardedTree(self._tree, self._dims, self._gather)
+
+    def unstack(self, n: int) -> list:
+        """Views of the ``n`` layers of a stacked ``[L, ...]`` tree: one
+        unbind per leaf, each layer's dims one lower."""
+
+        def split(tree, dims):
+            if isinstance(tree, dict):
+                parts = {k: split(tree[k], dims[k]) for k in tree}
+                return [({k: parts[k][i][0] for k in tree}, {k: parts[k][i][1] for k in tree})
+                        for i in range(n)]
+            d = None if dims is None else dims - 1
+            return [(t, d) for t in torch.unbind(tree, 0)]
+
+        return [ShardedTree(t, d, self._gather) for t, d in split(self._tree, self._dims)]
+
+
+def fresh(params: Any) -> Any:
+    """A fresh view of a :class:`ShardedTree` (anything else as it is)."""
+    return params.fresh() if isinstance(params, ShardedTree) else params

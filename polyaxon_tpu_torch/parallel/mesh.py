@@ -1,0 +1,307 @@
+"""The process mesh and the logical-axis sharding rules of the port —
+counterpart of ``polyaxon_tpu/parallel/mesh.py``.
+
+A mesh is the job's processes laid out over ``MESH_AXES``, one process per
+GPU. Rank r sits at the coordinates JAX's device r holds in the row-major
+reshape of its device list over the same axes (``data`` outermost), so
+rank r gets the batch rows and the parameter blocks JAX's device r gets.
+Unspecified capacity is absorbed into ``data``, with the JAX package's
+errors, counted in processes where it counts devices.
+
+Collectives run over ``torch.distributed`` groups per axis: the batch
+group (every rank: the batch is sharded over ``data`` x ``fsdp`` x
+``expert``), the ``fsdp`` group of ranks sharing a data coordinate, and the
+``data`` group of ranks sharing an fsdp coordinate. Without a process
+group the mesh is one process and has no groups.
+
+The logical rules are the JAX package's, over a tuple ``PartitionSpec`` of
+the same entries.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Optional, Sequence, Union
+
+import torch
+
+from . import collectives
+
+# Canonical mesh axis order, outermost first.
+MESH_AXES: tuple[str, ...] = ("data", "fsdp", "stage", "expert", "context", "model")
+#: the axes the batch dim is sharded over (the rule for "batch")
+BATCH_AXES: tuple[str, ...] = ("data", "fsdp", "expert")
+#: axes the port does not run yet -> ROADMAP item
+_NOT_PORTED_AXES = {"model": "A8 (tensor parallel)", "context": "A8 (context parallel)",
+                    "stage": "A9 (pipeline)", "expert": "A10 (MoE)"}
+
+
+def normalize_axis_sizes(parallelism: Union[Mapping[str, int], Any, None]) -> dict[str, int]:
+    """Accept a V1Parallelism, a dict, or None and return {axis: size} in
+    canonical order with every axis present (size 1 when unspecified)."""
+    if parallelism is None:
+        sizes: Mapping[str, int] = {}
+    elif hasattr(parallelism, "axis_sizes"):
+        sizes = parallelism.axis_sizes()
+    else:
+        sizes = dict(parallelism)
+    unknown = set(sizes) - set(MESH_AXES)
+    if unknown:
+        raise ValueError(f"Unknown mesh axes {sorted(unknown)}; valid: {MESH_AXES}")
+    return {ax: int(sizes.get(ax, 1)) for ax in MESH_AXES}
+
+
+def mesh_sizes(parallelism: Union[Mapping[str, int], Any, None], n: int) -> dict[str, int]:
+    """``build_mesh``'s size logic over ``n`` processes: the declared axes,
+    with unspecified capacity absorbed into ``data``."""
+    sizes = normalize_axis_sizes(parallelism)
+    declared = math.prod(sizes.values())
+    if declared > n:
+        raise ValueError(f"Mesh needs {declared} devices but only {n} available")
+    if n % declared != 0:
+        raise ValueError(f"{n} devices not divisible by declared mesh size {declared}")
+    if n // declared > 1:
+        if sizes["data"] != 1 and declared != n:
+            raise ValueError(f"Mesh axes {sizes} (={declared}) do not cover {n} devices")
+        if sizes["data"] == 1:
+            sizes["data"] = n // declared
+    return sizes
+
+
+@dataclass
+class Mesh:
+    """The processes of a job over ``MESH_AXES``. ``declared`` holds the
+    axes the job's ``parallelism`` named (a declared ``fsdp`` axis shards
+    params under a process group even at size 1)."""
+
+    sizes: dict
+    rank: int = 0
+    distributed: bool = False
+    declared: frozenset = frozenset()
+    _groups: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def shape(self) -> dict:
+        return dict(self.sizes)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes.values())
+
+    def coords(self, rank: Optional[int] = None) -> dict:
+        """{axis: coordinate} of ``rank`` (this process by default)."""
+        r = self.rank if rank is None else int(rank)
+        out = {}
+        for ax in reversed(MESH_AXES):
+            r, out[ax] = divmod(r, self.sizes[ax])
+        return {ax: out[ax] for ax in MESH_AXES}
+
+    def index(self, axes: Sequence[str], rank: Optional[int] = None) -> int:
+        """Row-major index of ``rank`` over ``axes`` (its block of an array
+        dim sharded over them)."""
+        c = self.coords(rank)
+        idx = 0
+        for ax in axes:
+            idx = idx * self.sizes[ax] + c[ax]
+        return idx
+
+    # -- fsdp ---------------------------------------------------------------------
+
+    @property
+    def sharded(self) -> bool:
+        """Params, grads and optimizer state are sharded over ``fsdp``:
+        under a process group whenever the axis was declared (at size 1
+        too), else never."""
+        return self.distributed and ("fsdp" in self.declared or self.sizes["fsdp"] > 1)
+
+    # -- groups -------------------------------------------------------------------
+
+    def _make_groups(self) -> None:
+        """One torch group per (axes, fixed coordinates of the other axes);
+        every rank creates every group, in the same order."""
+        dist = torch.distributed
+        for axes in (("fsdp",), ("data",), BATCH_AXES):
+            span = math.prod(self.sizes[a] for a in axes)
+            if span == self.size:
+                self._groups[axes] = None  # the default group
+                continue
+            buckets: dict = {}
+            for r in range(self.size):
+                c = self.coords(r)
+                key = tuple(c[a] for a in MESH_AXES if a not in axes)
+                buckets.setdefault(key, []).append(r)
+            mine = None
+            for key in sorted(buckets):
+                g = dist.new_group(ranks=buckets[key])
+                if self.rank in buckets[key]:
+                    mine = g
+            self._groups[axes] = mine
+
+    def group(self, *axes: str):
+        """The torch group of this rank over ``axes`` (None: the default)."""
+        return self._groups[tuple(axes)]
+
+    def axis_size(self, *axes: str) -> int:
+        return math.prod(self.sizes[a] for a in axes)
+
+    # -- collectives ----------------------------------------------------------------
+
+    def gather(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
+        """The full tensor of an fsdp-sharded leaf; its backward
+        reduce-scatters the grad back to the shard (summed over fsdp)."""
+        return collectives.all_gather(shard, dim, self.group("fsdp"), self.sizes["fsdp"])
+
+    def gather_full(self, shard: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """``gather`` outside autograd (checkpoint saves); identity for a
+        replicated leaf."""
+        if dim is None or not self.sharded:
+            return shard
+        with torch.no_grad():
+            return self.gather(shard, dim)
+
+    def shard(self, full: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's block of ``full`` along ``dim`` (a copy)."""
+        if dim is None or not self.sharded:
+            return full
+        n = self.sizes["fsdp"]
+        block = full.shape[dim] // n
+        return full.narrow(dim, self.coords()["fsdp"] * block, block).clone()
+
+    def batch_count(self, count: torch.Tensor) -> torch.Tensor:
+        """A count over the whole batch (every rank's rows): the
+        denominator of a batch mean (not differentiated)."""
+        return collectives.sum_over(count.detach().float(), self.group(*BATCH_AXES))
+
+    def batch_mean(self, local_sum: torch.Tensor, local_count: int) -> torch.Tensor:
+        """The mean over the whole batch of a quantity whose sum over this
+        rank's rows is ``local_sum``; differentiable (its backward
+        all-reduces the grad), as XLA's psum of a batch mean."""
+        total = collectives.differentiable_sum(local_sum, self.group(*BATCH_AXES))
+        return total / (local_count * self.axis_size(*BATCH_AXES))
+
+    def sum_(self, t: torch.Tensor, *axes: str) -> torch.Tensor:
+        """In-place sum of ``t`` over the ranks of ``axes``."""
+        return collectives.sum_over(t, self.group(*axes))
+
+    def agree(self, value: Optional[int], device) -> Optional[int]:
+        """Rank 0's ``value`` (an int or None) on every rank."""
+        if not self.distributed:
+            return value
+        t = torch.tensor([-1 if value is None else int(value)], dtype=torch.int64,
+                         device=device)
+        torch.distributed.broadcast(t, src=0)
+        got = int(t.item())
+        return None if got < 0 else got
+
+    def barrier(self) -> None:
+        if self.distributed:
+            torch.distributed.barrier()
+
+
+def build_mesh(parallelism: Union[Mapping[str, int], Any, None] = None,
+               world_size: Optional[int] = None, *, rank: Optional[int] = None,
+               num_slices: int = 1) -> Mesh:
+    """The job's mesh over its processes (the process group's, else one).
+    Makes the group's per-axis subgroups, so every rank calls it alike."""
+    if int(num_slices or 1) > 1:
+        raise NotImplementedError(
+            "num_slices > 1 (multislice rank order) is not ported (ROADMAP A14)")
+    dist = torch.distributed
+    distributed = dist.is_available() and dist.is_initialized()
+    if world_size is None:
+        world_size = dist.get_world_size() if distributed else 1
+    if rank is None:
+        rank = dist.get_rank() if distributed else 0
+    sizes = mesh_sizes(parallelism, int(world_size))
+    declared = frozenset() if parallelism is None else frozenset(
+        parallelism.axis_sizes() if hasattr(parallelism, "axis_sizes") else parallelism)
+    mesh = Mesh(sizes=sizes, rank=int(rank), distributed=distributed, declared=declared)
+    if distributed:
+        mesh._make_groups()
+    return mesh
+
+
+def refuse_unported_axes(sizes: Mapping[str, int]) -> None:
+    """Raise naming the ROADMAP item of every axis the port does not run."""
+    for ax, item in _NOT_PORTED_AXES.items():
+        if int(sizes.get(ax, 1)) > 1:
+            raise NotImplementedError(
+                f"parallelism axis {ax!r} of size {sizes[ax]} is not ported "
+                f"(ROADMAP {item}); the port shards over data and fsdp")
+
+
+def mesh_axis_size(mesh: Mesh, *axes: str) -> int:
+    return mesh.axis_size(*axes)
+
+
+# ---------------------------------------------------------------------------
+# Logical axis rules
+# ---------------------------------------------------------------------------
+
+# Logical name -> mesh axes, the JAX package's table: model code names each
+# array's dims logically and the rules decide which mesh axes shard them.
+DEFAULT_RULES: tuple[tuple[str, Any], ...] = (
+    ("batch", ("data", "fsdp", "expert")),
+    ("layers", None),           # the stacked layer dim is never sharded
+    ("seq", "context"),
+    ("embed", "fsdp"),          # params: fsdp-shard the embed dim (zero-3 style)
+    ("embed_act", None),        # activations keep embed replicated...
+    ("embed_tp", "model"),      # ...except where TP shards them
+    ("heads", "model"),
+    ("kv_heads", "model"),
+    ("head_dim", None),
+    ("mlp", "model"),
+    ("vocab", "model"),
+    ("expert", "expert"),
+    ("stage", "stage"),
+    ("conv_kernel", None),
+    ("channels", None),
+    ("classes", None),
+)
+
+
+class PartitionSpec(tuple):
+    """Per-dim mesh axes of an array (None: replicated), as JAX's."""
+
+    def __new__(cls, *parts: Any) -> "PartitionSpec":
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """Mapping from logical axis names to mesh axis names (or None)."""
+
+    rules: tuple[tuple[str, Any], ...] = DEFAULT_RULES
+
+    def mesh_axes(self, logical: Optional[str]) -> Any:
+        if logical is None:
+            return None
+        for name, axes in self.rules:
+            if name == logical:
+                return axes
+        raise KeyError(f"No sharding rule for logical axis {logical!r}")
+
+    def spec(self, logical_axes: Sequence[Optional[str]]) -> PartitionSpec:
+        return PartitionSpec(*(self.mesh_axes(ax) for ax in logical_axes))
+
+    def override(self, **kwargs: Any) -> "ShardingRules":
+        """New rules with some logical names remapped, e.g.
+        ``rules.override(embed=None)`` to turn fsdp param sharding off."""
+        out = [(n, kwargs[n]) if n in kwargs else (n, a) for n, a in self.rules]
+        for k in kwargs:
+            if k not in dict(self.rules):
+                out.append((k, kwargs[k]))
+        return ShardingRules(rules=tuple(out))
+
+
+def sharded_dim(spec: Sequence[Any], axis: str = "fsdp") -> Optional[int]:
+    """The dim of a spec sharded over ``axis`` (None: none is)."""
+    for d, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if axis in names:
+            return d
+    return None

@@ -4,7 +4,7 @@
 A leaf's path is its keys joined by ``/`` (``layers/attn/wq``), in the
 order the JAX package flattens a tree: dict keys sorted, list and tuple
 entries by index. Checkpoints and imports key leaves by these paths. The
-sharding rules of that module wait for ROADMAP A6.
+user partition rules of that module wait for ROADMAP A14.
 """
 
 from __future__ import annotations

@@ -1,10 +1,20 @@
 """Built-in training entry of the port — counterpart of
-``polyaxon_tpu/runtime/builtin.py`` on one device, for every family of the
-port's model zoo: causal LMs, BERT MLM, ViT and ResNet.
+``polyaxon_tpu/runtime/builtin.py``, for every family of the port's model
+zoo: causal LMs, BERT MLM, ViT and ResNet, on one process or on one
+process per GPU.
 
     PLX_BUILTIN_SPEC='{"model": "llama-tiny", "platform": "cpu",
                        "steps": 5}' \\
         python -m polyaxon_tpu_torch.runtime.builtin
+
+A multi-process run starts from the rendezvous env the compiler gives
+every pod of a distributed run (``PLX_COORDINATOR_ADDRESS``,
+``PLX_NUM_PROCESSES``, ``PLX_PROCESS_ID``) or from ``torchrun``'s: the
+process joins the group (NCCL on ``cuda:LOCAL_RANK``, gloo with
+``platform: cpu``) before it touches a device, trains its share of the
+mesh (``parallelism``; unspecified capacity goes to ``data``), and rank 0
+alone tracks, prints the ``{"step"}`` and ``{"final"}`` lines, writes
+``final.json`` and the checkpoints.
 
 Spec keys (the JAX runtime's, as far as the port goes):
     model (a name of the registry), steps, batch_size, learning_rate,
@@ -13,7 +23,8 @@ Spec keys (the JAX runtime's, as far as the port goes):
     data {kind (synthetic-lm | synthetic-mlm | synthetic-image |
     tokens-file; the task's own by default), path, seed}, log_interval,
     anomaly_skip_budget, anomaly_rollback_budget, watchdog (true, false or
-    {stall_factor, min_s, compile_grace_s}), parallelism ({data: 1}),
+    {stall_factor, min_s, compile_grace_s}), parallelism ({data: N, fsdp:
+    M}; model, context, stage and expert raise naming their ROADMAP item),
     num_slices (1).
     Language models (lm, mlm) also take seq_len, remat, attn_block_q /
     attn_block_k / attn_block_q_bwd / attn_block_k_bwd and
@@ -73,20 +84,26 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .. import parallel
+from ..parallel.mesh import build_mesh, normalize_axis_sizes, refuse_unported_axes
 from ..train.checkpoint import CheckpointConfig
 from ..train.optimizers import OPTIMIZERS
 
 #: keys of the JAX runtime the port does not take yet -> ROADMAP item
 _NOT_PORTED = {
     "lora": "A12 (LoRA)",
-    "partition_rules": "A6 (sharding rules)",
+    "partition_rules": "A14 (user partition rules)",
     "pp_microbatches": "A9 (pipeline)",
     "pp_remat_ticks": "A9 (pipeline)",
     "pp_gate": "A9 (pipeline)",
     "moe_dispatch": "A10 (MoE)",
     "moe_cap_block": "A10 (MoE)",
-    "num_cpu_devices": "A6 (device meshes)",
 }
+#: the JAX runtime's virtual CPU devices: the port's counterpart is ranks
+NUM_CPU_DEVICES_REFUSAL = (
+    "num_cpu_devices: the port has no virtual CPU devices; its CPU counterpart of "
+    "an N-device mesh is N gloo ranks, one process each (PLX_NUM_PROCESSES=N with "
+    "platform: cpu), as its tests launch them")
 
 _KNOWN = {
     "model", "steps", "batch_size", "seq_len", "learning_rate", "warmup_steps",
@@ -116,8 +133,10 @@ METER_KEYS = ("steps", "step_time_ms", "step_time_p50_ms", "step_time_p95_ms",
 def _refuse_unsupported(spec: dict) -> None:
     """Raise on every key or value the port does not support."""
     for key, value in spec.items():
+        if key == "num_cpu_devices":
+            raise SystemExit(NUM_CPU_DEVICES_REFUSAL)
         if key in _NOT_PORTED:
-            # an empty rule list is the one-device default the compiler
+            # an empty rule list is the default the compiler
             # may pass on from the run
             if key == "partition_rules" and not value:
                 continue
@@ -144,12 +163,13 @@ def _refuse_unsupported(spec: dict) -> None:
     if spec.get("optimizer", "adamw") not in OPTIMIZERS:
         raise SystemExit(f"optimizer {spec['optimizer']!r}: unknown; valid: "
                          f"{'|'.join(OPTIMIZERS)}")
-    para = spec.get("parallelism")
-    if para is not None and any(int(v) != 1 for v in dict(para).values()):
-        raise SystemExit(f"parallelism {para}: the port trains on one device; "
-                         f"meshes wait for ROADMAP A6")
+    try:
+        refuse_unported_axes(normalize_axis_sizes(spec.get("parallelism")))
+    except (ValueError, NotImplementedError) as e:
+        raise SystemExit(f"parallelism {spec.get('parallelism')}: {e}") from e
     if int(spec.get("num_slices", 1)) != 1:
-        raise SystemExit("num_slices > 1: multislice waits for ROADMAP A6")
+        raise SystemExit("num_slices > 1: multislice rank order is not ported "
+                         "(ROADMAP A14)")
     data = dict(spec.get("data") or {})
     unknown = set(data) - _DATA_KEYS
     if unknown:
@@ -173,7 +193,8 @@ def _refuse_family_keys(spec: dict, family: str) -> None:
 
 
 def resolve_device(spec: dict) -> torch.device:
-    """CUDA by default (raises without a device); the CPU only when asked."""
+    """CUDA by default (raises without a device): this process's GPU,
+    ``cuda:LOCAL_RANK`` in a multi-process run; the CPU only when asked."""
     platform = spec.get("platform") or "cuda"
     if platform == "cpu":
         return torch.device("cpu")
@@ -181,6 +202,8 @@ def resolve_device(spec: dict) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError("platform 'cuda' needs a usable CUDA device and none is "
                                "available; pass platform: cpu to train on the CPU")
+        if parallel.process_info_from_env().is_distributed:
+            return torch.device("cuda", parallel.local_rank())
         return torch.device("cuda", torch.cuda.current_device())
     raise ValueError(f"unknown platform {platform!r}; valid: cuda|cpu")
 
@@ -205,6 +228,7 @@ def build_trainer(spec: dict[str, Any],
     from ..train import (
         DataConfig, OptimizerConfig, Trainer, TrainerConfig, make_batches, task_for,
     )
+    from ..train import data as data_mod
 
     _refuse_unsupported(spec)
     name = spec.get("model", "llama-tiny")
@@ -286,8 +310,11 @@ def build_trainer(spec: dict[str, Any],
         watchdog_compile_grace_s=float(wd_kw.get("compile_grace_s", 1800.0)),
     )
 
+    primary = _is_primary()
+
     def _track(step: int, metrics: dict) -> None:
-        print(json.dumps({"step": step, **metrics}), flush=True)
+        if primary:
+            print(json.dumps({"step": step, **metrics}), flush=True)
         if bridge is not None:
             bridge.track(step, metrics)
         if track is not None:
@@ -298,15 +325,23 @@ def build_trainer(spec: dict[str, Any],
     hooks = {} if bridge is None else dict(
         on_span=bridge.on_span, on_progress=bridge.on_progress,
         on_stalled=bridge.on_stalled, log_line=bridge.log_line)
-    trainer = Trainer(tcfg, device=device, task=task, track=_track,
+    try:
+        mesh = build_mesh(tcfg.parallelism)
+    except ValueError as e:  # a mesh larger than the process group
+        raise SystemExit(f"parallelism {tcfg.parallelism}: {e}") from e
+    trainer = Trainer(tcfg, device=device, mesh=mesh, task=task, track=_track,
                       chaos=TrainerChaos.from_spec(spec.get("chaos"),
                                                    state_dir=artifacts_dir),
                       **hooks)
     data_spec = dict(spec.get("data") or {})
+    rows = None
+    if trainer.mesh.distributed:
+        rows = data_mod.local_rows(batch_size, tcfg.microbatches, trainer.batch_index,
+                                   trainer.batch_ranks)
     batches = make_batches(DataConfig(
         kind=data_spec.get("kind") or task.default_data_kind, batch_size=batch_size,
         seq_len=seq_len, path=data_spec.get("path"), seed=int(data_spec.get("seed", 0)),
-        **data_kwargs))
+        rows=rows, **data_kwargs))
     return trainer, batches
 
 
@@ -389,16 +424,26 @@ def _tracked_run():
 def run_builtin(spec: dict[str, Any],
                 track: Optional[Callable[[int, dict], None]] = None) -> dict[str, Any]:
     """Train ``spec['model']`` for ``spec['steps']`` steps and return the
-    summary. ``track(step, metrics)``, when given, also receives each
-    logged step's metrics."""
+    summary (every rank's, in a multi-process run). ``track(step,
+    metrics)``, when given, also receives each logged step's metrics.
+    The process joins the env's process group first (a no-op for one
+    process, or when the caller made the group) and leaves a group it
+    joined at the end."""
     _refuse_unsupported(spec)  # before a run directory or a device is touched
-    run = _tracked_run()
+    joined = not torch.distributed.is_initialized()
+    parallel.initialize(device=resolve_device(spec))
+    joined = joined and torch.distributed.is_initialized()
     try:
-        return _run_builtin(spec, track, run)
-    except BaseException:
-        if run is not None:
-            run.end()  # flush and close the writers of a failed attempt
-        raise
+        run = _tracked_run()
+        try:
+            return _run_builtin(spec, track, run)
+        except BaseException:
+            if run is not None:
+                run.end()  # flush and close the writers of a failed attempt
+            raise
+    finally:
+        if joined:
+            parallel.shutdown()
 
 
 def _run_builtin(spec: dict, track, run) -> dict[str, Any]:
@@ -457,6 +502,7 @@ def _run_builtin(spec: dict, track, run) -> dict[str, Any]:
     summary["resumed_from_step"] = int(start_step)
     summary["device"] = (torch.cuda.get_device_name(device) if device.type == "cuda"
                          else "cpu")
+    summary["processes"] = trainer.mesh.size
     if run is not None:
         summary["bridge_host_s"] = bridge.host_s
         # the final beat lands the store's heartbeat step on the last step
@@ -468,12 +514,13 @@ def _run_builtin(spec: dict, track, run) -> dict[str, Any]:
         if trainer.checkpointer is not None:
             run.log_artifact("checkpoints", "outputs/checkpoints", kind="checkpoint")
     artifacts = os.environ.get("PLX_ARTIFACTS_PATH")
-    if artifacts:
+    if artifacts and trainer.primary:
         out_dir = os.path.join(artifacts, "outputs")
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "final.json"), "w") as f:
             json.dump(summary, f)
-    print(json.dumps({"final": summary}), flush=True)
+    if trainer.primary:
+        print(json.dumps({"final": summary}), flush=True)
     if run is not None:
         # last: once the control plane reads `succeeded` it may reap the pod
         run.end(status="succeeded")
@@ -498,10 +545,11 @@ def _fit(spec: dict, trainer, batches, state, steps: int, artifacts_dir: str,
     if trainer.device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof_dir = os.path.join(artifacts_dir, "outputs", "profile")
-    os.makedirs(prof_dir, exist_ok=True)
     with torch.profiler.profile(activities=activities) as prof:
         state, profiled = trainer.fit(batches, num_steps=steps, state=state)
-    prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
+    if trainer.primary:  # rank 0's trace stands for the run
+        os.makedirs(prof_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(prof_dir, "trace.json"))
     if run is not None:
         run.log_artifact("profile", "outputs/profile", kind="profile")
     if measured is None:
@@ -521,8 +569,7 @@ def _initial_params(spec: dict, trainer, mcfg, device) -> tuple[Optional[dict], 
     import_spec, fork_spec = spec.get("import"), spec.get("fork_from")
     if not (import_spec or fork_spec):
         return None, None
-    if trainer.checkpointer is not None \
-            and trainer.checkpointer.latest_complete_step() is not None:
+    if trainer.checkpointer is not None and trainer.latest_complete_step() is not None:
         print("[builtin] complete checkpoint found; skipping "
               f"{'import' if import_spec else 'fork restore'}", flush=True)
         return None, None

@@ -42,8 +42,9 @@ Spec keys (the JAX runtime's, as far as this port goes):
     device, :func:`build_engine` raises; only an explicit "cpu" runs on
     the CPU.
 
-Not ported yet: ``num_cpu_devices`` raises ``SystemExit`` naming its
-ROADMAP item (A6).
+``num_cpu_devices`` (the JAX runtime's virtual CPU devices) raises
+``SystemExit``: a replica is one process on one device, and the port's CPU
+counterpart of an N-device mesh is N gloo ranks.
 """
 
 from __future__ import annotations
@@ -59,9 +60,10 @@ import torch
 
 DEFAULT_SERVE_PORT = 8000
 
-#: keys of the JAX runtime the port does not take yet -> ROADMAP item
-_NOT_PORTED = {
-    "num_cpu_devices": "A6 (device meshes)",
+#: the JAX runtime's keys the port refuses -> why
+_REFUSED = {
+    "num_cpu_devices": "the port has no virtual CPU devices; its CPU counterpart of an "
+                       "N-device mesh is N gloo ranks, one process each",
 }
 
 
@@ -164,10 +166,9 @@ def build_engine(spec: dict):
     from ..models import REGISTRY
     from .engine import ServeEngine
 
-    for key, item in _NOT_PORTED.items():
+    for key, why in _REFUSED.items():
         if spec.get(key):
-            raise SystemExit(f"{key}: not ported to polyaxon_tpu_torch yet "
-                             f"(ROADMAP {item})")
+            raise SystemExit(f"{key}: {why}")
     name = spec.get("model", "llama-tiny")
     if name not in REGISTRY:
         raise SystemExit(

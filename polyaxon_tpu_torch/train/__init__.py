@@ -1,5 +1,6 @@
 """Training stack of the port: optimizers, data, tasks, meter, watchdog and
-the one-device Trainer (counterparts of ``polyaxon_tpu/train``)."""
+the Trainer, on one device or a mesh of processes (counterparts of
+``polyaxon_tpu/train``)."""
 
 from .data import (
     BatchStream, DataConfig, PrefetchedStream, make_batches, skip_batches,

@@ -30,6 +30,12 @@ a thread writes, publishes, hashes and rotates (``max_to_keep``).
 ``wait()`` joins it. ``read_only=True`` (a serving replica borrowing a
 training run's directory) never creates a directory and never writes.
 
+A step holds the full state at every world size: under fsdp the trainer
+gathers each leaf to rank 0, the only writer, and the other ranks restore
+read-only the step rank 0 names, each keeping its shard (``restore``'s
+``select``). So a step saved at ``{fsdp: 2}`` restores at world 1 and the
+other way round.
+
 The JAX package's Orbax checkpointer writes the same manifests over steps
 the port cannot read (``_CHECKPOINT_METADATA`` and ``default/``, no
 ``state.pt``). Such a foreign step is refused by name
@@ -92,22 +98,26 @@ def _to_host(tree: Any) -> Any:
     return tree
 
 
-def _place_like(like: Any, loaded: Any, where: str = "") -> Any:
+def _place_like(like: Any, loaded: Any, where: str = "", select=None) -> Any:
     """Copy ``loaded`` into ``like``'s tensors in place (their device and
     dtype), checking the structure and every shape; non-tensor leaves come
-    from ``loaded``. Returns the filled tree."""
+    from ``loaded``. ``select(loaded, like)`` picks the part of a loaded
+    leaf that ``like`` holds (an fsdp rank's shard of a full leaf).
+    Returns the filled tree."""
     if isinstance(like, dict):
         if not isinstance(loaded, dict) or set(like) != set(loaded):
             raise ValueError(f"checkpoint tree differs at {where or '/'}: "
                              f"{sorted(like) if isinstance(like, dict) else like} vs "
                              f"{sorted(loaded) if isinstance(loaded, dict) else loaded}")
-        return {k: _place_like(like[k], loaded[k], f"{where}/{k}") for k in like}
+        return {k: _place_like(like[k], loaded[k], f"{where}/{k}", select) for k in like}
     if isinstance(like, (list, tuple)):
         if not isinstance(loaded, (list, tuple)) or len(like) != len(loaded):
             raise ValueError(f"checkpoint tree differs at {where}")
-        return type(like)(_place_like(a, b, f"{where}/{i}")
+        return type(like)(_place_like(a, b, f"{where}/{i}", select)
                           for i, (a, b) in enumerate(zip(like, loaded)))
     if isinstance(like, torch.Tensor):
+        if select is not None and isinstance(loaded, torch.Tensor):
+            loaded = select(loaded, like)
         if not isinstance(loaded, torch.Tensor) or loaded.shape != like.shape:
             raise ValueError(f"checkpoint leaf {where} has shape "
                              f"{getattr(loaded, 'shape', None)}, want {tuple(like.shape)}")
@@ -369,10 +379,12 @@ class Checkpointer:
         return torch.load(os.path.join(self._step_dir(step), STATE_FILE),
                           map_location="cpu", mmap=True, weights_only=True)
 
-    def restore(self, state_like: Any, step: Optional[int] = None) -> tuple[Any, int]:
+    def restore(self, state_like: Any, step: Optional[int] = None,
+                select=None) -> tuple[Any, int]:
         """Restore the newest COMPLETE step (or the given one) into
         ``state_like``'s tensors, in place (their device and dtype; the
-        structure and every shape must match). With ``step=None`` a torn
+        structure and every shape must match, after ``select(loaded,
+        like)`` when given picks each leaf's part). With ``step=None`` a torn
         newest step — checksum mismatch, or a read error on a step
         without a manifest — is skipped and the next older complete step
         restores; only when every candidate fails does this raise.
@@ -399,7 +411,7 @@ class Checkpointer:
                     raise
                 errors.append((s, repr(e)))
                 continue
-            restored = _place_like(state_like, loaded)
+            restored = _place_like(state_like, loaded, select=select)
             self._purge_newer_than(s)
             return restored, s
         if step is None:

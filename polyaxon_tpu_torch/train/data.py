@@ -8,8 +8,11 @@ i))`` per batch, so ``skip``/``seek`` are O(1) cursor moves. numpy does the
 drawing in the JAX package's order, so batch ``i`` is bit-identical to the
 JAX package's. Batches come back as CPU tensors (token ids and labels
 int64, images NHWC float32, the MLM mask float32); the trainer moves them to
-its device. The multi-host shard gather of the JAX loader waits for the
-meshes of ROADMAP A6.
+its device.
+
+Over a mesh every rank draws the same global batch, as each JAX process
+does, and keeps its rows (``cfg.rows``, from :func:`local_rows`); the
+token-file stream reads only those rows' windows from disk.
 """
 
 from __future__ import annotations
@@ -33,6 +36,32 @@ class DataConfig:
     num_classes: int = 1000
     path: Optional[str] = None  # tokens-file: .npy, or .bin of uint16/uint32 by the vocab
     seed: int = 0
+    # the rows of the global batch this rank keeps (None: all), in the
+    # order the trainer splits its microbatches
+    rows: Optional[tuple] = None
+
+
+def local_rows(batch_size: int, microbatches: int, index: int, count: int) -> tuple:
+    """Rows of a global batch that rank ``index`` of ``count`` (its place
+    over the batch axes) trains on, microbatch-major. JAX splits the
+    global batch into ``microbatches`` slices of consecutive rows first and
+    shards each slice over the ranks, so the rank's part of microbatch i is
+    rows ``[i*B/k + index*m, i*B/k + (index+1)*m)`` with ``m = B/(k*count)``;
+    the rank's microbatch i is then its i-th chunk of ``m`` rows."""
+    k = max(int(microbatches), 1)
+    if batch_size % k:
+        raise ValueError(f"batch_size {batch_size} not divisible by microbatches {k}")
+    per_micro = batch_size // k
+    if per_micro % count:
+        raise ValueError(f"a microbatch of {per_micro} rows does not split over {count} "
+                         f"ranks (batch_size {batch_size}, microbatches {k})")
+    m = per_micro // count
+    return tuple(i * per_micro + index * m + j for i in range(k) for j in range(m))
+
+
+def _keep(cfg: DataConfig, arr: np.ndarray) -> np.ndarray:
+    """This rank's rows of a global batch array."""
+    return arr if cfg.rows is None else arr[np.asarray(cfg.rows)]
 
 
 class BatchStream:
@@ -82,8 +111,8 @@ def synthetic_lm_batches(cfg: DataConfig) -> BatchStream:
     """Endless {inputs, labels} batches (next-token objective)."""
 
     def make(i: int) -> dict:
-        tok = _ids(_rng_for(cfg, i).integers(0, cfg.vocab_size,
-                                             (cfg.batch_size, cfg.seq_len + 1), dtype=np.int32))
+        tok = _ids(_keep(cfg, _rng_for(cfg, i).integers(
+            0, cfg.vocab_size, (cfg.batch_size, cfg.seq_len + 1), dtype=np.int32)))
         return {"inputs": tok[:, :-1], "labels": tok[:, 1:]}
 
     return BatchStream(make)
@@ -106,8 +135,8 @@ def synthetic_mlm_batches(cfg: DataConfig) -> BatchStream:
         inputs = np.where(selected & (roll < 0.8), mask_id, tok)
         rand = rng.integers(0, cfg.vocab_size, tok.shape, dtype=np.int32)
         inputs = np.where(selected & (roll >= 0.8) & (roll < 0.9), rand, inputs)
-        return {"inputs": _ids(inputs), "labels": _ids(tok),
-                "mask": torch.from_numpy(selected.astype(np.float32))}
+        return {"inputs": _ids(_keep(cfg, inputs)), "labels": _ids(_keep(cfg, tok)),
+                "mask": torch.from_numpy(_keep(cfg, selected).astype(np.float32))}
 
     return BatchStream(make)
 
@@ -120,7 +149,8 @@ def synthetic_image_batches(cfg: DataConfig) -> BatchStream:
         images = rng.standard_normal(
             (cfg.batch_size, cfg.image_size, cfg.image_size, 3), dtype=np.float32)
         labels = rng.integers(0, cfg.num_classes, (cfg.batch_size,), dtype=np.int32)
-        return {"images": torch.from_numpy(images), "labels": _ids(labels)}
+        return {"images": torch.from_numpy(_keep(cfg, images)),
+                "labels": _ids(_keep(cfg, labels))}
 
     return BatchStream(make)
 
@@ -146,7 +176,8 @@ def token_file_batches(cfg: DataConfig) -> BatchStream:
     n = len(tokens) - cfg.seq_len - 1
 
     def make(i: int) -> dict:
-        starts = _rng_for(cfg, i).integers(0, n, cfg.batch_size)
+        # every rank draws every start; it reads only its rows' windows
+        starts = _keep(cfg, _rng_for(cfg, i).integers(0, n, cfg.batch_size))
         window = _ids(_window_gather(tokens, starts, cfg.seq_len))
         return {"inputs": window[:, :-1], "labels": window[:, 1:]}
 

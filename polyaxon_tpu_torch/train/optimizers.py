@@ -146,21 +146,28 @@ def opt_state_from_tree(tree: dict):
     raise ValueError(f"no optimizer state has the fields {sorted(tree)}")
 
 
-def global_norm(tensors: list) -> torch.Tensor:
+def global_norm(tensors: list, whole: Optional[Callable[[list], list]] = None) -> torch.Tensor:
     """optax's ``global_norm``: each leaf's squares in its dtype, summed
     (in f32, rounded to the leaf's dtype), then summed across leaves in
-    order, then the square root."""
+    order, then the square root. ``whole`` turns the list of each leaf's
+    f32 sums into the whole leaves' (fsdp shards: summed over the ranks)."""
+    sums = [(t * t).float().sum() for t in tensors]
+    if whole is not None:
+        sums = whole(sums)
     total = None
-    for t in tensors:
-        sq = (t * t).float().sum().to(t.dtype)
+    for t, s in zip(tensors, sums):
+        sq = s.to(t.dtype)
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads: list, max_norm: float) -> list:
+def clip_by_global_norm(grads: list, max_norm: float,
+                        g_norm: Optional[torch.Tensor] = None) -> list:
     """optax's ``clip_by_global_norm``: unchanged below ``max_norm``,
-    else each leaf times max_norm / norm, in the leaf's dtype."""
-    g_norm = global_norm(grads)
+    else each leaf times max_norm / norm, in the leaf's dtype. ``g_norm``:
+    the grads' global norm when the caller has it (a sharded step's)."""
+    if g_norm is None:
+        g_norm = global_norm(grads)
     trigger = g_norm < max_norm
     return [torch.where(trigger, g, (g / g_norm.to(g.dtype)) * max_norm) for g in grads]
 
@@ -202,9 +209,10 @@ class _Optimizer:
     def init(self, params: list):
         raise NotImplementedError
 
-    def update(self, grads: list, state, params: list):
+    def update(self, grads: list, state, params: list,
+               g_norm: Optional[torch.Tensor] = None):
         if self.cfg.grad_clip and self.cfg.grad_clip > 0:
-            grads = clip_by_global_norm(grads, self.cfg.grad_clip)
+            grads = clip_by_global_norm(grads, self.cfg.grad_clip, g_norm)
         return self._update(grads, state, params, self.schedule(state.count))
 
     def _update(self, grads: list, state, params: list, lr: float):

@@ -1,7 +1,12 @@
 """Training tasks of the port — counterpart of ``polyaxon_tpu/train/tasks.py``.
-A Task owns init, the loss (with its metrics and the new non-param state)
-and the throughput units the meter needs: tokens for the language models,
-samples for vision. MoE's router loss waits for ROADMAP A10.
+A Task owns init, the per-leaf PartitionSpecs of its params (the JAX
+package's logical rules), the loss (with its metrics and the new non-param
+state) and the throughput units the meter needs: tokens for the language
+models, samples for vision. MoE's router loss waits for ROADMAP A10.
+
+Under a mesh (``loss(..., mesh=)``) the batch is this rank's rows, and the
+loss and every metric are this rank's share of the whole batch's value:
+the ranks' shares sum to it (a mean's numerator over the batch's count).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from ..models import resnet as resnet_mod
 from ..models import transformer
 from ..models import vit as vit_mod
 from ..models.transformer import TransformerConfig
+from ..parallel.mesh import PartitionSpec, ShardingRules
 
 
 class Task(ABC):
@@ -29,7 +35,15 @@ class Task(ABC):
         non-param state."""
 
     @abstractmethod
-    def loss(self, params: Any, extra: Any, batch: dict) -> tuple[torch.Tensor, dict, Any]:
+    def param_specs(self, rules: ShardingRules) -> Any:
+        """The PartitionSpec tree of the params."""
+
+    def extra_specs(self, rules: ShardingRules) -> Any:
+        return None  # replicated
+
+    @abstractmethod
+    def loss(self, params: Any, extra: Any, batch: dict,
+             mesh=None) -> tuple[torch.Tensor, dict, Any]:
         """Returns (scalar loss, metrics dict, new_extra)."""
 
     @abstractmethod
@@ -39,8 +53,8 @@ class Task(ABC):
     def flops_per_token(self, seq_len: int) -> float: ...
 
 
-def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return (torch.argmax(logits, dim=-1) == labels).float().mean()
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor, mesh=None) -> torch.Tensor:
+    return resnet_mod.batch_mean((torch.argmax(logits, dim=-1) == labels).float(), mesh)
 
 
 class LMTask(Task):
@@ -55,12 +69,15 @@ class LMTask(Task):
     def init(self, seed, device):
         return transformer.init(self.cfg, seed=seed, device=device), None
 
-    def loss(self, params, extra, batch):
+    def param_specs(self, rules):
+        return transformer.param_specs(self.cfg, rules)
+
+    def loss(self, params, extra, batch, mesh=None):
         hidden = transformer.apply_hidden(params, batch["inputs"], self.cfg)
         w, vocab_major = transformer.head_weights(params, self.cfg)
         loss = transformer.lm_loss_from_hidden(
             hidden, w, batch["labels"], batch.get("mask"),
-            vocab_major=vocab_major, chunk_tokens=self.cfg.loss_chunk_tokens)
+            vocab_major=vocab_major, chunk_tokens=self.cfg.loss_chunk_tokens, mesh=mesh)
         return loss, {"loss": loss}, None
 
     def tokens_per_step(self, batch_size, seq_len):
@@ -88,10 +105,14 @@ class ViTTask(Task):
     def init(self, seed, device):
         return vit_mod.init(self.cfg, seed=seed, device=device), None
 
-    def loss(self, params, extra, batch):
+    def param_specs(self, rules):
+        return vit_mod.param_specs(self.cfg, rules)
+
+    def loss(self, params, extra, batch, mesh=None):
         logits = vit_mod.apply(params, batch["images"], self.cfg)
-        loss = resnet_mod.classification_loss(logits, batch["labels"])
-        return loss, {"loss": loss, "accuracy": _accuracy(logits, batch["labels"])}, None
+        loss = resnet_mod.classification_loss(logits, batch["labels"], mesh)
+        return loss, {"loss": loss,
+                      "accuracy": _accuracy(logits, batch["labels"], mesh)}, None
 
     def tokens_per_step(self, batch_size, seq_len):
         return batch_size  # samples
@@ -115,11 +136,23 @@ class ResNetTask(Task):
     def init(self, seed, device):
         return resnet_mod.init(self.cfg, seed=seed, device=device)
 
-    def loss(self, params, extra, batch):
+    def param_specs(self, rules):
+        # conv kernels replicate, as in the JAX package (small beside the
+        # activations)
+        params, _ = resnet_mod.init(self.cfg, seed=0, device="cpu")
+
+        def build(tree):
+            return ({k: build(v) for k, v in tree.items()} if isinstance(tree, dict)
+                    else PartitionSpec())
+
+        return build(params)
+
+    def loss(self, params, extra, batch, mesh=None):
         logits, new_stats = resnet_mod.apply(params, extra, batch["images"], self.cfg,
-                                             train=True)
-        loss = resnet_mod.classification_loss(logits, batch["labels"])
-        return loss, {"loss": loss, "accuracy": _accuracy(logits, batch["labels"])}, new_stats
+                                             train=True, mesh=mesh)
+        loss = resnet_mod.classification_loss(logits, batch["labels"], mesh)
+        return loss, {"loss": loss,
+                      "accuracy": _accuracy(logits, batch["labels"], mesh)}, new_stats
 
     def tokens_per_step(self, batch_size, seq_len):
         return batch_size  # samples

@@ -1,5 +1,6 @@
 """The training loop of the port — counterpart of
-``polyaxon_tpu/train/trainer.py`` on one device.
+``polyaxon_tpu/train/trainer.py``, on one device or over a mesh of
+processes (one per GPU) with the ``data`` and ``fsdp`` axes.
 
 One step = the microbatch loop (grads in ``grad_dtype``, summed in
 ``accum_dtype`` and divided by k; the task's metrics averaged over the
@@ -18,12 +19,36 @@ then updates params and moments in place: no second copy of the state is
 ever live. Since the host waits for that verdict anyway, ``fit`` applies
 the skip policy to each step's flags as soon as the step returns (the JAX
 package reads them one step late so as not to wait), and a save at a
-step boundary covers only resolved-clean steps. Meshes and sharding wait
-for ROADMAP A6; the trainer refuses them.
+step boundary covers only resolved-clean steps.
+
+Over a mesh (a ``torch.distributed`` group) every number the step returns
+is the one the JAX package's SPMD step returns on a mesh of that shape:
+
+- each rank trains on its rows of the global batch (``data.local_rows``);
+  the task's loss and metrics are its share of the batch's, and the
+  metrics are summed over the ranks; batch norms and MLM counts are the
+  whole batch's;
+- ``data``: params are replicated, and the grads are summed over the
+  ranks after the microbatch loop;
+- ``fsdp`` (declared, at any size): each rank holds its block of every
+  ``embed``-sharded leaf (the task's PartitionSpecs) of the f32 master
+  params, of the optimizer's param-shaped state and of the grads. The
+  model gathers a leaf where it uses it, each layer's just before the
+  layer runs (in ``grad_dtype``), and each gather's backward
+  reduce-scatters the grad to the shard; with ``data`` too, shards are
+  then summed over the data ranks. adafactor's factored moments are not
+  sharded yet (ROADMAP A15);
+- the grads' global norm sums each leaf's squares over its shards, and the
+  guard's verdict reads the summed metrics, so every rank skips the same
+  steps;
+- checkpoints hold the full state at every world size: rank 0 gathers it
+  leaf by leaf and alone writes, the others restore the step rank 0 names
+  and keep their shard.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterator, Optional
@@ -31,6 +56,10 @@ from typing import Any, Callable, Iterator, Optional
 import torch
 
 from ..models.transformer import TransformerConfig, flatten, unflatten
+from ..parallel.fsdp import ShardedTree, fresh, leaf_dims
+from ..parallel.mesh import (
+    BATCH_AXES, Mesh, ShardingRules, build_mesh, normalize_axis_sizes, refuse_unported_axes,
+)
 from .checkpoint import CheckpointConfig, Checkpointer
 from .metrics import ThroughputMeter
 from .optimizers import (
@@ -53,7 +82,9 @@ class TrainerConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     batch_size: int = 8
     seq_len: int = 128
-    parallelism: Optional[dict] = None   # one device only: None or {"data": 1}
+    # mesh axes over the process group (data and fsdp run); None: data
+    # absorbs every process
+    parallelism: Optional[dict] = None
     num_slices: int = 1
     checkpoint: Optional[CheckpointConfig] = None
     log_interval: int = 10
@@ -85,25 +116,18 @@ class TrainingDivergedError(RuntimeError):
         self.rollbacks = rollbacks
 
 
-def _check_one_device(cfg: TrainerConfig) -> None:
-    extra_axes = {k: v for k, v in (cfg.parallelism or {}).items() if int(v) != 1}
-    if extra_axes:
-        raise NotImplementedError(
-            f"parallelism {cfg.parallelism} is not ported: the port trains on one "
-            f"device (data/fsdp: ROADMAP A6; model/context: A8; stage: A9)")
-    if cfg.num_slices > 1:
-        raise NotImplementedError("num_slices > 1 is not ported (ROADMAP A6)")
-
-
 class Trainer:
-    """The JAX package's Trainer on one device: the Task supplies init and
-    loss; ``device`` is where params, state and batches live."""
+    """The JAX package's Trainer: the Task supplies init, specs and loss;
+    ``device`` is this process's device, where its params, state and
+    batches live; ``mesh`` defaults to ``build_mesh(cfg.parallelism)`` over
+    the process group (one process without one)."""
 
     def __init__(
         self,
         cfg: TrainerConfig,
         *,
         device: Any,
+        mesh: Optional[Mesh] = None,
         track: Optional[Callable[[int, dict], None]] = None,
         task: Optional[Task] = None,
         chaos: Optional[Any] = None,
@@ -112,7 +136,7 @@ class Trainer:
         on_stalled: Optional[Callable[[int, float, float], None]] = None,
         log_line: Optional[Callable[[str], None]] = None,
     ):
-        _check_one_device(cfg)
+        refuse_unported_axes(normalize_axis_sizes(cfg.parallelism))
         self.cfg = cfg
         if task is None:
             if not isinstance(cfg.model, TransformerConfig):
@@ -121,6 +145,21 @@ class Trainer:
             task = LMTask(cfg.model)
         self.task = task
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else build_mesh(
+            cfg.parallelism, num_slices=cfg.num_slices)
+        refuse_unported_axes(self.mesh.sizes)
+        if self.mesh.sharded and cfg.optimizer.name == "adafactor":
+            raise NotImplementedError(
+                "adafactor under fsdp is not ported: its factored moments are not "
+                "sharded (ROADMAP A15); use data parallelism or another optimizer")
+        self.primary = self.mesh.rank == 0
+        # this rank's place over the batch axes, and how many share the batch
+        self.batch_ranks = self.mesh.axis_size(*BATCH_AXES)
+        self.batch_index = self.mesh.index(BATCH_AXES)
+        self.specs = task.param_specs(ShardingRules())
+        # fsdp-sharded dim of each param leaf (flatten order); None: replicated
+        self._dims_tree: Optional[dict] = None
+        self._dims: list = []
         self.tx = make_optimizer(cfg.optimizer)
         self.track = track
         # duck-typed fault injection: pre_step(pos) and nan_due(pos)
@@ -135,7 +174,9 @@ class Trainer:
         self.on_progress = on_progress
         self.on_stalled = on_stalled
         self.log_line = log_line
-        self.checkpointer = Checkpointer(cfg.checkpoint) if cfg.checkpoint else None
+        # rank 0 owns the directory; the others only read the steps it names
+        self.checkpointer = (Checkpointer(cfg.checkpoint, read_only=not self.primary)
+                             if cfg.checkpoint else None)
 
     # -- init ---------------------------------------------------------------
 
@@ -144,8 +185,24 @@ class Trainer:
         return self.init_state_from(params, extra)
 
     def init_state_from(self, params: dict, extra: Any = None) -> TrainState:
-        leaves = [leaf for _, leaf in flatten(params)]
-        return TrainState(params=params, opt_state=self.tx.init(leaves), step=0, extra=extra)
+        """A state around full ``params`` (every rank's alike): under fsdp
+        each rank keeps its shard of each leaf, and the optimizer state
+        mirrors the shards."""
+        paths, leaves = zip(*flatten(params))
+        if self.mesh.sharded:
+            self._dims_tree = leaf_dims(self.specs, params, self.mesh.sizes["fsdp"])
+            self._dims = [d for _, d in flatten(self._dims_tree)]
+            leaves = [self.mesh.shard(t, d) for t, d in zip(leaves, self._dims)]
+            params = unflatten(paths, leaves)
+        else:
+            self._dims = [None] * len(leaves)
+        return TrainState(params=params, opt_state=self.tx.init(list(leaves)), step=0,
+                          extra=extra)
+
+    def _agreed(self, value: Optional[int]) -> Optional[int]:
+        """Rank 0's ``value`` on every rank (a decision about the shared
+        checkpoint directory, which only rank 0 reads as the writer)."""
+        return self.mesh.agree(value if self.primary else None, self.device)
 
     def restore_or_init(self, seed: int = 0, init_params: Optional[dict] = None,
                         init_extra: Any = None) -> tuple[TrainState, int]:
@@ -158,7 +215,8 @@ class Trainer:
             state = self.init_state_from(init_params, init_extra)
         else:
             state = self.init_state(seed)
-        if self.checkpointer and self.checkpointer.latest_step() is not None:
+        if self.checkpointer and self._agreed(
+                self.checkpointer.latest_step() if self.primary else None) is not None:
             try:
                 # skips torn steps via the checksum manifests and restores
                 # the newest COMPLETE one
@@ -170,17 +228,74 @@ class Trainer:
                       "verification; starting from step 0", flush=True)
         return state, 0
 
+    def latest_complete_step(self) -> Optional[int]:
+        """The newest complete step of the run's checkpoints, as rank 0
+        (the writer, which heals the directory first) sees it."""
+        return self._agreed(self.checkpointer.latest_complete_step() if self.primary
+                            else None)
+
     def restore(self, state: TrainState, step: Optional[int] = None) -> tuple[TrainState, int]:
         """Restore the newest complete checkpoint (or ``step``) into
         ``state``'s tensors in place; returns the restored state and its
-        step."""
-        tree, s = self.checkpointer.restore(state_tree(state), step=step)
+        step. Over a mesh every rank restores the step rank 0 names, and
+        under fsdp keeps its shard of each full leaf."""
+        like = state_tree(state)
+        if self.mesh.distributed:
+            chosen = step
+            if self.primary and chosen is None:
+                chosen = self.checkpointer.latest_complete_step()
+                if chosen is None:
+                    # the single-process walk: purge what failed, then raise
+                    try:
+                        self.checkpointer.restore(like)
+                    except FileNotFoundError:
+                        pass
+            step = self._agreed(chosen)
+            if step is None:
+                raise FileNotFoundError(
+                    f"No complete checkpoint under {self.checkpointer.cfg.directory}")
+        select = self._shard_of if self.mesh.sharded else None
+        tree, s = self.checkpointer.restore(like, step=step, select=select)
         return state_from_tree(tree), s
+
+    def _shard_of(self, full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a full checkpoint leaf whose shard ``like``
+        is (the leaf itself when the shapes agree)."""
+        if full.shape == like.shape or full.dim() != like.dim():
+            return full
+        diff = [d for d in range(full.dim()) if full.shape[d] != like.shape[d]]
+        n = like.shape[diff[0]] if len(diff) == 1 else 0
+        if not n or full.shape[diff[0]] != n * self.mesh.sizes["fsdp"]:
+            return full  # the shape check names the mismatch
+        return full.narrow(diff[0], self.mesh.coords()["fsdp"] * n, n)
+
+    def _save_tree(self, state: TrainState) -> Optional[dict]:
+        """The checkpoint's tree: the full state on rank 0 (None on the
+        others). Under fsdp each sharded leaf is gathered in turn and
+        copied to rank 0's host, so no rank ever holds the whole state on
+        its device."""
+        if not self.mesh.sharded:
+            return state_tree(state) if self.primary else None
+
+        def full(t, d):
+            g = self.mesh.gather_full(t, d)
+            return g.to("cpu", copy=True) if self.primary else None
+
+        paths, leaves = zip(*flatten(state.params))
+        params = unflatten(paths, [full(t, d) for t, d in zip(leaves, self._dims)])
+        opt = {name: value if name == "count" else [full(t, d) for t, d in
+                                                    zip(value, self._dims)]
+               for name, value in opt_state_tree(state.opt_state).items()}
+        if not self.primary:
+            return None
+        return {"params": params, "opt_state": opt, "step": int(state.step),
+                "extra": state.extra}
 
     # -- the step -------------------------------------------------------------
 
     def _loss(self, params, extra, batch, inject: bool):
-        loss, metrics, new_extra = self.task.loss(params, extra, batch)
+        kwargs = {"mesh": self.mesh} if self.mesh.distributed else {}
+        loss, metrics, new_extra = self.task.loss(params, extra, batch, **kwargs)
         if inject:
             # poisons the loss and every gradient from it, as a real
             # divergence would
@@ -194,6 +309,12 @@ class Trainer:
         if self.cfg.batch_size % k:
             raise ValueError(f"batch_size {self.cfg.batch_size} not divisible by "
                              f"microbatches {k}")
+        mesh = self.mesh
+        if (self.cfg.batch_size // k) % self.batch_ranks:
+            raise ValueError(f"a microbatch of {self.cfg.batch_size // k} rows does not "
+                             f"split over {self.batch_ranks} ranks")
+        # this rank's rows of each microbatch: its batch is data.local_rows'
+        size = self.cfg.batch_size // k // self.batch_ranks
 
         def step_fn(state: TrainState, batch: dict, inject: bool = False):
             paths, leaves = zip(*flatten(state.params))
@@ -201,12 +322,15 @@ class Trainer:
                      else p.detach()).requires_grad_(p.is_floating_point())
                     for p in leaves]
             diff_tree = unflatten(paths, diff)
+            if mesh.sharded:
+                diff_tree = ShardedTree(diff_tree, self._dims_tree, mesh.gather)
+            dims = [d for p, d in zip(leaves, self._dims) if p.is_floating_point()]
             batch = {name: t.to(self.device) for name, t in batch.items()}
-            size = self.cfg.batch_size // k
             grads, per_micro, extra = None, [], state.extra
             for i in range(k):
                 mb = {name: t[i * size:(i + 1) * size] for name, t in batch.items()}
-                loss, m, extra = self._loss(diff_tree, extra, mb, inject)
+                # each microbatch gathers the params anew
+                loss, m, extra = self._loss(fresh(diff_tree), extra, mb, inject)
                 g = torch.autograd.grad(loss, [t for t in diff if t.requires_grad],
                                         allow_unused=True, materialize_grads=True)
                 per_micro.append({name: v.detach() for name, v in m.items()})
@@ -225,8 +349,22 @@ class Trainer:
             task_metrics = (per_micro[0] if k == 1 else
                             {name: torch.stack([m[name] for m in per_micro]).mean()
                              for name in per_micro[0]})
+            whole = None
+            if mesh.distributed:
+                task_metrics = self._sum_metrics(task_metrics)
+                for i, d in enumerate(dims):
+                    # NCCL reduces dense tensors only (autograd may hand back
+                    # a strided view); a shard was summed over fsdp by its
+                    # reduce-scatter
+                    g = grads[i] = grads[i].contiguous()
+                    if d is None:
+                        mesh.sum_(g, *BATCH_AXES)
+                    elif mesh.sizes["data"] > 1:
+                        mesh.sum_(g, "data")
+                if mesh.sharded:
+                    whole = functools.partial(self._whole_sums, dims)
             loss = task_metrics["loss"]
-            grad_norm = global_norm(grads)
+            grad_norm = global_norm(grads, whole)
             loss_ok = torch.isfinite(loss)
             grad_ok = torch.isfinite(grad_norm)
             metrics = {
@@ -237,7 +375,7 @@ class Trainer:
             opt_state = state.opt_state
             if bool(loss_ok & grad_ok):
                 masters = [p for p in leaves if p.is_floating_point()]
-                updates, opt_state = self.tx.update(grads, opt_state, masters)
+                updates, opt_state = self.tx.update(grads, opt_state, masters, grad_norm)
                 with torch.no_grad():
                     for p, u in zip(masters, updates):
                         p.add_(u.to(p.dtype))
@@ -247,6 +385,25 @@ class Trainer:
             return TrainState(state.params, opt_state, state.step + 1, state.extra), metrics
 
         return step_fn
+
+    def _sum_metrics(self, metrics: dict) -> dict:
+        """The ranks' shares of each metric, summed: the batch's values."""
+        names = sorted(metrics)
+        vec = torch.stack([metrics[n].detach().float() for n in names])
+        self.mesh.sum_(vec, *BATCH_AXES)
+        return {n: vec[i] for i, n in enumerate(names)}
+
+    def _whole_sums(self, dims: list, sums: list) -> list:
+        """Each leaf's sum of squares over the whole leaf: a shard's summed
+        over the fsdp ranks (a replicated grad is whole already)."""
+        idx = [i for i, d in enumerate(dims) if d is not None]
+        if not idx:
+            return sums
+        vec = self.mesh.sum_(torch.stack([sums[i] for i in idx]), "fsdp")
+        out = list(sums)
+        for j, i in enumerate(idx):
+            out[i] = vec[j]
+        return out
 
     # -- the loop -------------------------------------------------------------
 
@@ -268,7 +425,7 @@ class Trainer:
                 tokens_per_step=self.task.tokens_per_step(self.cfg.batch_size,
                                                           self.cfg.seq_len),
                 flops_per_token=self.task.flops_per_token(self.cfg.seq_len),
-                num_chips=1, accelerator=self.cfg.accelerator)
+                num_chips=self.mesh.size, accelerator=self.cfg.accelerator)
         metrics: dict = {}
         t_fit = time.time()  # span clock: epoch, as the control plane's
         t_train: Optional[float] = None
@@ -404,10 +561,12 @@ class Trainer:
                     self.track(i, logged)
                 # the label covers resolved-clean steps only: a step inside
                 # an anomaly streak is never published
-                if self.checkpointer and consec == 0 \
-                        and self.checkpointer.should_save(i + 1):
+                if self.checkpointer and consec == 0 and self._agreed(
+                        self.primary and self.checkpointer.should_save(i + 1)):
                     t_save = time.time()
-                    self.checkpointer.maybe_save(i + 1, state_tree(state))
+                    tree = self._save_tree(state)
+                    if self.primary:
+                        self.checkpointer.maybe_save(i + 1, tree, force=True)
                     if self.on_span:
                         # async: the span covers the copy to the host and
                         # the hand-off to the writer thread
@@ -421,12 +580,14 @@ class Trainer:
         if t_train is not None and self.on_span:
             self.on_span("train", t_train, time.time(), steps=num_steps - start)
         if self.checkpointer:
-            if self.checkpointer.latest_step() != num_steps:
+            if self._agreed(self.primary and self.checkpointer.latest_step() != num_steps):
                 t_save = time.time()
-                if self.checkpointer.maybe_save(num_steps, state_tree(state), force=True) \
+                tree = self._save_tree(state)
+                if self.primary and self.checkpointer.maybe_save(num_steps, tree, force=True) \
                         and self.on_span:
                     self.on_span("checkpoint-save", t_save, time.time(), step=num_steps)
             self.checkpointer.wait()
+            self.mesh.barrier()  # the step is on disk before any rank reads it
         final = {name: float(v) for name, v in metrics.items()}
         final.update(meter.summary())
         final["train_anomalies_loss"] = anomalies["loss"]

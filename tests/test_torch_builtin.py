@@ -61,8 +61,14 @@ def test_cpu_run_prints_the_final_line_with_the_meter_keys(capsys):
     ("fork_from", "/parent/run", "needs a mapping"),
     ("import", {"path": "/x", "shards": 2}, "unknown keys"),
     ("lora", {"rank": 4}, "A12"),
-    ("parallelism", {"data": 2}, "A6"),
-    ("num_slices", 2, "A6"),
+    ("parallelism", {"data": 2}, "Mesh needs 2 devices but only 1 available"),
+    ("parallelism", {"model": 2}, "A8"),
+    ("parallelism", {"context": 2}, "A8"),
+    ("parallelism", {"stage": 2}, "A9"),
+    ("parallelism", {"expert": 2}, "A10"),
+    ("parallelism", {"tensor": 2}, "Unknown mesh axes"),
+    ("num_slices", 2, "A14"),
+    ("num_cpu_devices", 8, "N gloo ranks"),
     ("profile", {"every": 2}, "unknown keys"),
     ("optimizer", "adam8bit", "unknown; valid: adamw"),
     ("data", {"kind": "tokens-file"}, "needs a path"),
@@ -72,7 +78,7 @@ def test_cpu_run_prints_the_final_line_with_the_meter_keys(capsys):
     ("pp_microbatches", 4, "A9"),
     ("moe_dispatch", "a2a", "A10"),
     ("chaos", {"hang_after_requests": 3}, "unknown keys"),
-    ("partition_rules", [["a", "b"]], "A6"),
+    ("partition_rules", [["a", "b"]], "A14"),
     ("resources", {"period": 5}, "unknown keys"),
     ("unknown_knob", 1, "unknown spec key"),
 ])
@@ -455,7 +461,7 @@ def test_vision_accuracy_reaches_the_tracked_run(tmp_path, monkeypatch):
     ("vit-tiny", "seq_len", 64, "only language models take them"),
     ("resnet18-cifar", "remat", "full", "only language models take them"),
     ("vit-tiny", "image_size", 64, "only resnet models take it"),
-    ("bert-tiny", "parallelism", {"data": 4}, "A6"),
+    ("bert-tiny", "parallelism", {"data": 4}, "Mesh needs 4 devices but only 1"),
 ])
 def test_family_refusals(model, key, value, match):
     spec = {**FAMILY_BASE, "model": model, "checkpoint": False, key: value}

@@ -51,7 +51,8 @@ def test_the_scan_sees_every_port_module():
                      "resilience/retry.py", "resilience/chaos.py", "tracking/events.py",
                      "tracking/writer.py", "tracking/spool.py", "tracking/client.py",
                      "tracking/run.py", "tracking/__init__.py", "tracking/resources.py",
-                     "obs/history.py"):
+                     "obs/history.py", "parallel/__init__.py", "parallel/distributed.py",
+                     "parallel/mesh.py", "parallel/collectives.py", "parallel/fsdp.py"):
         assert expected in names
 
 

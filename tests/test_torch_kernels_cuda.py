@@ -445,3 +445,59 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
             assert b.device == a.device and torch.equal(a, b), path
         else:
             assert a == b, path
+
+
+def _two_bert_steps(dev, parallelism):
+    """Two bert-tiny training steps on ``dev`` from seed 0: (losses, grad
+    norms, final params as one flat tensor)."""
+    from polyaxon_tpu_torch.models import bert
+    from polyaxon_tpu_torch.models.transformer import flatten
+    from polyaxon_tpu_torch.parallel.mesh import BATCH_AXES, build_mesh
+    from polyaxon_tpu_torch.train import (
+        DataConfig, MLMTask, OptimizerConfig, Trainer, TrainerConfig, make_batches,
+    )
+    from polyaxon_tpu_torch.train.data import local_rows
+
+    cfg = TrainerConfig(model=bert.BERT_TINY, batch_size=8, seq_len=32,
+                        parallelism=parallelism, accelerator=None,
+                        optimizer=OptimizerConfig(learning_rate=1e-3, warmup_steps=0,
+                                                  total_steps=2))
+    mesh = build_mesh(parallelism)
+    trainer = Trainer(cfg, device=dev, mesh=mesh, task=MLMTask(bert.BERT_TINY))
+    rows = local_rows(8, 1, mesh.index(BATCH_AXES), mesh.axis_size(*BATCH_AXES))
+    batches = make_batches(DataConfig(kind="synthetic-mlm", batch_size=8, seq_len=32,
+                                      vocab_size=bert.BERT_TINY.vocab_size, rows=rows))
+    state = trainer.init_state(seed=0)
+    step = trainer.make_step()
+    losses, norms = [], []
+    for _ in range(2):
+        state, m = step(state, next(batches))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    flat = torch.cat([t.detach().reshape(-1) for _, t in flatten(state.params)])
+    return losses, norms, flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("parallelism", [{"data": 1}, {"fsdp": 1}])
+def test_a_one_rank_nccl_group_steps_as_no_group(cuda, parallelism):
+    """bert-tiny's step under a 1-rank NCCL group (the mesh path: global
+    MLM counts and metrics, grads summed over the group; under fsdp the
+    per-layer gather and the reduce-scatter) equals the step without a
+    group, bit for bit: on one rank every collective copies."""
+    import socket
+
+    dist = torch.distributed
+    alone = _two_bert_steps(cuda, parallelism)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        grouped = _two_bert_steps(cuda, parallelism)
+    finally:
+        dist.destroy_process_group()
+    assert grouped[0] == alone[0] and grouped[1] == alone[1]
+    assert torch.equal(grouped[2], alone[2])

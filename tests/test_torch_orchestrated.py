@@ -13,7 +13,9 @@ cores instead of asking for all of them.
     ``polyaxon_tpu_torch.serve.runtime`` answers 2 concurrent /generate
     requests, and the run's outputs carry tokens/s and the TTFT
     percentiles (``tests/test_serve.py`` TestServeServiceE2E, in port
-    form)."""
+    form).
+(c) distributed: ``examples/resnet50_ddp.yaml``'s ``pytorchjob`` on two
+    pods trains as one gloo group from the converter's rendezvous env."""
 
 from __future__ import annotations
 
@@ -96,6 +98,38 @@ def test_builtin_run_through_store_agent_and_pod(stack):
         assert outputs[key] == final[key], key
     assert run["heartbeat_step"] == 3
     assert final["device"] == "cpu"
+
+
+def test_pytorchjob_trains_its_pods_as_one_group(stack):
+    """``examples/resnet50_ddp.yaml`` (a ``pytorchjob``) cut to resnet18-cifar
+    on a master and one worker: each pod joins one gloo group from the
+    rendezvous env the converter gives it, unchanged, and trains its half
+    of the global batch; rank 0 alone prints the ``{"final"}`` line and
+    reports the run."""
+    srv, agent = stack
+    spec = check_polyaxonfile(
+        os.path.join(REPO, "examples", "resnet50_ddp.yaml"),
+        set_overrides=["component.run.worker.replicas=1",
+                       "component.run.runtime.model=resnet18-cifar",
+                       "component.run.runtime.steps=3",
+                       "component.run.runtime.batch_size=8",
+                       "component.run.runtime.platform=cpu"]).to_dict()
+    for role in ("master", "worker"):
+        spec["component"]["run"][role]["container"] = {
+            "command": ["python", "-m", "polyaxon_tpu_torch.runtime.builtin"],
+            "env": POD_ENV}
+    uuid = srv.store.create_run(project="bench", name="ddp-port", spec=spec)["uuid"]
+    status = _wait_status(srv.store, uuid, ("succeeded", "failed", "stopped"), 300)
+    logs = _pod_logs(agent)
+    assert status == "succeeded", logs[-4000:]
+    envs = [env for env in agent.cluster.launched_env.values()
+            if env.get("PLX_NUM_PROCESSES")]
+    assert sorted(env["PLX_PROCESS_ID"] for env in envs) == ["0", "1"]
+    final = [json.loads(x)["final"] for x in logs.splitlines() if x.startswith('{"final"')]
+    assert len(final) == 1 and final[0]["processes"] == 2
+    outputs = srv.store.get_run(uuid)["outputs"] or {}
+    assert outputs["loss"] == final[0]["loss"] and outputs["steps"] == final[0]["steps"]
+    assert srv.store.get_run(uuid)["heartbeat_step"] == 3
 
 
 def _free_port() -> int:

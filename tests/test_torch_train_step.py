@@ -221,11 +221,17 @@ def test_exhausted_skip_budget_raises_with_history(jax_run):
     assert [h["step"] for h in exc.value.history][:2] == [1, 2]
 
 
-@pytest.mark.parametrize("over", [dict(parallelism={"data": 2}), dict(num_slices=2),
-                                  dict(parallelism={"fsdp": 2})])
-def test_the_trainer_refuses_what_is_not_ported(over):
+@pytest.mark.parametrize("over,error,match", [
+    # a mesh larger than the process group, in build_mesh's words
+    (dict(parallelism={"data": 2}), ValueError, "Mesh needs 2 devices but only 1 available"),
+    (dict(parallelism={"fsdp": 2}), ValueError, "Mesh needs 2 devices but only 1 available"),
+    (dict(num_slices=2), NotImplementedError, "ROADMAP A14"),
+    (dict(parallelism={"model": 2}), NotImplementedError, "ROADMAP A8"),
+    (dict(parallelism={"stage": 2}), NotImplementedError, "ROADMAP A9"),
+])
+def test_the_trainer_refuses_what_is_not_ported(over, error, match):
     _, tcfg = _configs(**over)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         Trainer(tcfg, device="cpu")
 
 
