@@ -41,7 +41,19 @@ non-zero:
    32 x 12, S = 197 = 128 + 69, a partial last q and kv tile on every
    walk), against their plain versions, with cold-L2 kernel, plain and
    SDPA (is_causal=False) times and the bounds; ``walk_cut=1`` must fail
-   the same check at both shapes.
+   the same check at both shapes. Then ring_kernels: ring attention
+   (``ops/ring_attention.py``) over a loopback ring that holds every
+   position in this process, in bf16 at llama-1b's training attention (2 x
+   32 q heads over 4 kv heads, D 64, S 2048 as cp 4 chunks of 512,
+   causal), llama2-7b's (32 heads, D 128, its max_seq 4096 as cp 2 chunks
+   of 2048, causal) and BERT-base's (16 x 12 heads, S 512 over cp 2,
+   non-causal): the ring's launches of B1-B3 equal its visits (cp(cp+1)/2
+   causal, cp^2 not), its output and dQ/dK/dV equal one flash call over
+   the whole sequence within RING_TOL, each visit's kernels equal their
+   plain versions at the visit's global offsets, and a planted fault
+   (k_offset + 1 on rank 0's diagonal visit when causal, the last rank's
+   visit of chunk 0 dropped when not) must fail; the ring's fwd+bwd time
+   against the single call's.
 6. serve — the port's ``build_engine`` at llama-1b full width (22 layers,
    hidden 2048, bf16, random init from seed 0) with the
    examples/llama1b_service.yaml runtime settings and attn_impl flash,
@@ -124,7 +136,14 @@ non-zero:
    ranks from the PLX_* env of bert-base ``{data: W}`` and llama-1b
    ``{fsdp: W}`` at the same global batch, step-0/1 losses against the
    1-rank run's (DIST_MULTI_RTOL); with one GPU it prints ``{"skipped":
-   "1 GPU"}``.
+   "1 GPU"}``. tp_cp_multi: with 2+ GPUs, W = min(GPUs, 4) ranks of
+   llama-1b ``{model: W}`` and ``{context: W}`` (ring) at
+   dist_train_1rank's llama-1b keys, their step-0/1 losses against its
+   1-rank run's, and with 4 GPUs llama2-7b ``{fsdp: 2, model: 2}`` for two
+   steps (the llama7b_tpujob keys at batch 4 in 2 microbatches; its state
+   does not fit one card, so its step-0 loss is held within
+   LLAMA7B_LOSS0_MARGIN of ln 32000), with peak memory per rank; with one
+   GPU it prints ``{"skipped": "1 GPU"}``.
 14. profiles — ``torch.profiler``'s split of the compare phase's decode
    step per impl, of a training microbatch and the AdamW tail, and of a
    speculative iteration's draft steps against its verify step, then
@@ -136,8 +155,9 @@ non-zero:
    each new family's trainer (BERT, ViT, ResNet) by kernel.
 15. the ``{"kernels": [...]}`` line (each flash kernel's launches are the
    llama-1b train phase's; ``launches_by_path`` adds train_bert's,
-   train_vit's and the 1-rank group runs' of dist_train_1rank), then the
-   last line ``{"ok": true, "device": {...}}``.
+   train_vit's, the 1-rank group runs' of dist_train_1rank and each
+   ring_kernels case's), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Needs one card and the repository checkout around this file; imports
 nothing of JAX.
@@ -223,6 +243,35 @@ LIBRARY_BWD_TIMINGS = 5
 # a batch of 32), where 197 = 128 + 69 ends in a partial tile on every walk
 BIDIR_CASES = {"bert-base": dict(batch=16, heads=12, seq=512),
                "vit-b16": dict(batch=32, heads=12, seq=197)}
+
+# ring attention over a loopback ring (every position in this process), bf16:
+# llama-1b's training attention (a microbatch of 2, 32 q heads over 4 kv
+# heads, D 64, S 2048) as 4 chunks of 512; llama2-7b's (32 heads, D 128, its
+# max_seq 4096, one row) as 2 chunks of 2048; BERT-base's (16 x 12 heads, S
+# 512) over 2, non-causal
+RING_CASES = {
+    "llama-1b": dict(batch=2, heads=32, kv_heads=4, head_dim=64, seq=2048, cp=4,
+                     causal=True),
+    "llama2-7b": dict(batch=1, heads=32, kv_heads=32, head_dim=128, seq=4096, cp=2,
+                      causal=True),
+    "bert-base": dict(batch=16, heads=12, kv_heads=12, head_dim=64, seq=512, cp=2,
+                      causal=False),
+}
+# the ring against one flash call over the whole sequence, per tensor
+# max |ring - single| <= RING_TOL x max |single|: both run the same kernels,
+# but the ring rounds each visit's partial output (and each visit's dQ, dK,
+# dV, per q head) to bf16 before its f32 merge, as the JAX ring does, where
+# the single call rounds once (and sums GQA's q-head copies of dK/dV in
+# bf16). A partial's rounding is a bf16 place of the partial, which may be
+# larger than the merged element it lands in, so the bound is normwise, not
+# elementwise. On an NVIDIA H100 80GB HBM3 (700 W) the sound ring read
+# 0.015-0.45 of 2^-6 (dK and dV the largest), the dropped visit 63 times it;
+# k_offset + 1 on the last rank's diagonal visit read only 1.2-1.7 times it
+# (its rows see 1024-4096 keys, one lost key moves them little), so the
+# fault sits on rank 0's diagonal visit, whose first rows see a few keys:
+# 90-91 times it. 2^-6 is a bf16 place or two of the largest element
+RING_TOL = 2.0 ** -6
+RING_TIMINGS = 5
 
 TRAIN_SPEC = {
     # examples/llama1b_tpujob.yaml runtime, steps cut from 8 to 3, on the card
@@ -1088,6 +1137,129 @@ def flash_bidir_phase(torch, fa) -> list[dict]:
     return rows
 
 
+def ring_case(torch, fa, ra, name: str, c: dict) -> dict:
+    """One RING_CASES shape: the loopback ring's fwd+bwd against one flash
+    call over the whole sequence and each visit's kernels against their
+    plain versions, a planted fault, and both paths' times."""
+    from polyaxon_tpu_torch.ops.attention import repeat_kv
+
+    b, h, nk, d, seq, cp, causal = (c["batch"], c["heads"], c["kv_heads"], c["head_dim"],
+                                    c["seq"], c["cp"], c["causal"])
+    gen = torch.Generator(device="cuda").manual_seed(seq + cp)
+    q, do = (torch.randn(b, h, seq, d, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(b, nk, seq, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    ring = ra.LoopbackRing(cp)
+
+    def ring_run():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = ra.ring_attention(*leaves, exchange=ring, causal=causal)
+        o.backward(do)
+        return [o.detach()] + [t.grad for t in leaves]
+
+    def single_run():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        flat = lambda t: t.reshape(b * h, seq, d)  # noqa: E731
+        o = fa.flash_attention_bhsd(flat(leaves[0]), flat(repeat_kv(leaves[1], h)),
+                                    flat(repeat_kv(leaves[2], h)), causal=causal)
+        o.backward(flat(do))
+        return [o.detach().reshape(b, h, seq, d)] + [t.grad for t in leaves]
+
+    visits = cp * (cp + 1) // 2 if causal else cp * cp
+    fa.reset_launch_counts()
+    got = ring_run()
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    if launches != {kname: visits for kname in launches}:
+        raise AssertionError(f"ring {name}: launches {launches}, {visits} visits")
+    want = single_run()
+    names = ("o", "dq", "dk", "dv")
+    ratios = {n: norm_ratio(x, y) for n, x, y in zip(names, got, want)}
+    errors = {n: (x.float() - y.float()).abs().max().item()
+              for n, x, y in zip(names, got, want)}
+    for n in names:
+        if not (torch.isfinite(got[names.index(n)].float()).all() and ratios[n] <= 1.0):
+            raise AssertionError(f"ring {name}: {n} vs one flash call, max abs err "
+                                 f"{errors[n]}, {ratios[n]} times RING_TOL {RING_TOL} of "
+                                 f"its largest element")
+    # each visit's kernels against their plain versions at its offsets
+    s, group = seq // cp, h // nk
+    chunk = lambda t, i: t[:, :, i * s:(i + 1) * s].reshape(-1, s, d).contiguous()  # noqa: E731
+    visit_ratio = 0.0
+    for my in range(cp):
+        for src in range(cp):
+            if not ra._visit_pred(causal, src, my):
+                continue
+            checked = flash_check(
+                torch, fa, chunk(q, my), ra._expand_kv(chunk(k, src), group),
+                ra._expand_kv(chunk(v, src), group), chunk(do, my), my * s, src * s,
+                causal, "bfloat16")
+            visit_ratio = max(visit_ratio, *(r for _, r in checked["checks"].values()))
+    # the planted fault, through the ring module's own references
+    fwd, bwd, pred = ra._flash_fwd, ra._flash_bwd, ra._visit_pred
+    if causal:
+        # rank 0's diagonal visit: its rows see the fewest keys, so one key
+        # lost to the shifted mask moves them most
+        fault = "k_offset + 1 on rank 0's diagonal visit"
+        shift = lambda qo, ko: ko + 1 if qo == ko == 0 else ko  # noqa: E731
+        ra._flash_fwd = lambda q_, k_, v_, qo, ko, **kw: fwd(q_, k_, v_, qo, shift(qo, ko), **kw)
+        ra._flash_bwd = lambda q_, k_, v_, o_, l_, d_, qo, ko, **kw: bwd(
+            q_, k_, v_, o_, l_, d_, qo, shift(qo, ko), **kw)
+    else:
+        fault = "the last rank's visit of chunk 0 dropped"
+        ra._visit_pred = lambda c_, src, my: pred(c_, src, my) and not (
+            my == cp - 1 and src == 0)
+    try:
+        faulty = ring_run()
+    finally:
+        ra._flash_fwd, ra._flash_bwd, ra._visit_pred = fwd, bwd, pred
+    fault_ratio = max(norm_ratio(x, y) for x, y in zip(faulty, want))
+    if not fault_ratio > 1.0:
+        raise AssertionError(f"ring {name}: the planted fault ({fault}) passes the "
+                             f"check (ratio {fault_ratio})")
+    ring_ms = fwd_bwd_ms(torch, ring_run)
+    single_ms = fwd_bwd_ms(torch, single_run)
+    del got, want, faulty
+    torch.cuda.empty_cache()
+    return {**c, "visits": visits, "launches": launches, "max_abs_err": errors,
+            "tol_ratio": ratios, "rel_tol_of_max": RING_TOL,
+            "visit_vs_plain_worst_ratio": visit_ratio, "planted_fault": fault,
+            "planted_fault_ratio": fault_ratio, "ring_fwd_bwd_ms": ring_ms,
+            "single_fwd_bwd_ms": single_ms, "ring_over_single": ring_ms / single_ms}
+
+
+def norm_ratio(out, ref) -> float:
+    """max |out - ref| / (RING_TOL max |ref|): the ring check passes at <= 1."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().max() / (RING_TOL * ref.abs().max())).item()
+
+
+def fwd_bwd_ms(torch, fn, iters: int = RING_TIMINGS) -> float:
+    """Mean device time of ``fn()`` (a forward and a backward) over
+    ``iters`` runs, after one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ring_phase(torch, fa) -> dict:
+    """Every RING_CASES shape through ring_case; returns the rows by name."""
+    ra = importlib.import_module("polyaxon_tpu_torch.ops.ring_attention")
+    rows = {}
+    for name, c in RING_CASES.items():
+        rows[name] = ring_case(torch, fa, ra, name, c)
+        log("ring_kernels", case=name, **rows[name])
+    return rows
+
+
 # -- phase 6: train ----------------------------------------------------------------
 
 
@@ -1113,8 +1285,11 @@ def model_shape(name: str) -> tuple[str, int, int]:
     return family, 0, cfg.num_classes
 
 
-def train_phase(torch, fa, spec: dict) -> dict:
-    """The port's builtin runtime on the card; returns its measurements."""
+def train_phase(torch, fa, spec: dict, visits: int = 1,
+                loss0_margin: float = LOSS0_MARGIN) -> dict:
+    """The port's builtin runtime on the card; returns its measurements.
+    ``visits``: the ring visits of each attention on this rank (its
+    context coordinate + 1 in a causal ring)."""
     from polyaxon_tpu_torch.runtime.builtin import run_builtin
 
     logged = []
@@ -1128,7 +1303,7 @@ def train_phase(torch, fa, spec: dict) -> dict:
     launches = dict(fa.launch_counts)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     family, layers, classes = model_shape(spec["model"])
-    expected = flash_launch_formula(spec, layers)
+    expected = {k: n * visits for k, n in flash_launch_formula(spec, layers).items()}
     losses = [m["loss"] for _, m in sorted(logged, key=lambda e: e[0])]
     per_sample = int(spec["seq_len"]) if family in ("lm", "mlm") else 1
     out = {"losses": losses, "grad_norms": [m["grad_norm"] for _, m in logged],
@@ -1147,8 +1322,8 @@ def train_phase(torch, fa, spec: dict) -> dict:
         raise AssertionError(f"train losses {losses}")
     if out["anomalies"]:
         raise AssertionError(f"{out['anomalies']} anomalous steps")
-    if not abs(losses[0] - math.log(classes)) <= LOSS0_MARGIN:
-        raise AssertionError(f"step-0 loss {losses[0]} is not within {LOSS0_MARGIN} of "
+    if not abs(losses[0] - math.log(classes)) <= loss0_margin:
+        raise AssertionError(f"step-0 loss {losses[0]} is not within {loss0_margin} of "
                              f"ln {classes}")
     if launches != expected:
         raise AssertionError(f"flash launches {launches} != formula {expected}")
@@ -2062,6 +2237,22 @@ DIST_MULTI_AXIS = {"bert-base": "data", "llama-1b": "fsdp"}
 # reduction over ranks, rounded in bf16 as XLA rounds it
 DIST_MULTI_RTOL = (1e-3, 5e-3)
 DIST_RESULT = "dist_result"
+# tp_cp_multi: W ranks of llama-1b at dist_train_1rank's keys over model or
+# context (the ring), each against the 1-rank run; with 4 GPUs llama2-7b's
+# state (75.3 GiB on one card) over {fsdp: 2, model: 2}, the llama7b_tpujob
+# keys at batch 4 in 2 microbatches, 2 steps
+TP_CP_AXES = ("model", "context")
+LLAMA7B_TP_SPEC = {
+    "model": "llama2-7b", "steps": 2, "batch_size": 4, "seq_len": 2048,
+    "learning_rate": 3.0e-4, "warmup_steps": 1, "remat": "attn_qkv",
+    "mu_dtype": "bfloat16", "nu_dtype": "bfloat16", "grad_dtype": "bfloat16",
+    "microbatches": 2, "accum_dtype": "bfloat16", "loss_chunk_tokens": 4096,
+    "checkpoint": False, "log_interval": 1, "data": {"kind": "synthetic-lm"},
+    "platform": "cuda", "parallelism": {"fsdp": 2, "model": 2},
+}
+# llama2-7b's random-init logits have std ~1.13 (0.0176 x sqrt(4096)),
+# which lifts its step-0 loss ~0.63 above ln 32000 (llama-1b's: 0.32)
+LLAMA7B_LOSS0_MARGIN = 1.0
 
 
 def free_port() -> int:
@@ -2121,10 +2312,21 @@ def dist_child(plan: dict) -> int:
         torch.cuda.set_device(dev)
         parallel.initialize(device=dev)
         world = dist.get_world_size()
+        if plan["mode"] == "tp_cp":
+            specs = {f"llama-1b/{axis}": {**DIST_SPECS["llama-1b"],
+                                          "parallelism": {axis: world}}
+                     for axis in TP_CP_AXES}
+            if world == 4:
+                specs["llama2-7b/fsdp2-model2"] = LLAMA7B_TP_SPEC
+        else:
+            specs = {name: {**DIST_SPECS[name], "parallelism": {DIST_MULTI_AXIS[name]: world}}
+                     for name in plan["models"]}
+        rank = dist.get_rank()
         try:
-            for name in plan["models"]:
-                spec = {**DIST_SPECS[name], "parallelism": {DIST_MULTI_AXIS[name]: world}}
-                out[name] = train_phase(torch, fa, spec)
+            for name, spec in specs.items():
+                visits = rank + 1 if "context" in spec["parallelism"] else 1
+                margin = LLAMA7B_LOSS0_MARGIN if spec["model"] == "llama2-7b" else LOSS0_MARGIN
+                out[name] = train_phase(torch, fa, spec, visits, margin)
                 gc.collect()
                 torch.cuda.empty_cache()
         finally:
@@ -2222,6 +2424,35 @@ def dist_train_multi_phase(torch, single: dict) -> dict:
     return out
 
 
+def tp_cp_multi_phase(torch, single: dict) -> dict:
+    """min(GPUs, 4) ranks of llama-1b {model: W} and {context: W} at the
+    1-rank run's global batch, their step-0/1 losses against its; with 4
+    GPUs llama2-7b {fsdp: 2, model: 2}, its step-0 loss near ln 32000 and
+    its peak memory per rank. A statement, not a failure, on one GPU."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        return {"skipped": f"{count} GPU"}
+    world = min(count, 4)
+    port = free_port()
+    envs = [{"PLX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "PLX_NUM_PROCESSES": str(world),
+             "PLX_PROCESS_ID": str(r), "LOCAL_RANK": str(r)} for r in range(world)]
+    t0 = time.monotonic()
+    res = run_children(envs, {"mode": "tp_cp"}, timeout=900)
+    out = {"world": world, "seconds": time.monotonic() - t0}
+    one = single["llama-1b"]["losses_group"]
+    for name, r in res.items():
+        out[name] = {"losses": r["losses"], "step_p50_ms": r["step_time_p50_ms"],
+                     "peak_gib_rank0": r["peak_mem_gib"], "launches": r["launches"]}
+        if name.startswith("llama-1b/"):
+            rel = [abs(x / y - 1) for x, y in zip(r["losses"][:2], one[:2])]
+            out[name].update(losses_1rank=one, rel=rel)
+            if any(x > tol for x, tol in zip(rel, DIST_MULTI_RTOL)):
+                raise AssertionError(f"{name}: {world} ranks' losses {r['losses'][:2]} vs "
+                                     f"one rank's {one[:2]} (relative {rel}, limits "
+                                     f"{DIST_MULTI_RTOL})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2252,6 +2483,7 @@ def main() -> int:
     kernel_rows = kernel_phase(torch, pa)
     flash_rows = flash_kernel_phase(torch, fa)
     flash_bidir_phase(torch, fa)
+    ring_rows = ring_phase(torch, fa)
 
     from polyaxon_tpu_torch.models import REGISTRY
 
@@ -2349,6 +2581,7 @@ def main() -> int:
     dist_1rank = dist_train_1rank_phase()
     log("dist_train_1rank", **dist_1rank)
     log("dist_train_multi", **dist_train_multi_phase(torch, dist_1rank))
+    log("tp_cp_multi", **tp_cp_multi_phase(torch, dist_1rank))
 
     # the profiler last: once torch.profiler has run, every later kernel
     # launch in the process pays CUPTI's overhead (a tiny launch's host
@@ -2400,7 +2633,9 @@ def main() -> int:
                                     if run["expected_launches"][name]},
                                  **{f"dist_train_1rank/{model}": run["launches"][name]
                                     for model, run in dist_1rank.items()
-                                    if isinstance(run, dict) and run["launches"][name]}}})
+                                    if isinstance(run, dict) and run["launches"][name]},
+                                 **{f"ring_kernels/{case}": row["launches"][name]
+                                    for case, row in ring_rows.items()}}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

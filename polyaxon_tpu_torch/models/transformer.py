@@ -1,13 +1,28 @@
 """Transformer config, parameter layout, init and the training forward
 of the port.
 
-Counterpart of ``polyaxon_tpu/models/transformer.py`` for dense models on
-one device: the config, the parameter tree (the same nested-dict layout
-with layer-stacked ``[L, ...]`` leaves, so weights carry across
-unchanged), the init law, the layer body with its remat policies,
-``apply_hidden``/``apply`` and the (chunked) LM loss. Parameters are a
-plain nested dict of tensors. The decode-mode layer loop of the serving
-path lives in ``serve/model.py``.
+Counterpart of ``polyaxon_tpu/models/transformer.py`` for dense models:
+the config, the parameter tree (the same nested-dict layout with
+layer-stacked ``[L, ...]`` leaves, so weights carry across unchanged), the
+init law, the layer body with its remat policies, ``apply_hidden``/``apply``
+and the (chunked) LM loss. Parameters are a plain nested dict of tensors.
+The decode-mode layer loop of the serving path lives in ``serve/model.py``.
+
+Over a mesh (``mesh=``, a process group) the training forward runs on this
+rank's shards, as the JAX package's GSPMD program runs on a device's:
+
+- ``model`` (tensor parallel, Megatron's layout, the JAX rules'): q/k/v and
+  ``wi``/``wg`` are column-parallel over the rank's heads and mlp columns
+  (their input's grad summed over model), ``wo`` of attention and MLP
+  row-parallel (the partial products summed over model, the bias added
+  once after the sum); the token table is vocab-parallel (each rank looks
+  up the ids in its rows, the rest are zeros, then the sum), and so is
+  the loss (the row max and the sum of exponentials over model, the gold
+  logit from the rank that holds it), tied heads included;
+- ``context``: the rank holds a chunk of the sequence, its RoPE tables and
+  learned positions at the chunk's global positions; attention is ring
+  attention over B1-B3 (``seq_parallel="ring"``, GQA kv compact on the
+  ring) or Ulysses (``"ulysses"``, kv expanded first).
 """
 
 from __future__ import annotations
@@ -22,8 +37,10 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from ..ops.attention import attention
+from ..ops.attention import attention, repeat_kv
 from ..ops.layers import apply_rope, gelu, layer_norm, rms_norm, rope_frequencies, swiglu
+from ..ops.ring_attention import ring_attention
+from ..ops.ulysses import ulysses_attention
 from ..parallel.fsdp import fresh
 from ..parallel.mesh import ShardingRules
 
@@ -49,6 +66,7 @@ class TransformerConfig:
     param_dtype: Any = torch.float32
     causal: bool = True
     attn_impl: str = "auto"                     # "auto" | "dense" | "flash"
+    seq_parallel: str = "ring"                  # "ring" | "ulysses" (context axis >1)
     remat: str = "none"             # "none" | "full" | "attn" | "attn_qkv" | "dots"
     attn_block_q: int = 512
     attn_block_k: int = 512
@@ -219,12 +237,15 @@ def head_weights(params: dict, cfg: TransformerConfig) -> tuple[torch.Tensor, bo
 # ---------------------------------------------------------------------------
 
 
-def _qkv(x, lp, cfg: TransformerConfig, rope_tables):
-    """Norm, q/k/v projections and rope: [b, s, h] -> three [b, n, s, d]."""
+def _qkv(x, lp, cfg: TransformerConfig, rope_tables, mesh=None):
+    """Norm, q/k/v projections and rope: [b, s, h] -> three [b, n, s, d]
+    (under ``model``, n is the rank's heads: column-parallel)."""
     b, s, h = x.shape
     dt = cfg.dtype
     ap = lp["attn"]
     y = _norm(x, lp["attn_norm"], cfg)
+    if mesh is not None:
+        y = mesh.to_model(y)
 
     def proj(w, bias):
         n, d = w.shape[1], w.shape[2]
@@ -244,27 +265,53 @@ def _qkv(x, lp, cfg: TransformerConfig, rope_tables):
     return q, k, v
 
 
-def _attend(q, k, v, cfg: TransformerConfig):
+def _attend(q, k, v, cfg: TransformerConfig, mesh=None):
     """GQA attention (causal or not, as ``cfg.causal`` says), heads merged:
-    [b, s, n*d] (the JAX package's ``attn_out`` save)."""
+    [b, s, n*d] (the JAX package's ``attn_out`` save). With a ``context``
+    axis the sequence is cut over ranks (``_sharded_attention``'s
+    dispatch): ring attention keeps the kv heads compact; Ulysses expands
+    them first."""
     b, n, s, d = q.shape
-    o = attention(q, k, v, causal=cfg.causal, impl=cfg.attn_impl,
-                  block_q=min(cfg.attn_block_q, s), block_k=min(cfg.attn_block_k, k.shape[2]),
-                  block_q_bwd=cfg.attn_block_q_bwd or None,
-                  block_k_bwd=cfg.attn_block_k_bwd or None)
+    cp = mesh.cp if mesh is not None else 1
+    if cp > 1 and cfg.seq_parallel == "ring":
+        o = ring_attention(q, k, v, exchange=mesh.ring(), causal=cfg.causal,
+                           block_q=min(cfg.attn_block_q, s),
+                           block_k=min(cfg.attn_block_k, k.shape[2]))
+    elif cp > 1:
+        o = ulysses_attention(q, repeat_kv(k, n), repeat_kv(v, n),
+                              group=mesh.group("context"), size=cp, causal=cfg.causal,
+                              impl=cfg.attn_impl)
+    else:
+        o = attention(q, k, v, causal=cfg.causal, impl=cfg.attn_impl,
+                      block_q=min(cfg.attn_block_q, s),
+                      block_k=min(cfg.attn_block_k, k.shape[2]),
+                      block_q_bwd=cfg.attn_block_q_bwd or None,
+                      block_k_bwd=cfg.attn_block_k_bwd or None)
     return o.transpose(1, 2).reshape(b, s, n * d)
 
 
-def _out_mlp(x, o, lp, cfg: TransformerConfig):
-    """Out projection, residual, norm, MLP, residual."""
+def _row_parallel(y, w, bias, mesh):
+    """``y @ w`` whose contracted dim is cut over model: each rank's partial
+    product, summed over model, then ``bias`` once (added before the sum,
+    a replicated bias would count once per rank)."""
+    out = torch.matmul(y, w)
+    if mesh is not None:
+        out = mesh.from_model(out)
+    return out if bias is None else out + bias
+
+
+def _out_mlp(x, o, lp, cfg: TransformerConfig, mesh=None):
+    """Out projection, residual, norm, MLP, residual (under ``model``: the
+    MLP's columns this rank's, both out projections row-parallel)."""
     dt = cfg.dtype
     ap, mp = lp["attn"], lp["mlp"]
     h = x.shape[-1]
-    o = torch.matmul(o, ap["wo"].to(dt).reshape(-1, h))
-    if cfg.use_bias:
-        o = o + ap["bo"].to(dt)
+    bias = (lambda t: t.to(dt)) if cfg.use_bias else (lambda t: None)  # noqa: E731
+    o = _row_parallel(o, ap["wo"].to(dt).reshape(-1, h), bias(ap.get("bo")), mesh)
     x = x + o
     y = _norm(x, lp["mlp_norm"], cfg)
+    if mesh is not None:
+        y = mesh.to_model(y)
     if cfg.act == "swiglu":
         hidden = swiglu(torch.matmul(y, mp["wi"].to(dt)), torch.matmul(y, mp["wg"].to(dt)))
     else:
@@ -272,15 +319,13 @@ def _out_mlp(x, o, lp, cfg: TransformerConfig):
         if cfg.use_bias:
             hidden = hidden + mp["bi"].to(dt)
         hidden = gelu(hidden)
-    out = torch.matmul(hidden, mp["wo"].to(dt))
-    if cfg.use_bias:
-        out = out + mp["bo"].to(dt)
-    return x + out
+    return x + _row_parallel(hidden, mp["wo"].to(dt), bias(mp.get("bo")), mesh)
 
 
-def _layer_body(x, lp, cfg: TransformerConfig, rope_tables):
+def _layer_body(x, lp, cfg: TransformerConfig, rope_tables, mesh=None):
     """One transformer layer, no remat."""
-    return _out_mlp(x, _attend(*_qkv(x, lp, cfg, rope_tables), cfg), lp, cfg)
+    return _out_mlp(x, _attend(*_qkv(x, lp, cfg, rope_tables, mesh), cfg, mesh), lp, cfg,
+                    mesh)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -295,7 +340,7 @@ def _ckpt(fn, *args, **kwargs):
     return checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
-def _remat_layer(x, lp, cfg: TransformerConfig, rope_tables):
+def _remat_layer(x, lp, cfg: TransformerConfig, rope_tables, mesh=None):
     """One layer under ``cfg.remat``. Each policy keeps for the backward
     what the JAX policy saves and recomputes the rest (the layer input is
     always kept, as the scan carry is):
@@ -313,18 +358,19 @@ def _remat_layer(x, lp, cfg: TransformerConfig, rope_tables):
     of keeping the gathered layer.
     """
     if cfg.remat == "none":
-        return _layer_body(x, lp, cfg, rope_tables)
+        return _layer_body(x, lp, cfg, rope_tables, mesh)
     if cfg.remat == "full":
-        return _ckpt(lambda x: _layer_body(x, fresh(lp), cfg, rope_tables), x)
+        return _ckpt(lambda x: _layer_body(x, fresh(lp), cfg, rope_tables, mesh), x)
     if cfg.remat == "attn":
-        o = _ckpt(lambda x: _attend(*_qkv(x, fresh(lp), cfg, rope_tables), cfg), x)
-        return _ckpt(lambda x, o: _out_mlp(x, o, fresh(lp), cfg), x, o)
+        o = _ckpt(lambda x: _attend(*_qkv(x, fresh(lp), cfg, rope_tables, mesh), cfg, mesh),
+                  x)
+        return _ckpt(lambda x, o: _out_mlp(x, o, fresh(lp), cfg, mesh), x, o)
     if cfg.remat == "attn_qkv":
-        q, k, v = _ckpt(lambda x: _qkv(x, fresh(lp), cfg, rope_tables), x)
-        o = _ckpt(lambda q, k, v: _attend(q, k, v, cfg), q, k, v)
-        return _ckpt(lambda x, o: _out_mlp(x, o, fresh(lp), cfg), x, o)
+        q, k, v = _ckpt(lambda x: _qkv(x, fresh(lp), cfg, rope_tables, mesh), x)
+        o = _ckpt(lambda q, k, v: _attend(q, k, v, cfg, mesh), q, k, v)
+        return _ckpt(lambda x, o: _out_mlp(x, o, fresh(lp), cfg, mesh), x, o)
     if cfg.remat == "dots":
-        return _ckpt(lambda x: _layer_body(x, fresh(lp), cfg, rope_tables), x,
+        return _ckpt(lambda x: _layer_body(x, fresh(lp), cfg, rope_tables, mesh), x,
                      context_fn=functools.partial(create_selective_checkpoint_contexts,
                                                   _dots_policy))
     raise ValueError(f"unknown remat policy {cfg.remat!r}; "
@@ -364,7 +410,7 @@ def _unstack(tree: dict, n: int) -> list:
 
 
 def run_trunk(x: torch.Tensor, layers: dict, cfg: TransformerConfig,
-              rope_tables=None) -> torch.Tensor:
+              rope_tables=None, mesh=None) -> torch.Tensor:
     """The stacked layers over ``x`` [batch, seq, hidden] under
     ``cfg.remat``; shared by :func:`apply_hidden` and encoder-only models
     (ViT). fsdp shards (a ``ShardedTree``) unstack into per-layer views
@@ -372,33 +418,60 @@ def run_trunk(x: torch.Tensor, layers: dict, cfg: TransformerConfig,
     unstack = getattr(layers, "unstack", None)
     per_layer = unstack(cfg.num_layers) if unstack else _unstack(layers, cfg.num_layers)
     for lp in per_layer:
-        x = _remat_layer(x, lp, cfg, rope_tables)
+        x = _remat_layer(x, lp, cfg, rope_tables, mesh)
     return x
 
 
+def _vocab_block(mesh, n: int) -> int:
+    """First vocab id of this rank's ``n`` rows of a vocab-parallel table
+    (0 off the model axis)."""
+    return mesh.coords()["model"] * n if mesh is not None and mesh.tp else 0
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor, dt, mesh=None) -> torch.Tensor:
+    """Token embedding; under ``model`` the table is this rank's vocab rows:
+    ids outside them read zeros, and the sum over model holds each id's
+    row from the rank that has it."""
+    if mesh is None or not mesh.tp:
+        return table.to(dt)[tokens]
+    n = table.shape[0]
+    local = tokens - _vocab_block(mesh, n)
+    inside = (local >= 0) & (local < n)
+    rows = table.to(dt)[local.clamp(0, n - 1)]
+    return mesh.from_model(torch.where(inside[..., None], rows, torch.zeros_like(rows)))
+
+
+def _seq_offset(s: int, mesh=None) -> int:
+    """Global position of this rank's first token: its chunk of the
+    sequence under ``context``."""
+    return mesh.seq_index * s if mesh is not None else 0
+
+
 def apply_hidden(params: dict, tokens: Optional[torch.Tensor], cfg: TransformerConfig, *,
-                 inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 inputs_embeds: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Trunk forward: tokens [batch, seq] -> final-norm hidden states
     [batch, seq, hidden] in the activation dtype. ``inputs_embeds``
     [batch, seq, hidden] takes the place of the token embedding. The vocab
     projection is left to the caller (the training loss fuses it
-    blockwise)."""
+    blockwise). With ``mesh``, seq is this rank's chunk of the sequence,
+    positioned at its global offset."""
     dt = cfg.dtype
     if inputs_embeds is None:
-        x = params["embed"]["tokens"].to(dt)[tokens]
+        x = _embed(params["embed"]["tokens"], tokens, dt, mesh)
     else:
         x = inputs_embeds.to(dt)
     s = x.shape[1]
+    start = _seq_offset(s, mesh)
     if cfg.pos == "learned":
-        x = x + params["embed"]["pos"].to(dt)[None, :s]
+        x = x + params["embed"]["pos"].to(dt)[None, start:start + s]
     rope_tables = None
     if cfg.pos == "rope":
-        if s > cfg.max_seq:
-            raise ValueError(f"sequence length {s} exceeds max_seq {cfg.max_seq}: RoPE "
-                             f"positions would silently clamp")
+        if start + s > cfg.max_seq:
+            raise ValueError(f"sequence length {start + s} exceeds max_seq {cfg.max_seq}: "
+                             f"RoPE positions would silently clamp")
         cos, sin = rope_frequencies(cfg.hd, cfg.max_seq, cfg.rope_theta, device=x.device)
-        rope_tables = (cos[:s], sin[:s])
-    x = run_trunk(x, params["layers"], cfg, rope_tables)
+        rope_tables = (cos[start:start + s], sin[start:start + s])
+    x = run_trunk(x, params["layers"], cfg, rope_tables, mesh)
     return _norm(x, params["final_norm"], cfg)
 
 
@@ -423,15 +496,27 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def _chunk_nll(x, w, labels, vocab_major: bool):
+def _chunk_nll(x, w, labels, vocab_major: bool, mesh=None):
     """Per-token NLL for one chunk: project to vocab in the activation
     dtype, reduce in f32. The chunk's logits are the only vocab-sized live
-    tensor."""
+    tensor. Under ``model`` the logits are this rank's vocab columns: the
+    row max and the sum of exponentials are taken over model (as
+    ``logsumexp`` takes them, the max without a grad), the gold logit from
+    the rank that holds the label."""
     w = w.to(x.dtype)
     logits = torch.matmul(x, w.t() if vocab_major else w).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return logz - gold
+    if mesh is None or not mesh.tp:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return logz - gold
+    n = logits.shape[-1]
+    m = mesh.max_over_model_(logits.detach().amax(dim=-1))
+    sumexp = mesh.from_model(torch.exp(logits - m[..., None]).sum(dim=-1))
+    local = labels.long() - _vocab_block(mesh, n)
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = mesh.from_model(torch.where(inside, gold, torch.zeros_like(gold)))
+    return m + torch.log(sumexp) - gold
 
 
 def loss_chunks(batch: int, seq: int, chunk_tokens: int) -> int:
@@ -459,14 +544,18 @@ def lm_loss_from_hidden(
     recomputed in the backward, so the same bound holds for gradients.
 
     The loss is the NLL sum over the token (or mask) count. With a
-    ``mesh`` the rows are this rank's share of the batch, and the count is
-    the whole batch's, as JAX divides a sharded batch's sum by its global
-    count: the ranks' shares sum to the loss."""
+    ``mesh`` the rows (and under ``context`` the sequence) are this rank's
+    share of the batch, and the count is the whole batch's, as JAX divides
+    a sharded batch's sum by its global count: the ranks' shares sum to
+    the loss. Under ``model``, ``w`` is this rank's vocab block and the
+    loss is every model rank's alike."""
     b, s, _ = x.shape
     mask_f = None if mask is None else mask.float()
+    if mesh is not None:
+        x = mesh.to_model(x)
     nc = loss_chunks(b, s, chunk_tokens)
     if nc == 1:
-        nll = _chunk_nll(x, w, labels, vocab_major)
+        nll = _chunk_nll(x, w, labels, vocab_major, mesh)
         if mask_f is None:
             total, count = nll.sum(), torch.full((), float(nll.numel()), device=x.device)
         else:
@@ -476,7 +565,7 @@ def lm_loss_from_hidden(
         return total / torch.clamp(count, min=1.0)
 
     def body(xc, lc, mc):
-        return (_chunk_nll(xc, w, lc, vocab_major) * mc).sum()
+        return (_chunk_nll(xc, w, lc, vocab_major, mesh) * mc).sum()
 
     cs = s // nc
     total = torch.zeros((), dtype=torch.float32, device=x.device)

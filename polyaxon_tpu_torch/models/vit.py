@@ -113,25 +113,28 @@ def patchify(images: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, (hh // patch) * (ww // patch), patch * patch * c)
 
 
-def apply(params: dict, images: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
-    """images [B, H, W, C] -> class logits [B, num_classes] (f32)."""
+def apply(params: dict, images: torch.Tensor, cfg: ViTConfig, mesh=None) -> torch.Tensor:
+    """images [B, H, W, C] -> class logits [B, num_classes] (f32). Under a
+    ``model`` axis (``mesh``) the encoder's layers run on this rank's
+    heads and mlp columns; the patch embedding, CLS and head are
+    replicated."""
     dt = cfg.encoder.dtype
     x = patchify(images.to(dt), cfg.patch_size)
     x = torch.matmul(x, params["patch"]["w"].to(dt)) + params["patch"]["b"].to(dt)
     cls = params["cls"].to(dt).expand(x.shape[0], 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1)
-    feats = _encode(params["encoder"], x, cfg)
+    feats = _encode(params["encoder"], x, cfg, mesh)
     cls_out = feats[:, 0]
     logits = torch.matmul(cls_out, params["head"]["w"].to(dt)) + params["head"]["b"].to(dt)
     return logits.float()
 
 
-def _encode(enc_params: dict, x: torch.Tensor, cfg: ViTConfig) -> torch.Tensor:
+def _encode(enc_params: dict, x: torch.Tensor, cfg: ViTConfig, mesh=None) -> torch.Tensor:
     """The trunk on the embeddings (positions added), then the final norm;
     no LM head."""
     ecfg = cfg.encoder
     x = x + enc_params["embed"]["pos"].to(ecfg.dtype)[None, :x.shape[1]]
-    x = transformer.run_trunk(x, enc_params["layers"], ecfg)
+    x = transformer.run_trunk(x, enc_params["layers"], ecfg, mesh=mesh)
     return transformer._norm(x, enc_params["final_norm"], ecfg)
 
 

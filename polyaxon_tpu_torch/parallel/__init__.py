@@ -1,8 +1,9 @@
 """Mesh and sharding layer of the port — counterpart of
 ``polyaxon_tpu/parallel``: the ``PLX_*`` rendezvous into
 ``torch.distributed`` (one process per GPU), the process mesh over the JAX
-package's axes with its logical sharding rules, and the fsdp param view.
-The ``data`` and ``fsdp`` axes run; the others raise naming their ROADMAP
+package's axes with its logical sharding rules, the fsdp param view and
+the collectives of the sharded step. The ``data``, ``fsdp``, ``model`` and
+``context`` axes run; ``stage`` and ``expert`` raise naming their ROADMAP
 item."""
 
 from .distributed import (

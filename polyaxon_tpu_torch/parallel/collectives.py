@@ -7,8 +7,19 @@ needs:
   (in the grad's own dtype, as XLA reduces a bf16 grad in bf16);
 - :func:`differentiable_sum`: a sum over the group whose backward sums the
   grad over the group (a batch statistic every rank's loss reads);
-- :func:`sum_over`: an in-place sum outside autograd (counts, grads,
-  metrics).
+- Megatron's pair over the ``model`` group: :func:`copy_to_group`
+  (identity forward, the grad summed backward: a column-parallel layer's
+  replicated input) and :func:`reduce_from_group` (the sum forward,
+  identity backward: a row-parallel layer's partial outputs, the JAX
+  package's ``psum``);
+- :func:`ring_shift`: tensors to the next rank of a ring and from the
+  previous one (``batch_isend_irecv``), posted without waiting, so a ring
+  computes while its next chunk travels; :class:`RingExchange` is the
+  ring of a group as ring attention reads it;
+- :func:`all_to_all`: equal blocks of dim 0 to each rank of the group,
+  whose backward is the same exchange (its own inverse), for Ulysses;
+- :func:`sum_over` and :func:`max_over`: in-place reductions outside
+  autograd (counts, grads, metrics, a softmax's row max).
 """
 
 from __future__ import annotations
@@ -20,6 +31,12 @@ _dist = torch.distributed
 _ALL_GATHER = getattr(_dist, "all_gather_single", None) or _dist.all_gather_into_tensor
 _REDUCE_SCATTER = (getattr(_dist, "reduce_scatter_single", None)
                    or _dist.reduce_scatter_tensor)
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """A dense copy of ``t`` (NCCL takes no strided view; a collective
+    writes in place, so never the caller's tensor)."""
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 class _AllGather(torch.autograd.Function):
@@ -51,13 +68,13 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.clone(memory_format=torch.contiguous_format)
+        out = _dense(x)
         _dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
-        g = grad.clone(memory_format=torch.contiguous_format)
+        g = _dense(grad)
         _dist.all_reduce(g, group=ctx.group)
         return g, None
 
@@ -69,8 +86,132 @@ def differentiable_sum(x: torch.Tensor, group) -> torch.Tensor:
     return _Sum.apply(x, group)
 
 
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = _dense(grad)
+        _dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; its grad summed over the group. A replicated input
+    that every rank's shard of a layer reads gets the sum of their grads."""
+    return _CopyToGroup.apply(x, group)
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = _dense(x)
+        _dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over the group; the grad passes through. Every rank
+    computes the same loss from the sum, so each rank's grad of the sum is
+    already the grad of its own term."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+class _Pending:
+    """A posted exchange: :meth:`wait` returns what arrived."""
+
+    def __init__(self, recv: list, works: list, shapes: list, sent: list):
+        # the sent tensors stay referenced until their sends complete
+        self._recv, self._works, self._shapes, self._sent = recv, works, shapes, sent
+
+    def wait(self) -> list:
+        for w in self._works:
+            w.wait()
+        it = iter(self._recv)
+        return [tuple(next(it) for _ in range(n)) for n in self._shapes]
+
+
+def ring_shift(chunks: list, group, send_to: int, recv_from: int) -> _Pending:
+    """Post the move of ``chunks`` (tuples of tensors) one step along a
+    ring: each tensor to rank ``send_to``, its counterpart from rank
+    ``recv_from`` (global ranks of ``group``), in one
+    ``batch_isend_irecv``; returns at once. Not differentiable: ring
+    attention's backward is its own ring, which shifts the grads itself."""
+    flat = [t.contiguous() for c in chunks for t in c]
+    recv = [torch.empty_like(t) for t in flat]
+    ops = []
+    for t, r in zip(flat, recv):
+        ops.append(_dist.P2POp(_dist.isend, t, send_to, group))
+        ops.append(_dist.P2POp(_dist.irecv, r, recv_from, group))
+    return _Pending(recv, _dist.batch_isend_irecv(ops), [len(c) for c in chunks], flat)
+
+
+class RingExchange:
+    """The ring of a torch group as ring attention reads it: this process
+    holds one position (``index`` of ``size``) and its chunk of the
+    sequence; :meth:`shift` posts the chunks' move one step along the
+    ring (to ``send_to``, from ``recv_from``) and returns at once."""
+
+    def __init__(self, group, size: int, index: int, *, send_to: int, recv_from: int):
+        self.group, self.size, self.index = group, int(size), int(index)
+        self.send_to, self.recv_from = int(send_to), int(recv_from)
+
+    @property
+    def ranks(self) -> tuple:
+        return (self.index,)
+
+    def local(self, x: torch.Tensor) -> list:
+        return [x]
+
+    def join(self, parts: list) -> torch.Tensor:
+        return parts[0]
+
+    def shift(self, chunks: list) -> _Pending:
+        """``chunks``: one tuple of tensors per position held; what
+        arrives is the previous position's."""
+        return ring_shift(chunks, self.group, self.send_to, self.recv_from)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        src = x.contiguous()
+        out = torch.empty_like(src)
+        _dist.all_to_all_single(out, src, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        src = grad.contiguous()
+        out = torch.empty_like(src)
+        _dist.all_to_all_single(out, src, group=ctx.group)
+        return out, None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block i of ``x``'s dim 0 (equal blocks, one per rank) to rank i of
+    the group; block j of the result came from rank j. Differentiable: the
+    backward is the same exchange."""
+    return _AllToAll.apply(x, group)
+
+
 def sum_over(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` (dense: NCCL takes no strided view) summed over the group's
     ranks, in place, outside autograd."""
     _dist.all_reduce(t, group=group)
+    return t
+
+
+def max_over(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` (dense) reduced by max over the group's ranks, in place,
+    outside autograd."""
+    _dist.all_reduce(t, op=_dist.ReduceOp.MAX, group=group)
     return t

@@ -17,22 +17,16 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from .mesh import sharded_dim
+from .mesh import divisible_dim
 
 
-def leaf_dims(specs: Any, params: dict, fsdp_size: int) -> dict:
-    """The tree of fsdp-sharded dims (None: replicated) of ``params``
+def leaf_dims(specs: Any, params: dict, size: int, axis: str = "fsdp") -> dict:
+    """The tree of ``axis``-sharded dims (None: replicated) of ``params``
     under the tree of PartitionSpecs ``specs``. A sharded dim that does
-    not divide by the fsdp size raises, as JAX's NamedSharding does."""
+    not divide by the axis' size raises, as JAX's NamedSharding does."""
     if isinstance(params, dict):
-        return {k: leaf_dims(specs[k], v, fsdp_size) for k, v in params.items()}
-    d = sharded_dim(specs)
-    if d is not None and params.shape[d] % fsdp_size:
-        raise ValueError(
-            f"the sharding {tuple(specs)} implies that the global size of its dimension "
-            f"{d} should be divisible by {fsdp_size}, but it is equal to "
-            f"{params.shape[d]} (full shape: {tuple(params.shape)})")
-    return d
+        return {k: leaf_dims(specs[k], v, size, axis) for k, v in params.items()}
+    return divisible_dim(specs, params.shape, axis, size)
 
 
 class ShardedTree:

@@ -8,11 +8,16 @@ rank r gets the batch rows and the parameter blocks JAX's device r gets.
 Unspecified capacity is absorbed into ``data``, with the JAX package's
 errors, counted in processes where it counts devices.
 
-Collectives run over ``torch.distributed`` groups per axis: the batch
-group (every rank: the batch is sharded over ``data`` x ``fsdp`` x
-``expert``), the ``fsdp`` group of ranks sharing a data coordinate, and the
-``data`` group of ranks sharing an fsdp coordinate. Without a process
-group the mesh is one process and has no groups.
+Collectives run over ``torch.distributed`` groups, one per set of axes:
+the ranks that share every other coordinate. The batch group (the batch
+is sharded over ``data`` x ``fsdp`` x ``expert``), the token group (batch
+x ``context``: a token's loss term lives on one context rank), the
+``fsdp`` group of a leaf's shards, the ``model`` group of a tensor-parallel
+layer's shards and the ``context`` group of a sequence's chunks (the
+ring's and Ulysses' peers). A group that spans the whole job is the
+default group; one that spans a single rank is :data:`LOCAL`, and its
+collectives are no-ops. Without a process group the mesh is one process
+and has no groups.
 
 The logical rules are the JAX package's, over a tuple ``PartitionSpec`` of
 the same entries.
@@ -32,9 +37,19 @@ from . import collectives
 MESH_AXES: tuple[str, ...] = ("data", "fsdp", "stage", "expert", "context", "model")
 #: the axes the batch dim is sharded over (the rule for "batch")
 BATCH_AXES: tuple[str, ...] = ("data", "fsdp", "expert")
+#: the axes a token's place is sharded over: its row, then its chunk of
+#: the sequence (the loss's counts and the step's metrics sum over them)
+TOKEN_AXES: tuple[str, ...] = BATCH_AXES + ("context",)
+#: the axes a grad is summed over when its leaf is fsdp-sharded (the
+#: reduce-scatter summed over fsdp)
+REPLICA_AXES: tuple[str, ...] = ("data", "expert", "context")
 #: axes the port does not run yet -> ROADMAP item
-_NOT_PORTED_AXES = {"model": "A8 (tensor parallel)", "context": "A8 (context parallel)",
-                    "stage": "A9 (pipeline)", "expert": "A10 (MoE)"}
+_NOT_PORTED_AXES = {"stage": "A9 (pipeline)", "expert": "A10 (MoE)"}
+#: the group of a set of axes that spans one rank: collectives over it are
+#: no-ops
+LOCAL = "local"
+_GROUP_AXES = (("fsdp",), ("data",), BATCH_AXES, TOKEN_AXES, REPLICA_AXES, ("model",),
+               ("context",))
 
 
 def normalize_axis_sizes(parallelism: Union[Mapping[str, int], Any, None]) -> dict[str, int]:
@@ -117,14 +132,25 @@ class Mesh:
 
     # -- groups -------------------------------------------------------------------
 
+    def rank_of(self, coords: Mapping[str, int]) -> int:
+        """The rank at ``coords`` (missing axes at 0): :meth:`coords`'
+        inverse."""
+        r = 0
+        for ax in MESH_AXES:
+            r = r * self.sizes[ax] + int(coords.get(ax, 0))
+        return r
+
     def _make_groups(self) -> None:
         """One torch group per (axes, fixed coordinates of the other axes);
         every rank creates every group, in the same order."""
         dist = torch.distributed
-        for axes in (("fsdp",), ("data",), BATCH_AXES):
+        for axes in _GROUP_AXES:
             span = math.prod(self.sizes[a] for a in axes)
             if span == self.size:
                 self._groups[axes] = None  # the default group
+                continue
+            if span == 1:
+                self._groups[axes] = LOCAL
                 continue
             buckets: dict = {}
             for r in range(self.size):
@@ -150,28 +176,43 @@ class Mesh:
     def gather(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
         """The full tensor of an fsdp-sharded leaf; its backward
         reduce-scatters the grad back to the shard (summed over fsdp)."""
+        if self.group("fsdp") is LOCAL:
+            return shard
         return collectives.all_gather(shard, dim, self.group("fsdp"), self.sizes["fsdp"])
 
-    def gather_full(self, shard: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """``gather`` outside autograd (checkpoint saves); identity for a
-        replicated leaf."""
-        if dim is None or not self.sharded:
-            return shard
+    def gather_full(self, shard: torch.Tensor, dim: Optional[int],
+                    model_dim: Optional[int] = None) -> torch.Tensor:
+        """The whole leaf of this rank's block, outside autograd
+        (checkpoint saves): gathered over fsdp along ``dim``, then over
+        model along ``model_dim``; identity for a replicated leaf."""
         with torch.no_grad():
-            return self.gather(shard, dim)
+            if dim is not None and self.sharded:
+                shard = self.gather(shard, dim)
+            if model_dim is not None and self.group("model") is not LOCAL:
+                shard = collectives.all_gather(shard, model_dim, self.group("model"),
+                                               self.sizes["model"])
+        return shard
 
-    def shard(self, full: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
-        """This rank's block of ``full`` along ``dim`` (a copy)."""
+    def shard(self, full: torch.Tensor, dim: Optional[int],
+              model_dim: Optional[int] = None) -> torch.Tensor:
+        """This rank's block of ``full``: along ``model_dim`` its model
+        block, along ``dim`` its fsdp block (a copy when either cuts)."""
+        if model_dim is not None and self.sizes["model"] > 1:
+            full = self.block(full, model_dim, "model").clone()
         if dim is None or not self.sharded:
             return full
-        n = self.sizes["fsdp"]
-        block = full.shape[dim] // n
-        return full.narrow(dim, self.coords()["fsdp"] * block, block).clone()
+        return self.block(full, dim, "fsdp").clone()
+
+    def block(self, full: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
+        """This rank's block of ``full`` along ``dim`` under ``axis`` (a
+        view)."""
+        n = full.shape[dim] // self.sizes[axis]
+        return full.narrow(dim, self.coords()[axis] * n, n)
 
     def batch_count(self, count: torch.Tensor) -> torch.Tensor:
-        """A count over the whole batch (every rank's rows): the
-        denominator of a batch mean (not differentiated)."""
-        return collectives.sum_over(count.detach().float(), self.group(*BATCH_AXES))
+        """A count over the whole batch (every rank's rows and sequence
+        chunks): the denominator of a token mean (not differentiated)."""
+        return self.sum_(count.detach().float(), *TOKEN_AXES)
 
     def batch_mean(self, local_sum: torch.Tensor, local_count: int) -> torch.Tensor:
         """The mean over the whole batch of a quantity whose sum over this
@@ -182,7 +223,51 @@ class Mesh:
 
     def sum_(self, t: torch.Tensor, *axes: str) -> torch.Tensor:
         """In-place sum of ``t`` over the ranks of ``axes``."""
-        return collectives.sum_over(t, self.group(*axes))
+        group = self.group(*axes)
+        return t if group is LOCAL else collectives.sum_over(t, group)
+
+    # -- tensor and context parallelism ---------------------------------------------
+
+    @property
+    def tp(self) -> bool:
+        """Layers are split over the ``model`` axis."""
+        return self.distributed and self.sizes["model"] > 1
+
+    @property
+    def cp(self) -> int:
+        """Chunks the sequence is cut into (the ``context`` axis; 1 off a
+        process group)."""
+        return self.sizes["context"] if self.distributed else 1
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's chunk of the sequence."""
+        return self.coords()["context"] if self.distributed else 0
+
+    def to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """A column-parallel layer's input: identity forward, the grad
+        summed over model backward (Megatron's f)."""
+        return collectives.copy_to_group(x, self.group("model")) if self.tp else x
+
+    def from_model(self, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel layer's partial output summed over model:
+        identity backward (Megatron's g, the JAX ``psum``)."""
+        return collectives.reduce_from_group(x, self.group("model")) if self.tp else x
+
+    def max_over_model_(self, t: torch.Tensor) -> torch.Tensor:
+        """In-place max of ``t`` over model, outside autograd."""
+        if self.tp:
+            collectives.max_over(t, self.group("model"))
+        return t
+
+    def ring(self) -> "collectives.RingExchange":
+        """The ring over this rank's ``context`` group: chunks go to the
+        next context coordinate and come from the previous one."""
+        c = self.coords()
+        cp, i = self.sizes["context"], c["context"]
+        peer = lambda j: self.rank_of({**c, "context": j % cp})  # noqa: E731
+        return collectives.RingExchange(self.group("context"), cp, i,
+                                        send_to=peer(i + 1), recv_from=peer(i - 1))
 
     def agree(self, value: Optional[int], device) -> Optional[int]:
         """Rank 0's ``value`` (an int or None) on every rank."""
@@ -222,13 +307,17 @@ def build_mesh(parallelism: Union[Mapping[str, int], Any, None] = None,
     return mesh
 
 
-def refuse_unported_axes(sizes: Mapping[str, int]) -> None:
-    """Raise naming the ROADMAP item of every axis the port does not run."""
-    for ax, item in _NOT_PORTED_AXES.items():
+def refuse_unported_axes(sizes: Mapping[str, int],
+                         refused: Optional[Mapping[str, str]] = None) -> None:
+    """Raise naming the ROADMAP item of every axis the port does not run,
+    and of each axis in ``refused`` (axis -> item: what a model family
+    does not shard over yet)."""
+    for ax, item in {**_NOT_PORTED_AXES, **(refused or {})}.items():
         if int(sizes.get(ax, 1)) > 1:
             raise NotImplementedError(
                 f"parallelism axis {ax!r} of size {sizes[ax]} is not ported "
-                f"(ROADMAP {item}); the port shards over data and fsdp")
+                f"(ROADMAP {item}); the port shards over data, fsdp, model and "
+                f"context")
 
 
 def mesh_axis_size(mesh: Mesh, *axes: str) -> int:
@@ -296,6 +385,18 @@ class ShardingRules:
             if k not in dict(self.rules):
                 out.append((k, kwargs[k]))
         return ShardingRules(rules=tuple(out))
+
+
+def divisible_dim(spec: Sequence[Any], shape: Sequence[int], axis: str, n: int) -> Optional[int]:
+    """The dim of ``spec`` sharded over ``axis`` (None: none is); raises as
+    JAX's NamedSharding does when the dim does not divide by ``n``."""
+    d = sharded_dim(spec, axis)
+    if d is not None and shape[d] % n:
+        raise ValueError(
+            f"the sharding {tuple(spec)} implies that the global size of its dimension "
+            f"{d} should be divisible by {n}, but it is equal to "
+            f"{shape[d]} (full shape: {tuple(shape)})")
+    return d
 
 
 def sharded_dim(spec: Sequence[Any], axis: str = "fsdp") -> Optional[int]:

@@ -23,8 +23,11 @@ Spec keys (the JAX runtime's, as far as the port goes):
     data {kind (synthetic-lm | synthetic-mlm | synthetic-image |
     tokens-file; the task's own by default), path, seed}, log_interval,
     anomaly_skip_budget, anomaly_rollback_budget, watchdog (true, false or
-    {stall_factor, min_s, compile_grace_s}), parallelism ({data: N, fsdp:
-    M}; model, context, stage and expert raise naming their ROADMAP item),
+    {stall_factor, min_s, compile_grace_s}), parallelism ({data, fsdp,
+    model, context}: model for the transformer families, context for the
+    language models, ring or Ulysses as the model config's
+    ``seq_parallel`` says; stage and expert, and the vision families'
+    axes the port does not shard yet, raise naming their ROADMAP item),
     num_slices (1).
     Language models (lm, mlm) also take seq_len, remat, attn_block_q /
     attn_block_k / attn_block_q_bwd / attn_block_k_bwd and
@@ -85,7 +88,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from .. import parallel
-from ..parallel.mesh import build_mesh, normalize_axis_sizes, refuse_unported_axes
+from ..parallel.mesh import build_mesh, normalize_axis_sizes
 from ..train.checkpoint import CheckpointConfig
 from ..train.optimizers import OPTIMIZERS
 
@@ -163,8 +166,12 @@ def _refuse_unsupported(spec: dict) -> None:
     if spec.get("optimizer", "adamw") not in OPTIMIZERS:
         raise SystemExit(f"optimizer {spec['optimizer']!r}: unknown; valid: "
                          f"{'|'.join(OPTIMIZERS)}")
+    from ..models import REGISTRY
+    from ..train.tasks import refuse_unsupported_axes
+
+    model = REGISTRY.get(spec.get("model", "llama-tiny"), (None, None))[1]
     try:
-        refuse_unported_axes(normalize_axis_sizes(spec.get("parallelism")))
+        refuse_unsupported_axes(model, normalize_axis_sizes(spec.get("parallelism")))
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"parallelism {spec.get('parallelism')}: {e}") from e
     if int(spec.get("num_slices", 1)) != 1:
@@ -334,14 +341,19 @@ def build_trainer(spec: dict[str, Any],
                                                    state_dir=artifacts_dir),
                       **hooks)
     data_spec = dict(spec.get("data") or {})
-    rows = None
+    rows = cols = None
     if trainer.mesh.distributed:
         rows = data_mod.local_rows(batch_size, tcfg.microbatches, trainer.batch_index,
                                    trainer.batch_ranks)
+        try:
+            cols = data_mod.local_cols(batch_size, seq_len, trainer.mesh.seq_index,
+                                       trainer.mesh.cp)
+        except ValueError as e:
+            raise SystemExit(f"parallelism {tcfg.parallelism}: {e}") from e
     batches = make_batches(DataConfig(
         kind=data_spec.get("kind") or task.default_data_kind, batch_size=batch_size,
         seq_len=seq_len, path=data_spec.get("path"), seed=int(data_spec.get("seed", 0)),
-        rows=rows, **data_kwargs))
+        rows=rows, cols=cols, **data_kwargs))
     return trainer, batches
 
 

@@ -11,8 +11,11 @@ int64, images NHWC float32, the MLM mask float32); the trainer moves them to
 its device.
 
 Over a mesh every rank draws the same global batch, as each JAX process
-does, and keeps its rows (``cfg.rows``, from :func:`local_rows`); the
-token-file stream reads only those rows' windows from disk.
+does, and keeps its rows (``cfg.rows``, from :func:`local_rows`) and,
+under a ``context`` axis, its chunk of their sequence (``cfg.cols``, from
+:func:`local_cols`): the JAX streams shard the token arrays as
+``P(batch, "context")``. The token-file stream reads only those rows'
+windows from disk.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ class DataConfig:
     # the rows of the global batch this rank keeps (None: all), in the
     # order the trainer splits its microbatches
     rows: Optional[tuple] = None
+    # (start, stop) of the sequence this rank keeps of inputs, labels and
+    # mask (None: all of it)
+    cols: Optional[tuple] = None
 
 
 def local_rows(batch_size: int, microbatches: int, index: int, count: int) -> tuple:
@@ -59,9 +65,29 @@ def local_rows(batch_size: int, microbatches: int, index: int, count: int) -> tu
     return tuple(i * per_micro + index * m + j for i in range(k) for j in range(m))
 
 
+def local_cols(batch_size: int, seq_len: int, index: int, count: int) -> Optional[tuple]:
+    """(start, stop) of the sequence that context rank ``index`` of
+    ``count`` keeps: its equal chunk (None for one rank). A sequence that
+    does not cut into ``count`` chunks raises as JAX's sharding does."""
+    if count == 1:
+        return None
+    if seq_len % count:
+        raise ValueError(
+            f"the sharding ('data', 'fsdp', 'expert'), 'context' implies that the global "
+            f"size of its dimension 1 should be divisible by {count}, but it is equal to "
+            f"{seq_len} (full shape: ({batch_size}, {seq_len}))")
+    s = seq_len // count
+    return (index * s, (index + 1) * s)
+
+
 def _keep(cfg: DataConfig, arr: np.ndarray) -> np.ndarray:
     """This rank's rows of a global batch array."""
     return arr if cfg.rows is None else arr[np.asarray(cfg.rows)]
+
+
+def _chunk(cfg: DataConfig, t: torch.Tensor) -> torch.Tensor:
+    """This rank's chunk of the sequence of a [rows, seq] token array."""
+    return t if cfg.cols is None else t[:, cfg.cols[0]:cfg.cols[1]]
 
 
 class BatchStream:
@@ -113,7 +139,7 @@ def synthetic_lm_batches(cfg: DataConfig) -> BatchStream:
     def make(i: int) -> dict:
         tok = _ids(_keep(cfg, _rng_for(cfg, i).integers(
             0, cfg.vocab_size, (cfg.batch_size, cfg.seq_len + 1), dtype=np.int32)))
-        return {"inputs": tok[:, :-1], "labels": tok[:, 1:]}
+        return {"inputs": _chunk(cfg, tok[:, :-1]), "labels": _chunk(cfg, tok[:, 1:])}
 
     return BatchStream(make)
 
@@ -135,8 +161,9 @@ def synthetic_mlm_batches(cfg: DataConfig) -> BatchStream:
         inputs = np.where(selected & (roll < 0.8), mask_id, tok)
         rand = rng.integers(0, cfg.vocab_size, tok.shape, dtype=np.int32)
         inputs = np.where(selected & (roll >= 0.8) & (roll < 0.9), rand, inputs)
-        return {"inputs": _ids(_keep(cfg, inputs)), "labels": _ids(_keep(cfg, tok)),
-                "mask": torch.from_numpy(_keep(cfg, selected).astype(np.float32))}
+        return {"inputs": _chunk(cfg, _ids(_keep(cfg, inputs))),
+                "labels": _chunk(cfg, _ids(_keep(cfg, tok))),
+                "mask": _chunk(cfg, torch.from_numpy(_keep(cfg, selected).astype(np.float32)))}
 
     return BatchStream(make)
 
@@ -179,7 +206,7 @@ def token_file_batches(cfg: DataConfig) -> BatchStream:
         # every rank draws every start; it reads only its rows' windows
         starts = _keep(cfg, _rng_for(cfg, i).integers(0, n, cfg.batch_size))
         window = _ids(_window_gather(tokens, starts, cfg.seq_len))
-        return {"inputs": window[:, :-1], "labels": window[:, 1:]}
+        return {"inputs": _chunk(cfg, window[:, :-1]), "labels": _chunk(cfg, window[:, 1:])}
 
     return BatchStream(make)
 

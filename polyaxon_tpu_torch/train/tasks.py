@@ -4,9 +4,17 @@ package's logical rules), the loss (with its metrics and the new non-param
 state) and the throughput units the meter needs: tokens for the language
 models, samples for vision. MoE's router loss waits for ROADMAP A10.
 
-Under a mesh (``loss(..., mesh=)``) the batch is this rank's rows, and the
-loss and every metric are this rank's share of the whole batch's value:
-the ranks' shares sum to it (a mean's numerator over the batch's count).
+Under a mesh (``loss(..., mesh=)``) the batch is this rank's rows (and,
+under ``context``, its chunk of the sequence), and the loss and every
+metric are this rank's share of the whole batch's value: the shares of the
+batch and context ranks sum to it (a mean's numerator over the batch's
+count). Under ``model`` every model rank computes the same loss from its
+shards of the layers.
+
+Which mesh axes a family's model shards over is the family's
+(:func:`refuse_unsupported_axes`): the transformers' layers over ``model``,
+the token models' sequence over ``context``; the rest raises naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -20,7 +28,37 @@ from ..models import resnet as resnet_mod
 from ..models import transformer
 from ..models import vit as vit_mod
 from ..models.transformer import TransformerConfig
-from ..parallel.mesh import PartitionSpec, ShardingRules
+from ..parallel.mesh import PartitionSpec, ShardingRules, refuse_unported_axes
+
+#: what each family's model does not shard over yet -> ROADMAP item
+_FAMILY_REFUSALS = {"vit": {"context": "A8 (vision)"},
+                    "resnet": {"model": "A8 (vision)", "context": "A8 (vision)"}}
+
+
+def family_of(model_cfg: Any) -> str:
+    """The registry family of a model config (``lm`` for a transformer:
+    the LM and MLM tasks share it)."""
+    if isinstance(model_cfg, vit_mod.ViTConfig):
+        return "vit"
+    if isinstance(model_cfg, resnet_mod.ResNetConfig):
+        return "resnet"
+    return "lm"
+
+
+def refuse_unsupported_axes(model_cfg: Any, sizes: dict) -> None:
+    """Raise on a mesh the model cannot run on: an axis the port does not
+    run, or one its family does not shard over yet (naming the ROADMAP
+    item). A ViT sequence (patches + CLS) that a ``context`` axis does not
+    divide raises as the JAX package's shard_map does."""
+    family = family_of(model_cfg)
+    cp = int(sizes.get("context", 1))
+    if family == "vit" and cp > 1 and (model_cfg.num_patches + 1) % cp:
+        raise ValueError(
+            f"shard_map applied to the function '_attn' was given argument arrays with "
+            f"axis sizes that are not evenly divisible by the corresponding mesh axis "
+            f"sizes: the sequence of {model_cfg.num_patches + 1} tokens over a "
+            f"'context' axis of {cp}")
+    refuse_unported_axes(sizes, _FAMILY_REFUSALS.get(family))
 
 
 class Task(ABC):
@@ -73,7 +111,7 @@ class LMTask(Task):
         return transformer.param_specs(self.cfg, rules)
 
     def loss(self, params, extra, batch, mesh=None):
-        hidden = transformer.apply_hidden(params, batch["inputs"], self.cfg)
+        hidden = transformer.apply_hidden(params, batch["inputs"], self.cfg, mesh=mesh)
         w, vocab_major = transformer.head_weights(params, self.cfg)
         loss = transformer.lm_loss_from_hidden(
             hidden, w, batch["labels"], batch.get("mask"),
@@ -109,7 +147,7 @@ class ViTTask(Task):
         return vit_mod.param_specs(self.cfg, rules)
 
     def loss(self, params, extra, batch, mesh=None):
-        logits = vit_mod.apply(params, batch["images"], self.cfg)
+        logits = vit_mod.apply(params, batch["images"], self.cfg, mesh)
         loss = resnet_mod.classification_loss(logits, batch["labels"], mesh)
         return loss, {"loss": loss,
                       "accuracy": _accuracy(logits, batch["labels"], mesh)}, None

@@ -1,6 +1,7 @@
 """The training loop of the port — counterpart of
 ``polyaxon_tpu/train/trainer.py``, on one device or over a mesh of
-processes (one per GPU) with the ``data`` and ``fsdp`` axes.
+processes (one per GPU) with the ``data``, ``fsdp``, ``model`` and
+``context`` axes.
 
 One step = the microbatch loop (grads in ``grad_dtype``, summed in
 ``accum_dtype`` and divided by k; the task's metrics averaged over the
@@ -24,12 +25,18 @@ step boundary covers only resolved-clean steps.
 Over a mesh (a ``torch.distributed`` group) every number the step returns
 is the one the JAX package's SPMD step returns on a mesh of that shape:
 
-- each rank trains on its rows of the global batch (``data.local_rows``);
+- each rank trains on its rows of the global batch (``data.local_rows``)
+  and, under ``context``, its chunk of the sequence (``data.local_cols``);
   the task's loss and metrics are its share of the batch's, and the
-  metrics are summed over the ranks; batch norms and MLM counts are the
-  whole batch's;
-- ``data``: params are replicated, and the grads are summed over the
-  ranks after the microbatch loop;
+  metrics are summed over the batch and context ranks; batch norms and
+  MLM counts are the whole batch's;
+- ``data`` and ``context``: params are replicated, and the grads are
+  summed over the ranks after the microbatch loop;
+- ``model``: each rank holds its block of every ``model``-sharded leaf
+  (heads, mlp columns, vocab rows) of the params, the optimizer state and
+  the grads, and runs the model's tensor-parallel layers on it; a sharded
+  leaf keeps its own block's grad, a replicated one (norms, the biases
+  added after a row-parallel sum) gets the same grad on every model rank;
 - ``fsdp`` (declared, at any size): each rank holds its block of every
   ``embed``-sharded leaf (the task's PartitionSpecs) of the f32 master
   params, of the optimizer's param-shaped state and of the grads. The
@@ -38,9 +45,9 @@ is the one the JAX package's SPMD step returns on a mesh of that shape:
   reduce-scatters the grad to the shard; with ``data`` too, shards are
   then summed over the data ranks. adafactor's factored moments are not
   sharded yet (ROADMAP A15);
-- the grads' global norm sums each leaf's squares over its shards, and the
-  guard's verdict reads the summed metrics, so every rank skips the same
-  steps;
+- the grads' global norm sums each leaf's squares over its shards (fsdp,
+  then model), so each logical element counts once, and the guard's
+  verdict reads the summed metrics, so every rank skips the same steps;
 - checkpoints hold the full state at every world size: rank 0 gathers it
   leaf by leaf and alone writes, the others restore the step rank 0 names
   and keep their shard.
@@ -58,14 +65,14 @@ import torch
 from ..models.transformer import TransformerConfig, flatten, unflatten
 from ..parallel.fsdp import ShardedTree, fresh, leaf_dims
 from ..parallel.mesh import (
-    BATCH_AXES, Mesh, ShardingRules, build_mesh, normalize_axis_sizes, refuse_unported_axes,
+    BATCH_AXES, REPLICA_AXES, TOKEN_AXES, Mesh, ShardingRules, build_mesh, normalize_axis_sizes,
 )
 from .checkpoint import CheckpointConfig, Checkpointer
 from .metrics import ThroughputMeter
 from .optimizers import (
     OptimizerConfig, global_norm, make_optimizer, opt_state_from_tree, opt_state_tree,
 )
-from .tasks import LMTask, Task
+from .tasks import LMTask, Task, refuse_unsupported_axes
 
 
 @dataclass
@@ -82,8 +89,8 @@ class TrainerConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     batch_size: int = 8
     seq_len: int = 128
-    # mesh axes over the process group (data and fsdp run); None: data
-    # absorbs every process
+    # mesh axes over the process group (data, fsdp, model and context run);
+    # None: data absorbs every process
     parallelism: Optional[dict] = None
     num_slices: int = 1
     checkpoint: Optional[CheckpointConfig] = None
@@ -136,7 +143,7 @@ class Trainer:
         on_stalled: Optional[Callable[[int, float, float], None]] = None,
         log_line: Optional[Callable[[str], None]] = None,
     ):
-        refuse_unported_axes(normalize_axis_sizes(cfg.parallelism))
+        refuse_unsupported_axes(cfg.model, normalize_axis_sizes(cfg.parallelism))
         self.cfg = cfg
         if task is None:
             if not isinstance(cfg.model, TransformerConfig):
@@ -147,19 +154,21 @@ class Trainer:
         self.device = torch.device(device)
         self.mesh = mesh if mesh is not None else build_mesh(
             cfg.parallelism, num_slices=cfg.num_slices)
-        refuse_unported_axes(self.mesh.sizes)
-        if self.mesh.sharded and cfg.optimizer.name == "adafactor":
+        refuse_unsupported_axes(cfg.model, self.mesh.sizes)
+        if (self.mesh.sharded or self.mesh.tp) and cfg.optimizer.name == "adafactor":
             raise NotImplementedError(
-                "adafactor under fsdp is not ported: its factored moments are not "
-                "sharded (ROADMAP A15); use data parallelism or another optimizer")
+                "adafactor under fsdp or model is not ported: its factored moments are "
+                "not sharded (ROADMAP A15); use data parallelism or another optimizer")
         self.primary = self.mesh.rank == 0
         # this rank's place over the batch axes, and how many share the batch
         self.batch_ranks = self.mesh.axis_size(*BATCH_AXES)
         self.batch_index = self.mesh.index(BATCH_AXES)
         self.specs = task.param_specs(ShardingRules())
-        # fsdp-sharded dim of each param leaf (flatten order); None: replicated
+        # fsdp- and model-sharded dim of each param leaf (flatten order);
+        # None: replicated over that axis
         self._dims_tree: Optional[dict] = None
         self._dims: list = []
+        self._mdims: list = []
         self.tx = make_optimizer(cfg.optimizer)
         self.track = track
         # duck-typed fault injection: pre_step(pos) and nan_due(pos)
@@ -185,17 +194,21 @@ class Trainer:
         return self.init_state_from(params, extra)
 
     def init_state_from(self, params: dict, extra: Any = None) -> TrainState:
-        """A state around full ``params`` (every rank's alike): under fsdp
-        each rank keeps its shard of each leaf, and the optimizer state
-        mirrors the shards."""
+        """A state around full ``params`` (every rank's alike): under model
+        and fsdp each rank keeps its block of each leaf, and the optimizer
+        state mirrors the blocks."""
         paths, leaves = zip(*flatten(params))
-        if self.mesh.sharded:
-            self._dims_tree = leaf_dims(self.specs, params, self.mesh.sizes["fsdp"])
+        mesh = self.mesh
+        self._dims = self._mdims = [None] * len(leaves)
+        if mesh.tp:
+            self._mdims = [d for _, d in flatten(
+                leaf_dims(self.specs, params, mesh.sizes["model"], "model"))]
+        if mesh.sharded:
+            self._dims_tree = leaf_dims(self.specs, params, mesh.sizes["fsdp"])
             self._dims = [d for _, d in flatten(self._dims_tree)]
-            leaves = [self.mesh.shard(t, d) for t, d in zip(leaves, self._dims)]
+        if mesh.sharded or mesh.tp:
+            leaves = [mesh.shard(t, d, md) for t, d, md in zip(leaves, self._dims, self._mdims)]
             params = unflatten(paths, leaves)
-        else:
-            self._dims = [None] * len(leaves)
         return TrainState(params=params, opt_state=self.tx.init(list(leaves)), step=0,
                           extra=extra)
 
@@ -238,7 +251,7 @@ class Trainer:
         """Restore the newest complete checkpoint (or ``step``) into
         ``state``'s tensors in place; returns the restored state and its
         step. Over a mesh every rank restores the step rank 0 names, and
-        under fsdp keeps its shard of each full leaf."""
+        under model and fsdp keeps its block of each full leaf."""
         like = state_tree(state)
         if self.mesh.distributed:
             chosen = step
@@ -254,37 +267,53 @@ class Trainer:
             if step is None:
                 raise FileNotFoundError(
                     f"No complete checkpoint under {self.checkpointer.cfg.directory}")
-        select = self._shard_of if self.mesh.sharded else None
+        select = None
+        if self.mesh.sharded or self.mesh.tp:
+            places = {id(t): dims for t, dims in self._placed(state)}
+            select = functools.partial(self._shard_of, places)
         tree, s = self.checkpointer.restore(like, step=step, select=select)
         return state_from_tree(tree), s
 
-    def _shard_of(self, full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-        """This rank's block of a full checkpoint leaf whose shard ``like``
-        is (the leaf itself when the shapes agree)."""
-        if full.shape == like.shape or full.dim() != like.dim():
+    def _placed(self, state: TrainState) -> list:
+        """(tensor, (fsdp dim, model dim)) for each param leaf and each
+        param-shaped optimizer leaf of ``state``."""
+        places = list(zip(self._dims, self._mdims))
+        out = [(t, p) for (_, t), p in zip(flatten(state.params), places)]
+        for name, value in opt_state_tree(state.opt_state).items():
+            if name != "count":
+                out.extend(zip(value, places))
+        return out
+
+    def _shard_of(self, places: dict, full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a full checkpoint leaf whose block ``like``
+        is (the leaf itself when the shapes agree; the shape check names
+        any other mismatch)."""
+        if full.shape == like.shape or id(like) not in places:
             return full
-        diff = [d for d in range(full.dim()) if full.shape[d] != like.shape[d]]
-        n = like.shape[diff[0]] if len(diff) == 1 else 0
-        if not n or full.shape[diff[0]] != n * self.mesh.sizes["fsdp"]:
-            return full  # the shape check names the mismatch
-        return full.narrow(diff[0], self.mesh.coords()["fsdp"] * n, n)
+        d, md = places[id(like)]
+        if md is not None and self.mesh.tp:
+            full = self.mesh.block(full, md, "model")
+        if d is not None and self.mesh.sharded:
+            full = self.mesh.block(full, d, "fsdp")
+        return full
 
     def _save_tree(self, state: TrainState) -> Optional[dict]:
         """The checkpoint's tree: the full state on rank 0 (None on the
-        others). Under fsdp each sharded leaf is gathered in turn and
-        copied to rank 0's host, so no rank ever holds the whole state on
-        its device."""
-        if not self.mesh.sharded:
+        others). Under model and fsdp each sharded leaf is gathered in turn
+        and copied to rank 0's host, so no rank ever holds the whole state
+        on its device."""
+        if not (self.mesh.sharded or self.mesh.tp):
             return state_tree(state) if self.primary else None
 
-        def full(t, d):
-            g = self.mesh.gather_full(t, d)
+        def full(t, place):
+            g = self.mesh.gather_full(t, *place)
             return g.to("cpu", copy=True) if self.primary else None
 
+        places = list(zip(self._dims, self._mdims))
         paths, leaves = zip(*flatten(state.params))
-        params = unflatten(paths, [full(t, d) for t, d in zip(leaves, self._dims)])
-        opt = {name: value if name == "count" else [full(t, d) for t, d in
-                                                    zip(value, self._dims)]
+        params = unflatten(paths, [full(t, p) for t, p in zip(leaves, places)])
+        opt = {name: value if name == "count" else [full(t, p) for t, p in
+                                                    zip(value, places)]
                for name, value in opt_state_tree(state.opt_state).items()}
         if not self.primary:
             return None
@@ -325,6 +354,7 @@ class Trainer:
             if mesh.sharded:
                 diff_tree = ShardedTree(diff_tree, self._dims_tree, mesh.gather)
             dims = [d for p, d in zip(leaves, self._dims) if p.is_floating_point()]
+            mdims = [d for p, d in zip(leaves, self._mdims) if p.is_floating_point()]
             batch = {name: t.to(self.device) for name, t in batch.items()}
             grads, per_micro, extra = None, [], state.extra
             for i in range(k):
@@ -355,14 +385,15 @@ class Trainer:
                 for i, d in enumerate(dims):
                     # NCCL reduces dense tensors only (autograd may hand back
                     # a strided view); a shard was summed over fsdp by its
-                    # reduce-scatter
+                    # reduce-scatter. A model block is summed over the
+                    # ranks of the other axes that hold the same block.
                     g = grads[i] = grads[i].contiguous()
                     if d is None:
-                        mesh.sum_(g, *BATCH_AXES)
-                    elif mesh.sizes["data"] > 1:
-                        mesh.sum_(g, "data")
-                if mesh.sharded:
-                    whole = functools.partial(self._whole_sums, dims)
+                        mesh.sum_(g, *TOKEN_AXES)
+                    elif mesh.axis_size(*REPLICA_AXES) > 1:
+                        mesh.sum_(g, *REPLICA_AXES)
+                if mesh.sharded or mesh.tp:
+                    whole = functools.partial(self._whole_sums, dims, mdims)
             loss = task_metrics["loss"]
             grad_norm = global_norm(grads, whole)
             loss_ok = torch.isfinite(loss)
@@ -387,22 +418,27 @@ class Trainer:
         return step_fn
 
     def _sum_metrics(self, metrics: dict) -> dict:
-        """The ranks' shares of each metric, summed: the batch's values."""
+        """The batch and context ranks' shares of each metric, summed: the
+        batch's values (every model rank holds the same)."""
         names = sorted(metrics)
         vec = torch.stack([metrics[n].detach().float() for n in names])
-        self.mesh.sum_(vec, *BATCH_AXES)
+        self.mesh.sum_(vec, *TOKEN_AXES)
         return {n: vec[i] for i, n in enumerate(names)}
 
-    def _whole_sums(self, dims: list, sums: list) -> list:
-        """Each leaf's sum of squares over the whole leaf: a shard's summed
-        over the fsdp ranks (a replicated grad is whole already)."""
-        idx = [i for i, d in enumerate(dims) if d is not None]
-        if not idx:
-            return sums
-        vec = self.mesh.sum_(torch.stack([sums[i] for i in idx]), "fsdp")
+    def _whole_sums(self, dims: list, mdims: list, sums: list) -> list:
+        """Each leaf's sum of squares over the whole leaf: an fsdp shard's
+        summed over the fsdp ranks, then a model block's over the model
+        ranks. A leaf replicated over an axis is whole there already, and
+        counts once."""
         out = list(sums)
-        for j, i in enumerate(idx):
-            out[i] = vec[j]
+        for axis, on, cut in (("fsdp", self.mesh.sharded, dims),
+                              ("model", self.mesh.tp, mdims)):
+            idx = [i for i, d in enumerate(cut) if d is not None]
+            if not (on and idx):
+                continue
+            vec = self.mesh.sum_(torch.stack([out[i] for i in idx]), axis)
+            for j, i in enumerate(idx):
+                out[i] = vec[j]
         return out
 
     # -- the loop -------------------------------------------------------------

@@ -1,5 +1,5 @@
 """One rank of the port's multi-process CPU tests
-(``tests/test_torch_distributed.py``):
+(``tests/test_torch_distributed.py``, ``tests/test_torch_tp_cp.py``):
 
     python tests/fixtures/torch_dist_worker.py <plan.json> <rank>
 
@@ -9,9 +9,11 @@ one group through ``run_builtin`` (``platform: cpu``), with the case's
 directory as ``PLX_ARTIFACTS_PATH``, and writes
 ``<case dir>/rank<r>.json``: the logged losses and grad norms and the
 summary. A case may plant a fault (``fault``), poison one rank's batch
-(``nan``), run in f32 (``f32``), or, instead of training, restore the
-run's checkpoint into a sharded state and save this rank's shards
-(``restore_shards``).
+(``nan``), run in f32 (``f32``) or with a model config's ``seq_parallel``
+(``seq_parallel``); instead of training, it may restore a run's checkpoint
+(its own, or ``artifacts``: another case's) into a sharded state and save
+this rank's shards (``restore_shards``), or run one forward of the given
+params and tokens on this rank's chunk and save its logits (``forward``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,30 @@ def _plant(fault: str, rank: int, mp) -> None:
         # microbatch i = the i-th chunk of the rank's contiguous rows
         mp.setattr(data_mod, "local_rows", lambda b, k, i, n: tuple(
             range(i * b // n, (i + 1) * b // n)))
+    elif fault == "bias_before_sum":
+        # a row-parallel layer's replicated bias added to each rank's partial
+        # product, so that the sum over model counts it once per rank
+        import torch
+
+        from polyaxon_tpu_torch.models import transformer
+
+        def before(y, w, bias, mesh):
+            out = torch.matmul(y, w) + (0 if bias is None else bias)
+            return out if mesh is None else mesh.from_model(out)
+
+        mp.setattr(transformer, "_row_parallel", before)
+    elif fault == "local_positions":
+        # each context rank's positions start at 0 instead of its chunk's
+        from polyaxon_tpu_torch.models import transformer
+
+        mp.setattr(transformer, "_seq_offset", lambda s, mesh=None: 0)
+    elif fault == "norm_counts_replicated":
+        # every leaf's squares summed over model, replicated ones too
+        from polyaxon_tpu_torch.train.trainer import Trainer
+
+        whole = Trainer._whole_sums
+        mp.setattr(Trainer, "_whole_sums", lambda self, dims, mdims, sums: whole(
+            self, dims, [0 if d is None else d for d in mdims], sums))
     else:
         raise ValueError(f"unknown fault {fault!r}")
 
@@ -65,29 +91,55 @@ def _poison(at: int, once: bool, mp) -> None:
     mp.setattr(train, "make_batches", poisoned)
 
 
-def _f32(name: str, mp) -> None:
-    import torch
-
+def _configure(name: str, mp, **changes) -> None:
+    """The registry's config of ``name`` with ``changes`` for this case."""
     from polyaxon_tpu_torch.models import REGISTRY
 
     family, cfg = REGISTRY[name]
-    mp.setitem(REGISTRY, name, (family, replace(cfg, dtype=torch.float32)))
+    mp.setitem(REGISTRY, name, (family, replace(cfg, **changes)))
 
 
-def _restore_shards(spec: dict, case_dir: str, rank: int) -> dict:
+def _restore_shards(spec: dict, artifacts: str, case_dir: str, rank: int) -> dict:
     import torch
 
     from polyaxon_tpu_torch.models.transformer import flatten
     from polyaxon_tpu_torch.runtime.builtin import build_trainer
 
-    trainer, _ = build_trainer(spec, artifacts_dir=case_dir)
+    trainer, _ = build_trainer(spec, artifacts_dir=artifacts)
     state, step = trainer.restore_or_init()
     shards = {"params/" + "/".join(p): t for p, t in flatten(state.params)}
     for name in ("mu", "nu"):
         for i, t in enumerate(getattr(state.opt_state, name)):
             shards[f"{name}/{i}"] = t
     torch.save(shards, os.path.join(case_dir, f"rank{rank}.pt"))
-    return {"restored_step": step, "fsdp_index": trainer.mesh.coords()["fsdp"]}
+    coords = trainer.mesh.coords()
+    return {"restored_step": step, "fsdp_index": coords["fsdp"],
+            "model_index": coords["model"]}
+
+
+def _forward(case: dict, case_dir: str, rank: int) -> dict:
+    """One forward of ``case["params"]`` (a saved param tree) on this
+    rank's chunk of ``case["tokens"]`` (a saved [batch, seq] array) over
+    the case's mesh; saves the chunk's f32 logits."""
+    import numpy as np
+    import torch
+
+    from polyaxon_tpu_torch.models import REGISTRY, transformer
+    from polyaxon_tpu_torch.parallel import build_mesh
+    from polyaxon_tpu_torch.train.data import local_cols
+
+    cfg = REGISTRY[case["spec"]["model"]][1]
+    mesh = build_mesh(case["spec"]["parallelism"])
+    params = torch.load(case["params"], weights_only=True)
+    tokens = torch.from_numpy(np.load(case["tokens"]).astype(np.int64))
+    cols = local_cols(*tokens.shape, mesh.seq_index, mesh.cp) or (0, tokens.shape[1])
+    with torch.no_grad():
+        hidden = transformer.apply_hidden(params, tokens[:, cols[0]:cols[1]], cfg, mesh=mesh)
+        w, vocab_major = transformer.head_weights(params, cfg)
+        w = w.to(cfg.dtype)
+        logits = torch.matmul(hidden, w.t() if vocab_major else w).float()
+    torch.save(logits, os.path.join(case_dir, f"rank{rank}.pt"))
+    return {"cols": list(cols)}
 
 
 class _Patches:
@@ -118,7 +170,7 @@ def main() -> None:
                       PLX_NUM_PROCESSES=str(plan["world"]), PLX_PROCESS_ID=str(rank))
     import torch
 
-    torch.set_num_threads(2)
+    torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", 2)))
     from polyaxon_tpu_torch import parallel
     from polyaxon_tpu_torch.runtime.builtin import run_builtin
 
@@ -134,9 +186,16 @@ def main() -> None:
             if case.get("nan") and rank == case["nan"]["rank"]:
                 _poison(case["nan"]["step"], case["nan"].get("once", False), mp)
             if case.get("f32"):
-                _f32(case["spec"]["model"], mp)
+                import torch
+
+                _configure(case["spec"]["model"], mp, dtype=torch.float32)
+            if case.get("seq_parallel"):
+                _configure(case["spec"]["model"], mp, seq_parallel=case["seq_parallel"])
             if case.get("restore_shards"):
-                result = _restore_shards(case["spec"], case_dir, rank)
+                artifacts = os.path.join(plan["out"], case.get("artifacts", case["name"]))
+                result = _restore_shards(case["spec"], artifacts, case_dir, rank)
+            elif case.get("forward"):
+                result = _forward(case, case_dir, rank)
             else:
                 logged = []
                 for spec in case["runs"] if "runs" in case else [case["spec"]]:

@@ -56,14 +56,23 @@ def test_cpu_run_prints_the_final_line_with_the_meter_keys(capsys):
     assert [x["step"] for x in lines[:-1]] == [0, 1, 2] == tracked
 
 
+class _ForModel(dict):
+    """A spec value whose case runs another model than TINY's."""
+
+    def __init__(self, value: dict, model: str):
+        super().__init__(value)
+        self.model = model
+
+
 @pytest.mark.parametrize("key,value,match", [
     ("checkpoint", {"save_every": 2}, "unknown keys"),
     ("fork_from", "/parent/run", "needs a mapping"),
     ("import", {"path": "/x", "shards": 2}, "unknown keys"),
     ("lora", {"rank": 4}, "A12"),
     ("parallelism", {"data": 2}, "Mesh needs 2 devices but only 1 available"),
-    ("parallelism", {"model": 2}, "A8"),
-    ("parallelism", {"context": 2}, "A8"),
+    # the axes a vision family does not shard over yet
+    ("parallelism", _ForModel({"model": 2}, "resnet18-cifar"), "A8"),
+    ("parallelism", _ForModel({"context": 2}, "resnet18-cifar"), "A8"),
     ("parallelism", {"stage": 2}, "A9"),
     ("parallelism", {"expert": 2}, "A10"),
     ("parallelism", {"tensor": 2}, "Unknown mesh axes"),
@@ -84,6 +93,8 @@ def test_cpu_run_prints_the_final_line_with_the_meter_keys(capsys):
 ])
 def test_unsupported_keys_raise_naming_their_roadmap_item(key, value, match):
     spec = dict(TINY, **{key: value})
+    if isinstance(value, _ForModel):
+        spec["model"] = value.model
     with pytest.raises(SystemExit, match=match):
         run_builtin(spec)
 

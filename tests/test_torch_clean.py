@@ -52,7 +52,8 @@ def test_the_scan_sees_every_port_module():
                      "tracking/writer.py", "tracking/spool.py", "tracking/client.py",
                      "tracking/run.py", "tracking/__init__.py", "tracking/resources.py",
                      "obs/history.py", "parallel/__init__.py", "parallel/distributed.py",
-                     "parallel/mesh.py", "parallel/collectives.py", "parallel/fsdp.py"):
+                     "parallel/mesh.py", "parallel/collectives.py", "parallel/fsdp.py",
+                     "ops/ring_attention.py", "ops/ulysses.py"):
         assert expected in names
 
 

@@ -165,6 +165,9 @@ ta = importlib.import_module("polyaxon_tpu_torch.ops.attention")
 # the two, and outputs round to bf16 (one place is <= 2^-7 relative): the
 # paged kernel's 3e-3 + 2^-6 |ref|.
 FLASH_TOL = {torch.float32: (5e-5, 5e-5), torch.bfloat16: (3e-3, 2.0 ** -6)}
+# the ring against one flash call: max |ring - single| over the largest
+# |single| (see test_the_loopback_ring_matches_one_flash_call)
+RING_TOL = {torch.float32: 5e-5, torch.bfloat16: 2.0 ** -6}
 
 
 def _flash_inputs(dev, dtype, bh=3, sq=256, sk=256, d=64, seed=0):
@@ -501,3 +504,42 @@ def test_a_one_rank_nccl_group_steps_as_no_group(cuda, parallelism):
         dist.destroy_process_group()
     assert grouped[0] == alone[0] and grouped[1] == alone[1]
     assert torch.equal(grouped[2], alone[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cp", [2, 4])
+def test_the_loopback_ring_matches_one_flash_call(cuda, dtype, causal, cp):
+    """Ring attention over a loopback ring of cp chunks (each visit B1-B3
+    at its chunks' global offsets, compact GQA kv expanded per visit)
+    against one flash call over the whole sequence, output and grads, each
+    within RING_TOL of its largest element: the ring rounds each visit's
+    partial output and grads to the dtype before its f32 merge, as the JAX
+    ring does, and a partial's rounding can exceed the merged element it
+    lands in, so the bound is normwise (chip_smoke.py's RING_TOL)."""
+    from polyaxon_tpu_torch.ops.attention import repeat_kv
+    from polyaxon_tpu_torch.ops.ring_attention import LoopbackRing, ring_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(cp)
+    q, g = (torch.randn(2, 8, 512, 64, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn(2, 2, 512, 64, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    ours = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(fa.launch_counts)
+    o = ring_attention(*ours, exchange=LoopbackRing(cp), causal=causal)
+    o.backward(g)
+    visits = cp * (cp + 1) // 2 if causal else cp * cp
+    assert all(fa.launch_counts[n] == before[n] + visits for n in before)
+    ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    kr, vr = repeat_kv(ref_in[1], 8), repeat_kv(ref_in[2], 8)
+    ref = fa.flash_attention_bhsd(ref_in[0].reshape(16, 512, 64), kr.reshape(16, 512, 64),
+                                  vr.reshape(16, 512, 64), causal=causal)
+    ref.backward(g.reshape(16, 512, 64))
+    torch.cuda.synchronize()
+    pairs = [("o", o, ref.reshape(o.shape))] + [
+        (name, a.grad, b.grad) for name, a, b in zip(("dq", "dk", "dv"), ours, ref_in)]
+    for name, out, want in pairs:
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= RING_TOL[dtype] * want.float().abs().max().item(), (name, err)

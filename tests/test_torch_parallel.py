@@ -4,8 +4,9 @@ package's (``polyaxon_tpu.parallel``), in one process: the rendezvous env
 over N processes against ``build_mesh`` over N CPU devices (rank r at
 device r's place), the logical sharding rules, every family's per-leaf
 PartitionSpecs, each rank's batch rows against JAX's shard of the batch
-(microbatches too), the fsdp divisibility error, and adafactor's refusal
-under fsdp."""
+(microbatches too) and its chunk of the sequence under ``context``, the
+fsdp and model divisibility errors, the axes each family refuses, and
+adafactor's refusal under fsdp and model."""
 
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from polyaxon_tpu_torch.models.transformer import flatten
 from polyaxon_tpu_torch.parallel.fsdp import leaf_dims
 from polyaxon_tpu_torch.parallel.mesh import BATCH_AXES, mesh_sizes
 from polyaxon_tpu_torch.train import data as tdata
-from polyaxon_tpu_torch.train.tasks import task_for
+from polyaxon_tpu_torch.train.tasks import refuse_unsupported_axes, task_for
 
 _ENV_NAMES = ("PLX_COORDINATOR_ADDRESS", "PLX_NUM_PROCESSES", "PLX_PROCESS_ID",
               "JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID",
@@ -229,7 +230,8 @@ def test_an_fsdp_dim_that_does_not_divide_raises_as_jax_does():
 
 def test_adafactor_under_fsdp_is_refused_naming_its_item():
     """adafactor's factored moments do not mirror the params, so they have
-    no fsdp shard yet: a sharded mesh refuses it (data parallel takes it)."""
+    no fsdp or model block yet: a sharded mesh refuses it (data parallel
+    takes it)."""
     from polyaxon_tpu_torch.train import OptimizerConfig, Trainer, TrainerConfig
 
     cfg = TrainerConfig(model=REGISTRY["llama-tiny"][1], accelerator=None,
@@ -243,3 +245,101 @@ def test_adafactor_under_fsdp_is_refused_naming_its_item():
                            declared=frozenset({"data"}))
     assert not replicated.sharded
     Trainer(cfg, device="cpu", mesh=replicated)
+    split = tpar.Mesh(sizes=mesh_sizes({"model": 2}, 2), distributed=True,
+                      declared=frozenset({"model"}))
+    assert split.tp and not split.sharded
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        Trainer(cfg, device="cpu", mesh=split)
+
+
+@pytest.mark.parametrize("spec,n", [({"context": 2}, 2), ({"data": 2, "context": 2}, 4),
+                                    ({"model": 2, "context": 2}, 4),
+                                    ({"fsdp": 2, "model": 2}, 4), ({"context": 4}, 4)])
+def test_each_rank_gets_the_sequence_chunk_jax_gives_its_device(spec, n):
+    """The LM streams' P(batch, "context"): rank r keeps the rows and the
+    chunk of the sequence that JAX's device r holds, and ``rank_of`` is
+    the inverse of ``coords``."""
+    batch, seq = 8, 32
+    jmesh = jpar.build_mesh(spec, devices=jax.devices()[:n])
+    index_map = NamedSharding(jmesh, JP(("data", "fsdp", "expert"), "context")
+                              ).devices_indices_map((batch, seq))
+    mesh = tpar.Mesh(sizes=mesh_sizes(spec, n), distributed=True)
+    for device, (rows, cols) in index_map.items():
+        r = device.id
+        assert mesh.rank_of(mesh.coords(r)) == r
+        ours_rows = tdata.local_rows(batch, 1, mesh.index(BATCH_AXES, r),
+                                     mesh.axis_size(*BATCH_AXES))
+        assert list(ours_rows) == list(range(*rows.indices(batch)))
+        cut = tdata.local_cols(batch, seq, mesh.coords(r)["context"], mesh.sizes["context"])
+        assert (cut or (0, seq)) == cols.indices(seq)[:2]
+
+
+def test_a_sequence_that_does_not_cut_over_context_raises_as_jax_does():
+    jmesh = jpar.build_mesh({"context": 2}, devices=jax.devices()[:2])
+    with pytest.raises(ValueError) as theirs:
+        jax.device_put(np.zeros((8, 33), np.int32),
+                       NamedSharding(jmesh, JP(("data", "fsdp", "expert"), "context")))
+    with pytest.raises(ValueError) as ours:
+        tdata.local_cols(8, 33, 0, 2)
+    want = "implies that the global size of its dimension 1 should be divisible by 2, " \
+           "but it is equal to 33 (full shape: (8, 33))"
+    assert want in str(theirs.value) and want in str(ours.value)
+
+
+def test_kv_heads_that_do_not_divide_over_model_raise_as_jax_does():
+    """llama-tiny's 2 kv heads over a model axis of 4: JAX's NamedSharding
+    of ``wk`` refuses it, and so does the port's leaf check."""
+    cfg = REGISTRY["llama-tiny"][1]
+    specs = task_for("lm", cfg).param_specs(tpar.ShardingRules())
+    wk = torch.zeros(cfg.num_layers, cfg.hidden, cfg.kv_heads, cfg.hd)
+    jmesh = jpar.build_mesh({"model": 4}, devices=jax.devices()[:4])
+    with pytest.raises(ValueError) as theirs:
+        jax.device_put(np.zeros(tuple(wk.shape), np.float32),
+                       NamedSharding(jmesh, JP(*specs["layers"]["attn"]["wk"])))
+    with pytest.raises(ValueError) as ours:
+        leaf_dims(specs["layers"]["attn"]["wk"], wk, 4, "model")
+    want = "implies that the global size of its dimension 2 should be divisible by 4, " \
+           "but it is equal to 2 (full shape: (2, 64, 2, 16))"
+    assert want in str(theirs.value) and want in str(ours.value)
+
+
+@pytest.mark.parametrize("model,axes,error,match", [
+    ("resnet18-cifar", {"model": 2}, NotImplementedError, r"ROADMAP A8 \(vision\)"),
+    ("resnet18-cifar", {"context": 2}, NotImplementedError, r"ROADMAP A8 \(vision\)"),
+    # the JAX package's own error: 17 tokens do not cut over 2 context ranks
+    ("vit-tiny", {"context": 2}, ValueError, "not evenly divisible"),
+    ("llama-tiny", {"stage": 2}, NotImplementedError, "ROADMAP A9"),
+    ("bert-tiny", {"expert": 2}, NotImplementedError, "ROADMAP A10"),
+])
+def test_what_a_family_does_not_shard_over_raises(model, axes, error, match):
+    with pytest.raises(error, match=match):
+        refuse_unsupported_axes(REGISTRY[model][1], tpar.normalize_axis_sizes(axes))
+
+
+@pytest.mark.parametrize("model,axes", [("llama-tiny", {"model": 2, "context": 2}),
+                                        ("bert-tiny", {"context": 2}),
+                                        ("vit-tiny", {"model": 2}),
+                                        ("resnet18-cifar", {"data": 2, "fsdp": 2})])
+def test_what_a_family_shards_over_is_taken(model, axes):
+    refuse_unsupported_axes(REGISTRY[model][1], tpar.normalize_axis_sizes(axes))
+
+
+@pytest.mark.parametrize("kind", ["synthetic-lm", "synthetic-mlm", "tokens-file"])
+def test_a_ranks_stream_holds_its_sequence_chunk(kind, tmp_path):
+    """Under context, a rank's inputs, labels and mask are its chunk of its
+    rows of the global batch (the labels the global next tokens, so a
+    chunk's last label is the next chunk's first input)."""
+    path = None
+    if kind == "tokens-file":
+        path = str(tmp_path / "tokens.npy")
+        np.save(path, np.random.default_rng(0).integers(0, 256, 4096).astype(np.uint16))
+    common = dict(kind=kind, batch_size=8, seq_len=16, vocab_size=256, path=path, seed=3)
+    rows = tdata.local_rows(8, 1, 1, 2)
+    cols = tdata.local_cols(8, 16, 1, 4)
+    assert cols == (4, 8)
+    whole = tdata.make_batches(tdata.DataConfig(**common))
+    mine = tdata.make_batches(tdata.DataConfig(**common, rows=rows, cols=cols))
+    for _ in range(2):
+        full, part = next(whole), next(mine)
+        for name, t in full.items():
+            assert torch.equal(part[name], t[list(rows)][:, 4:8]), name

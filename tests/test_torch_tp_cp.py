@@ -1,0 +1,409 @@
+"""The port's tensor and context parallelism on gloo groups, against the
+JAX package's SPMD trainer on CPU meshes of the same shape.
+
+One group of two worker processes (``tests/fixtures/torch_dist_worker.py``,
+one thread each) and one of four run every case through
+``run_builtin`` with ``PLX_*`` env and ``platform: cpu``, three steps each,
+from the JAX init (``fork_from`` a port checkpoint of it), while this
+process runs the JAX ``Trainer`` on ``build_mesh(same,
+devices=jax.devices()[:world])`` and the port's one process:
+
+- two ranks: llama-tiny ``{model: 2}``, ``{context: 2}`` with ring and with
+  Ulysses attention (the config's ``seq_parallel``), bert-tiny ``{model:
+  2}`` (the biases added after the sum) and ``{context: 2}`` (the
+  non-causal ring, MLM counts over batch x context), gpt2-tiny ``{model:
+  2}`` (the tied vocab-parallel head), and llama-tiny under the llama
+  recipes' remat policies (``{context: 2}`` with ``attn_qkv`` at two
+  microbatches, ``{model: 2}`` with ``dots``), vit-tiny ``{model: 2}``
+  (the encoder split, the rest replicated);
+- four ranks: llama-tiny ``{fsdp: 2, model: 2}`` (leaves sharded on two
+  dims; its checkpoint restores at world 1 bit-equal and into each rank's
+  block), ``{model: 2, context: 2}``, ``{fsdp: 2, context: 2}`` (fsdp
+  shards' grads summed over context), and one forward at ``{context: 4}``
+  with Ulysses, four context ranks over llama-tiny's two kv heads
+  (``tests/test_models.py``'s pre-expansion case), against JAX's unsharded
+  ``transformer.apply``;
+- three planted faults (a bias added before the model sum, each context
+  rank's positions starting at 0, replicated leaves counted once per
+  model rank in the global norm) must each fail the JAX comparison.
+
+Tolerances, those of ``tests/test_torch_distributed.py``: f32 sums in other
+orders, losses and grad norms at 1e-4 relative against JAX over three
+AdamW steps, final params at 3e-4 absolute (lr 1e-3 a step where a grad
+near zero has a rounding sign); against the port's one process 2e-6
+relative and 1e-5 absolute. The model axis adds partial products summed
+over ranks and the context axis attention merged over chunks: reorderings
+of the same size. The forward is held at ``tests/test_models.py``'s 3e-5
+absolute and 1e-4 relative. A fault fails when its loss, grad norm or
+param reading misses JAX's by more than these limits.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import socket
+import subprocess
+import sys
+from dataclasses import replace
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from polyaxon_tpu.models import REGISTRY as JAX_REGISTRY
+from polyaxon_tpu.models import transformer as jtransformer
+from polyaxon_tpu.parallel import build_mesh as jax_build_mesh
+from polyaxon_tpu.train import data as jdata
+from polyaxon_tpu.train import optimizers as jopt
+from polyaxon_tpu.train.tasks import task_for as jtask_for
+from polyaxon_tpu.train.trainer import Trainer as JaxTrainer
+from polyaxon_tpu.train.trainer import TrainerConfig as JaxTrainerConfig
+from polyaxon_tpu_torch.convert import params_from_jax
+from polyaxon_tpu_torch.models import REGISTRY
+from polyaxon_tpu_torch.models.transformer import flatten
+from polyaxon_tpu_torch.runtime.builtin import build_trainer, run_builtin
+from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+from polyaxon_tpu_torch.train.tasks import LMTask
+
+ROOT = Path(__file__).resolve().parents[1]
+WORKER = ROOT / "tests" / "fixtures" / "torch_dist_worker.py"
+STEPS = 3
+LR = 1e-3
+JAX_TOL = (1e-4, 1e-4, 3e-4)     # loss rtol, grad-norm rtol, final-param atol
+SELF_TOL = (2e-6, 2e-6, 1e-5)
+FORWARD_TOL = (3e-5, 1e-4)       # atol, rtol
+BASE = {"steps": STEPS, "batch_size": 8, "seq_len": 32, "learning_rate": LR,
+        "warmup_steps": 1, "log_interval": 1, "platform": "cpu", "watchdog": False,
+        "checkpoint": {"save_interval_steps": STEPS, "async_save": False}}
+# name -> (model, parallelism, seq_parallel, runtime keys)
+RUNS = {
+    "llama_model": ("llama-tiny", {"model": 2}, "ring", {}),
+    "llama_ring": ("llama-tiny", {"context": 2}, "ring", {}),
+    "llama_ulysses": ("llama-tiny", {"context": 2}, "ulysses", {}),
+    "bert_model": ("bert-tiny", {"model": 2}, "ring", {}),
+    "bert_ring": ("bert-tiny", {"context": 2}, "ring", {}),
+    "gpt2_model": ("gpt2-tiny", {"model": 2}, "ring", {}),
+    # the llama recipes' remat policies: the ring and the model sums rerun
+    # in the backward's recompute, under two microbatches
+    "llama_ring_remat": ("llama-tiny", {"context": 2}, "ring",
+                         {"remat": "attn_qkv", "microbatches": 2}),
+    "llama_model_dots": ("llama-tiny", {"model": 2}, "ring", {"remat": "dots"}),
+    # ViT's encoder over model (its patch embedding, CLS and head replicated)
+    "vit_model": ("vit-tiny", {"model": 2}, None, {}),
+    "llama_fsdp_model": ("llama-tiny", {"fsdp": 2, "model": 2}, "ring", {}),
+    "llama_model_ring": ("llama-tiny", {"model": 2, "context": 2}, "ring", {}),
+    # fsdp shards whose reduce-scattered grads are then summed over context
+    "llama_fsdp_ring": ("llama-tiny", {"fsdp": 2, "context": 2}, "ring", {}),
+}
+# planted fault -> the run it breaks
+FAULTS = {"bias_before_sum": "bert_model", "local_positions": "llama_ring",
+          "norm_counts_replicated": "gpt2_model"}
+FORWARD = {"model": "llama-tiny", "parallelism": {"context": 4}, "seq_parallel": "ulysses",
+           "batch": 4, "seq": 64}
+
+
+def _world(para: dict) -> int:
+    return math.prod(para.values())
+
+
+def _free_ports(n: int) -> list:
+    """``n`` distinct free ports (the sockets stay bound until all are
+    picked, so the two groups never draw the same one)."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _jax_init(model: str):
+    family, cfg = JAX_REGISTRY[model]
+    trainer = JaxTrainer(JaxTrainerConfig(model=cfg, batch_size=8, seq_len=32),
+                         mesh=jax_build_mesh({"data": 1}, devices=jax.devices()[:1]),
+                         task=jtask_for(family, cfg))
+    return jax.tree.map(np.asarray, trainer.init_state(seed=0).params)
+
+
+def _jax_run(name: str, init) -> tuple:
+    """The JAX Trainer on a mesh of the case's shape from ``init``: per-step
+    metrics and final params, as numpy."""
+    model, para, seq_parallel, keys = RUNS[name]
+    family, cfg = JAX_REGISTRY[model]
+    if seq_parallel:
+        cfg = replace(cfg, seq_parallel=seq_parallel, remat=keys.get("remat", cfg.remat))
+    mesh = jax_build_mesh(para, devices=jax.devices()[:_world(para)])
+    logged = []
+    trainer = JaxTrainer(
+        JaxTrainerConfig(model=cfg, batch_size=BASE["batch_size"], seq_len=BASE["seq_len"],
+                         log_interval=1, parallelism=para,
+                         microbatches=keys.get("microbatches", 1),
+                         optimizer=jopt.OptimizerConfig(learning_rate=LR, warmup_steps=1,
+                                                        total_steps=STEPS)),
+        mesh=mesh, task=jtask_for(family, cfg), track=lambda i, m: logged.append(m))
+    state = trainer.init_state_from(jax.tree.map(jnp.asarray, init))
+    kind = {"mlm": "synthetic-mlm", "vit": "synthetic-image"}.get(family, "synthetic-lm")
+    dcfg = jdata.DataConfig(kind=kind, batch_size=BASE["batch_size"], seq_len=BASE["seq_len"],
+                            vocab_size=getattr(cfg, "vocab_size", 32000), image_size=32,
+                            num_classes=getattr(cfg, "num_classes", 1000), seed=0)
+    state, _ = trainer.fit(jdata.make_batches(dcfg, mesh), num_steps=STEPS, state=state)
+    flat = {"/".join(k.key for k in path): np.asarray(v) for path, v in
+            jax.tree_util.tree_flatten_with_path(state.params)[0]}
+    return [{"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+            for m in logged], flat
+
+
+def _fork_dir(root: Path, model: str, init) -> str:
+    """A port checkpoint of the JAX init, for ``fork_from``."""
+    path = root / "fork" / model
+    ckpt = Checkpointer(CheckpointConfig(directory=str(path), async_save=False))
+    ckpt.maybe_save(0, {"params": params_from_jax(init, device="cpu"), "opt_state": {},
+                        "step": 0, "extra": None}, force=True)
+    ckpt.wait()
+    return str(path)
+
+
+def _spec(name: str, forks: dict) -> dict:
+    model, para, seq_parallel, keys = RUNS[name]
+    base = BASE if seq_parallel else {k: v for k, v in BASE.items() if k != "seq_len"}
+    return {**base, **keys, "model": model, "parallelism": para,
+            "fork_from": {"path": forks[model]}}
+
+
+def _start_group(root: Path, out: Path, world: int, port: int, cases: list) -> tuple:
+    """Start one gloo group of ``world`` worker processes on ``cases``."""
+    plan = root / f"plan{world}.json"
+    plan.write_text(json.dumps({"world": world, "port": port, "out": str(out),
+                                "timeout_s": 120, "cases": cases}))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PLX_")}
+    # one thread a rank: six ranks run beside this process's JAX trainers
+    env.update(PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    logs = [root / f"worker{world}-{r}.log" for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(WORKER), str(plan), str(r)], env=env,
+                              stdout=open(logs[r], "w"), stderr=subprocess.STDOUT)
+             for r in range(world)]
+    return procs, logs
+
+
+def _join(procs: list, logs: list) -> None:
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert codes == [0] * len(procs), [log.read_text()[-4000:] for log in logs]
+
+
+def _one_process(art: Path, spec: dict, seq_parallel: str) -> list:
+    """``run_builtin`` in this process, with ``art`` as its artifacts
+    directory; returns the logged loss and grad norm of each step."""
+    art.mkdir(parents=True)
+    model = spec["model"]
+    saved = REGISTRY[model]
+    if seq_parallel:
+        REGISTRY[model] = (saved[0], replace(saved[1], seq_parallel=seq_parallel))
+    before = os.environ.get("PLX_ARTIFACTS_PATH")
+    os.environ["PLX_ARTIFACTS_PATH"] = str(art)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the tiny models gain nothing from more
+    logged = []
+    try:
+        run_builtin(spec, track=lambda i, m: logged.append(
+            {"loss": m["loss"], "grad_norm": m["grad_norm"]}))
+    finally:
+        torch.set_num_threads(threads)
+        REGISTRY[model] = saved
+        if before is None:
+            os.environ.pop("PLX_ARTIFACTS_PATH", None)
+        else:
+            os.environ["PLX_ARTIFACTS_PATH"] = before
+    return logged
+
+
+def _final_params(case_dir: Path) -> dict:
+    state = torch.load(case_dir / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
+                       weights_only=True)
+    return {"/".join(p): t.numpy() for p, t in flatten(state["params"])}
+
+
+def _rank(case_dir: Path, rank: int) -> dict:
+    return json.loads((case_dir / f"rank{rank}.json").read_text())
+
+
+def _curve(logged, key):
+    return np.array([m[key] for m in logged])
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case: the gloo groups run in the background while this
+    process runs the JAX trainers and the port's one process. Returns (JAX
+    results, one-process results, case dir root, the forward's inputs)."""
+    root = tmp_path_factory.mktemp("tp_cp")
+    out = root / "cases"
+    inits = {m: _jax_init(m) for m in sorted({r[0] for r in RUNS.values()})}
+    forks = {m: _fork_dir(root, m, init) for m, init in inits.items()}
+    cases2, cases4 = [], []
+    for name, (model, para, seq_parallel, _) in RUNS.items():
+        case = {"name": name, "spec": _spec(name, forks), "seq_parallel": seq_parallel}
+        (cases2 if _world(para) == 2 else cases4).append(case)
+    for fault, run in FAULTS.items():
+        cases2.append({"name": f"fault_{fault}", "spec": _spec(run, forks),
+                       "seq_parallel": RUNS[run][2], "fault": fault})
+    # the 4-rank run's checkpoint restored into each rank's block
+    restore = {k: v for k, v in _spec("llama_fsdp_model", forks).items() if k != "fork_from"}
+    cases4.append({"name": "restore_blocks", "restore_shards": True,
+                   "artifacts": "llama_fsdp_model", "spec": restore})
+    # the Ulysses forward over more context ranks than kv heads
+    tokens = np.random.default_rng(1).integers(
+        0, 256, (FORWARD["batch"], FORWARD["seq"])).astype(np.int32)
+    np.save(root / "tokens.npy", tokens)
+    torch.save(params_from_jax(inits[FORWARD["model"]], device="cpu"), root / "params.pt")
+    cases4.append({"name": "ulysses_forward", "forward": True,
+                   "seq_parallel": FORWARD["seq_parallel"],
+                   "params": str(root / "params.pt"), "tokens": str(root / "tokens.npy"),
+                   "spec": {"model": FORWARD["model"],
+                            "parallelism": FORWARD["parallelism"]}})
+    ports = _free_ports(2)
+    groups = [_start_group(root, out, 2, ports[0], cases2),
+              _start_group(root, out, 4, ports[1], cases4)]
+    try:
+        jax_results = {name: _jax_run(name, inits[RUNS[name][0]]) for name in RUNS}
+        single = {}
+        for name, (model, _, seq_parallel, _) in RUNS.items():
+            art = root / "single" / name
+            spec = {**_spec(name, forks), "parallelism": None}
+            single[name] = {"logged": _one_process(art, spec, seq_parallel),
+                            "params": _final_params(art)}
+    finally:
+        for procs, logs in groups:
+            _join(procs, logs)
+    return jax_results, single, out, (tokens, inits[FORWARD["model"]])
+
+
+def _misses(logged: list, params: dict, jlogged: list, jparams: dict) -> float:
+    """The worst reading of a run against JAX's, as a multiple of its
+    tolerance (> 1: the comparison fails)."""
+    loss_tol, norm_tol, param_tol = JAX_TOL
+    worst = max(np.abs(_curve(logged, "loss") / _curve(jlogged, "loss") - 1).max() / loss_tol,
+                np.abs(_curve(logged, "grad_norm") / _curve(jlogged, "grad_norm") - 1).max()
+                / norm_tol)
+    for path, value in params.items():
+        worst = max(worst, np.abs(value - jparams[path]).max() / param_tol)
+    return float(worst)
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_tp_cp_ranks_match_the_jax_mesh(runs, name):
+    jax_results, _, out, _ = runs
+    jlogged, jparams = jax_results[name]
+    loss_tol, norm_tol, param_tol = JAX_TOL
+    for rank in range(_world(RUNS[name][1])):
+        logged = _rank(out / name, rank)["logged"]
+        np.testing.assert_allclose(_curve(logged, "loss"), _curve(jlogged, "loss"),
+                                   rtol=loss_tol)
+        np.testing.assert_allclose(_curve(logged, "grad_norm"),
+                                   _curve(jlogged, "grad_norm"), rtol=norm_tol)
+    for path, value in _final_params(out / name).items():
+        np.testing.assert_allclose(value, jparams[path], atol=param_tol, err_msg=path)
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_tp_cp_ranks_match_one_process(runs, name):
+    _, single, out, _ = runs
+    loss_tol, norm_tol, param_tol = SELF_TOL
+    logged = _rank(out / name, 0)["logged"]
+    for key, tol in (("loss", loss_tol), ("grad_norm", norm_tol)):
+        np.testing.assert_allclose(_curve(logged, key), _curve(single[name]["logged"], key),
+                                   rtol=tol)
+    for path, value in _final_params(out / name).items():
+        np.testing.assert_allclose(value, single[name]["params"][path], atol=param_tol,
+                                   err_msg=path)
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_each_tp_cp_planted_fault_fails_the_jax_comparison(runs, fault):
+    jax_results, _, out, _ = runs
+    jlogged, jparams = jax_results[FAULTS[fault]]
+    case = out / f"fault_{fault}"
+    worst = _misses(_rank(case, 0)["logged"], _final_params(case), jlogged, jparams)
+    assert worst > 1, f"{fault} went unseen: within {worst:.3g} of the tolerances"
+
+
+def test_fsdp_model_checkpoint_restores_at_world_one_bit_equal(runs):
+    _, _, out, _ = runs
+    case = out / "llama_fsdp_model"
+    saved = torch.load(case / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
+                       weights_only=True)
+    spec = {**BASE, "model": "llama-tiny"}
+    trainer, _ = build_trainer(spec, artifacts_dir=str(case))
+    state, step = trainer.restore_or_init()
+    assert step == STEPS
+    for (path, t), (_, s) in zip(flatten(state.params), flatten(saved["params"])):
+        assert torch.equal(t, s), path
+    for name in ("mu", "nu"):
+        for t, s in zip(getattr(state.opt_state, name), saved["opt_state"][name]):
+            assert torch.equal(t, s)
+
+
+def test_the_checkpoint_restores_into_each_ranks_block(runs):
+    """Each of the four ranks holds its model block of every model-sharded
+    leaf, cut again by fsdp where the leaf is fsdp-sharded too (``wi``:
+    hidden over fsdp, mlp over model), of the params and both moments."""
+    _, _, out, _ = runs
+    full = torch.load(out / "llama_fsdp_model" / "outputs" / "checkpoints" / str(STEPS)
+                      / "state.pt", weights_only=True)
+    from polyaxon_tpu_torch.parallel import ShardingRules
+    from polyaxon_tpu_torch.parallel.mesh import sharded_dim
+
+    specs = [s for _, s in flatten(LMTask(REGISTRY["llama-tiny"][1])
+                                   .param_specs(ShardingRules()))]
+    leaves = {}
+    for i, (path, t) in enumerate(flatten(full["params"])):
+        for key, value in (("params/" + "/".join(path), t),
+                           (f"mu/{i}", full["opt_state"]["mu"][i]),
+                           (f"nu/{i}", full["opt_state"]["nu"][i])):
+            leaves[key] = (value, sharded_dim(specs[i]), sharded_dim(specs[i], "model"))
+    cut_twice = 0
+    for rank in range(4):
+        meta = _rank(out / "restore_blocks", rank)
+        assert meta["restored_step"] == STEPS
+        shards = torch.load(out / "restore_blocks" / f"rank{rank}.pt", weights_only=True)
+        assert set(shards) == set(leaves)
+        for key, shard in shards.items():
+            want, d, md = leaves[key]
+            if md is not None:
+                n = want.shape[md] // 2
+                want = want.narrow(md, meta["model_index"] * n, n)
+            if d is not None:
+                n = want.shape[d] // 2
+                want = want.narrow(d, meta["fsdp_index"] * n, n)
+            assert torch.equal(shard, want), key
+            cut_twice += d is not None and md is not None
+    # wq, wk, wv, wo, wi, wg, mlp wo, the token table and the head
+    assert cut_twice == 4 * 3 * 9
+
+
+def test_ulysses_forward_with_more_context_ranks_than_kv_heads(runs):
+    """cp 4 > llama-tiny's 2 kv heads with Ulysses: kv is expanded to the q
+    heads before the all-to-all, and the four chunks' logits are JAX's
+    unsharded ``apply``."""
+    _, _, out, (tokens, init) = runs
+    cfg = replace(JAX_REGISTRY[FORWARD["model"]][1], seq_parallel="ulysses")
+    assert cfg.num_kv_heads < 4 <= cfg.num_heads
+    ref = np.asarray(jtransformer.apply(jax.tree.map(jnp.asarray, init),
+                                        jnp.asarray(tokens), cfg))
+    chunks = [(_rank(out / "ulysses_forward", r)["cols"],
+               torch.load(out / "ulysses_forward" / f"rank{r}.pt").numpy()) for r in range(4)]
+    assert [c[0] for c in chunks] == [[r * 16, (r + 1) * 16] for r in range(4)]
+    np.testing.assert_allclose(np.concatenate([c[1] for c in chunks], axis=1), ref,
+                               atol=FORWARD_TOL[0], rtol=FORWARD_TOL[1])
