@@ -83,6 +83,25 @@ non-zero:
    moves in one step. Then BERT's and ViT's one microbatch at full depth,
    flash against dense with the planted faults, within their own limits
    (FAMILY_COMPARE_TOL). Their profiles run with the others, last.
+8b. moe (slice 10) — train_moe: ``run_builtin`` on llama-moe-1b at full
+   width with bench.py's single-chip MoE recipe (32 x 2048 in 8
+   microbatches, remat attn_qkv, flash blocks 1024, capacity dispatch
+   streamed in cap blocks of 512, bf16 moments, grads and accumulator), 3
+   steps: losses (step 0 within 0.5 of ln 32000), router_aux and
+   router_drop_frac per step, step p50, tokens/s, MFU from the
+   active-param flops per token, peak memory, flash launches equal to
+   their formula (16 layers x 8 microbatches). moe_compare: one
+   microbatch (4 x 2048, bf16) with capacity at ample capacity against
+   the dense oracle, at cf 0.5 against the dense oracle with the plan's
+   drops weighted zero, streamed against one-shot at cf 1.25, all-to-all
+   at ``{expert: 1}`` against capacity (bit-equal) and one MoE layer's
+   forward and backward twice (bit-equal); three planted faults (a slot
+   off by one, the keep mask ignored, the combine's dw dropped) must
+   break the compare. moe_parts: CUDA-event times of one MoE layer's
+   pieces at that microbatch (router and plan, gathers, expert products,
+   the MLP one-shot and streamed, a dense MLP of the same active width).
+   pp_gate: layer 0 of llama-1b and of llama-moe-1b with ``active=False``
+   emits exact zeros, with ``active=True`` the ungated body bit for bit.
 9. spec — ``build_engine`` with the serve phase's settings plus
    ``speculative: {draft: llama-125m, k: 4}`` (both random-init), the same
    8 requests over HTTP: the paged kernel's launches must equal
@@ -143,7 +162,13 @@ non-zero:
    steps (the llama7b_tpujob keys at batch 4 in 2 microbatches; its state
    does not fit one card, so its step-0 loss is held within
    LLAMA7B_LOSS0_MARGIN of ln 32000), with peak memory per rank; with one
-   GPU it prints ``{"skipped": "1 GPU"}``.
+   GPU it prints ``{"skipped": "1 GPU"}``. pp_ep_multi: with 2+ GPUs two
+   ranks of llama-1b ``{stage: 2}`` at dist_train_1rank's llama-1b keys
+   (one row a pipeline microbatch), step-0/1 losses against its 1-rank
+   run's (DIST_MULTI_RTOL); with 4 GPUs also llama-1b ``{stage: 2, model:
+   2}`` (examples/llama_pp_tp.yaml's keys, 3 steps) and llama-moe-1b
+   ``{stage: 2, expert: 2}`` with a2a, peak memory per rank; with one GPU
+   ``{"skipped": "1 GPU"}``.
 14. profiles — ``torch.profiler``'s split of the compare phase's decode
    step per impl, of a training microbatch and the AdamW tail, and of a
    speculative iteration's draft steps against its verify step, then
@@ -151,13 +176,15 @@ non-zero:
    a non-empty Chrome trace under ``outputs/profile`` and post its
    ``profile`` artifact. They run last: once the profiler has run, every
    later kernel launch in the process pays CUPTI's overhead, which would
-   inflate the host-clock readings of the phases above. Last, one step of
-   each new family's trainer (BERT, ViT, ResNet) by kernel.
+   inflate the host-clock readings of the phases above. train_moe_profile
+   splits a llama-moe-1b microbatch and its AdamW tail the same way (with
+   the index and sort/scan kernels' shares). Last, one step of each new
+   family's trainer (BERT, ViT, ResNet) by kernel.
 15. the ``{"kernels": [...]}`` line (each flash kernel's launches are the
    llama-1b train phase's; ``launches_by_path`` adds train_bert's,
-   train_vit's, the 1-rank group runs' of dist_train_1rank and each
-   ring_kernels case's), then the last line ``{"ok": true, "device":
-   {...}}``.
+   train_vit's, the 1-rank group runs' of dist_train_1rank, each
+   ring_kernels case's, train_moe's and moe_compare's), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Needs one card and the repository checkout around this file; imports
 nothing of JAX.
@@ -901,6 +928,12 @@ def profile_steps(torch, fn, steps: int = 3,
     gemm = sum(r[1] for r in rows
                if any(tag in r[0].lower() for tag in ("gemm", "cutlass", "xmma", "nvjet")))
     out["gemm_ms_per_step"] = gemm / steps / 1e3
+    # indexing (the MoE gathers, the embedding), sorts and scans (the
+    # router's top-k and the capacity plan)
+    for cat, tags in (("index", ("index", "gather", "scatter")),
+                      ("sort_scan", ("sort", "scan", "cumsum"))):
+        t = sum(r[1] for r in rows if any(tag in r[0].lower() for tag in tags))
+        out[f"{cat}_ms_per_step"] = t / steps / 1e3
     out["top_kernels"] = [{"name": k[:80], "ms_per_step": t / steps / 1e3,
                            "calls_per_step": c / steps} for k, t, c in rows[:8]]
     return out
@@ -1264,11 +1297,18 @@ def ring_phase(torch, fa) -> dict:
 
 
 def flash_launch_formula(spec: dict, layers: int) -> dict:
-    """Launches of each flash kernel over a run: one forward, dQ and dK/dV
-    per layer per microbatch per step, plus the forward the remat policy
-    reruns in the backward (every policy but none)."""
-    per = int(spec["steps"]) * layers * int(spec.get("microbatches", 1))
+    """Launches of each flash kernel over a run on one rank: one forward,
+    dQ and dK/dV per layer per microbatch per step, plus the forward the
+    remat policy reruns in the backward (every policy but none). Under
+    ``stage`` a rank runs its L/S layers on each of the pipeline's
+    microbatches, and ``pp_remat_ticks`` reruns each tick's forward once
+    more in the backward."""
+    stages = int((spec.get("parallelism") or {}).get("stage", 1))
+    pp = int(spec.get("pp_microbatches") or 2 * stages) if stages > 1 else 1
+    per = int(spec["steps"]) * (layers // stages) * int(spec.get("microbatches", 1)) * pp
     rerun = 2 if spec.get("remat", "none") != "none" else 1
+    if stages > 1 and spec.get("pp_remat_ticks"):
+        rerun += 1
     return {"flash_fwd": per * rerun, "flash_bwd_dq": per, "flash_bwd_dkv": per}
 
 
@@ -1318,6 +1358,9 @@ def train_phase(torch, fa, spec: dict, visits: int = 1,
            "anomalies": summary["train_anomalies_loss"] + summary["train_anomalies_grad"]}
     if "accuracy" in summary:
         out["accuracy"] = summary["accuracy"]
+    for key in ("router_aux", "router_drop_frac"):
+        if key in summary:
+            out[key] = [m[key] for _, m in sorted(logged, key=lambda e: e[0])]
     if len(losses) != int(spec["steps"]) or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"train losses {losses}")
     if out["anomalies"]:
@@ -1412,7 +1455,8 @@ def train_compare_setup(torch, spec: dict):
 
     cfg = replace(REGISTRY[spec["model"]][1], remat=spec["remat"],
                   attn_block_q=spec["attn_block_q"], attn_block_k=spec["attn_block_k"],
-                  loss_chunk_tokens=spec["loss_chunk_tokens"])
+                  loss_chunk_tokens=spec["loss_chunk_tokens"],
+                  **{k: spec[k] for k in ("moe_cap_block", "moe_dispatch") if k in spec})
     micro = spec["batch_size"] // spec["microbatches"]
     batch = next(synthetic_lm_batches(DataConfig(
         batch_size=micro, seq_len=spec["seq_len"], vocab_size=cfg.vocab_size)))
@@ -1561,6 +1605,423 @@ def resnet_stats_phase(torch, spec: dict) -> dict:
 
 
 # -- phases 8-9: speculative decoding -----------------------------------------------
+
+
+# -- slice 10: mixture of experts and the pipeline's gates ---------------------------
+
+MOE_SPEC = {
+    # bench.py's single-chip MoE recipe (--moe): llama-moe-1b at 32 x 2048 in 8
+    # microbatches, remat attn_qkv, flash blocks 1024, cap-blocked capacity
+    # dispatch, bf16 moments, grads and accumulator; 3 steps
+    "model": "llama-moe-1b", "steps": 3, "batch_size": 32, "seq_len": 2048,
+    "learning_rate": 3.0e-4, "warmup_steps": 5, "remat": "attn_qkv",
+    "attn_block_q": 1024, "attn_block_k": 1024, "moe_cap_block": 512,
+    "moe_dispatch": "capacity", "mu_dtype": "bfloat16", "nu_dtype": "bfloat16",
+    "grad_dtype": "bfloat16", "microbatches": 8, "accum_dtype": "bfloat16",
+    "loss_chunk_tokens": 4096, "checkpoint": False, "log_interval": 1,
+    "data": {"kind": "synthetic-lm"}, "platform": "cuda",
+}
+# moe_compare's capacity factors: ample (cf = E/k: nothing can drop), the
+# recipe's 1.25, and a tight 0.5 that drops at least half of the assignments
+# whatever the routing (cap is half the mean load)
+MOE_TIGHT_CF = 0.5
+# moe_compare's limits (worst |hidden| difference over the largest |hidden|;
+# worst per-leaf grad relative norm error), each between the sound readings
+# and those of the planted faults (MOE_FAULTS), measured in every run
+MOE_HIDDEN_TOL = 0.02
+MOE_GRAD_TOL = 0.1
+# the faults the MoE compare must see: a kept assignment's slot read one
+# off, the keep mask ignored (dropped assignments combine another token's
+# slot), and the combine's router-weight cotangent dropped
+MOE_FAULTS = ("slot_off_by_one", "keep_ignored", "combine_dw_dropped")
+
+
+def moe_setup(torch, spec: dict, micro_rows: int):
+    """The recipe's MoE config, one microbatch of ``micro_rows`` rows of its
+    data and the random init (seed 0) as bf16 leaves."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models import REGISTRY, transformer
+    from polyaxon_tpu_torch.models.transformer import flatten
+    from polyaxon_tpu_torch.train.data import DataConfig, synthetic_lm_batches
+
+    cfg = replace(REGISTRY[spec["model"]][1], remat=spec["remat"],
+                  attn_block_q=spec["attn_block_q"], attn_block_k=spec["attn_block_k"],
+                  loss_chunk_tokens=spec["loss_chunk_tokens"])
+    batch = next(synthetic_lm_batches(DataConfig(
+        batch_size=micro_rows, seq_len=spec["seq_len"], vocab_size=cfg.vocab_size)))
+    batch = {name: t.cuda() for name, t in batch.items()}
+    paths, leaves = zip(*flatten(transformer.init(cfg, seed=0, device="cuda")))
+    return cfg, batch, paths, [t.to(torch.bfloat16) for t in leaves]
+
+
+def moe_loss_and_grads(torch, cfg, batch, paths, leaves) -> tuple:
+    """(hidden states, aux, LMTask loss, per-leaf grads) of one microbatch."""
+    from polyaxon_tpu_torch.models import transformer
+    from polyaxon_tpu_torch.models.transformer import unflatten
+
+    diff = [t.detach().requires_grad_() for t in leaves]
+    params = unflatten(paths, diff)
+    hidden, aux = transformer.apply_hidden(params, batch["inputs"], cfg, return_aux=True)
+    w, vocab_major = transformer.head_weights(params, cfg)
+    loss = transformer.lm_loss_from_hidden(hidden, w, batch["labels"],
+                                           vocab_major=vocab_major,
+                                           chunk_tokens=cfg.loss_chunk_tokens)
+    loss = loss + cfg.router_aux_coef * aux[0]
+    grads = torch.autograd.grad(loss, diff, allow_unused=True, materialize_grads=True)
+    return hidden.detach(), aux.detach(), loss.item(), grads
+
+
+def moe_masked_dense(torch, cfg):
+    """The dense oracle with each assignment the capacity plan drops (the
+    plan computed apart from the dispatch tables) weighted zero: what
+    capacity dispatch must equal at any capacity factor."""
+    from polyaxon_tpu_torch.models import transformer as tm
+
+    oracle = tm._moe_dense
+
+    def dense(y, mp, cfg_, top_idx, top_gates, mesh=None):
+        b, s, _ = y.shape
+        E, k = cfg_.num_experts, min(cfg_.expert_top_k, cfg_.num_experts)
+        T = b * s
+        cap = max(int(T * k / E * cfg_.expert_capacity_factor), 1)
+        keep = tm._capacity_plan(top_idx.reshape(T, k), None, E, k, cap)[4]
+        gates = top_gates * keep.reshape(b, s, k).to(top_gates.dtype)
+        return oracle(y, mp, cfg_, top_idx, gates, mesh)
+
+    return dense
+
+
+def moe_against(torch, paths, ref: tuple, got: tuple) -> dict:
+    """A run's hidden states and grads against a reference run's: the
+    worst |difference| over the largest |hidden|, the loss difference and
+    the worst per-leaf grad relative norm error."""
+    h0, a0, l0, g0 = ref
+    h1, a1, l1, g1 = got
+    scale = h0.float().abs().max().item()
+    rel = {}
+    for p, a, b in zip(paths, g1, g0):
+        nb = b.float().norm().item()
+        if nb > 0:
+            rel["/".join(p)] = ((a.float() - b.float()).norm() / nb).item()
+    worst = max(rel, key=rel.get)
+    return {"hidden_rel": (h1.float() - h0.float()).abs().max().item() / scale,
+            "loss_diff": abs(l1 - l0), "worst_grad_rel_err": rel[worst], "worst_leaf": worst,
+            "aux": a1.tolist(), "aux_ref": a0.tolist()}
+
+
+class MoeFault:
+    """One planted fault in the port's MoE dispatch (a context manager)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._undo = []
+
+    def __enter__(self):
+        import torch
+
+        from polyaxon_tpu_torch.models import transformer as tm
+
+        if self.name in ("slot_off_by_one", "keep_ignored"):
+            tables = tm._dispatch_tables
+
+            def faulty(top_idx, top_gates, E, k, cap):
+                tfs, slot, keep, drop = tables(top_idx, top_gates, E, k, cap)
+                if self.name == "slot_off_by_one":
+                    return tfs, (slot + 1).clamp(max=cap - 1), keep, drop
+                return tfs, slot, torch.ones_like(keep), drop
+
+            self._undo.append((tm, "_dispatch_tables", tables))
+            tm._dispatch_tables = faulty
+        elif self.name == "combine_dw_dropped":
+            backward = tm._GatherCombine.backward
+
+            def faulty_bwd(ctx, dout):
+                dye, dw, *rest = backward(ctx, dout)
+                return (dye, dw * 0, *rest)
+
+            self._undo.append((tm._GatherCombine, "backward", backward))
+            tm._GatherCombine.backward = staticmethod(faulty_bwd)
+        else:
+            raise ValueError(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in reversed(self._undo):
+            setattr(obj, name, staticmethod(value) if name == "backward" else value)
+        return False
+
+
+def moe_compare_phase(torch, fa, spec: dict) -> dict:
+    """One microbatch (4 x 2048) of llama-moe-1b at full width, bf16:
+
+    - capacity at ample capacity (cf = E/k) against the dense oracle, and
+      at cf 0.5 (drops) against the dense oracle with the plan's dropped
+      assignments weighted zero: hidden states, loss and per-leaf grads
+      within MOE_HIDDEN_TOL / MOE_GRAD_TOL; each planted fault
+      (MOE_FAULTS) must break one of the two;
+    - streamed (the recipe's moe_cap_block) against one-shot at the
+      recipe's cf 1.25 on the layer that drops the most (its input from
+      one forward, the same for both, so the same plan and drops; through
+      16 layers a bf16 rounding flips near-tied router choices and with
+      them which tokens drop), within the same limits;
+    - all-to-all at ``{expert: 1}`` against capacity at cf 1.25: bit-equal
+      (the same operations on one rank);
+    - that MoE layer's forward and backward twice: bit-equal.
+    Returns the readings and the flash launches of the phase."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models import transformer as tm
+
+    micro = spec["batch_size"] // spec["microbatches"]
+    cfg, batch, paths, leaves = moe_setup(torch, spec, micro)
+    E, k = cfg.num_experts, cfg.expert_top_k
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+
+    def run(**changes):
+        return moe_loss_and_grads(torch, replace(cfg, **changes), batch, paths, leaves)
+
+    ample = dict(moe_dispatch="capacity", expert_capacity_factor=E / k, moe_cap_block=0)
+    tight = dict(moe_dispatch="capacity", expert_capacity_factor=MOE_TIGHT_CF,
+                 moe_cap_block=0)
+    dense_ref = run(moe_dispatch="dense")
+    masked = moe_masked_dense(torch, cfg)
+    orig_dense = tm._moe_dense
+    tm._moe_dense = masked
+    try:
+        masked_ref = run(moe_dispatch="dense", expert_capacity_factor=MOE_TIGHT_CF)
+    finally:
+        tm._moe_dense = orig_dense
+    out = {"ample": moe_against(torch, paths, dense_ref, run(**ample)),
+           "tight": moe_against(torch, paths, masked_ref, run(**tight))}
+    faults = {}
+    for name in MOE_FAULTS:
+        with MoeFault(name):
+            faults[name] = {"ample": moe_against(torch, paths, dense_ref, run(**ample)),
+                            "tight": moe_against(torch, paths, masked_ref, run(**tight))}
+    del dense_ref, masked_ref
+    layer, x_in, out["streamed_layer_drop"] = moe_dropping_layer(torch, cfg, batch, paths,
+                                                                 leaves)
+    out["streamed_layer"] = layer
+    layer_one_shot = moe_layer_run(torch, replace(cfg, moe_cap_block=0), x_in, layer, paths,
+                                   leaves)
+    layer_streamed = moe_layer_run(torch, replace(cfg, moe_cap_block=spec["moe_cap_block"]),
+                                   x_in, layer, paths, leaves)
+    out["streamed"] = moe_against(torch, [("x",)] + moe_layer_paths(paths),
+                                  *[(r[0], r[1], 0.0, r[2:]) for r in
+                                    (layer_one_shot, layer_streamed)])
+    del layer_one_shot, layer_streamed
+    one_shot = run(moe_dispatch="capacity", moe_cap_block=0)
+    a2a = run(moe_dispatch="a2a", moe_cap_block=0)
+    out["a2a_bit_equal"] = bool(torch.equal(a2a[0], one_shot[0]) and a2a[2] == one_shot[2]
+                                and all(torch.equal(a, b) for a, b in zip(a2a[3], one_shot[3])))
+    del a2a, one_shot
+    streamed = replace(cfg, moe_cap_block=spec["moe_cap_block"])
+    twice = [moe_layer_run(torch, streamed, x_in, layer, paths, leaves) for _ in range(2)]
+    out["layer_twice_bit_equal"] = all(torch.equal(a, b) for a, b in zip(*twice))
+    del twice, x_in
+    out["launches"] = dict(fa.launch_counts)
+    out["seconds"] = time.monotonic() - t0
+    out["planted_faults"] = faults
+    out["limits"] = {"hidden_rel": MOE_HIDDEN_TOL, "grad_rel": MOE_GRAD_TOL}
+    log("moe_compare", **out)
+
+    def within(r):
+        return r["hidden_rel"] <= MOE_HIDDEN_TOL and r["worst_grad_rel_err"] <= MOE_GRAD_TOL
+
+    for name in ("ample", "tight", "streamed"):
+        if not within(out[name]):
+            raise AssertionError(f"moe_compare {name}: {out[name]} beyond the limits")
+    if out["tight"]["aux"][1] <= 0 or out["streamed"]["aux"][1] <= 0:
+        raise AssertionError("a compare meant to drop dropped nothing")
+    for name, r in faults.items():
+        if within(r["ample"]) and within(r["tight"]):
+            raise AssertionError(f"planted fault {name} passes the MoE compare ({r})")
+    if not out["a2a_bit_equal"]:
+        raise AssertionError("a2a at {expert: 1} is not bit-equal to capacity")
+    if not out["layer_twice_bit_equal"]:
+        raise AssertionError("one MoE layer's forward and backward differ between runs")
+    return out
+
+
+def moe_layer_paths(paths) -> list:
+    """The leaf paths of one layer, in moe_layer_run's grad order."""
+    return [p[1:] for p in paths if p[0] == "layers"]
+
+
+def moe_dropping_layer(torch, cfg, batch, paths, leaves) -> tuple:
+    """One forward without grad (one-shot capacity): the index of the layer
+    that drops the most assignments, its input and its drop fraction."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models import transformer as tm
+    from polyaxon_tpu_torch.models.transformer import unflatten
+    from polyaxon_tpu_torch.ops.layers import rope_frequencies
+
+    cfg = replace(cfg, remat="none", moe_cap_block=0)
+    params = unflatten(paths, leaves)
+    x = params["embed"]["tokens"].to(cfg.dtype)[batch["inputs"]]
+    s = x.shape[1]
+    cos, sin = rope_frequencies(cfg.hd, cfg.max_seq, cfg.rope_theta, device=x.device)
+    best = (-1.0, 0, x)
+    with torch.no_grad():
+        for i, lp in enumerate(tm._unstack(params["layers"], cfg.num_layers)):
+            y, aux = tm._layer_body(x, lp, cfg, (cos[:s], sin[:s]))
+            if aux[1].item() > best[0]:
+                best = (aux[1].item(), i, x)
+            x = y
+    return best[1], best[2], best[0]
+
+
+def moe_layer_run(torch, cfg, x, layer: int, paths, leaves) -> list:
+    """Layer ``layer`` of the model (attention and the MoE MLP) on input
+    ``x``, no remat: [output, aux, grad of the input, grads of the layer's
+    leaves] of ``mean(out^2) + balance``."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models import transformer as tm
+    from polyaxon_tpu_torch.models.transformer import flatten, unflatten
+    from polyaxon_tpu_torch.ops.layers import rope_frequencies
+
+    cfg = replace(cfg, remat="none")
+    params = unflatten(paths, leaves)
+    lpaths, lleaves = zip(*flatten(tm._unstack(params["layers"], cfg.num_layers)[layer]))
+    x = x.detach().requires_grad_()
+    s = x.shape[1]
+    cos, sin = rope_frequencies(cfg.hd, cfg.max_seq, cfg.rope_theta, device=x.device)
+    diff = [t.detach().requires_grad_() for t in lleaves]
+    y, aux = tm._layer_body(x, unflatten(lpaths, diff), cfg, (cos[:s], sin[:s]))
+    grads = torch.autograd.grad((y.float() ** 2).mean() + aux[0], [x] + diff)
+    return [y.detach(), aux.detach()] + list(grads)
+
+
+def moe_parts_phase(torch, spec: dict, iters: int = 5) -> dict:
+    """Where one MoE layer's time goes at the recipe's microbatch (4 x
+    2048, bf16, cf 1.25): CUDA-event times (forward and backward, host
+    launches included, as the step sees them) of the router with the
+    capacity plan, the dispatch and combine gathers, the expert products on
+    the [E, cap, h] buffer, and the whole MoE MLP one-shot and streamed;
+    and a dense MLP of the same active width (top_k x mlp) for scale."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models import REGISTRY
+    from polyaxon_tpu_torch.models import transformer as tm
+
+    cfg = replace(REGISTRY[spec["model"]][1], moe_cap_block=spec["moe_cap_block"])
+    E, k, h = cfg.num_experts, cfg.expert_top_k, cfg.hidden
+    b = spec["batch_size"] // spec["microbatches"]
+    T = b * spec["seq_len"]
+    cap = max(int(T * k / E * cfg.expert_capacity_factor), 1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(
+            cfg.dtype).requires_grad_()
+
+    y = rand(b, spec["seq_len"], h)
+    mp = {"router": rand(h, E, scale=0.02), "wi": rand(E, h, cfg.mlp_dim, scale=0.02),
+          "wg": rand(E, h, cfg.mlp_dim, scale=0.02), "wo": rand(E, cfg.mlp_dim, h, scale=0.02)}
+    dense = {"wi": rand(h, k * cfg.mlp_dim, scale=0.02),
+             "wg": rand(h, k * cfg.mlp_dim, scale=0.02),
+             "wo": rand(k * cfg.mlp_dim, h, scale=0.02)}
+    with torch.no_grad():
+        ti, tg, _ = tm._route(y, mp["router"], E, k)
+        ti, tg = ti.reshape(T, k), tg.reshape(T, k)
+        tfs, slot, keep, _ = tm._dispatch_tables(ti, tg, E, k, cap)
+    x2 = y.detach().reshape(T, h).requires_grad_()
+    xin = rand(E, cap, h)
+    ye = rand(E, cap, h)
+    w = tg.float().requires_grad_()
+
+    def route():
+        t, g, bal = tm._route(y, mp["router"], E, k)
+        tm._dispatch_tables(t.reshape(T, k), g.reshape(T, k), E, k, cap)
+        (g.float().sum() + bal).backward()
+
+    def gathers():
+        a = tm._GatherDispatch.apply(x2, tfs, ti, slot, keep)
+        o = tm._GatherCombine.apply(ye, w * keep.float(), tfs, ti, slot, keep)
+        torch.autograd.backward([a, o], [torch.ones_like(a), torch.ones_like(o)])
+
+    def experts():
+        out = tm._expert_ffn(xin, mp, cfg)
+        out.backward(torch.ones_like(out))
+
+    def moe(cb):
+        c = replace(cfg, moe_cap_block=cb)
+
+        def fn():
+            out, aux = tm._moe_mlp(y, mp, c)
+            torch.autograd.backward([out, aux[0]], [torch.ones_like(out), None])
+        return fn
+
+    def dense_mlp():
+        from polyaxon_tpu_torch.ops.layers import swiglu
+
+        hid = swiglu(torch.matmul(y, dense["wi"]), torch.matmul(y, dense["wg"]))
+        out = torch.matmul(hid, dense["wo"])
+        out.backward(torch.ones_like(out))
+
+    out = {"tokens": T, "cap": cap}
+    for name, fn in (("route_and_plan", route), ("gathers", gathers), ("experts", experts),
+                     ("moe_one_shot", moe(0)), ("moe_streamed", moe(cfg.moe_cap_block)),
+                     ("dense_mlp_same_active_width", dense_mlp)):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = start.elapsed_time(end) / iters
+    return out
+
+
+PP_GATE_MODELS = ("llama-1b", "llama-moe-1b")
+
+
+def pp_gate_phase(torch) -> dict:
+    """The pipeline's gate on one card at full width (ROADMAP C1's rule):
+    layer 0 of llama-1b and of llama-moe-1b (capacity, bf16, 2 x 2048) with
+    ``active=False`` emits exact zeros (output and aux), and with
+    ``active=True`` equals the ungated body bit for bit."""
+    from polyaxon_tpu_torch.models import REGISTRY
+    from polyaxon_tpu_torch.models import transformer as tm
+    from polyaxon_tpu_torch.ops.layers import rope_frequencies
+
+    out = {}
+    for name in PP_GATE_MODELS:
+        cfg = REGISTRY[name][1]
+        params = tm.init(cfg, seed=0, device="cuda")
+        lp = {k: {n: t.to(torch.bfloat16) for n, t in v.items()}
+              for k, v in tm._unstack(params["layers"], cfg.num_layers)[0].items()}
+        del params
+        seq = min(2048, cfg.max_seq)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn(2, seq, cfg.hidden, generator=gen, device="cuda").to(cfg.dtype)
+        cos, sin = rope_frequencies(cfg.hd, cfg.max_seq, cfg.rope_theta, device="cuda")
+        tables = (cos[:seq], sin[:seq])
+        inner = tm.InnerAxes()
+        with torch.no_grad():
+            off, aux_off = tm._layer_body(x, lp, cfg, tables, None, inner, False)
+            on, aux_on = tm._layer_body(x, lp, cfg, tables, None, inner, True)
+            ref, aux_ref = tm._layer_body(x, lp, cfg, tables, None, inner, None)
+        out[name] = {"inactive_max_abs": off.abs().max().item(),
+                     "inactive_aux": aux_off.tolist(),
+                     "active_equals_ungated": bool(torch.equal(on, ref)
+                                                   and torch.equal(aux_on, aux_ref)),
+                     "out_max_abs": ref.abs().max().item()}
+        if off.abs().max().item() != 0 or aux_off.abs().max().item() != 0:
+            raise AssertionError(f"{name}: an inactive body emits {out[name]}")
+        if not out[name]["active_equals_ungated"]:
+            raise AssertionError(f"{name}: the active body differs from the ungated one")
+        del lp, x, off, on, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def spec_phase(torch, spec: dict, prompts: list, max_new: int) -> dict:
@@ -2250,6 +2711,25 @@ LLAMA7B_TP_SPEC = {
     "checkpoint": False, "log_interval": 1, "data": {"kind": "synthetic-lm"},
     "platform": "cuda", "parallelism": {"fsdp": 2, "model": 2},
 }
+# pp_ep_multi: llama-1b {stage: 2} at dist_train_1rank's llama-1b keys (one
+# row a pipeline microbatch), against its 1-rank run; with 4 GPUs also
+# examples/llama_pp_tp.yaml's keys over {stage: 2, model: 2} (steps cut from
+# 200 to 3) and llama-moe-1b {stage: 2, expert: 2} with a2a at MOE_SPEC's keys
+# (4 microbatches: 4 rows an expert rank, one a pipeline microbatch)
+PP_SPECS = {"llama-1b/stage2": {**DIST_SPECS["llama-1b"], "parallelism": {"stage": 2},
+                                "pp_microbatches": 4}}
+PP_EP_SPECS = {
+    "llama-1b/stage2-model2": {
+        "model": "llama-1b", "steps": 3, "batch_size": 32, "seq_len": 2048,
+        "learning_rate": 3.0e-4, "remat": "attn", "pp_microbatches": 8,
+        "pp_remat_ticks": True, "mu_dtype": "bfloat16", "nu_dtype": "bfloat16",
+        "grad_dtype": "bfloat16", "checkpoint": False, "log_interval": 1,
+        "data": {"kind": "synthetic-lm"}, "platform": "cuda",
+        "parallelism": {"stage": 2, "model": 2}},
+    "llama-moe-1b/stage2-expert2": {
+        **MOE_SPEC, "moe_dispatch": "a2a", "microbatches": 4, "pp_microbatches": 4,
+        "parallelism": {"stage": 2, "expert": 2}},
+}
 # llama2-7b's random-init logits have std ~1.13 (0.0176 x sqrt(4096)),
 # which lifts its step-0 loss ~0.63 above ln 32000 (llama-1b's: 0.32)
 LLAMA7B_LOSS0_MARGIN = 1.0
@@ -2318,6 +2798,8 @@ def dist_child(plan: dict) -> int:
                      for axis in TP_CP_AXES}
             if world == 4:
                 specs["llama2-7b/fsdp2-model2"] = LLAMA7B_TP_SPEC
+        elif plan["mode"] == "pp_ep":
+            specs = PP_SPECS if world == 2 else PP_EP_SPECS
         else:
             specs = {name: {**DIST_SPECS[name], "parallelism": {DIST_MULTI_AXIS[name]: world}}
                      for name in plan["models"]}
@@ -2453,6 +2935,42 @@ def tp_cp_multi_phase(torch, single: dict) -> dict:
     return out
 
 
+def pp_ep_multi_phase(torch, single: dict) -> dict:
+    """Two ranks of llama-1b {stage: 2} at the 1-rank run's global batch,
+    their step-0/1 losses against its; with 4 GPUs four ranks of llama-1b
+    {stage: 2, model: 2} and llama-moe-1b {stage: 2, expert: 2} (a2a),
+    each step-0 loss near ln 32000, and every run's peak memory per rank.
+    A statement, not a failure, on one GPU."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        return {"skipped": f"{count} GPU"}
+    out = {}
+    for world in ((2, 4) if count >= 4 else (2,)):
+        port = free_port()
+        envs = [{"PLX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                 "PLX_NUM_PROCESSES": str(world), "PLX_PROCESS_ID": str(r),
+                 "LOCAL_RANK": str(r)} for r in range(world)]
+        t0 = time.monotonic()
+        res = run_children(envs, {"mode": "pp_ep"}, timeout=900)
+        out[f"world{world}_seconds"] = time.monotonic() - t0
+        for name, r in res.items():
+            out[name] = {"losses": r["losses"], "step_p50_ms": r["step_time_p50_ms"],
+                         "peak_gib_rank0": r["peak_mem_gib"], "launches": r["launches"],
+                         "mfu": r["mfu"]}
+            for key in ("router_aux", "router_drop_frac"):
+                if key in r:
+                    out[name][key] = r[key]
+            if name == "llama-1b/stage2":
+                one = single["llama-1b"]["losses_group"]
+                rel = [abs(x / y - 1) for x, y in zip(r["losses"][:2], one[:2])]
+                out[name].update(losses_1rank=one, rel=rel)
+                if any(x > tol for x, tol in zip(rel, DIST_MULTI_RTOL)):
+                    raise AssertionError(f"{name}: 2 ranks' losses {r['losses'][:2]} vs one "
+                                         f"rank's {one[:2]} (relative {rel}, limits "
+                                         f"{DIST_MULTI_RTOL})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2537,6 +3055,25 @@ def main() -> int:
             gc.collect()
             torch.cuda.empty_cache()
 
+    moe_run = train_phase(torch, fa, MOE_SPEC)
+    moe_cfg = REGISTRY[MOE_SPEC["model"]][1]
+    moe_run["flops_per_token"] = moe_cfg.flops_per_token(MOE_SPEC["seq_len"])
+    moe_run["flops_per_step"] = moe_run["flops_per_token"] * MOE_SPEC["batch_size"] \
+        * MOE_SPEC["seq_len"]
+    moe_run["peak_step_ms"] = moe_run["flops_per_step"] / PEAK_FLOPS["bfloat16"] * 1e3
+    log("train_moe", **moe_run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_cmp = moe_compare_phase(torch, fa, MOE_SPEC)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("moe_parts", **moe_parts_phase(torch, MOE_SPEC))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("pp_gate", **pp_gate_phase(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+
     spec = spec_phase(torch, SPEC_SPEC, make_prompts(vocab), MAX_NEW)
     log("spec", **spec)
     want = spec["iterations"] * (spec["k"] + 1) * spec["draft_layers"]
@@ -2582,6 +3119,7 @@ def main() -> int:
     log("dist_train_1rank", **dist_1rank)
     log("dist_train_multi", **dist_train_multi_phase(torch, dist_1rank))
     log("tp_cp_multi", **tp_cp_multi_phase(torch, dist_1rank))
+    log("pp_ep_multi", **pp_ep_multi_phase(torch, dist_1rank))
 
     # the profiler last: once torch.profiler has run, every later kernel
     # launch in the process pays CUPTI's overhead (a tiny launch's host
@@ -2592,6 +3130,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log("train_profile", **train_profile_phase(torch, TRAIN_SPEC))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("train_moe_profile", **train_profile_phase(torch, MOE_SPEC))
     gc.collect()
     torch.cuda.empty_cache()
     log("spec_profile", **spec_profile_phase(torch, SPEC_SPEC, make_prompts(vocab)))
@@ -2635,7 +3176,9 @@ def main() -> int:
                                     for model, run in dist_1rank.items()
                                     if isinstance(run, dict) and run["launches"][name]},
                                  **{f"ring_kernels/{case}": row["launches"][name]
-                                    for case, row in ring_rows.items()}}})
+                                    for case, row in ring_rows.items()},
+                                 "train_moe": moe_run["launches"][name],
+                                 "moe_compare": moe_cmp["launches"][name]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,6 @@
-"""Llama-2 family configs (dense) for the port — the same architecture
-constants as ``polyaxon_tpu/models/llama.py``, with torch dtypes."""
+"""Llama-2 family configs for the port — the same architecture constants
+as ``polyaxon_tpu/models/llama.py`` (dense and mixture-of-experts), with
+torch dtypes."""
 
 from __future__ import annotations
 
@@ -40,6 +41,23 @@ LLAMA_1B = replace(
     mlp_dim=5632, max_seq=2048,
 )
 
+# Mixtral-style sparse MoE (the public 8x7B constants): 8 experts, top-2
+# routing, the 7B trunk with GQA 32/8 and a 32k context.
+MIXTRAL_8X7B = replace(
+    LLAMA2_7B, vocab_size=32000, hidden=4096, num_layers=32, num_heads=32,
+    num_kv_heads=8, mlp_dim=14336, max_seq=32768, rope_theta=1e6,
+    num_experts=8, expert_top_k=2,
+)
+
+LLAMA_MOE_TINY = replace(LLAMA_TINY, num_experts=4, expert_top_k=2, mlp_dim=64)
+
+# ~1.1B total / ~0.36B active sparse MoE: 16 layers, hidden 1024, 8
+# experts of mlp 2560, top-2.
+LLAMA_MOE_1B = replace(
+    LLAMA2_7B, hidden=1024, num_layers=16, num_heads=16, num_kv_heads=4,
+    mlp_dim=2560, max_seq=2048, num_experts=8, expert_top_k=2,
+)
+
 CONFIGS = {
     "llama2-7b": LLAMA2_7B,
     "llama2-13b": LLAMA2_13B,
@@ -47,4 +65,7 @@ CONFIGS = {
     "llama-tiny": LLAMA_TINY,
     "llama-125m": LLAMA_125M,
     "llama-1b": LLAMA_1B,
+    "mixtral-8x7b": MIXTRAL_8X7B,
+    "llama-moe-tiny": LLAMA_MOE_TINY,
+    "llama-moe-1b": LLAMA_MOE_1B,
 }

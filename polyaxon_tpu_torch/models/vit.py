@@ -134,7 +134,7 @@ def _encode(enc_params: dict, x: torch.Tensor, cfg: ViTConfig, mesh=None) -> tor
     no LM head."""
     ecfg = cfg.encoder
     x = x + enc_params["embed"]["pos"].to(ecfg.dtype)[None, :x.shape[1]]
-    x = transformer.run_trunk(x, enc_params["layers"], ecfg, mesh=mesh)
+    x, _ = transformer.run_trunk(x, enc_params["layers"], ecfg, mesh=mesh)
     return transformer._norm(x, enc_params["final_norm"], ecfg)
 
 

@@ -51,7 +51,8 @@ def _merge(o, lse, o_i, lse_i):
 def _visit_pred(causal: bool, src: int, my: int) -> bool:
     """Does rank ``my`` visit chunk ``src``? Causal skips chunks entirely in
     the causal future; the forward and backward sweeps share it. (The JAX
-    package's pipeline gate, its ``gated`` half, belongs to A9.)"""
+    package's pipeline gate, its ``gated`` half, has no counterpart here:
+    the port's pipeline skips an idle tick's ring whole.)"""
     return not causal or src <= my
 
 

@@ -2,9 +2,9 @@
 ``polyaxon_tpu/parallel``: the ``PLX_*`` rendezvous into
 ``torch.distributed`` (one process per GPU), the process mesh over the JAX
 package's axes with its logical sharding rules, the fsdp param view and
-the collectives of the sharded step. The ``data``, ``fsdp``, ``model`` and
-``context`` axes run; ``stage`` and ``expert`` raise naming their ROADMAP
-item."""
+the collectives of the sharded step, and the GPipe trunk over the
+``stage`` axis (``pipeline.py``). Every axis of the JAX package runs:
+``data``, ``fsdp``, ``model``, ``context``, ``stage`` and ``expert``."""
 
 from .distributed import (
     ENV_COORDINATOR,

@@ -19,7 +19,9 @@ needs:
 - :func:`all_to_all`: equal blocks of dim 0 to each rank of the group,
   whose backward is the same exchange (its own inverse), for Ulysses;
 - :func:`sum_over` and :func:`max_over`: in-place reductions outside
-  autograd (counts, grads, metrics, a softmax's row max).
+  autograd (counts, grads, metrics, a softmax's row max);
+  :func:`gather_rows`: the group's tensors stacked, outside autograd (the
+  MoE router's choices, which the capacity plan reads globally).
 """
 
 from __future__ import annotations
@@ -215,3 +217,12 @@ def max_over(t: torch.Tensor, group) -> torch.Tensor:
     outside autograd."""
     _dist.all_reduce(t, op=_dist.ReduceOp.MAX, group=group)
     return t
+
+
+def gather_rows(t: torch.Tensor, group, world: int) -> torch.Tensor:
+    """The group's ``t`` (equal shapes) stacked along a new leading dim in
+    group-rank order, outside autograd."""
+    src = t.reshape(-1).contiguous()
+    out = src.new_empty(world * src.numel())
+    _ALL_GATHER(out, src, group=group)
+    return out.view((world,) + tuple(t.shape))

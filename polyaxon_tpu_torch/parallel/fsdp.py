@@ -1,9 +1,11 @@
 """fsdp (ZeRO-3) params of the port: each rank holds its block of every
 ``embed``-sharded leaf, and the model reads the full leaf only where it
-uses it.
+uses it. Experts cut over the ``expert`` axis read the same way where the
+dispatch needs every expert (capacity and dense).
 
-:class:`ShardedTree` is the param tree the model sees under fsdp. Reading
-a leaf gathers it (once per view); a subtree is a view of its own. The
+:class:`ShardedTree` is the param tree the model sees under fsdp (or with
+gathered experts). Reading a leaf gathers it over each of its gathered
+axes (once per view); a subtree is a view of its own. The
 layer stack is never gathered whole: ``run_trunk`` calls :meth:`unstack`
 for one view per layer, whose leaves gather when that layer runs, and a
 remat policy rereads a :meth:`fresh` view in its recompute, so the
@@ -30,9 +32,10 @@ def leaf_dims(specs: Any, params: dict, size: int, axis: str = "fsdp") -> dict:
 
 
 class ShardedTree:
-    """A read-only view of a tree of fsdp shards whose leaves read as full
-    tensors: ``gather(shard, dim)`` joins a sharded leaf when it is read
-    (a replicated leaf reads as it is)."""
+    """A read-only view of a tree of shards whose leaves read as full
+    tensors: ``dims`` holds each leaf's ``(axis, dim)`` cuts, and
+    ``gather(shard, dim, axis)`` joins a cut when the leaf is read (a leaf
+    with no cut reads as it is)."""
 
     def __init__(self, tree: dict, dims: dict,
                  gather: Callable[[torch.Tensor, int], torch.Tensor]):
@@ -42,11 +45,13 @@ class ShardedTree:
     def __getitem__(self, key: str) -> Any:
         if key in self._read:
             return self._read[key]
-        value, dim = self._tree[key], self._dims[key]
+        value, cuts = self._tree[key], self._dims[key]
         if isinstance(value, dict):
-            out = ShardedTree(value, dim, self._gather)
+            out = ShardedTree(value, cuts, self._gather)
         else:
-            out = value if dim is None else self._gather(value, dim)
+            out = value
+            for axis, dim in cuts:
+                out = self._gather(out, dim, axis)
         self._read[key] = out
         return out
 
@@ -69,10 +74,32 @@ class ShardedTree:
                 parts = {k: split(tree[k], dims[k]) for k in tree}
                 return [({k: parts[k][i][0] for k in tree}, {k: parts[k][i][1] for k in tree})
                         for i in range(n)]
-            d = None if dims is None else dims - 1
-            return [(t, d) for t in torch.unbind(tree, 0)]
+            cuts = tuple((axis, d - 1) for axis, d in dims)
+            return [(t, cuts) for t in torch.unbind(tree, 0)]
 
         return [ShardedTree(t, d, self._gather) for t, d in split(self._tree, self._dims)]
+
+    def leaves(self) -> list:
+        """The shards, in sorted-key order."""
+
+        def walk(tree):
+            if isinstance(tree, dict):
+                return [leaf for k in sorted(tree) for leaf in walk(tree[k])]
+            return [tree]
+
+        return walk(self._tree)
+
+    def with_leaves(self, leaves: list) -> "ShardedTree":
+        """The same view over other shards (``leaves`` in :meth:`leaves`'
+        order)."""
+        it = iter(leaves)
+
+        def build(tree):
+            if isinstance(tree, dict):
+                return {k: build(tree[k]) for k in sorted(tree)}
+            return next(it)
+
+        return ShardedTree(build(self._tree), self._dims, self._gather)
 
 
 def fresh(params: Any) -> Any:

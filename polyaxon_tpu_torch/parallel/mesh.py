@@ -13,11 +13,20 @@ the ranks that share every other coordinate. The batch group (the batch
 is sharded over ``data`` x ``fsdp`` x ``expert``), the token group (batch
 x ``context``: a token's loss term lives on one context rank), the
 ``fsdp`` group of a leaf's shards, the ``model`` group of a tensor-parallel
-layer's shards and the ``context`` group of a sequence's chunks (the
-ring's and Ulysses' peers). A group that spans the whole job is the
+layer's shards, the ``context`` group of a sequence's chunks (the ring's
+and Ulysses' peers), the ``stage`` group of a pipeline's stages and the
+``expert`` group that shares a layer's experts, and the token group less
+the axes a leaf's grad is already summed over (fsdp's reduce-scatter, the
+experts' gather or all-to-all). A group that spans the whole job is the
 default group; one that spans a single rank is :data:`LOCAL`, and its
 collectives are no-ops. Without a process group the mesh is one process
 and has no groups.
+
+A leaf of the params may be cut over several axes at once, one dim each
+(``stage``: the stacked layer dim; ``expert``: the experts; ``fsdp``: the
+embed dim; ``model``: heads, mlp columns, vocab rows): its *cuts* are
+``(axis, dim)`` pairs, and :meth:`Mesh.shard` / :meth:`Mesh.gather_full`
+take this rank's block of a full leaf and join the blocks back.
 
 The logical rules are the JAX package's, over a tuple ``PartitionSpec`` of
 the same entries.
@@ -40,16 +49,25 @@ BATCH_AXES: tuple[str, ...] = ("data", "fsdp", "expert")
 #: the axes a token's place is sharded over: its row, then its chunk of
 #: the sequence (the loss's counts and the step's metrics sum over them)
 TOKEN_AXES: tuple[str, ...] = BATCH_AXES + ("context",)
-#: the axes a grad is summed over when its leaf is fsdp-sharded (the
-#: reduce-scatter summed over fsdp)
-REPLICA_AXES: tuple[str, ...] = ("data", "expert", "context")
-#: axes the port does not run yet -> ROADMAP item
-_NOT_PORTED_AXES = {"stage": "A9 (pipeline)", "expert": "A10 (MoE)"}
+#: the axes a leaf's shards are gathered over when the model reads it (or,
+#: for the experts, the tokens are sent to them), whose backward sums the
+#: grad over that axis
+GATHERED_AXES: tuple[str, ...] = ("fsdp", "expert")
 #: the group of a set of axes that spans one rank: collectives over it are
 #: no-ops
 LOCAL = "local"
-_GROUP_AXES = (("fsdp",), ("data",), BATCH_AXES, TOKEN_AXES, REPLICA_AXES, ("model",),
-               ("context",))
+
+
+def grad_sum_axes(cut: Sequence[str]) -> tuple:
+    """The axes a leaf's grad is summed over after the backward: the token
+    axes, less those its gathers summed over already (``cut``: the axes the
+    leaf is cut over)."""
+    return tuple(a for a in TOKEN_AXES if not (a in GATHERED_AXES and a in cut))
+
+
+_GROUP_AXES = (("fsdp",), ("data",), BATCH_AXES, TOKEN_AXES, ("model",), ("context",),
+               ("stage",), ("expert",)) + tuple(
+    grad_sum_axes(cut) for cut in (("fsdp",), ("expert",), ("fsdp", "expert")))
 
 
 def normalize_axis_sizes(parallelism: Union[Mapping[str, int], Any, None]) -> dict[str, int]:
@@ -173,35 +191,31 @@ class Mesh:
 
     # -- collectives ----------------------------------------------------------------
 
-    def gather(self, shard: torch.Tensor, dim: int) -> torch.Tensor:
-        """The full tensor of an fsdp-sharded leaf; its backward
-        reduce-scatters the grad back to the shard (summed over fsdp)."""
-        if self.group("fsdp") is LOCAL:
+    def gather(self, shard: torch.Tensor, dim: int, axis: str = "fsdp") -> torch.Tensor:
+        """The full tensor of a leaf cut over ``axis`` (fsdp, or the
+        experts); its backward reduce-scatters the grad back to the shard
+        (summed over the axis)."""
+        if self.group(axis) is LOCAL:
             return shard
-        return collectives.all_gather(shard, dim, self.group("fsdp"), self.sizes["fsdp"])
+        return collectives.all_gather(shard, dim, self.group(axis), self.sizes[axis])
 
-    def gather_full(self, shard: torch.Tensor, dim: Optional[int],
-                    model_dim: Optional[int] = None) -> torch.Tensor:
+    def gather_full(self, shard: torch.Tensor, cuts: Sequence) -> torch.Tensor:
         """The whole leaf of this rank's block, outside autograd
-        (checkpoint saves): gathered over fsdp along ``dim``, then over
-        model along ``model_dim``; identity for a replicated leaf."""
+        (checkpoint saves): gathered over each ``(axis, dim)`` of ``cuts``;
+        identity for a replicated leaf."""
         with torch.no_grad():
-            if dim is not None and self.sharded:
-                shard = self.gather(shard, dim)
-            if model_dim is not None and self.group("model") is not LOCAL:
-                shard = collectives.all_gather(shard, model_dim, self.group("model"),
-                                               self.sizes["model"])
+            for axis, dim in cuts:
+                if self.group(axis) is not LOCAL:
+                    shard = collectives.all_gather(shard, dim, self.group(axis),
+                                                   self.sizes[axis])
         return shard
 
-    def shard(self, full: torch.Tensor, dim: Optional[int],
-              model_dim: Optional[int] = None) -> torch.Tensor:
-        """This rank's block of ``full``: along ``model_dim`` its model
-        block, along ``dim`` its fsdp block (a copy when either cuts)."""
-        if model_dim is not None and self.sizes["model"] > 1:
-            full = self.block(full, model_dim, "model").clone()
-        if dim is None or not self.sharded:
-            return full
-        return self.block(full, dim, "fsdp").clone()
+    def shard(self, full: torch.Tensor, cuts: Sequence) -> torch.Tensor:
+        """This rank's block of ``full`` along each ``(axis, dim)`` of
+        ``cuts`` (a copy when any cuts)."""
+        for axis, dim in cuts:
+            full = self.block(full, dim, axis)
+        return full.clone() if cuts else full
 
     def block(self, full: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
         """This rank's block of ``full`` along ``dim`` under ``axis`` (a
@@ -260,6 +274,27 @@ class Mesh:
             collectives.max_over(t, self.group("model"))
         return t
 
+    # -- pipeline and expert parallelism --------------------------------------------
+
+    @property
+    def pp(self) -> int:
+        """Pipeline stages (the ``stage`` axis; 1 off a process group)."""
+        return self.sizes["stage"] if self.distributed else 1
+
+    @property
+    def ep(self) -> int:
+        """Ranks that share a layer's experts (the ``expert`` axis; 1 off a
+        process group)."""
+        return self.sizes["expert"] if self.distributed else 1
+
+    @property
+    def stage_index(self) -> int:
+        return self.coords()["stage"] if self.distributed else 0
+
+    def stage_rank(self, stage: int) -> int:
+        """The global rank of ``stage`` in this rank's stage group."""
+        return self.rank_of({**self.coords(), "stage": int(stage)})
+
     def ring(self) -> "collectives.RingExchange":
         """The ring over this rank's ``context`` group: chunks go to the
         next context coordinate and come from the previous one."""
@@ -309,15 +344,13 @@ def build_mesh(parallelism: Union[Mapping[str, int], Any, None] = None,
 
 def refuse_unported_axes(sizes: Mapping[str, int],
                          refused: Optional[Mapping[str, str]] = None) -> None:
-    """Raise naming the ROADMAP item of every axis the port does not run,
-    and of each axis in ``refused`` (axis -> item: what a model family
-    does not shard over yet)."""
-    for ax, item in {**_NOT_PORTED_AXES, **(refused or {})}.items():
+    """Raise naming the ROADMAP item of each axis in ``refused`` (axis ->
+    item: what a model family does not shard over yet)."""
+    for ax, item in (refused or {}).items():
         if int(sizes.get(ax, 1)) > 1:
             raise NotImplementedError(
                 f"parallelism axis {ax!r} of size {sizes[ax]} is not ported "
-                f"(ROADMAP {item}); the port shards over data, fsdp, model and "
-                f"context")
+                f"for this model family (ROADMAP {item})")
 
 
 def mesh_axis_size(mesh: Mesh, *axes: str) -> int:

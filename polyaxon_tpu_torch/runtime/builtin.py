@@ -24,16 +24,18 @@ Spec keys (the JAX runtime's, as far as the port goes):
     tokens-file; the task's own by default), path, seed}, log_interval,
     anomaly_skip_budget, anomaly_rollback_budget, watchdog (true, false or
     {stall_factor, min_s, compile_grace_s}), parallelism ({data, fsdp,
-    model, context}: model for the transformer families, context for the
-    language models, ring or Ulysses as the model config's
-    ``seq_parallel`` says; stage and expert, and the vision families'
-    axes the port does not shard yet, raise naming their ROADMAP item),
-    num_slices (1).
+    model, context, stage, expert}: model and stage for the transformer
+    families, context for the language models, ring or Ulysses as the
+    model config's ``seq_parallel`` says, expert a batch axis that also
+    cuts an MoE model's experts; the vision families' axes the port does
+    not shard yet raise naming their ROADMAP item), num_slices (1).
     Language models (lm, mlm) also take seq_len, remat, attn_block_q /
-    attn_block_k / attn_block_q_bwd / attn_block_k_bwd and
-    loss_chunk_tokens; ResNet takes image_size (32 or 224 by the config's
-    ``small_inputs``). ViT's sequence (patches + CLS) and image size are
-    its config's.
+    attn_block_k / attn_block_q_bwd / attn_block_k_bwd,
+    loss_chunk_tokens, the pipeline's pp_microbatches (0: 2 x stages),
+    pp_remat_ticks and pp_gate (auto | full | inner | none), and an MoE
+    model's moe_dispatch (capacity | a2a | dense) and moe_cap_block;
+    ResNet takes image_size (32 or 224 by the config's ``small_inputs``).
+    ViT's sequence (patches + CLS) and image size are its config's.
     checkpoint: on by default, under ``$PLX_ARTIFACTS_PATH/outputs/
         checkpoints`` (the working directory without it): false, or
         {save_interval_steps (steps // 4), max_to_keep (3), async_save
@@ -96,12 +98,10 @@ from ..train.optimizers import OPTIMIZERS
 _NOT_PORTED = {
     "lora": "A12 (LoRA)",
     "partition_rules": "A14 (user partition rules)",
-    "pp_microbatches": "A9 (pipeline)",
-    "pp_remat_ticks": "A9 (pipeline)",
-    "pp_gate": "A9 (pipeline)",
-    "moe_dispatch": "A10 (MoE)",
-    "moe_cap_block": "A10 (MoE)",
 }
+#: the values the JAX package's model code takes (it raises on others)
+_MOE_DISPATCHES = ("capacity", "a2a", "dense")
+_PP_GATES = ("auto", "full", "inner", "none")
 #: the JAX runtime's virtual CPU devices: the port's counterpart is ranks
 NUM_CPU_DEVICES_REFUSAL = (
     "num_cpu_devices: the port has no virtual CPU devices; its CPU counterpart of "
@@ -116,10 +116,12 @@ _KNOWN = {
     "anomaly_skip_budget", "anomaly_rollback_budget", "watchdog", "parallelism",
     "num_slices", "checkpoint", "import", "fork_from", "platform",
     "progress_interval", "chaos", "resources", "profile", "image_size",
+    "pp_microbatches", "pp_remat_ticks", "pp_gate", "moe_dispatch", "moe_cap_block",
 }
 #: keys only a language model (family lm or mlm) reads
 _LM_KEYS = {"seq_len", "remat", "attn_block_q", "attn_block_k", "attn_block_q_bwd",
-            "attn_block_k_bwd", "loss_chunk_tokens"}
+            "attn_block_k_bwd", "loss_chunk_tokens", "pp_microbatches", "pp_remat_ticks",
+            "pp_gate", "moe_dispatch", "moe_cap_block"}
 _DATA_KEYS = {"kind", "path", "seed"}
 _DATA_KINDS = ("synthetic-lm", "synthetic-mlm", "synthetic-image", "tokens-file")
 _CHECKPOINT_KEYS = {"save_interval_steps", "max_to_keep", "async_save"}
@@ -163,6 +165,12 @@ def _refuse_unsupported(spec: dict) -> None:
     for key in ("import", "fork_from"):
         if spec.get(key) is not None and not spec[key].get("path"):
             raise SystemExit(f"{key}: needs a path")
+    if spec.get("moe_dispatch") and spec["moe_dispatch"] not in _MOE_DISPATCHES:
+        raise SystemExit(f"unknown moe_dispatch {spec['moe_dispatch']!r}; "
+                         f"valid: {'|'.join(_MOE_DISPATCHES)}")
+    if spec.get("pp_gate") and spec["pp_gate"] not in _PP_GATES:
+        raise SystemExit(f"unknown gate mode {spec['pp_gate']!r}; "
+                         f"valid: {'|'.join(_PP_GATES)}")
     if spec.get("optimizer", "adamw") not in OPTIMIZERS:
         raise SystemExit(f"optimizer {spec['optimizer']!r}: unknown; valid: "
                          f"{'|'.join(OPTIMIZERS)}")
@@ -170,6 +178,8 @@ def _refuse_unsupported(spec: dict) -> None:
     from ..train.tasks import refuse_unsupported_axes
 
     model = REGISTRY.get(spec.get("model", "llama-tiny"), (None, None))[1]
+    if spec.get("moe_dispatch") and getattr(model, "num_experts", 0):
+        model = replace(model, moe_dispatch=spec["moe_dispatch"])
     try:
         refuse_unsupported_axes(model, normalize_axis_sizes(spec.get("parallelism")))
     except (ValueError, NotImplementedError) as e:
@@ -253,9 +263,15 @@ def build_trainer(spec: dict[str, Any],
         if spec.get("loss_chunk_tokens") is not None:
             overrides["loss_chunk_tokens"] = int(spec["loss_chunk_tokens"])
         for knob in ("attn_block_q", "attn_block_k", "attn_block_q_bwd",
-                     "attn_block_k_bwd"):
+                     "attn_block_k_bwd", "moe_cap_block", "pp_microbatches"):
             if spec.get(knob) is not None:
                 overrides[knob] = int(spec[knob])
+        if spec.get("moe_dispatch"):
+            overrides["moe_dispatch"] = spec["moe_dispatch"]
+        if spec.get("pp_gate"):
+            overrides["pp_gate"] = spec["pp_gate"]
+        if spec.get("pp_remat_ticks") is not None:
+            overrides["pp_remat_ticks"] = bool(spec["pp_remat_ticks"])
         seq_len = int(spec.get("seq_len", min(2048, mcfg.max_seq)))
         if seq_len > mcfg.max_seq:
             overrides["max_seq"] = seq_len

@@ -2,7 +2,8 @@
 A Task owns init, the per-leaf PartitionSpecs of its params (the JAX
 package's logical rules), the loss (with its metrics and the new non-param
 state) and the throughput units the meter needs: tokens for the language
-models, samples for vision. MoE's router loss waits for ROADMAP A10.
+models, samples for vision. An MoE model's loss adds the router's Switch
+balance term, and its metrics carry the balance and the dropped fraction.
 
 Under a mesh (``loss(..., mesh=)``) the batch is this rank's rows (and,
 under ``context``, its chunk of the sequence), and the loss and every
@@ -12,9 +13,10 @@ count). Under ``model`` every model rank computes the same loss from its
 shards of the layers.
 
 Which mesh axes a family's model shards over is the family's
-(:func:`refuse_unsupported_axes`): the transformers' layers over ``model``,
-the token models' sequence over ``context``; the rest raises naming its
-ROADMAP item.
+(:func:`refuse_unsupported_axes`): the transformers' layers over ``model``
+and ``stage``, the token models' sequence over ``context``, the experts
+over ``expert``; the rest raises naming its ROADMAP item or the JAX
+package's own error.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from ..models import resnet as resnet_mod
 from ..models import transformer
 from ..models import vit as vit_mod
 from ..models.transformer import TransformerConfig
-from ..parallel.mesh import PartitionSpec, ShardingRules, refuse_unported_axes
+from ..parallel.mesh import PartitionSpec, ShardingRules, TOKEN_AXES, refuse_unported_axes
 
 #: what each family's model does not shard over yet -> ROADMAP item
 _FAMILY_REFUSALS = {"vit": {"context": "A8 (vision)"},
@@ -49,9 +51,25 @@ def refuse_unsupported_axes(model_cfg: Any, sizes: dict) -> None:
     """Raise on a mesh the model cannot run on: an axis the port does not
     run, or one its family does not shard over yet (naming the ROADMAP
     item). A ViT sequence (patches + CLS) that a ``context`` axis does not
-    divide raises as the JAX package's shard_map does."""
+    divide raises as the JAX package's shard_map does; so do a trunk whose
+    layers do not divide over ``stage``, a model without a layered trunk
+    under ``stage`` and all-to-all experts that do not divide over
+    ``expert``, each with the JAX package's error."""
     family = family_of(model_cfg)
     cp = int(sizes.get("context", 1))
+    stages = int(sizes.get("stage", 1))
+    if stages > 1:
+        if family == "resnet":
+            raise NotImplementedError("pipeline parallelism needs a layered transformer "
+                                      "trunk; ResNetTask has none")
+        trunk = model_cfg.encoder if family == "vit" else model_cfg
+        if trunk.num_layers % stages:
+            raise ValueError(f"{trunk.num_layers} layers do not divide over {stages} stages")
+    ep = int(sizes.get("expert", 1))
+    if (family == "lm" and model_cfg.num_experts and model_cfg.moe_dispatch == "a2a"
+            and model_cfg.num_experts % ep):
+        raise ValueError(f"num_experts {model_cfg.num_experts} not divisible by expert "
+                         f"mesh axis {ep}")
     if family == "vit" and cp > 1 and (model_cfg.num_patches + 1) % cp:
         raise ValueError(
             f"shard_map applied to the function '_attn' was given argument arrays with "
@@ -100,8 +118,6 @@ class LMTask(Task):
     a loss mask) language modeling on the shared transformer core."""
 
     def __init__(self, cfg: TransformerConfig):
-        if getattr(cfg, "num_experts", 0):
-            raise ValueError("MoE models are not ported (ROADMAP A10)")
         self.cfg = cfg
 
     def init(self, seed, device):
@@ -111,12 +127,24 @@ class LMTask(Task):
         return transformer.param_specs(self.cfg, rules)
 
     def loss(self, params, extra, batch, mesh=None):
-        hidden = transformer.apply_hidden(params, batch["inputs"], self.cfg, mesh=mesh)
+        hidden, aux = transformer.apply_hidden(params, batch["inputs"], self.cfg, mesh=mesh,
+                                               return_aux=True)
         w, vocab_major = transformer.head_weights(params, self.cfg)
         loss = transformer.lm_loss_from_hidden(
             hidden, w, batch["labels"], batch.get("mask"),
             vocab_major=vocab_major, chunk_tokens=self.cfg.loss_chunk_tokens, mesh=mesh)
-        return loss, {"loss": loss}, None
+        metrics = {"loss": loss}
+        if self.cfg.num_experts:
+            # this rank's share: the token ranks' shares sum to the batch's
+            # value (a global balance is every rank's alike; a local drop
+            # fraction averages, as the JAX package's pmean does)
+            shares = mesh.axis_size(*TOKEN_AXES) if mesh is not None else 1
+            balance, drop = aux[0] / shares, aux[1] / shares
+            if self.cfg.router_aux_coef:
+                loss = loss + self.cfg.router_aux_coef * balance
+            metrics["router_aux"] = balance
+            metrics["router_drop_frac"] = drop
+        return loss, metrics, None
 
     def tokens_per_step(self, batch_size, seq_len):
         return batch_size * seq_len

@@ -1,7 +1,7 @@
 """The training loop of the port — counterpart of
 ``polyaxon_tpu/train/trainer.py``, on one device or over a mesh of
-processes (one per GPU) with the ``data``, ``fsdp``, ``model`` and
-``context`` axes.
+processes (one per GPU) with the ``data``, ``fsdp``, ``model``,
+``context``, ``stage`` and ``expert`` axes.
 
 One step = the microbatch loop (grads in ``grad_dtype``, summed in
 ``accum_dtype`` and divided by k; the task's metrics averaged over the
@@ -45,9 +45,20 @@ is the one the JAX package's SPMD step returns on a mesh of that shape:
   reduce-scatters the grad to the shard; with ``data`` too, shards are
   then summed over the data ranks. adafactor's factored moments are not
   sharded yet (ROADMAP A15);
+- ``stage``: each rank holds its block of the stacked layers (the JAX
+  trainer's ``layers -> stage`` rule) and runs them as a pipeline stage;
+  every leaf outside the trunk (embedding, final norm, head, learned
+  positions) is computed alike on every stage rank and gets the same grad
+  there, the stage-free run's; a task without a layered trunk raises;
+- ``expert`` (a batch axis): each rank holds its block of the experts;
+  capacity and dense dispatch gather them where the layer runs (the
+  backward sums the grad over the expert ranks), all-to-all uses the
+  rank's own; an expert leaf's grad is then summed over the other token
+  axes only;
 - the grads' global norm sums each leaf's squares over its shards (fsdp,
-  then model), so each logical element counts once, and the guard's
-  verdict reads the summed metrics, so every rank skips the same steps;
+  model, stage, expert), so each logical element counts once, and the
+  guard's verdict reads the summed metrics, so every rank skips the same
+  steps;
 - checkpoints hold the full state at every world size: rank 0 gathers it
   leaf by leaf and alone writes, the others restore the step rank 0 names
   and keep their shard.
@@ -65,14 +76,19 @@ import torch
 from ..models.transformer import TransformerConfig, flatten, unflatten
 from ..parallel.fsdp import ShardedTree, fresh, leaf_dims
 from ..parallel.mesh import (
-    BATCH_AXES, REPLICA_AXES, TOKEN_AXES, Mesh, ShardingRules, build_mesh, normalize_axis_sizes,
+    BATCH_AXES, TOKEN_AXES, Mesh, ShardingRules, build_mesh, grad_sum_axes,
+    normalize_axis_sizes,
 )
+from ..parallel.pipeline import validate_pipeline_mesh
 from .checkpoint import CheckpointConfig, Checkpointer
 from .metrics import ThroughputMeter
 from .optimizers import (
     OptimizerConfig, global_norm, make_optimizer, opt_state_from_tree, opt_state_tree,
 )
-from .tasks import LMTask, Task, refuse_unsupported_axes
+from .tasks import LMTask, Task, ViTTask, refuse_unsupported_axes
+
+#: the axes a param leaf may be cut over, in the order its blocks are taken
+CUT_AXES = ("stage", "expert", "fsdp", "model")
 
 
 @dataclass
@@ -89,8 +105,7 @@ class TrainerConfig:
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     batch_size: int = 8
     seq_len: int = 128
-    # mesh axes over the process group (data, fsdp, model and context run);
-    # None: data absorbs every process
+    # mesh axes over the process group; None: data absorbs every process
     parallelism: Optional[dict] = None
     num_slices: int = 1
     checkpoint: Optional[CheckpointConfig] = None
@@ -155,20 +170,38 @@ class Trainer:
         self.mesh = mesh if mesh is not None else build_mesh(
             cfg.parallelism, num_slices=cfg.num_slices)
         refuse_unsupported_axes(cfg.model, self.mesh.sizes)
-        if (self.mesh.sharded or self.mesh.tp) and cfg.optimizer.name == "adafactor":
+        rules = ShardingRules()
+        if self.mesh.pp > 1:
+            validate_pipeline_mesh(self.mesh)
+            if not isinstance(task, (LMTask, ViTTask)):
+                raise NotImplementedError(
+                    f"pipeline parallelism needs a layered transformer trunk; "
+                    f"{type(task).__name__} has none")
+            # layers shard over stages: each stage owns L/S layers
+            rules = rules.override(layers="stage")
+        # the axes that cut param leaves, and those the model gathers a leaf
+        # over where it reads it (the experts stay cut under all-to-all)
+        mesh = self.mesh
+        on = {"stage": mesh.pp > 1, "expert": mesh.ep > 1, "fsdp": mesh.sharded,
+              "model": mesh.tp}
+        self._cut_axes = tuple(a for a in CUT_AXES if on[a])
+        a2a = getattr(getattr(task, "cfg", None), "moe_dispatch", None) == "a2a"
+        self._gathered_axes = tuple(a for a in ("expert", "fsdp")
+                                    if on[a] and not (a == "expert" and a2a))
+        if self._cut_axes and cfg.optimizer.name == "adafactor":
             raise NotImplementedError(
-                "adafactor under fsdp or model is not ported: its factored moments are "
-                "not sharded (ROADMAP A15); use data parallelism or another optimizer")
+                f"adafactor over {'/'.join(self._cut_axes)} is not ported: its factored "
+                f"moments are not sharded (ROADMAP A15); use data parallelism or another "
+                f"optimizer")
         self.primary = self.mesh.rank == 0
         # this rank's place over the batch axes, and how many share the batch
         self.batch_ranks = self.mesh.axis_size(*BATCH_AXES)
         self.batch_index = self.mesh.index(BATCH_AXES)
-        self.specs = task.param_specs(ShardingRules())
-        # fsdp- and model-sharded dim of each param leaf (flatten order);
-        # None: replicated over that axis
-        self._dims_tree: Optional[dict] = None
-        self._dims: list = []
-        self._mdims: list = []
+        self.specs = task.param_specs(rules)
+        # each param leaf's (axis, dim) cuts (flatten order), and the tree of
+        # the cuts the model gathers (None: it reads every leaf as it is)
+        self._cuts: list = []
+        self._gather_tree: Optional[dict] = None
         self.tx = make_optimizer(cfg.optimizer)
         self.track = track
         # duck-typed fault injection: pre_step(pos) and nan_due(pos)
@@ -194,20 +227,20 @@ class Trainer:
         return self.init_state_from(params, extra)
 
     def init_state_from(self, params: dict, extra: Any = None) -> TrainState:
-        """A state around full ``params`` (every rank's alike): under model
-        and fsdp each rank keeps its block of each leaf, and the optimizer
-        state mirrors the blocks."""
+        """A state around full ``params`` (every rank's alike): under the
+        cutting axes each rank keeps its block of each leaf, and the
+        optimizer state mirrors the blocks."""
         paths, leaves = zip(*flatten(params))
         mesh = self.mesh
-        self._dims = self._mdims = [None] * len(leaves)
-        if mesh.tp:
-            self._mdims = [d for _, d in flatten(
-                leaf_dims(self.specs, params, mesh.sizes["model"], "model"))]
-        if mesh.sharded:
-            self._dims_tree = leaf_dims(self.specs, params, mesh.sizes["fsdp"])
-            self._dims = [d for _, d in flatten(self._dims_tree)]
-        if mesh.sharded or mesh.tp:
-            leaves = [mesh.shard(t, d, md) for t, d, md in zip(leaves, self._dims, self._mdims)]
+        dims = {a: [d for _, d in flatten(leaf_dims(self.specs, params, mesh.sizes[a], a))]
+                for a in self._cut_axes}
+        self._cuts = [tuple((a, dims[a][n]) for a in self._cut_axes if dims[a][n] is not None)
+                      for n in range(len(leaves))]
+        gathered = [tuple(c for c in cuts if c[0] in self._gathered_axes)
+                    for cuts in self._cuts]
+        self._gather_tree = unflatten(paths, gathered) if any(gathered) else None
+        if any(self._cuts):
+            leaves = [mesh.shard(t, c) for t, c in zip(leaves, self._cuts)]
             params = unflatten(paths, leaves)
         return TrainState(params=params, opt_state=self.tx.init(list(leaves)), step=0,
                           extra=extra)
@@ -268,20 +301,19 @@ class Trainer:
                 raise FileNotFoundError(
                     f"No complete checkpoint under {self.checkpointer.cfg.directory}")
         select = None
-        if self.mesh.sharded or self.mesh.tp:
-            places = {id(t): dims for t, dims in self._placed(state)}
+        if any(self._cuts):
+            places = {id(t): cuts for t, cuts in self._placed(state)}
             select = functools.partial(self._shard_of, places)
         tree, s = self.checkpointer.restore(like, step=step, select=select)
         return state_from_tree(tree), s
 
     def _placed(self, state: TrainState) -> list:
-        """(tensor, (fsdp dim, model dim)) for each param leaf and each
-        param-shaped optimizer leaf of ``state``."""
-        places = list(zip(self._dims, self._mdims))
-        out = [(t, p) for (_, t), p in zip(flatten(state.params), places)]
+        """(tensor, its cuts) for each param leaf and each param-shaped
+        optimizer leaf of ``state``."""
+        out = [(t, c) for (_, t), c in zip(flatten(state.params), self._cuts)]
         for name, value in opt_state_tree(state.opt_state).items():
             if name != "count":
-                out.extend(zip(value, places))
+                out.extend(zip(value, self._cuts))
         return out
 
     def _shard_of(self, places: dict, full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -290,11 +322,8 @@ class Trainer:
         any other mismatch)."""
         if full.shape == like.shape or id(like) not in places:
             return full
-        d, md = places[id(like)]
-        if md is not None and self.mesh.tp:
-            full = self.mesh.block(full, md, "model")
-        if d is not None and self.mesh.sharded:
-            full = self.mesh.block(full, d, "fsdp")
+        for axis, dim in places[id(like)]:
+            full = self.mesh.block(full, dim, axis)
         return full
 
     def _save_tree(self, state: TrainState) -> Optional[dict]:
@@ -302,18 +331,17 @@ class Trainer:
         others). Under model and fsdp each sharded leaf is gathered in turn
         and copied to rank 0's host, so no rank ever holds the whole state
         on its device."""
-        if not (self.mesh.sharded or self.mesh.tp):
+        if not any(self._cuts):
             return state_tree(state) if self.primary else None
 
-        def full(t, place):
-            g = self.mesh.gather_full(t, *place)
+        def full(t, cuts):
+            g = self.mesh.gather_full(t, cuts)
             return g.to("cpu", copy=True) if self.primary else None
 
-        places = list(zip(self._dims, self._mdims))
         paths, leaves = zip(*flatten(state.params))
-        params = unflatten(paths, [full(t, p) for t, p in zip(leaves, places)])
-        opt = {name: value if name == "count" else [full(t, p) for t, p in
-                                                    zip(value, places)]
+        params = unflatten(paths, [full(t, c) for t, c in zip(leaves, self._cuts)])
+        opt = {name: value if name == "count" else [full(t, c) for t, c in
+                                                    zip(value, self._cuts)]
                for name, value in opt_state_tree(state.opt_state).items()}
         if not self.primary:
             return None
@@ -351,10 +379,9 @@ class Trainer:
                      else p.detach()).requires_grad_(p.is_floating_point())
                     for p in leaves]
             diff_tree = unflatten(paths, diff)
-            if mesh.sharded:
-                diff_tree = ShardedTree(diff_tree, self._dims_tree, mesh.gather)
-            dims = [d for p, d in zip(leaves, self._dims) if p.is_floating_point()]
-            mdims = [d for p, d in zip(leaves, self._mdims) if p.is_floating_point()]
+            if self._gather_tree is not None:
+                diff_tree = ShardedTree(diff_tree, self._gather_tree, mesh.gather)
+            cuts = [c for p, c in zip(leaves, self._cuts) if p.is_floating_point()]
             batch = {name: t.to(self.device) for name, t in batch.items()}
             grads, per_micro, extra = None, [], state.extra
             for i in range(k):
@@ -382,18 +409,16 @@ class Trainer:
             whole = None
             if mesh.distributed:
                 task_metrics = self._sum_metrics(task_metrics)
-                for i, d in enumerate(dims):
+                for i, c in enumerate(cuts):
                     # NCCL reduces dense tensors only (autograd may hand back
-                    # a strided view); a shard was summed over fsdp by its
-                    # reduce-scatter. A model block is summed over the
-                    # ranks of the other axes that hold the same block.
+                    # a strided view); a gathered shard (fsdp, experts) was
+                    # summed over its axis by the gather's reduce-scatter or
+                    # the experts' all-to-all. A block is summed over the
+                    # token ranks that hold the same block.
                     g = grads[i] = grads[i].contiguous()
-                    if d is None:
-                        mesh.sum_(g, *TOKEN_AXES)
-                    elif mesh.axis_size(*REPLICA_AXES) > 1:
-                        mesh.sum_(g, *REPLICA_AXES)
-                if mesh.sharded or mesh.tp:
-                    whole = functools.partial(self._whole_sums, dims, mdims)
+                    mesh.sum_(g, *grad_sum_axes([a for a, _ in c]))
+                if any(cuts):
+                    whole = functools.partial(self._whole_sums, cuts)
             loss = task_metrics["loss"]
             grad_norm = global_norm(grads, whole)
             loss_ok = torch.isfinite(loss)
@@ -425,16 +450,15 @@ class Trainer:
         self.mesh.sum_(vec, *TOKEN_AXES)
         return {n: vec[i] for i, n in enumerate(names)}
 
-    def _whole_sums(self, dims: list, mdims: list, sums: list) -> list:
-        """Each leaf's sum of squares over the whole leaf: an fsdp shard's
-        summed over the fsdp ranks, then a model block's over the model
-        ranks. A leaf replicated over an axis is whole there already, and
+    def _whole_sums(self, cuts: list, sums: list) -> list:
+        """Each leaf's sum of squares over the whole leaf: a block's summed
+        over the ranks of each axis that cuts it (fsdp, model, stage,
+        expert). A leaf replicated over an axis is whole there already, and
         counts once."""
         out = list(sums)
-        for axis, on, cut in (("fsdp", self.mesh.sharded, dims),
-                              ("model", self.mesh.tp, mdims)):
-            idx = [i for i, d in enumerate(cut) if d is not None]
-            if not (on and idx):
+        for axis in CUT_AXES:
+            idx = [i for i, c in enumerate(cuts) if any(a == axis for a, _ in c)]
+            if not idx:
                 continue
             vec = self.mesh.sum_(torch.stack([out[i] for i in idx]), axis)
             for j, i in enumerate(idx):

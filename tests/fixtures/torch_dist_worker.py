@@ -1,5 +1,6 @@
 """One rank of the port's multi-process CPU tests
-(``tests/test_torch_distributed.py``, ``tests/test_torch_tp_cp.py``):
+(``tests/test_torch_distributed.py``, ``tests/test_torch_tp_cp.py``,
+``tests/test_torch_moe.py``, ``tests/test_torch_pipeline.py``):
 
     python tests/fixtures/torch_dist_worker.py <plan.json> <rank>
 
@@ -9,11 +10,15 @@ one group through ``run_builtin`` (``platform: cpu``), with the case's
 directory as ``PLX_ARTIFACTS_PATH``, and writes
 ``<case dir>/rank<r>.json``: the logged losses and grad norms and the
 summary. A case may plant a fault (``fault``), poison one rank's batch
-(``nan``), run in f32 (``f32``) or with a model config's ``seq_parallel``
-(``seq_parallel``); instead of training, it may restore a run's checkpoint
+(``nan``), run in f32 (``f32``), with a model config's ``seq_parallel``
+(``seq_parallel``) or other fields (``model_cfg``); instead of training, it may restore a run's checkpoint
 (its own, or ``artifacts``: another case's) into a sharded state and save
-this rank's shards (``restore_shards``), or run one forward of the given
-params and tokens on this rank's chunk and save its logits (``forward``).
+this rank's shards (``restore_shards``), run one forward of the given
+params and tokens on this rank's chunk and save its logits (``forward``),
+or run one forward and backward of the trunk (``grads``: the hidden
+states, aux and the grads of ``mean(hidden^2) + coef * balance``, reduced
+as the trainer reduces them, with the tensors autograd saved). A training
+case may save each rank's first-step grads (``capture_grads``).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ def _plant(fault: str, rank: int, mp) -> None:
 
         from polyaxon_tpu_torch.models import transformer
 
-        def before(y, w, bias, mesh):
+        def before(y, w, bias, mesh, active=None):
             out = torch.matmul(y, w) + (0 if bias is None else bias)
             return out if mesh is None else mesh.from_model(out)
 
@@ -62,8 +67,28 @@ def _plant(fault: str, rank: int, mp) -> None:
         from polyaxon_tpu_torch.train.trainer import Trainer
 
         whole = Trainer._whole_sums
-        mp.setattr(Trainer, "_whole_sums", lambda self, dims, mdims, sums: whole(
-            self, dims, [0 if d is None else d for d in mdims], sums))
+        mp.setattr(Trainer, "_whole_sums", lambda self, cuts, sums: whole(
+            self, [c if any(a == "model" for a, _ in c) else c + (("model", 0),)
+                   for c in cuts], sums))
+    elif fault == "pp_microbatch_off_by_one":
+        # each tick processes the next microbatch, not its own
+        from polyaxon_tpu_torch.parallel import pipeline
+
+        mp.setattr(pipeline, "_tick_microbatch", lambda t, stage: t - stage + 1)
+    elif fault == "pp_sum_cotangents":
+        # the last stage back-propagates the stages' cotangents summed
+        from polyaxon_tpu_torch.parallel import collectives, pipeline
+
+        mp.setattr(pipeline, "_output_cotangent", lambda g, mesh: collectives.sum_over(
+            g.clone(), mesh.group("stage")))
+    elif fault == "pp_embed_stage0_only":
+        # the trunk input's cotangent stays on stage 0
+        import torch
+
+        from polyaxon_tpu_torch.parallel import pipeline
+
+        mp.setattr(pipeline, "_share_input_cotangent",
+                   lambda dx, like, mesh: dx if dx is not None else torch.zeros_like(like))
     else:
         raise ValueError(f"unknown fault {fault!r}")
 
@@ -142,6 +167,125 @@ def _forward(case: dict, case_dir: str, rank: int) -> dict:
     return {"cols": list(cols)}
 
 
+def _cuts(cfg, params, mesh) -> dict:
+    """Each leaf's (axis, dim) cuts on this mesh, as the trainer cuts them."""
+    from polyaxon_tpu_torch.models import transformer
+    from polyaxon_tpu_torch.parallel import ShardingRules
+    from polyaxon_tpu_torch.parallel.fsdp import leaf_dims
+
+    rules = ShardingRules().override(layers="stage") if mesh.pp > 1 else ShardingRules()
+    specs = transformer.param_specs(cfg, rules)
+    on = {"stage": mesh.pp > 1, "expert": mesh.ep > 1, "model": mesh.tp}
+    out: dict = {}
+    for axis in ("stage", "expert", "model"):
+        if on[axis]:
+            for path, d in transformer.flatten(leaf_dims(specs, params, mesh.sizes[axis],
+                                                         axis)):
+                if d is not None:
+                    out.setdefault(path, []).append((axis, d))
+    return {p: tuple(out.get(p, ())) for p, _ in transformer.flatten(params)}
+
+
+def _grads(case: dict, case_dir: str, rank: int) -> dict:
+    """One forward and backward of ``case["params"]`` on this rank's rows
+    and chunk of ``case["tokens"]`` over the case's mesh, with the model
+    config's ``case["cfg"]`` changes: saves the hidden states, aux, the loss
+    share and the grads of each leaf's block (summed over the token ranks as
+    the trainer sums them), and counts what autograd saved."""
+    import numpy as np
+    import torch
+
+    from polyaxon_tpu_torch.models import REGISTRY, transformer
+    from polyaxon_tpu_torch.parallel import build_mesh
+    from polyaxon_tpu_torch.parallel.fsdp import ShardedTree
+    from polyaxon_tpu_torch.parallel.mesh import BATCH_AXES, TOKEN_AXES, grad_sum_axes
+
+    cfg = replace(REGISTRY[case["spec"]["model"]][1], **case.get("cfg", {}))
+    mesh = build_mesh(case["spec"]["parallelism"])
+    params = torch.load(case["params"], weights_only=True)
+    tokens = torch.from_numpy(np.load(case["tokens"]).astype(np.int64))
+    cuts = _cuts(cfg, params, mesh)
+    paths = [p for p, _ in transformer.flatten(params)]
+    diff = [mesh.shard(t, cuts[p]).requires_grad_() for p, t in transformer.flatten(params)]
+    tree = transformer.unflatten(paths, diff)
+    if mesh.ep > 1 and cfg.moe_dispatch != "a2a":
+        # capacity and dense read every expert: gathered, as the trainer does
+        gathered = [tuple(c for c in cuts[p] if c[0] == "expert") for p in paths]
+        tree = ShardedTree(tree, transformer.unflatten(paths, gathered), mesh.gather)
+    B, S = tokens.shape
+    nb, cp = mesh.axis_size(*BATCH_AXES), mesh.cp
+    b, s = B // nb, S // cp
+    r0, c0 = mesh.index(BATCH_AXES) * b, mesh.seq_index * s
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        hidden, aux = transformer.apply_hidden(tree, tokens[r0:r0 + b, c0:c0 + s], cfg,
+                                               mesh=mesh, return_aux=True)
+        shares = mesh.axis_size(*TOKEN_AXES)
+        loss = (hidden.float() ** 2).sum() / (B * S * cfg.hidden) \
+            + cfg.router_aux_coef * aux[0] / shares
+    grads = torch.autograd.grad(loss, diff, allow_unused=True, materialize_grads=True)
+    out = {}
+    for p, g in zip(paths, grads):
+        g = g.contiguous()
+        mesh.sum_(g, *grad_sum_axes([a for a, _ in cuts[p]]))
+        out["/".join(p)] = g
+    torch.save({"hidden": hidden.detach(), "aux": aux.detach(), "grads": out,
+                "cuts": {"/".join(p): [list(c) for c in cuts[p]] for p in paths}},
+               os.path.join(case_dir, f"rank{rank}.pt"))
+    total = torch.tensor([loss.item()], dtype=torch.float64)
+    mesh.sum_(total, *TOKEN_AXES)
+    return {"rows": [r0, r0 + b], "cols": [c0, c0 + s], "coords": mesh.coords(),
+            "loss": float(total.item()), "saved_count": len(saved),
+            "saved_bytes": int(sum(saved))}
+
+
+class _Capture:
+    """The first step's grads of a training run on this rank: the trainer's
+    optimizer wrapped so its first update records the grads it is given."""
+
+    def __init__(self, mp):
+        from polyaxon_tpu_torch.train import trainer as trainer_mod
+
+        self.trainer, self.grads = None, None
+        make, init = trainer_mod.make_optimizer, trainer_mod.Trainer.__init__
+        capture = self
+
+        class Tx:
+            def __init__(self, inner):
+                self.inner = inner
+
+            def init(self, leaves):
+                return self.inner.init(leaves)
+
+            def update(self, grads, *args, **kwargs):
+                if capture.grads is None:
+                    capture.grads = [g.detach().clone() for g in grads]
+                return self.inner.update(grads, *args, **kwargs)
+
+        def wrapped_init(self, *args, **kwargs):
+            init(self, *args, **kwargs)
+            capture.trainer = self
+
+        mp.setattr(trainer_mod, "make_optimizer", lambda cfg: Tx(make(cfg)))
+        mp.setattr(trainer_mod.Trainer, "__init__", wrapped_init)
+
+    def save(self, path: str) -> None:
+        import torch
+
+        from polyaxon_tpu_torch.models.transformer import flatten
+
+        t = self.trainer
+        paths = ["/".join(p) for p, _ in flatten(t.specs)]
+        torch.save({"grads": dict(zip(paths, self.grads)),
+                    "cuts": {p: [list(c) for c in cuts] for p, cuts in zip(paths, t._cuts)},
+                    "coords": t.mesh.coords()}, path)
+
+
 class _Patches:
     """monkeypatch's setattr/setitem, undone after each case."""
 
@@ -191,17 +335,25 @@ def main() -> None:
                 _configure(case["spec"]["model"], mp, dtype=torch.float32)
             if case.get("seq_parallel"):
                 _configure(case["spec"]["model"], mp, seq_parallel=case["seq_parallel"])
+            if case.get("model_cfg"):
+                _configure(case["spec"]["model"], mp, **case["model_cfg"])
             if case.get("restore_shards"):
                 artifacts = os.path.join(plan["out"], case.get("artifacts", case["name"]))
                 result = _restore_shards(case["spec"], artifacts, case_dir, rank)
             elif case.get("forward"):
                 result = _forward(case, case_dir, rank)
+            elif case.get("grads"):
+                result = _grads(case, case_dir, rank)
             else:
+                capture = _Capture(mp) if case.get("capture_grads") else None
                 logged = []
                 for spec in case["runs"] if "runs" in case else [case["spec"]]:
                     summary = run_builtin(spec, track=lambda i, m: logged.append(
-                        {"step": i, "loss": m["loss"], "grad_norm": m["grad_norm"]}))
+                        {"step": i, "loss": m["loss"], "grad_norm": m["grad_norm"],
+                         **{k: m[k] for k in ("router_aux", "router_drop_frac") if k in m}}))
                 result = {"logged": logged, "summary": summary}
+                if capture is not None:
+                    capture.save(os.path.join(case_dir, f"grads{rank}.pt"))
         finally:
             mp.undo()
         with open(os.path.join(case_dir, f"rank{rank}.json"), "w") as f:

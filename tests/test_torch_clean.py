@@ -53,7 +53,8 @@ def test_the_scan_sees_every_port_module():
                      "tracking/run.py", "tracking/__init__.py", "tracking/resources.py",
                      "obs/history.py", "parallel/__init__.py", "parallel/distributed.py",
                      "parallel/mesh.py", "parallel/collectives.py", "parallel/fsdp.py",
-                     "ops/ring_attention.py", "ops/ulysses.py"):
+                     "ops/ring_attention.py", "ops/ulysses.py", "ops/gating.py",
+                     "parallel/pipeline.py"):
         assert expected in names
 
 
@@ -100,6 +101,8 @@ import json, sys
 from polyaxon_tpu_torch.runtime.builtin import run_builtin
 run_builtin({"model": "llama-tiny", "platform": "cpu", "checkpoint": False, "steps": 2,
              "batch_size": 2, "seq_len": 128, "remat": "attn_qkv", "watchdog": False})
+run_builtin({"model": "llama-moe-tiny", "platform": "cpu", "checkpoint": False, "steps": 2,
+             "batch_size": 2, "seq_len": 32, "moe_cap_block": 4, "watchdog": False})
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "flax", "orbax",
                                     "polyaxon_tpu"))

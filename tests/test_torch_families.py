@@ -387,5 +387,4 @@ def test_configs_and_param_counts_match_jax():
             assert resnet.flops_per_image(cfg, 32) == jresnet.flops_per_image(jcfg, 32)
         else:
             assert cfg.num_params() == jcfg.num_params(), name
-    assert set(REGISTRY) == set(JAX_REGISTRY) - {n for n, (_, c) in JAX_REGISTRY.items()
-                                                 if getattr(c, "num_experts", 0)}
+    assert set(REGISTRY) == set(JAX_REGISTRY)

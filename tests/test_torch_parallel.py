@@ -308,8 +308,11 @@ def test_kv_heads_that_do_not_divide_over_model_raise_as_jax_does():
     ("resnet18-cifar", {"context": 2}, NotImplementedError, r"ROADMAP A8 \(vision\)"),
     # the JAX package's own error: 17 tokens do not cut over 2 context ranks
     ("vit-tiny", {"context": 2}, ValueError, "not evenly divisible"),
-    ("llama-tiny", {"stage": 2}, NotImplementedError, "ROADMAP A9"),
-    ("bert-tiny", {"expert": 2}, NotImplementedError, "ROADMAP A10"),
+    # the JAX package's own errors: a ResNet has no layered trunk to
+    # pipeline (its Trainer), llama-tiny's 2 layers do not cut into 3 stages
+    # (its gpipe_trunk)
+    ("resnet18-cifar", {"stage": 2}, NotImplementedError, "trunk"),
+    ("llama-tiny", {"stage": 3}, ValueError, "2 layers do not divide over 3 stages"),
 ])
 def test_what_a_family_does_not_shard_over_raises(model, axes, error, match):
     with pytest.raises(error, match=match):
@@ -319,7 +322,11 @@ def test_what_a_family_does_not_shard_over_raises(model, axes, error, match):
 @pytest.mark.parametrize("model,axes", [("llama-tiny", {"model": 2, "context": 2}),
                                         ("bert-tiny", {"context": 2}),
                                         ("vit-tiny", {"model": 2}),
-                                        ("resnet18-cifar", {"data": 2, "fsdp": 2})])
+                                        ("resnet18-cifar", {"data": 2, "fsdp": 2}),
+                                        ("llama-tiny", {"stage": 2, "model": 2}),
+                                        ("bert-tiny", {"expert": 2}),
+                                        ("llama-moe-tiny", {"stage": 2, "expert": 2}),
+                                        ("vit-tiny", {"stage": 2})])
 def test_what_a_family_shards_over_is_taken(model, axes):
     refuse_unsupported_axes(REGISTRY[model][1], tpar.normalize_axis_sizes(axes))
 
