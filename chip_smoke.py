@@ -71,6 +71,18 @@ non-zero:
    microbatch (2 x 2048) at full depth, loss and grads with attn_impl flash
    against dense, which must agree; with each of the three planted faults
    in turn they must not.
+7b. lora — train_lora: ``run_builtin`` with the train phase's
+   keys plus examples/llama7b_import_lora.yaml's ``lora: {rank: 16, alpha:
+   32, target: "attn/(wq|wk|wv|wo)$"}`` and its ``partition_rules:
+   [["embed/tokens$", [null, "fsdp"]]]``, 3 steps: the train phase's checks
+   (its flash launches: the base's attention runs as in full training),
+   every base leaf bit-equal to the random init after the steps and every
+   ``b`` moved off zero; step p50, MFU (the full model's FLOPs) and peak
+   memory beside the train phase's. lora_compare: one microbatch (2 x
+   2048) at full depth through ``LoRATask`` on the train phase's base:
+   with b = 0 its loss is ``LMTask``'s bit for bit; with b random, flash
+   against dense within the train phase's limits, and the three planted
+   kernel faults outside them.
 8. families — ``run_builtin`` with the runtime keys of
    examples/bert_tfjob.yaml (bert-base, seq 512, batch 64: 256 over 4
    workers), examples/vit_hyperband.yaml's trial (vit-b16, batch 128) and
@@ -122,8 +134,9 @@ non-zero:
    fresh state, every leaf bit-equal; then one decode step's logits
    through ``build_engine``'s ``checkpoint:`` and, after
    ``export_hf_llama``, its ``import:`` must equal those of an engine on
-   the in-memory params, bit for bit. The files go in a temporary
-   directory that is removed after.
+   the in-memory params, bit for bit; import_lora: one ``run_builtin`` step
+   from that export with ``lora:`` and one without, their step-0 losses
+   bit-equal. The files go in a temporary directory that is removed after.
 12. bridge — the control-plane bridge, reporting to an in-process stdlib
    recorder of the API (``PLX_API_HOST``) with a temporary artifacts
    directory (removed after). bridge_train: the train phase's
@@ -158,7 +171,8 @@ non-zero:
    "1 GPU"}``. tp_cp_multi: with 2+ GPUs, W = min(GPUs, 4) ranks of
    llama-1b ``{model: W}`` and ``{context: W}`` (ring) at
    dist_train_1rank's llama-1b keys, their step-0/1 losses against its
-   1-rank run's, and with 4 GPUs llama2-7b ``{fsdp: 2, model: 2}`` for two
+   1-rank run's, llama-1b LoRA ``{model: W}`` against a one-rank LoRA run
+   at those keys, and with 4 GPUs llama2-7b ``{fsdp: 2, model: 2}`` for two
    steps (the llama7b_tpujob keys at batch 4 in 2 microbatches; its state
    does not fit one card, so its step-0 loss is held within
    LLAMA7B_LOSS0_MARGIN of ln 32000), with peak memory per rank; with one
@@ -178,10 +192,12 @@ non-zero:
    later kernel launch in the process pays CUPTI's overhead, which would
    inflate the host-clock readings of the phases above. train_moe_profile
    splits a llama-moe-1b microbatch and its AdamW tail the same way (with
-   the index and sort/scan kernels' shares). Last, one step of each new
+   the index and sort/scan kernels' shares); lora_profile sets a LoRA
+   microbatch's device time, wall time and kernel launches beside a plain
+   one's. Last, one step of each new
    family's trainer (BERT, ViT, ResNet) by kernel.
 15. the ``{"kernels": [...]}`` line (each flash kernel's launches are the
-   llama-1b train phase's; ``launches_by_path`` adds train_bert's,
+   llama-1b train phase's; ``launches_by_path`` adds train_lora's, train_bert's,
    train_vit's, the 1-rank group runs' of dist_train_1rank, each
    ring_kernels case's, train_moe's and moe_compare's), then the last line
    ``{"ok": true, "device": {...}}``.
@@ -339,6 +355,18 @@ FLASH_FAULTS = {
     "dq_skips_diagonal_tile": "flash_bwd_dq_cuda",
     "dkv_starts_one_q_tile_late": "flash_bwd_dkv_cuda",
 }
+# -- LoRA: the train phase's recipe with
+# examples/llama7b_import_lora.yaml's lora block and partition rule; the
+# base is the train phase's random init (seed 0), frozen
+LORA_KEYS = {"rank": 16, "alpha": 32, "target": "attn/(wq|wk|wv|wo)$"}
+LORA_SPEC = {**TRAIN_SPEC, "lora": LORA_KEYS,
+             "partition_rules": [["embed/tokens$", [None, "fsdp"]]]}
+# lora_compare's random b: N(0, 1) x 0.02, so that scaling x a @ b (a at
+# 0.02, rank 16) moves each merged weight by ~15% of its own scale
+LORA_B_STD = 0.02
+# import_lora: one step of the import with and without lora, at
+# dist_train_1rank's llama-1b batch (16 in 4 microbatches)
+IMPORT_LORA_KEYS = {"steps": 1, "log_interval": 1, "batch_size": 16, "microbatches": 4}
 
 # -- the other training families (examples/bert_tfjob.yaml, vit_hyperband.yaml,
 # resnet50_ddp.yaml) on one process: each recipe's runtime keys at its
@@ -936,6 +964,7 @@ def profile_steps(torch, fn, steps: int = 3,
         out[f"{cat}_ms_per_step"] = t / steps / 1e3
     out["top_kernels"] = [{"name": k[:80], "ms_per_step": t / steps / 1e3,
                            "calls_per_step": c / steps} for k, t, c in rows[:8]]
+    out["kernel_launches_per_step"] = sum(r[2] for r in rows) / steps
     return out
 
 
@@ -1465,6 +1494,88 @@ def train_compare_setup(torch, spec: dict):
     return cfg, micro, batch, paths, [t.to(torch.bfloat16) for t in leaves]
 
 
+def train_lora_phase(torch, fa, trained: dict) -> dict:
+    """llama-1b LoRA through ``run_builtin`` (LORA_SPEC): train_phase's
+    checks (finite losses, no anomaly, the flash launches of full
+    training), then every base leaf bit-equal to the random init it
+    started from and every ``b`` moved off zero; step p50, MFU and peak
+    memory beside the train phase's (``trained``)."""
+    from polyaxon_tpu_torch.models import REGISTRY, transformer
+    from polyaxon_tpu_torch.partition.rules import tree_paths
+    from polyaxon_tpu_torch.train.trainer import Trainer
+
+    kept = {}
+    fit = Trainer.fit
+
+    def keep(self, *args, **kwargs):
+        state, final = fit(self, *args, **kwargs)
+        kept["params"] = state.params
+        return state, final
+
+    Trainer.fit = keep
+    try:
+        run = train_phase(torch, fa, LORA_SPEC)
+    finally:
+        Trainer.fit = fit
+    params = kept.pop("params")
+    start = tree_paths(transformer.init(REGISTRY[LORA_SPEC["model"]][1], seed=0,
+                                        device="cuda"))
+    base = dict(tree_paths(params["base"]))
+    moved = [p for p, t in start if not torch.equal(base[p], t)]
+    bs = [t for p, t in tree_paths(params["lora"]) if p.endswith("/b")]
+    still = sum(t.abs().max().item() == 0 for t in bs)
+    run.update(base_leaves=len(start), base_leaves_moved=moved, b_leaves=len(bs),
+               b_still_zero=still, train_step_p50_ms=trained["step_time_p50_ms"],
+               train_peak_mem_gib=trained["peak_mem_gib"], train_mfu=trained["mfu"],
+               step_vs_train=run["step_time_p50_ms"] / trained["step_time_p50_ms"])
+    del params, start, base, bs
+    if moved:
+        raise AssertionError(f"LoRA moved base leaves {moved}")
+    if still or not run["b_leaves"]:
+        raise AssertionError(f"{still} of {run['b_leaves']} adapter b leaves never moved")
+    return run
+
+
+def lora_compare_phase(torch, fa) -> dict:
+    """One microbatch (2 x 2048) at full depth on the train phase's random
+    base (bf16): through LoRATask with b = 0 the loss is LMTask's bit for
+    bit; with b random, flash against dense within the train phase's
+    limits, and each planted kernel fault (walk_cut=1) outside them."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models.transformer import flatten, unflatten
+    from polyaxon_tpu_torch.partition.lora import LoRAConfig, LoRATask, init_lora
+    from polyaxon_tpu_torch.train.tasks import LMTask
+
+    cfg, micro, batch, paths, leaves = train_compare_setup(torch, TRAIN_SPEC)
+    lcfg = LoRAConfig.from_spec(LORA_KEYS)
+    base = unflatten(paths, leaves)
+    adapters = {p: t.to(torch.bfloat16)
+                for p, t in flatten(init_lora(base, lcfg, seed=1))}
+    with torch.no_grad():
+        plain = LMTask(cfg).loss(base, None, batch)[0]
+        merged = LoRATask(LMTask(cfg), lcfg).loss(
+            {"base": base, "lora": unflatten(list(adapters), list(adapters.values()))},
+            None, batch)[0]
+    identity = {"loss_lm": plain.item(), "loss_lora_b0": merged.item(),
+                "bit_equal": bool(torch.equal(plain, merged))}
+    if not identity["bit_equal"]:
+        raise AssertionError(f"LoRATask with b = 0: loss {merged.item()} != LMTask's "
+                             f"{plain.item()}")
+    gen = torch.Generator(device=leaves[0].device).manual_seed(2)
+    for p, t in adapters.items():
+        if p[-1] == "b":
+            t.copy_(torch.randn(t.shape, generator=gen, device=t.device) * LORA_B_STD)
+    lpaths = [("base",) + p for p in paths] + [("lora",) + p for p in adapters]
+    lleaves = list(leaves) + list(adapters.values())
+    out = flash_dense_compare(
+        torch, fa, "lora_compare",
+        lambda impl: LoRATask(LMTask(replace(cfg, attn_impl=impl)), lcfg),
+        batch, lpaths, lleaves, TRAIN_LOSS_TOL, TRAIN_GRAD_REL_TOL,
+        tokens=micro * TRAIN_SPEC["seq_len"], b_zero=identity)
+    return out
+
+
 def train_profile_phase(torch, spec: dict) -> dict:
     """Where a step's time goes: the profiler's split of the trainer's
     per-microbatch work (loss, grads, the add into the bf16 accumulator),
@@ -1512,6 +1623,46 @@ def train_profile_phase(torch, spec: dict) -> dict:
              "step_device_ms": k * profile["device_ms_per_step"]
              + tail["device_ms_per_step"]}
     return {"microbatch_profile": profile, "step_split": split}
+
+
+def lora_profile_phase(torch) -> dict:
+    """What LoRA adds to a microbatch: the profiler's device time, wall
+    time, idle share and kernel launches of one flash microbatch (2 x 2048)
+    of ``LMTask`` and of ``LoRATask`` (LORA_KEYS, b random) on the
+    train-compare phase's base, each after a warm-up, in one process."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models.transformer import flatten, unflatten
+    from polyaxon_tpu_torch.partition.lora import LoRAConfig, LoRATask, init_lora
+    from polyaxon_tpu_torch.train.tasks import LMTask
+
+    cfg, _, batch, paths, leaves = train_compare_setup(torch, TRAIN_SPEC)
+    cfg = replace(cfg, attn_impl="flash")
+    lcfg = LoRAConfig.from_spec(LORA_KEYS)
+    adapters = [(("lora",) + p, t.to(torch.bfloat16)) for p, t in
+                flatten(init_lora(unflatten(paths, leaves), lcfg, seed=1))]
+    for p, t in adapters:
+        if p[-1] == "b":
+            t.normal_(std=LORA_B_STD)
+    runs = {"lm": (LMTask(cfg), list(paths), list(leaves)),
+            "lora": (LoRATask(LMTask(cfg), lcfg), [("base",) + p for p in paths]
+                     + [p for p, _ in adapters], list(leaves) + [t for _, t in adapters])}
+    out = {}
+    for name, (task, tpaths, tleaves) in runs.items():
+        def microbatch():
+            diff = [t.detach().requires_grad_() for t in tleaves]
+            loss, _, _ = task.loss(unflatten(tpaths, diff), None, batch)
+            torch.autograd.grad(loss, diff)
+
+        microbatch()  # warm-up
+        prof = profile_steps(torch, microbatch, steps=1, kernels=("flash_fwd",))
+        out[name] = {k: prof[k] for k in ("device_ms_per_step", "wall_ms_per_step",
+                                          "device_idle_share", "kernel_launches_per_step",
+                                          "gemm_ms_per_step")}
+    for key in ("wall", "device"):
+        ms = f"{key}_ms_per_step"
+        out[f"{key}_ratio"] = out["lora"][ms] / out["lm"][ms] if out["lm"][ms] else None
+    return out
 
 
 # -- BERT-base MLM, ViT-B/16 and ResNet-50 training ----------------------------------
@@ -2391,9 +2542,32 @@ def restore_phase(torch, fa, train_spec: dict, serve_spec: dict) -> dict:
             raise AssertionError(f"import-served logits differ by "
                                  f"{(got - ref).abs().max().item()}")
         out["logits_bit_equal"] = ["checkpoint", "import"]
+        out["import_lora"] = import_lora_check(torch, train_spec, os.path.join(tmp, "hf"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def import_lora_check(torch, train_spec: dict, hf_dir: str) -> dict:
+    """One step of ``run_builtin`` with ``import:`` (the HF export) and
+    ``lora:``, and one with the import alone: the step-0 losses are equal
+    bit for bit (b = 0, so the merged base is the imported base)."""
+    from polyaxon_tpu_torch.runtime.builtin import run_builtin
+
+    spec = {**train_spec, **IMPORT_LORA_KEYS,
+            "import": {"path": hf_dir, "layout": "hf-llama"}}
+    losses = {}
+    for name, run_spec in (("import", spec), ("import_lora", {**spec, "lora": LORA_KEYS})):
+        logged = []
+        t0 = time.monotonic()
+        run_builtin(run_spec, track=lambda step, m: logged.append(m["loss"]))
+        losses[name] = {"loss0": logged[0], "wall_s": time.monotonic() - t0}
+        gc.collect()
+        torch.cuda.empty_cache()
+    if losses["import_lora"]["loss0"] != losses["import"]["loss0"]:
+        raise AssertionError(f"import + lora step-0 loss {losses['import_lora']['loss0']} != "
+                             f"the plain import's {losses['import']['loss0']}")
+    return {**losses, "bit_equal": True}
 
 
 # -- the control-plane bridge ----------------------------------------------------
@@ -2703,6 +2877,9 @@ DIST_RESULT = "dist_result"
 # state (75.3 GiB on one card) over {fsdp: 2, model: 2}, the llama7b_tpujob
 # keys at batch 4 in 2 microbatches, 2 steps
 TP_CP_AXES = ("model", "context")
+# LoRA at dist_train_1rank's llama-1b keys: one rank in this process, then
+# {model: W} (each model rank merging its block's delta)
+LORA_DIST_SPEC = {**DIST_SPECS["llama-1b"], "lora": LORA_KEYS}
 LLAMA7B_TP_SPEC = {
     "model": "llama2-7b", "steps": 2, "batch_size": 4, "seq_len": 2048,
     "learning_rate": 3.0e-4, "warmup_steps": 1, "remat": "attn_qkv",
@@ -2796,6 +2973,7 @@ def dist_child(plan: dict) -> int:
             specs = {f"llama-1b/{axis}": {**DIST_SPECS["llama-1b"],
                                           "parallelism": {axis: world}}
                      for axis in TP_CP_AXES}
+            specs["llama-1b-lora/model"] = {**LORA_DIST_SPEC, "parallelism": {"model": world}}
             if world == 4:
                 specs["llama2-7b/fsdp2-model2"] = LLAMA7B_TP_SPEC
         elif plan["mode"] == "pp_ep":
@@ -2906,26 +3084,31 @@ def dist_train_multi_phase(torch, single: dict) -> dict:
     return out
 
 
-def tp_cp_multi_phase(torch, single: dict) -> dict:
+def tp_cp_multi_phase(torch, fa, single: dict) -> dict:
     """min(GPUs, 4) ranks of llama-1b {model: W} and {context: W} at the
-    1-rank run's global batch, their step-0/1 losses against its; with 4
-    GPUs llama2-7b {fsdp: 2, model: 2}, its step-0 loss near ln 32000 and
-    its peak memory per rank. A statement, not a failure, on one GPU."""
+    1-rank run's global batch, their step-0/1 losses against its, and of
+    llama-1b LoRA {model: W} against its one-rank LoRA run in this
+    process; with 4 GPUs llama2-7b {fsdp: 2, model: 2}, its step-0 loss
+    near ln 32000 and its peak memory per rank. A statement, not a
+    failure, on one GPU."""
     count = torch.cuda.device_count()
     if count < 2:
         return {"skipped": f"{count} GPU"}
     world = min(count, 4)
+    one_lora = train_phase(torch, fa, {**LORA_DIST_SPEC, "parallelism": None})["losses"]
+    gc.collect()
+    torch.cuda.empty_cache()
     port = free_port()
     envs = [{"PLX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "PLX_NUM_PROCESSES": str(world),
              "PLX_PROCESS_ID": str(r), "LOCAL_RANK": str(r)} for r in range(world)]
     t0 = time.monotonic()
     res = run_children(envs, {"mode": "tp_cp"}, timeout=900)
     out = {"world": world, "seconds": time.monotonic() - t0}
-    one = single["llama-1b"]["losses_group"]
     for name, r in res.items():
         out[name] = {"losses": r["losses"], "step_p50_ms": r["step_time_p50_ms"],
                      "peak_gib_rank0": r["peak_mem_gib"], "launches": r["launches"]}
-        if name.startswith("llama-1b/"):
+        if name.startswith("llama-1b"):
+            one = one_lora if "lora" in name else single["llama-1b"]["losses_group"]
             rel = [abs(x / y - 1) for x, y in zip(r["losses"][:2], one[:2])]
             out[name].update(losses_1rank=one, rel=rel)
             if any(x > tol for x, tol in zip(rel, DIST_MULTI_RTOL)):
@@ -3032,6 +3215,13 @@ def main() -> int:
     train_compare_phase(torch, fa, TRAIN_SPEC)
     gc.collect()
     torch.cuda.empty_cache()
+    lora_run = train_lora_phase(torch, fa, trained)
+    log("train_lora", **lora_run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lora_compare_phase(torch, fa)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     families = {}
     for phase, spec in (("train_bert", BERT_SPEC), ("train_vit", VIT_SPEC),
@@ -3118,7 +3308,7 @@ def main() -> int:
     dist_1rank = dist_train_1rank_phase()
     log("dist_train_1rank", **dist_1rank)
     log("dist_train_multi", **dist_train_multi_phase(torch, dist_1rank))
-    log("tp_cp_multi", **tp_cp_multi_phase(torch, dist_1rank))
+    log("tp_cp_multi", **tp_cp_multi_phase(torch, fa, dist_1rank))
     log("pp_ep_multi", **pp_ep_multi_phase(torch, dist_1rank))
 
     # the profiler last: once torch.profiler has run, every later kernel
@@ -3133,6 +3323,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log("train_moe_profile", **train_profile_phase(torch, MOE_SPEC))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("lora_profile", **lora_profile_phase(torch))
     gc.collect()
     torch.cuda.empty_cache()
     log("spec_profile", **spec_profile_phase(torch, SPEC_SPEC, make_prompts(vocab)))
@@ -3169,6 +3362,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "launches_by_path": {"train": trained["launches"][name],
+                                 "train_lora": lora_run["launches"][name],
                                  **{phase: run["launches"][name]
                                     for phase, run in families.items()
                                     if run["expected_launches"][name]},

@@ -28,6 +28,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from .transformer import generator
+
 
 @dataclass(frozen=True)
 class ResNetConfig:
@@ -56,8 +58,7 @@ def init(cfg: ResNetConfig, *, seed: int = 0, device: Any) -> tuple[dict, dict]:
     bias 0, running mean 0 and variance 1, the head normal at 0.01 — the JAX
     package's law, drawn from a ``torch.Generator`` seeded with ``seed``."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    gen = generator(device, seed)
     params: dict = {}
     stats: dict = {}
 

@@ -232,7 +232,19 @@ def param_specs(cfg: TransformerConfig, rules: Optional[ShardingRules] = None) -
     return build(abstract_params(cfg))
 
 
-def _trunc_normal(shape, generator: torch.Generator, device) -> torch.Tensor:
+def generator(device, seed: int) -> Optional[torch.Generator]:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on the
+    ``meta`` device, whose draws have a shape and no values (an abstract
+    tree allocates nothing)."""
+    device = torch.device(device)
+    if device.type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def _trunc_normal(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], by the inverse CDF of a
     uniform draw between the two bounds' CDF values."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
@@ -250,8 +262,7 @@ def init(cfg: TransformerConfig, *, seed: int = 0, device: Any) -> dict:
     with ``seed`` on ``device``, so the values differ from JAX's; tests
     carry JAX weights across with :func:`polyaxon_tpu_torch.convert.params_from_jax`."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    gen = generator(device, seed)
 
     def build(tree, name=None):
         if isinstance(tree, dict):

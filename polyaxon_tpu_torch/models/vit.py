@@ -75,8 +75,7 @@ def init(cfg: ViTConfig, *, seed: int = 0, device: Any) -> dict:
     ``(num_patches + 1, hidden)``."""
     device = torch.device(device)
     enc = transformer.init(cfg.encoder, seed=seed, device=device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) + 1)
+    gen = transformer.generator(device, int(seed) + 1)
     h = cfg.encoder.hidden
     del enc["embed"]["tokens"]
     enc["embed"]["pos"] = _trunc_normal((cfg.num_patches + 1, h), gen, device) * 0.02

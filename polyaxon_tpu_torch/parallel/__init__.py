@@ -24,6 +24,7 @@ from .mesh import (
     PartitionSpec,
     ShardingRules,
     build_mesh,
+    device_slice_ids,
     mesh_axis_size,
     normalize_axis_sizes,
 )
@@ -35,6 +36,7 @@ __all__ = [
     "PartitionSpec",
     "ShardingRules",
     "build_mesh",
+    "device_slice_ids",
     "mesh_axis_size",
     "normalize_axis_sizes",
     "ENV_COORDINATOR",

@@ -11,6 +11,12 @@ for one view per layer, whose leaves gather when that layer runs, and a
 remat policy rereads a :meth:`fresh` view in its recompute, so the
 backward gathers the layer again instead of keeping it. Each gather's
 backward reduce-scatters the grad to the shard.
+
+A view may also merge low-rank adapters into the leaves it reads
+(``merge``: a tree of :class:`~..partition.lora.Adapter` at the targeted
+leaves): the leaf is gathered first, then its adapter adds the delta of
+the block the rank holds. A LoRA task's base reads through such a view, so
+each layer gathers once and then adds its delta.
 """
 
 from __future__ import annotations
@@ -38,20 +44,24 @@ class ShardedTree:
     with no cut reads as it is)."""
 
     def __init__(self, tree: dict, dims: dict,
-                 gather: Callable[[torch.Tensor, int], torch.Tensor]):
+                 gather: Optional[Callable[[torch.Tensor, int], torch.Tensor]],
+                 merge: Optional[dict] = None):
         self._tree, self._dims, self._gather = tree, dims, gather
+        self._merge = merge or {}
         self._read: dict = {}
 
     def __getitem__(self, key: str) -> Any:
         if key in self._read:
             return self._read[key]
-        value, cuts = self._tree[key], self._dims[key]
+        value, cuts, merge = self._tree[key], self._dims[key], self._merge.get(key)
         if isinstance(value, dict):
-            out = ShardedTree(value, cuts, self._gather)
+            out = ShardedTree(value, cuts, self._gather, merge)
         else:
             out = value
             for axis, dim in cuts:
                 out = self._gather(out, dim, axis)
+            if merge is not None:
+                out = merge.apply(out)
         self._read[key] = out
         return out
 
@@ -61,9 +71,13 @@ class ShardedTree:
     def __contains__(self, key: object) -> bool:
         return key in self._tree
 
+    def with_merge(self, merge: dict) -> "ShardedTree":
+        """A view of the same shards that merges ``merge``'s adapters."""
+        return ShardedTree(self._tree, self._dims, self._gather, merge)
+
     def fresh(self) -> "ShardedTree":
         """A new view of the same shards: its reads gather again."""
-        return ShardedTree(self._tree, self._dims, self._gather)
+        return ShardedTree(self._tree, self._dims, self._gather, self._merge)
 
     def unstack(self, n: int) -> list:
         """Views of the ``n`` layers of a stacked ``[L, ...]`` tree: one
@@ -77,7 +91,15 @@ class ShardedTree:
             cuts = tuple((axis, d - 1) for axis, d in dims)
             return [(t, cuts) for t in torch.unbind(tree, 0)]
 
-        return [ShardedTree(t, d, self._gather) for t, d in split(self._tree, self._dims)]
+        def split_merge(merge):
+            if isinstance(merge, dict):
+                parts = {k: split_merge(v) for k, v in merge.items()}
+                return [{k: parts[k][i] for k in merge} for i in range(n)]
+            return merge.unstack(n)
+
+        merges = split_merge(self._merge) if self._merge else [None] * n
+        return [ShardedTree(t, d, self._gather, m)
+                for (t, d), m in zip(split(self._tree, self._dims), merges)]
 
     def leaves(self) -> list:
         """The shards, in sorted-key order."""
@@ -99,7 +121,7 @@ class ShardedTree:
                 return {k: build(tree[k]) for k in sorted(tree)}
             return next(it)
 
-        return ShardedTree(build(self._tree), self._dims, self._gather)
+        return ShardedTree(build(self._tree), self._dims, self._gather, self._merge)
 
 
 def fresh(params: Any) -> Any:

@@ -28,6 +28,13 @@ embed dim; ``model``: heads, mlp columns, vocab rows): its *cuts* are
 ``(axis, dim)`` pairs, and :meth:`Mesh.shard` / :meth:`Mesh.gather_full`
 take this rank's block of a full leaf and join the blocks back.
 
+With ``num_slices`` N > 1 the job spans N slices (hosts joined by the
+slower network): rank r sits in slice ``r // (W / N)``, the JAX package's
+contiguous virtual slices, and since ``data · fsdp`` must divide by N the
+row-major rank order puts every ``stage``/``expert``/``context``/``model``
+group inside one slice — only data and fsdp coordinates cross slices, as
+on the JAX mesh's slice-major device array.
+
 The logical rules are the JAX package's, over a tuple ``PartitionSpec`` of
 the same entries.
 """
@@ -319,14 +326,41 @@ class Mesh:
             torch.distributed.barrier()
 
 
+def device_slice_ids(world_size: int, num_slices: int) -> list[int]:
+    """Slice id per rank: contiguous equal groups in rank order (the JAX
+    package's virtual slices)."""
+    if world_size % num_slices:
+        raise ValueError(
+            f"{world_size} devices cannot split into {num_slices} equal virtual "
+            f"slices")
+    per = world_size // num_slices
+    return [r // per for r in range(world_size)]
+
+
+def check_multislice(sizes: Mapping[str, int], world_size: int, num_slices: int) -> None:
+    """Raise, with the JAX package's errors, unless the slice dimension can
+    live on the data/fsdp axes (so no other axis crosses a slice)."""
+    if world_size % num_slices:
+        raise ValueError(
+            f"{world_size} devices not divisible by num_slices={num_slices}")
+    dcn = sizes["data"] * sizes["fsdp"]
+    if dcn % num_slices:
+        raise ValueError(
+            f"multislice mesh: data*fsdp = {sizes['data']}*{sizes['fsdp']} "
+            f"= {dcn} must be divisible by num_slices={num_slices} — the "
+            f"slice dimension has to live on the DCN-capable data/fsdp "
+            f"axes; model/context/stage/expert collectives must stay on "
+            f"intra-slice ICI")
+
+
 def build_mesh(parallelism: Union[Mapping[str, int], Any, None] = None,
                world_size: Optional[int] = None, *, rank: Optional[int] = None,
                num_slices: int = 1) -> Mesh:
     """The job's mesh over its processes (the process group's, else one).
-    Makes the group's per-axis subgroups, so every rank calls it alike."""
-    if int(num_slices or 1) > 1:
-        raise NotImplementedError(
-            "num_slices > 1 (multislice rank order) is not ported (ROADMAP A14)")
+    Makes the group's per-axis subgroups, so every rank calls it alike.
+    ``num_slices`` > 1 checks that the slices split the world and the
+    data x fsdp product; the rank order is the same at any slice count."""
+    num_slices = int(num_slices or 1)
     dist = torch.distributed
     distributed = dist.is_available() and dist.is_initialized()
     if world_size is None:
@@ -334,6 +368,8 @@ def build_mesh(parallelism: Union[Mapping[str, int], Any, None] = None,
     if rank is None:
         rank = dist.get_rank() if distributed else 0
     sizes = mesh_sizes(parallelism, int(world_size))
+    if num_slices > 1:
+        check_multislice(sizes, int(world_size), num_slices)
     declared = frozenset() if parallelism is None else frozenset(
         parallelism.axis_sizes() if hasattr(parallelism, "axis_sizes") else parallelism)
     mesh = Mesh(sizes=sizes, rank=int(rank), distributed=distributed, declared=declared)

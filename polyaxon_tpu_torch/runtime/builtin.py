@@ -28,7 +28,9 @@ Spec keys (the JAX runtime's, as far as the port goes):
     families, context for the language models, ring or Ulysses as the
     model config's ``seq_parallel`` says, expert a batch axis that also
     cuts an MoE model's experts; the vision families' axes the port does
-    not shard yet raise naming their ROADMAP item), num_slices (1).
+    not shard yet raise naming their ROADMAP item), num_slices (else
+    ``$MEGASCALE_NUM_SLICES``, else 1: the slices split the ranks in order
+    and must divide data x fsdp).
     Language models (lm, mlm) also take seq_len, remat, attn_block_q /
     attn_block_k / attn_block_q_bwd / attn_block_k_bwd,
     loss_chunk_tokens, the pipeline's pp_microbatches (0: 2 x stages),
@@ -43,7 +45,16 @@ Spec keys (the JAX runtime's, as far as the port goes):
     import: {path, layout (flat | hf-llama | auto), dtype, key_map,
         transpose} — start from a foreign checkpoint (language models
         only); a complete checkpoint of the run itself wins (resume beats
-        re-import).
+        re-import). With ``lora:`` the imported tree is the frozen base,
+        beside fresh adapters drawn from ``seed`` (0).
+    lora: {rank, alpha, target, init_scale} or true — train low-rank
+        adapters over a frozen base (language models only): the params are
+        ``{base, lora}``, the optimizer keeps moments for the adapters
+        alone and clips them by their own norm; ``grad_norm`` covers both.
+    partition_rules: [[regex, spec], ...] laid over the model's built-in
+        specs (``polyaxon_tpu_torch.partition``). A rule may move or drop a
+        cut on fsdp (storage: the leaf is gathered before use); one that
+        moves a cut on model, expert or stage raises (ROADMAP A16).
     fork_from: {path, step?} — start from another run's checkpoint,
         restored read-only (a torn pinned step falls back to the parent's
         newest complete one); resume beats re-fork too.
@@ -61,8 +72,9 @@ Spec keys (the JAX runtime's, as far as the port goes):
         profiler: once it has run, every launch in the process costs more
         host time.
 
-Every other key raises, naming the ROADMAP item that ports it: a key is
-never ignored.
+The ``lora:``, ``import:`` and ``partition_rules:`` blocks are validated
+(``partition.validate_builtin_spec``, the JAX compiler's check) before any
+device work. Every other key raises: a key is never ignored.
 
 Tracking. When the control plane launched the process (``PLX_RUN_UUID``,
 ``PLX_ARTIFACTS_PATH`` or ``PLX_API_HOST`` is set), the primary process
@@ -70,7 +82,9 @@ owns a tracked run (``polyaxon_tpu_torch.tracking``), as the JAX runtime
 does: the logged steps' metrics go to its events and the meter keys to its
 outputs, spans mark the first step, the train window, saves, rollbacks and
 a stall, progress heartbeats carry the step, and the end sends the summary
-as outputs with the ``checkpoints`` artifact. The run also reports its own
+as outputs with the ``checkpoints`` artifact. Before the first step the
+run's outputs get ``partition_plan``: the param count, bytes, bytes per
+device and axes used of the trainer's resolved specs, with ``num_slices``. The run also reports its own
 ``running`` and ``succeeded`` statuses (the JAX runtime leaves both to the
 agent; under an agent they are no-change edges). Each logged step also prints
 a ``{"step": ...}`` line, and the summary prints as ``{"final": {...}}``
@@ -94,11 +108,6 @@ from ..parallel.mesh import build_mesh, normalize_axis_sizes
 from ..train.checkpoint import CheckpointConfig
 from ..train.optimizers import OPTIMIZERS
 
-#: keys of the JAX runtime the port does not take yet -> ROADMAP item
-_NOT_PORTED = {
-    "lora": "A12 (LoRA)",
-    "partition_rules": "A14 (user partition rules)",
-}
 #: the values the JAX package's model code takes (it raises on others)
 _MOE_DISPATCHES = ("capacity", "a2a", "dense")
 _PP_GATES = ("auto", "full", "inner", "none")
@@ -117,6 +126,7 @@ _KNOWN = {
     "num_slices", "checkpoint", "import", "fork_from", "platform",
     "progress_interval", "chaos", "resources", "profile", "image_size",
     "pp_microbatches", "pp_remat_ticks", "pp_gate", "moe_dispatch", "moe_cap_block",
+    "lora", "partition_rules", "seed",
 }
 #: keys only a language model (family lm or mlm) reads
 _LM_KEYS = {"seq_len", "remat", "attn_block_q", "attn_block_k", "attn_block_q_bwd",
@@ -140,13 +150,6 @@ def _refuse_unsupported(spec: dict) -> None:
     for key, value in spec.items():
         if key == "num_cpu_devices":
             raise SystemExit(NUM_CPU_DEVICES_REFUSAL)
-        if key in _NOT_PORTED:
-            # an empty rule list is the default the compiler
-            # may pass on from the run
-            if key == "partition_rules" and not value:
-                continue
-            raise SystemExit(f"{key}: not ported to polyaxon_tpu_torch yet "
-                             f"(ROADMAP {_NOT_PORTED[key]})")
         if key not in _KNOWN:
             raise SystemExit(f"unknown spec key {key!r} for the port's builtin runtime")
     for key, allowed in (("checkpoint", _CHECKPOINT_KEYS), ("import", _IMPORT_KEYS),
@@ -177,16 +180,28 @@ def _refuse_unsupported(spec: dict) -> None:
     from ..models import REGISTRY
     from ..train.tasks import refuse_unsupported_axes
 
-    model = REGISTRY.get(spec.get("model", "llama-tiny"), (None, None))[1]
+    family, model = REGISTRY.get(spec.get("model", "llama-tiny"), (None, None))
+    if family not in (None, "lm", "mlm"):
+        # the JAX runtime's words, before the validation's
+        if spec.get("lora"):
+            raise SystemExit(f"lora: is only supported for LM/MLM models (got {family})")
+        if spec.get("import") is not None:
+            raise SystemExit(f"import: is only supported for LM/MLM models "
+                             f"(got {spec.get('model')!r})")
     if spec.get("moe_dispatch") and getattr(model, "num_experts", 0):
         model = replace(model, moe_dispatch=spec["moe_dispatch"])
     try:
         refuse_unsupported_axes(model, normalize_axis_sizes(spec.get("parallelism")))
     except (ValueError, NotImplementedError) as e:
         raise SystemExit(f"parallelism {spec.get('parallelism')}: {e}") from e
-    if int(spec.get("num_slices", 1)) != 1:
-        raise SystemExit("num_slices > 1: multislice rank order is not ported "
-                         "(ROADMAP A14)")
+    if family is not None:
+        from ..partition import needs_validation, validate_builtin_spec
+
+        if needs_validation(spec):
+            try:
+                validate_builtin_spec(spec)
+            except ValueError as e:  # RuleSyntaxError, LoRATargetError
+                raise SystemExit(f"{type(e).__name__}: {e}") from e
     data = dict(spec.get("data") or {})
     unknown = set(data) - _DATA_KEYS
     if unknown:
@@ -319,6 +334,7 @@ def build_trainer(spec: dict[str, Any],
         batch_size=batch_size,
         seq_len=seq_len,
         parallelism=spec.get("parallelism"),
+        num_slices=num_slices(spec),
         checkpoint=ckpt,
         log_interval=int(spec.get("log_interval", 10)),
         accelerator=_accelerator(device),
@@ -349,13 +365,25 @@ def build_trainer(spec: dict[str, Any],
         on_span=bridge.on_span, on_progress=bridge.on_progress,
         on_stalled=bridge.on_stalled, log_line=bridge.log_line)
     try:
-        mesh = build_mesh(tcfg.parallelism)
+        mesh = build_mesh(tcfg.parallelism, num_slices=tcfg.num_slices)
     except ValueError as e:  # a mesh larger than the process group
         raise SystemExit(f"parallelism {tcfg.parallelism}: {e}") from e
-    trainer = Trainer(tcfg, device=device, mesh=mesh, task=task, track=_track,
-                      chaos=TrainerChaos.from_spec(spec.get("chaos"),
-                                                   state_dir=artifacts_dir),
-                      **hooks)
+    tx = None
+    if spec.get("lora"):
+        # a frozen base and trainable adapters; the optimizer sees the
+        # adapters alone (their moments, their norm for the clip)
+        from ..partition.lora import FrozenBaseOptimizer, LoRAConfig, LoRATask
+        from ..train.optimizers import make_optimizer
+
+        task = LoRATask(task, LoRAConfig.from_spec(spec["lora"]))
+        tx = FrozenBaseOptimizer(make_optimizer(tcfg.optimizer))
+    try:
+        trainer = Trainer(tcfg, device=device, mesh=mesh, task=task, track=_track,
+                          chaos=TrainerChaos.from_spec(spec.get("chaos"),
+                                                       state_dir=artifacts_dir),
+                          partition_rules=spec.get("partition_rules"), tx=tx, **hooks)
+    except NotImplementedError as e:  # a user rule on a compute axis
+        raise SystemExit(str(e)) from e
     data_spec = dict(spec.get("data") or {})
     rows = cols = None
     if trainer.mesh.distributed:
@@ -371,6 +399,23 @@ def build_trainer(spec: dict[str, Any],
         seq_len=seq_len, path=data_spec.get("path"), seed=int(data_spec.get("seed", 0)),
         rows=rows, cols=cols, **data_kwargs))
     return trainer, batches
+
+
+def num_slices(spec: dict) -> int:
+    """The spec's ``num_slices``, else ``$MEGASCALE_NUM_SLICES`` (set for
+    every pod of a multislice job), else 1."""
+    return int(spec.get("num_slices", os.environ.get("MEGASCALE_NUM_SLICES", 1)))
+
+
+def partition_plan(trainer) -> dict:
+    """The run output ``partition_plan``: the summary of the trainer's
+    resolved specs over its mesh, with the slice count."""
+    from ..partition import plan_summary_from_shardings
+
+    summary = plan_summary_from_shardings(trainer.task.abstract_params(), trainer.specs,
+                                          trainer.mesh)
+    summary["num_slices"] = trainer.cfg.num_slices
+    return summary
 
 
 def _timed(method):
@@ -495,6 +540,7 @@ def _run_builtin(spec: dict, track, run) -> dict[str, Any]:
         # no-change edges the control plane answers 200 to
         run.log_status("running", reason="Training",
                        message=f"{spec.get('model', 'llama-tiny')} on {trainer.device}")
+        run.log_outputs(partition_plan=partition_plan(trainer))
     device, steps = trainer.device, trainer.cfg.optimizer.total_steps
     t_restore = time.time()
     init_params, init_extra = _initial_params(spec, trainer, trainer.cfg.model, device)
@@ -606,7 +652,7 @@ def _initial_params(spec: dict, trainer, mcfg, device) -> tuple[Optional[dict], 
         from ..partition import convert as pconvert
         from ..train.tasks import LMTask
 
-        if not isinstance(trainer.task, LMTask):
+        if not isinstance(getattr(trainer.task, "inner", trainer.task), LMTask):
             raise SystemExit(f"import: is only supported for LM/MLM models "
                              f"(got {spec.get('model')!r})")
 
@@ -616,6 +662,12 @@ def _initial_params(spec: dict, trainer, mcfg, device) -> tuple[Optional[dict], 
             dtype=import_spec.get("dtype"),
             key_map=import_spec.get("key_map"),
             transpose=import_spec.get("transpose"))
+        if spec.get("lora"):
+            # the imported tree is the frozen base, beside fresh adapters
+            from ..partition.lora import init_lora
+
+            params = {"base": params, "lora": init_lora(params, trainer.task.cfg,
+                                                        seed=int(spec.get("seed", 0)))}
     if fork_spec:
         from ..train.checkpoint import Checkpointer, to_device
 

@@ -87,9 +87,16 @@ def _layer_qkv(x, lp, cfg: TransformerConfig, rope_tables, positions):
 
 
 def _layer_mlp(x, o, lp, cfg: TransformerConfig):
-    """Residual + MLP half of the layer."""
+    """Residual + MLP half of the layer. The serving model has no
+    mixture-of-experts branch (nor has the JAX package's): an expert stack
+    raises here instead of broadcasting through ``torch.matmul``."""
     dt = cfg.dtype
     ap, mp = lp["attn"], lp["mlp"]
+    if "router" in mp:
+        raise ValueError(
+            f"the serving model has no mixture-of-experts branch: its MLP reads one "
+            f"dense [hidden, mlp] weight, and this layer holds {cfg.num_experts} experts "
+            f"behind a router")
     h = x.shape[-1]
     o = torch.matmul(o, ap["wo"].to(dt).reshape(-1, h))
     if cfg.use_bias:

@@ -97,6 +97,11 @@ class Task(ABC):
     def extra_specs(self, rules: ShardingRules) -> Any:
         return None  # replicated
 
+    def abstract_params(self) -> Any:
+        """The param tree as ``meta`` tensors: shapes and dtypes, no
+        storage."""
+        return self.init(0, "meta")[0]
+
     @abstractmethod
     def loss(self, params: Any, extra: Any, batch: dict,
              mesh=None) -> tuple[torch.Tensor, dict, Any]:
@@ -204,8 +209,8 @@ class ResNetTask(Task):
 
     def param_specs(self, rules):
         # conv kernels replicate, as in the JAX package (small beside the
-        # activations)
-        params, _ = resnet_mod.init(self.cfg, seed=0, device="cpu")
+        # activations); the tree's shapes come from the meta device
+        params, _ = resnet_mod.init(self.cfg, seed=0, device="meta")
 
         def build(tree):
             return ({k: build(v) for k, v in tree.items()} if isinstance(tree, dict)

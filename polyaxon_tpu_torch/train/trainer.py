@@ -62,6 +62,14 @@ is the one the JAX package's SPMD step returns on a mesh of that shape:
 - checkpoints hold the full state at every world size: rank 0 gathers it
   leaf by leaf and alone writes, the others restore the step rank 0 names
   and keep their shard.
+
+The JAX Trainer's ``partition_rules`` lay a user's rules over the task's
+specs before the cuts are derived (a cut on a compute axis may not move:
+ROADMAP A16), and its ``tx`` replaces the config's optimizer: a LoRA run's
+frozen base (``partition/lora.py``) trains the adapters alone. The step
+still takes every floating leaf's grad, and ``grad_norm`` and the guard
+cover them all, as ``optax.global_norm(grads)`` does; the optimizer's clip
+reads the norm of the leaves it trains, and the others get no update.
 """
 
 from __future__ import annotations
@@ -77,7 +85,7 @@ from ..models.transformer import TransformerConfig, flatten, unflatten
 from ..parallel.fsdp import ShardedTree, fresh, leaf_dims
 from ..parallel.mesh import (
     BATCH_AXES, TOKEN_AXES, Mesh, ShardingRules, build_mesh, grad_sum_axes,
-    normalize_axis_sizes,
+    normalize_axis_sizes, sharded_dim,
 )
 from ..parallel.pipeline import validate_pipeline_mesh
 from .checkpoint import CheckpointConfig, Checkpointer
@@ -157,6 +165,8 @@ class Trainer:
         on_progress: Optional[Callable[[int, dict, int], None]] = None,
         on_stalled: Optional[Callable[[int, float, float], None]] = None,
         log_line: Optional[Callable[[str], None]] = None,
+        partition_rules: Optional[Any] = None,
+        tx: Optional[Any] = None,
     ):
         refuse_unsupported_axes(cfg.model, normalize_axis_sizes(cfg.parallelism))
         self.cfg = cfg
@@ -181,13 +191,11 @@ class Trainer:
             rules = rules.override(layers="stage")
         # the axes that cut param leaves, and those the model gathers a leaf
         # over where it reads it (the experts stay cut under all-to-all)
-        mesh = self.mesh
-        on = {"stage": mesh.pp > 1, "expert": mesh.ep > 1, "fsdp": mesh.sharded,
-              "model": mesh.tp}
-        self._cut_axes = tuple(a for a in CUT_AXES if on[a])
-        a2a = getattr(getattr(task, "cfg", None), "moe_dispatch", None) == "a2a"
+        self._cut_axes = self._live_axes()
+        model_cfg = getattr(getattr(task, "inner", task), "cfg", None)
+        a2a = getattr(model_cfg, "moe_dispatch", None) == "a2a"
         self._gathered_axes = tuple(a for a in ("expert", "fsdp")
-                                    if on[a] and not (a == "expert" and a2a))
+                                    if a in self._cut_axes and not (a == "expert" and a2a))
         if self._cut_axes and cfg.optimizer.name == "adafactor":
             raise NotImplementedError(
                 f"adafactor over {'/'.join(self._cut_axes)} is not ported: its factored "
@@ -198,11 +206,17 @@ class Trainer:
         self.batch_ranks = self.mesh.axis_size(*BATCH_AXES)
         self.batch_index = self.mesh.index(BATCH_AXES)
         self.specs = task.param_specs(rules)
+        if partition_rules:
+            self.specs = self._overlay(partition_rules)
         # each param leaf's (axis, dim) cuts (flatten order), and the tree of
         # the cuts the model gathers (None: it reads every leaf as it is)
         self._cuts: list = []
         self._gather_tree: Optional[dict] = None
-        self.tx = make_optimizer(cfg.optimizer)
+        # the optimizer: the config's, or a given one (a LoRA run's frozen
+        # base); ``trains(path)`` names the leaves it updates and keeps state
+        # for (every leaf by default)
+        self.tx = tx if tx is not None else make_optimizer(cfg.optimizer)
+        self._opt_index: list = []
         self.track = track
         # duck-typed fault injection: pre_step(pos) and nan_due(pos)
         self.chaos = chaos
@@ -219,6 +233,34 @@ class Trainer:
         # rank 0 owns the directory; the others only read the steps it names
         self.checkpointer = (Checkpointer(cfg.checkpoint, read_only=not self.primary)
                              if cfg.checkpoint else None)
+
+    def _overlay(self, partition_rules: Any) -> dict:
+        """The task's specs with the user's ``partition_rules`` laid over
+        them, as the JAX trainer lays them. A cut on ``fsdp`` is storage
+        (the leaf is gathered before use), so a rule may move or remove it;
+        one that moves or removes a cut on an axis the layer bodies compute
+        on (``model``, ``expert``, ``stage``) raises."""
+        from ..partition.rules import is_spec, overlay_partition_rules, parse_rules, tree_paths
+
+        rules = parse_rules(partition_rules)
+        specs = overlay_partition_rules(rules, self.task.abstract_params(), self.specs)
+        live = [a for a in ("stage", "expert", "model") if a in self._live_axes()]
+        for (path, old), (_, new) in zip(tree_paths(self.specs, is_leaf=is_spec),
+                                         tree_paths(specs, is_leaf=is_spec)):
+            for axis in live:
+                if sharded_dim(old, axis) != sharded_dim(new, axis):
+                    raise NotImplementedError(
+                        f"partition rule over {path!r}: {tuple(new)} moves or removes "
+                        f"the {axis!r} cut of its built-in spec {tuple(old)}, which "
+                        f"changes what the layer body computes on each {axis} rank; "
+                        f"user rules on compute axes are not ported (ROADMAP A16)")
+        return specs
+
+    def _live_axes(self) -> tuple:
+        mesh = self.mesh
+        on = {"stage": mesh.pp > 1, "expert": mesh.ep > 1, "fsdp": mesh.sharded,
+              "model": mesh.tp}
+        return tuple(a for a in CUT_AXES if on[a])
 
     # -- init ---------------------------------------------------------------
 
@@ -242,7 +284,16 @@ class Trainer:
         if any(self._cuts):
             leaves = [mesh.shard(t, c) for t, c in zip(leaves, self._cuts)]
             params = unflatten(paths, leaves)
-        return TrainState(params=params, opt_state=self.tx.init(list(leaves)), step=0,
+        trains = getattr(self.tx, "trains", None)
+        self._opt_index = [i for i, p in enumerate(paths)
+                           if trains is None or trains("/".join(p))]
+        # a grad whose leaf's block this rank computes a part of (a LoRA
+        # adapter of a model-cut leaf) is summed over those axes too
+        partial = getattr(self.task, "partial_sum_axes", None)
+        partial = partial(mesh if mesh.distributed else None) if partial else {}
+        self._partial_axes = [partial.get("/".join(p), ()) for p in paths]
+        opt_leaves = [leaves[i] for i in self._opt_index]
+        return TrainState(params=params, opt_state=self.tx.init(opt_leaves), step=0,
                           extra=extra)
 
     def _agreed(self, value: Optional[int]) -> Optional[int]:
@@ -313,8 +364,13 @@ class Trainer:
         out = [(t, c) for (_, t), c in zip(flatten(state.params), self._cuts)]
         for name, value in opt_state_tree(state.opt_state).items():
             if name != "count":
-                out.extend(zip(value, self._cuts))
+                out.extend(zip(value, self._opt_cuts()))
         return out
+
+    def _opt_cuts(self) -> list:
+        """The cuts of the leaves the optimizer keeps state for, in its
+        state's order."""
+        return [self._cuts[i] for i in self._opt_index]
 
     def _shard_of(self, places: dict, full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         """This rank's block of a full checkpoint leaf whose block ``like``
@@ -341,7 +397,7 @@ class Trainer:
         paths, leaves = zip(*flatten(state.params))
         params = unflatten(paths, [full(t, c) for t, c in zip(leaves, self._cuts)])
         opt = {name: value if name == "count" else [full(t, c) for t, c in
-                                                    zip(value, self._cuts)]
+                                                    zip(value, self._opt_cuts())]
                for name, value in opt_state_tree(state.opt_state).items()}
         if not self.primary:
             return None
@@ -381,7 +437,9 @@ class Trainer:
             diff_tree = unflatten(paths, diff)
             if self._gather_tree is not None:
                 diff_tree = ShardedTree(diff_tree, self._gather_tree, mesh.gather)
-            cuts = [c for p, c in zip(leaves, self._cuts) if p.is_floating_point()]
+            floating = [i for i, p in enumerate(leaves) if p.is_floating_point()]
+            cuts = [self._cuts[i] for i in floating]
+            partial = [self._partial_axes[i] for i in floating]
             batch = {name: t.to(self.device) for name, t in batch.items()}
             grads, per_micro, extra = None, [], state.extra
             for i in range(k):
@@ -417,10 +475,14 @@ class Trainer:
                     # token ranks that hold the same block.
                     g = grads[i] = grads[i].contiguous()
                     mesh.sum_(g, *grad_sum_axes([a for a, _ in c]))
+                    if partial[i]:
+                        mesh.sum_(g, *partial[i])
                 if any(cuts):
-                    whole = functools.partial(self._whole_sums, cuts)
+                    whole = self._whole_sums
             loss = task_metrics["loss"]
-            grad_norm = global_norm(grads, whole)
+            # the optimizer's leaves, as positions among the grads
+            trained = [floating.index(i) for i in self._opt_index]
+            grad_norm, clip_norm = self._norms(grads, cuts, trained, whole)
             loss_ok = torch.isfinite(loss)
             grad_ok = torch.isfinite(grad_norm)
             metrics = {
@@ -430,9 +492,12 @@ class Trainer:
             }
             opt_state = state.opt_state
             if bool(loss_ok & grad_ok):
-                masters = [p for p in leaves if p.is_floating_point()]
-                updates, opt_state = self.tx.update(grads, opt_state, masters, grad_norm)
+                masters = [leaves[floating[i]] for i in trained]
+                updates, opt_state = self.tx.update([grads[i] for i in trained], opt_state,
+                                                    masters, clip_norm)
                 with torch.no_grad():
+                    # a leaf the optimizer does not train gets no update,
+                    # not even a zero (which would turn a -0.0 into +0.0)
                     for p, u in zip(masters, updates):
                         p.add_(u.to(p.dtype))
                 state.extra = extra
@@ -441,6 +506,23 @@ class Trainer:
             return TrainState(state.params, opt_state, state.step + 1, state.extra), metrics
 
         return step_fn
+
+    def _norms(self, grads: list, cuts: list, trained: list,
+               whole: Optional[Callable]) -> tuple:
+        """(the reported grad norm, the norm the optimizer's clip reads):
+        the global norm of every grad (base and adapters, as the JAX
+        trainer's ``optax.global_norm(grads)``), and that of the grads the
+        optimizer trains (``trained``: their positions), which is the same
+        norm unless it trains a part of the leaves. Both stay on the device.
+        ``whole``: :meth:`_whole_sums` over a mesh that cuts leaves."""
+        def over(c):
+            return functools.partial(whole, c) if whole is not None and any(c) else None
+
+        norm = global_norm(grads, over(cuts))
+        if len(trained) == len(grads):
+            return norm, norm
+        sub = [cuts[i] for i in trained]
+        return norm, global_norm([grads[i] for i in trained], over(sub))
 
     def _sum_metrics(self, metrics: dict) -> dict:
         """The batch and context ranks' shares of each metric, summed: the

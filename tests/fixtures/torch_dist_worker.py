@@ -15,6 +15,8 @@ summary. A case may plant a fault (``fault``), poison one rank's batch
 (its own, or ``artifacts``: another case's) into a sharded state and save
 this rank's shards (``restore_shards``), run one forward of the given
 params and tokens on this rank's chunk and save its logits (``forward``),
+expect ``run_builtin`` to refuse the spec and record its message
+(``expect_error``),
 or run one forward and backward of the trunk (``grads``: the hidden
 states, aux and the grads of ``mean(hidden^2) + coef * balance``, reduced
 as the trainer reduces them, with the tensors autograd saved). A training
@@ -70,6 +72,11 @@ def _plant(fault: str, rank: int, mp) -> None:
         mp.setattr(Trainer, "_whole_sums", lambda self, cuts, sums: whole(
             self, [c if any(a == "model" for a, _ in c) else c + (("model", 0),)
                    for c in cuts], sums))
+    elif fault == "lora_unsummed_over_model":
+        # each model rank's adapter grads (its block's share) left unsummed
+        from polyaxon_tpu_torch.partition.lora import LoRATask
+
+        mp.setattr(LoRATask, "partial_sum_axes", lambda self, mesh: {})
     elif fault == "pp_microbatch_off_by_one":
         # each tick processes the next microbatch, not its own
         from polyaxon_tpu_torch.parallel import pipeline
@@ -344,6 +351,12 @@ def main() -> None:
                 result = _forward(case, case_dir, rank)
             elif case.get("grads"):
                 result = _grads(case, case_dir, rank)
+            elif case.get("expect_error"):
+                try:
+                    run_builtin(case["spec"])
+                    result = {"error": None}
+                except SystemExit as e:
+                    result = {"error": str(e)}
             else:
                 capture = _Capture(mp) if case.get("capture_grads") else None
                 logged = []

@@ -69,7 +69,8 @@ class _ForModel(dict):
     ("checkpoint", {"save_every": 2}, "unknown keys"),
     ("fork_from", "/parent/run", "needs a mapping"),
     ("import", {"path": "/x", "shards": 2}, "unknown keys"),
-    ("lora", {"rank": 4}, "A12"),
+    # lora is taken by the language models alone, in the JAX runtime's words
+    ("lora", _ForModel({"rank": 4}, "resnet18-cifar"), "only supported for LM/MLM models"),
     ("parallelism", {"data": 2}, "Mesh needs 2 devices but only 1 available"),
     # the axes a vision family does not shard over yet
     ("parallelism", _ForModel({"model": 2}, "resnet18-cifar"), "A8"),
@@ -79,7 +80,8 @@ class _ForModel(dict):
     ("parallelism", {"stage": 2}, "Mesh needs 2 devices but only 1 available"),
     ("parallelism", {"expert": 2}, "Mesh needs 2 devices but only 1 available"),
     ("parallelism", {"tensor": 2}, "Unknown mesh axes"),
-    ("num_slices", 2, "A14"),
+    # one process does not split into two slices, in build_mesh's words
+    ("num_slices", 2, "1 devices not divisible by num_slices=2"),
     ("num_cpu_devices", 8, "N gloo ranks"),
     ("profile", {"every": 2}, "unknown keys"),
     ("optimizer", "adam8bit", "unknown; valid: adamw"),
@@ -91,7 +93,7 @@ class _ForModel(dict):
     ("pp_gate", "sometimes", "unknown gate mode 'sometimes'; valid: auto"),
     ("moe_dispatch", "scatter", "unknown moe_dispatch 'scatter'; valid: capacity|a2a|dense"),
     ("chaos", {"hang_after_requests": 3}, "unknown keys"),
-    ("partition_rules", [["a", "b"]], "A14"),
+    ("partition_rules", [["a", "b"]], "spec 'b' must be null, 'replicated', or a list"),
     ("resources", {"period": 5}, "unknown keys"),
     ("unknown_knob", 1, "unknown spec key"),
 ])

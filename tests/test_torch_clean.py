@@ -54,7 +54,8 @@ def test_the_scan_sees_every_port_module():
                      "obs/history.py", "parallel/__init__.py", "parallel/distributed.py",
                      "parallel/mesh.py", "parallel/collectives.py", "parallel/fsdp.py",
                      "ops/ring_attention.py", "ops/ulysses.py", "ops/gating.py",
-                     "parallel/pipeline.py"):
+                     "parallel/pipeline.py", "partition/builtins.py", "partition/lora.py",
+                     "partition/plan.py", "partition/__main__.py"):
         assert expected in names
 
 
@@ -103,6 +104,11 @@ run_builtin({"model": "llama-tiny", "platform": "cpu", "checkpoint": False, "ste
              "batch_size": 2, "seq_len": 128, "remat": "attn_qkv", "watchdog": False})
 run_builtin({"model": "llama-moe-tiny", "platform": "cpu", "checkpoint": False, "steps": 2,
              "batch_size": 2, "seq_len": 32, "moe_cap_block": 4, "watchdog": False})
+run_builtin({"model": "llama-tiny", "platform": "cpu", "checkpoint": False, "steps": 2,
+             "batch_size": 2, "seq_len": 32, "watchdog": False, "lora": {"rank": 4},
+             "partition_rules": [["embed/tokens$", [None, "fsdp"]]]})
+from polyaxon_tpu_torch.partition.__main__ import main
+assert main(["llama-tiny", "vit-tiny", "resnet18-cifar"]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "flax", "orbax",
                                     "polyaxon_tpu"))

@@ -135,7 +135,7 @@ def test_one_process_meshes_have_no_group():
     mesh = tpar.build_mesh({"fsdp": 1})
     assert mesh.size == 1 and not mesh.distributed and not mesh.sharded
     assert mesh.declared == {"fsdp"}
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
+    with pytest.raises(ValueError, match="1 devices not divisible by num_slices=2"):
         tpar.build_mesh(None, num_slices=2)
 
 

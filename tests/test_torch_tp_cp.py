@@ -25,7 +25,19 @@ devices=jax.devices()[:world])`` and the port's one process:
   ``transformer.apply``;
 - three planted faults (a bias added before the model sum, each context
   rank's positions starting at 0, replicated leaves counted once per
-  model rank in the global norm) must each fail the JAX comparison.
+  model rank in the global norm) must each fail the JAX comparison;
+- LoRA (``lora:``, the JAX ``LoRATask`` with ``frozen_base_optimizer``):
+  two ranks of llama-tiny under ``{data: 2}``, ``{fsdp: 2}`` (each layer's
+  delta added after its gather), ``{model: 2}`` and ``{context: 2}``, and
+  bert-tiny under ``{model: 2}`` (each model rank merging its block's
+  delta, the adapters' grads summed over model); a planted fault leaving
+  those grads unsummed must fail;
+- four ranks: the JAX package's overlay case (``{fsdp: 2, model: 2}`` with
+  ``attn/w[qkv]$ -> [null, null, model, null]``: wq/wk/wv not fsdp-cut)
+  against JAX like the runs above; a rule that moves a model cut refused
+  on every rank naming ROADMAP A16; and ``{data: 2, fsdp: 2}`` at
+  ``num_slices: 2`` bit-equal to ``num_slices: 1``
+  (``tests/test_multislice.py``'s parity).
 
 Tolerances, those of ``tests/test_torch_distributed.py``: f32 sums in other
 orders, losses and grad norms at 1e-4 relative against JAX over three
@@ -35,7 +47,10 @@ relative and 1e-5 absolute. The model axis adds partial products summed
 over ranks and the context axis attention merged over chunks: reorderings
 of the same size. The forward is held at ``tests/test_models.py``'s 3e-5
 absolute and 1e-4 relative. A fault fails when its loss, grad norm or
-param reading misses JAX's by more than these limits.
+param reading misses JAX's by more than these limits. LoRA runs are held
+to ``tests/test_torch_lora.py``'s limits (1e-6 relative on losses and
+grad norms, 1e-5 absolute on the final adapters; the base bit-equal to its
+start): only the adapters train, from b = 0.
 """
 
 from __future__ import annotations
@@ -99,7 +114,24 @@ RUNS = {
     "llama_model_ring": ("llama-tiny", {"model": 2, "context": 2}, "ring", {}),
     # fsdp shards whose reduce-scattered grads are then summed over context
     "llama_fsdp_ring": ("llama-tiny", {"fsdp": 2, "context": 2}, "ring", {}),
+    # the JAX package's overlay case: wq/wk/wv keep their model cut, lose fsdp's
+    "llama_overlay": ("llama-tiny", {"fsdp": 2, "model": 2}, "ring",
+                      {"partition_rules": [["attn/w[qkv]$", [None, None, "model", None]]]}),
 }
+LORA = {"rank": 4, "alpha": 8.0}
+LORA_TOL = (1e-6, 1e-6, 1e-5)    # loss rtol, grad-norm rtol, final-adapter atol
+LORA_RUNS = {
+    "lora_data": ("llama-tiny", {"data": 2}, "ring", {"lora": LORA}),
+    "lora_fsdp": ("llama-tiny", {"fsdp": 2}, "ring", {"lora": LORA}),
+    "lora_model": ("llama-tiny", {"model": 2}, "ring", {"lora": LORA}),
+    "lora_ring": ("llama-tiny", {"context": 2}, "ring", {"lora": LORA}),
+    "lora_bert_model": ("bert-tiny", {"model": 2}, "ring", {"lora": LORA}),
+}
+ALL_RUNS = {**RUNS, **LORA_RUNS}
+LORA_FAULTS = {"lora_unsummed_over_model": "lora_model"}
+# moves wq's model cut from the heads to the head dim
+A16_RULES = [["attn/wq$", [None, "fsdp", None, "model"]]]
+SLICES = {"data": 2, "fsdp": 2}
 # planted fault -> the run it breaks
 FAULTS = {"bias_before_sum": "bert_model", "local_positions": "llama_ring",
           "norm_counts_replicated": "gpt2_model"}
@@ -132,22 +164,36 @@ def _jax_init(model: str):
     return jax.tree.map(np.asarray, trainer.init_state(seed=0).params)
 
 
+def _lora_init(init) -> dict:
+    """{base: init, lora: JAX init_lora's adapters}, as numpy."""
+    from polyaxon_tpu.partition.lora import LoRAConfig, init_lora
+
+    lora = init_lora(jax.random.PRNGKey(1), jax.tree.map(jnp.asarray, init), LoRAConfig(**LORA))
+    return {"base": init, "lora": jax.tree.map(np.asarray, lora)}
+
+
 def _jax_run(name: str, init) -> tuple:
     """The JAX Trainer on a mesh of the case's shape from ``init``: per-step
     metrics and final params, as numpy."""
-    model, para, seq_parallel, keys = RUNS[name]
+    from polyaxon_tpu.partition.lora import LoRAConfig, LoRATask, frozen_base_optimizer
+
+    model, para, seq_parallel, keys = ALL_RUNS[name]
     family, cfg = JAX_REGISTRY[model]
     if seq_parallel:
         cfg = replace(cfg, seq_parallel=seq_parallel, remat=keys.get("remat", cfg.remat))
     mesh = jax_build_mesh(para, devices=jax.devices()[:_world(para)])
     logged = []
+    ocfg = jopt.OptimizerConfig(learning_rate=LR, warmup_steps=1, total_steps=STEPS)
+    task, tx = jtask_for(family, cfg), None
+    if "lora" in keys:
+        task = LoRATask(task, LoRAConfig(**keys["lora"]))
+        tx = frozen_base_optimizer(jopt.make_optimizer(ocfg))
     trainer = JaxTrainer(
         JaxTrainerConfig(model=cfg, batch_size=BASE["batch_size"], seq_len=BASE["seq_len"],
                          log_interval=1, parallelism=para,
-                         microbatches=keys.get("microbatches", 1),
-                         optimizer=jopt.OptimizerConfig(learning_rate=LR, warmup_steps=1,
-                                                        total_steps=STEPS)),
-        mesh=mesh, task=jtask_for(family, cfg), track=lambda i, m: logged.append(m))
+                         microbatches=keys.get("microbatches", 1), optimizer=ocfg),
+        mesh=mesh, task=task, track=lambda i, m: logged.append(m), tx=tx,
+        partition_rules=keys.get("partition_rules"))
     state = trainer.init_state_from(jax.tree.map(jnp.asarray, init))
     kind = {"mlm": "synthetic-mlm", "vit": "synthetic-image"}.get(family, "synthetic-lm")
     dcfg = jdata.DataConfig(kind=kind, batch_size=BASE["batch_size"], seq_len=BASE["seq_len"],
@@ -171,10 +217,10 @@ def _fork_dir(root: Path, model: str, init) -> str:
 
 
 def _spec(name: str, forks: dict) -> dict:
-    model, para, seq_parallel, keys = RUNS[name]
+    model, para, seq_parallel, keys = ALL_RUNS[name]
     base = BASE if seq_parallel else {k: v for k, v in BASE.items() if k != "seq_len"}
     return {**base, **keys, "model": model, "parallelism": para,
-            "fork_from": {"path": forks[model]}}
+            "fork_from": {"path": forks[model, "lora" in keys]}}
 
 
 def _start_group(root: Path, out: Path, world: int, port: int, cases: list) -> tuple:
@@ -250,15 +296,26 @@ def runs(tmp_path_factory):
     results, one-process results, case dir root, the forward's inputs)."""
     root = tmp_path_factory.mktemp("tp_cp")
     out = root / "cases"
-    inits = {m: _jax_init(m) for m in sorted({r[0] for r in RUNS.values()})}
-    forks = {m: _fork_dir(root, m, init) for m, init in inits.items()}
+    inits = {m: _jax_init(m) for m in sorted({r[0] for r in ALL_RUNS.values()})}
+    lora_inits = {m: _lora_init(inits[m]) for m in sorted({r[0] for r in LORA_RUNS.values()})}
+    forks = {(m, False): _fork_dir(root, m, init) for m, init in inits.items()}
+    forks.update({(m, True): _fork_dir(root, f"{m}-lora", init)
+                  for m, init in lora_inits.items()})
     cases2, cases4 = [], []
-    for name, (model, para, seq_parallel, _) in RUNS.items():
+    for name, (model, para, seq_parallel, _) in ALL_RUNS.items():
         case = {"name": name, "spec": _spec(name, forks), "seq_parallel": seq_parallel}
         (cases2 if _world(para) == 2 else cases4).append(case)
-    for fault, run in FAULTS.items():
+    for fault, run in {**FAULTS, **LORA_FAULTS}.items():
         cases2.append({"name": f"fault_{fault}", "spec": _spec(run, forks),
-                       "seq_parallel": RUNS[run][2], "fault": fault})
+                       "seq_parallel": ALL_RUNS[run][2], "fault": fault})
+    plain = {k: v for k, v in _spec("llama_overlay", forks).items()
+             if k not in ("partition_rules", "checkpoint")}
+    cases4.append({"name": "a16_model_cut", "expect_error": True,
+                   "spec": {**plain, "partition_rules": A16_RULES, "checkpoint": False}})
+    for n in (1, 2):
+        cases4.append({"name": f"slices{n}", "seq_parallel": "ring",
+                       "spec": {**plain, "parallelism": SLICES, "num_slices": n,
+                                "checkpoint": False}})
     # the 4-rank run's checkpoint restored into each rank's block
     restore = {k: v for k, v in _spec("llama_fsdp_model", forks).items() if k != "fork_from"}
     cases4.append({"name": "restore_blocks", "restore_shards": True,
@@ -278,6 +335,8 @@ def runs(tmp_path_factory):
               _start_group(root, out, 4, ports[1], cases4)]
     try:
         jax_results = {name: _jax_run(name, inits[RUNS[name][0]]) for name in RUNS}
+        jax_results.update({name: _jax_run(name, lora_inits[LORA_RUNS[name][0]])
+                            for name in LORA_RUNS})
         single = {}
         for name, (model, _, seq_parallel, _) in RUNS.items():
             art = root / "single" / name
@@ -287,13 +346,14 @@ def runs(tmp_path_factory):
     finally:
         for procs, logs in groups:
             _join(procs, logs)
-    return jax_results, single, out, (tokens, inits[FORWARD["model"]])
+    return jax_results, single, out, (tokens, inits[FORWARD["model"]]), lora_inits
 
 
-def _misses(logged: list, params: dict, jlogged: list, jparams: dict) -> float:
+def _misses(logged: list, params: dict, jlogged: list, jparams: dict,
+            tol: tuple = JAX_TOL) -> float:
     """The worst reading of a run against JAX's, as a multiple of its
     tolerance (> 1: the comparison fails)."""
-    loss_tol, norm_tol, param_tol = JAX_TOL
+    loss_tol, norm_tol, param_tol = tol
     worst = max(np.abs(_curve(logged, "loss") / _curve(jlogged, "loss") - 1).max() / loss_tol,
                 np.abs(_curve(logged, "grad_norm") / _curve(jlogged, "grad_norm") - 1).max()
                 / norm_tol)
@@ -304,7 +364,7 @@ def _misses(logged: list, params: dict, jlogged: list, jparams: dict) -> float:
 
 @pytest.mark.parametrize("name", sorted(RUNS))
 def test_tp_cp_ranks_match_the_jax_mesh(runs, name):
-    jax_results, _, out, _ = runs
+    jax_results, _, out, _, _ = runs
     jlogged, jparams = jax_results[name]
     loss_tol, norm_tol, param_tol = JAX_TOL
     for rank in range(_world(RUNS[name][1])):
@@ -319,7 +379,7 @@ def test_tp_cp_ranks_match_the_jax_mesh(runs, name):
 
 @pytest.mark.parametrize("name", sorted(RUNS))
 def test_tp_cp_ranks_match_one_process(runs, name):
-    _, single, out, _ = runs
+    _, single, out, _, _ = runs
     loss_tol, norm_tol, param_tol = SELF_TOL
     logged = _rank(out / name, 0)["logged"]
     for key, tol in (("loss", loss_tol), ("grad_norm", norm_tol)):
@@ -332,7 +392,7 @@ def test_tp_cp_ranks_match_one_process(runs, name):
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_each_tp_cp_planted_fault_fails_the_jax_comparison(runs, fault):
-    jax_results, _, out, _ = runs
+    jax_results, _, out, _, _ = runs
     jlogged, jparams = jax_results[FAULTS[fault]]
     case = out / f"fault_{fault}"
     worst = _misses(_rank(case, 0)["logged"], _final_params(case), jlogged, jparams)
@@ -340,7 +400,7 @@ def test_each_tp_cp_planted_fault_fails_the_jax_comparison(runs, fault):
 
 
 def test_fsdp_model_checkpoint_restores_at_world_one_bit_equal(runs):
-    _, _, out, _ = runs
+    _, _, out, _, _ = runs
     case = out / "llama_fsdp_model"
     saved = torch.load(case / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
                        weights_only=True)
@@ -359,7 +419,7 @@ def test_the_checkpoint_restores_into_each_ranks_block(runs):
     """Each of the four ranks holds its model block of every model-sharded
     leaf, cut again by fsdp where the leaf is fsdp-sharded too (``wi``:
     hidden over fsdp, mlp over model), of the params and both moments."""
-    _, _, out, _ = runs
+    _, _, out, _, _ = runs
     full = torch.load(out / "llama_fsdp_model" / "outputs" / "checkpoints" / str(STEPS)
                       / "state.pt", weights_only=True)
     from polyaxon_tpu_torch.parallel import ShardingRules
@@ -397,7 +457,7 @@ def test_ulysses_forward_with_more_context_ranks_than_kv_heads(runs):
     """cp 4 > llama-tiny's 2 kv heads with Ulysses: kv is expanded to the q
     heads before the all-to-all, and the four chunks' logits are JAX's
     unsharded ``apply``."""
-    _, _, out, (tokens, init) = runs
+    _, _, out, (tokens, init), _ = runs
     cfg = replace(JAX_REGISTRY[FORWARD["model"]][1], seq_parallel="ulysses")
     assert cfg.num_kv_heads < 4 <= cfg.num_heads
     ref = np.asarray(jtransformer.apply(jax.tree.map(jnp.asarray, init),
@@ -407,3 +467,50 @@ def test_ulysses_forward_with_more_context_ranks_than_kv_heads(runs):
     assert [c[0] for c in chunks] == [[r * 16, (r + 1) * 16] for r in range(4)]
     np.testing.assert_allclose(np.concatenate([c[1] for c in chunks], axis=1), ref,
                                atol=FORWARD_TOL[0], rtol=FORWARD_TOL[1])
+
+
+@pytest.mark.parametrize("name", sorted(LORA_RUNS))
+def test_lora_ranks_match_the_jax_mesh(runs, name):
+    jax_results, _, out, _, lora_inits = runs
+    jlogged, jparams = jax_results[name]
+    loss_tol, norm_tol, adapter_tol = LORA_TOL
+    for rank in range(_world(LORA_RUNS[name][1])):
+        logged = _rank(out / name, rank)["logged"]
+        np.testing.assert_allclose(_curve(logged, "loss"), _curve(jlogged, "loss"),
+                                   rtol=loss_tol)
+        np.testing.assert_allclose(_curve(logged, "grad_norm"),
+                                   _curve(jlogged, "grad_norm"), rtol=norm_tol)
+    start = {"/".join(k.key for k in path): np.asarray(v) for path, v in
+             jax.tree_util.tree_flatten_with_path(lora_inits[LORA_RUNS[name][0]])[0]}
+    for path, value in _final_params(out / name).items():
+        if path.startswith("base/"):
+            assert np.array_equal(value, start[path]), f"base leaf {path} moved"
+        else:
+            np.testing.assert_allclose(value, jparams[path], atol=adapter_tol, err_msg=path)
+
+
+@pytest.mark.parametrize("fault", sorted(LORA_FAULTS))
+def test_each_lora_planted_fault_fails_the_jax_comparison(runs, fault):
+    jax_results, _, out, _, _ = runs
+    jlogged, jparams = jax_results[LORA_FAULTS[fault]]
+    case = out / f"fault_{fault}"
+    worst = _misses(_rank(case, 0)["logged"], _final_params(case), jlogged, jparams,
+                    LORA_TOL)
+    assert worst > 1, f"{fault} went unseen: within {worst:.3g} of the tolerances"
+
+
+def test_a_rule_that_moves_a_model_cut_is_refused_naming_a16(runs):
+    _, _, out, _, _ = runs
+    for rank in range(4):
+        error = _rank(out / "a16_model_cut", rank)["error"]
+        assert error and "ROADMAP A16" in error and "'model' cut" in error, error
+
+
+def test_two_slices_train_as_one(runs):
+    """``num_slices: 2`` splits the ranks in order and changes no group: the
+    losses and grad norms are bit-equal to one slice's."""
+    _, _, out, _, _ = runs
+    for rank in range(4):
+        two = _rank(out / "slices2", rank)["logged"]
+        one = _rank(out / "slices1", rank)["logged"]
+        assert len(two) == STEPS and two == one

@@ -226,7 +226,8 @@ def test_exhausted_skip_budget_raises_with_history(jax_run):
     # a mesh larger than the process group, in build_mesh's words
     (dict(parallelism={"data": 2}), ValueError, "Mesh needs 2 devices but only 1 available"),
     (dict(parallelism={"fsdp": 2}), ValueError, "Mesh needs 2 devices but only 1 available"),
-    (dict(num_slices=2), NotImplementedError, "ROADMAP A14"),
+    # one process does not split into two slices, in build_mesh's words
+    (dict(num_slices=2), ValueError, "1 devices not divisible by num_slices=2"),
     # the layers of a ResNet do not shard over model yet
     (dict(model=REGISTRY["resnet18-cifar"][1], parallelism={"model": 2}),
      NotImplementedError, "ROADMAP A8"),
