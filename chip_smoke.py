@@ -158,21 +158,31 @@ non-zero:
    cards' names and power limits. dist_train_1rank: bert-base (the
    bert_tfjob keys, 64 x 512, ``{data: 1}``), resnet50-cifar (the
    resnet50_ddp keys at one replica's 64, ``{data: 1}``) and llama-1b (the
-   llama1b_tpujob keys, batch 16 in 4 microbatches, ``{fsdp: 1}``), each
-   twice without a group and once under a 1-rank NCCL group (the mesh
-   path: global counts and metrics, all-reduced batch norms and grads;
-   fsdp's per-layer gather and reduce-scatter around B1-B3): the group's
-   losses must be bit-equal to the run without one, or within that run's
-   spread against itself; step p50 with and without the group, peak
-   memory, flash launches. dist_train_multi: with 2+ GPUs, min(GPUs, 4)
-   ranks from the PLX_* env of bert-base ``{data: W}`` and llama-1b
-   ``{fsdp: W}`` at the same global batch, step-0/1 losses against the
-   1-rank run's (DIST_MULTI_RTOL); with one GPU it prints ``{"skipped":
-   "1 GPU"}``. tp_cp_multi: with 2+ GPUs, W = min(GPUs, 4) ranks of
-   llama-1b ``{model: W}`` and ``{context: W}`` (ring) at
+   llama1b_tpujob keys, batch 16 in 4 microbatches, ``{fsdp: 1}``) and
+   llama-1b-adafactor (the same keys with ``optimizer: adafactor``: its
+   factor means and RMS sums run through NCCL), each twice without a
+   group and once under a 1-rank NCCL group (the mesh path: global counts
+   and metrics, all-reduced batch norms and grads; fsdp's per-layer gather
+   and reduce-scatter around B1-B3): the group's losses must be bit-equal
+   to the run without one, or within that run's spread against itself;
+   step p50 and MFU with and without the group, peak memory, flash
+   launches against their formula. dist_train_multi: with 2+ GPUs,
+   min(GPUs, 4) ranks from the PLX_* env of bert-base ``{data: W}``,
+   llama-1b and llama-1b-adafactor ``{fsdp: W}`` and resnet50-cifar
+   ``{model: W}`` (its compute replicated) at the same global batch,
+   step-0/1 losses against the 1-rank run's (DIST_MULTI_RTOL), and
+   adafactor's factors after one step against one rank's
+   (ADAFACTOR_DIGEST_RTOL); the same with adafactor factored by the
+   rank's block shape (a planted fault) must fail; with one GPU it prints
+   ``{"skipped": "1 GPU"}``. tp_cp_multi: with 2+ GPUs, W = min(GPUs, 4)
+   ranks of llama-1b ``{model: W}`` and ``{context: W}`` (ring) at
    dist_train_1rank's llama-1b keys, their step-0/1 losses against its
    1-rank run's, llama-1b LoRA ``{model: W}`` against a one-rank LoRA run
-   at those keys, and with 4 GPUs llama2-7b ``{fsdp: 2, model: 2}`` for two
+   at those keys, llama-1b ``{model: W}`` with the example's
+   ``embed/tokens$ -> [null, fsdp]`` rule against the 1-rank run (the
+   token table it replicates bit-equal on every rank after a step; read
+   unresharded, a planted fault, it must differ), and with 4 GPUs
+   llama2-7b ``{fsdp: 2, model: 2}`` for two
    steps (the llama7b_tpujob keys at batch 4 in 2 microbatches; its state
    does not fit one card, so its step-0 loss is held within
    LLAMA7B_LOSS0_MARGIN of ln 32000), with peak memory per rank; with one
@@ -216,11 +226,13 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
 import urllib.request
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
@@ -2862,10 +2874,28 @@ DIST_SPECS = {
                        "parallelism": {"data": 1}},
     "llama-1b": {**TRAIN_SPEC, "batch_size": 16, "microbatches": 4,
                  "parallelism": {"fsdp": 1}},
+    # the same keys with adafactor: under the group its factor means and
+    # RMS sums run through NCCL over the fsdp axis
+    "llama-1b-adafactor": {**TRAIN_SPEC, "batch_size": 16, "microbatches": 4,
+                           "optimizer": "adafactor", "parallelism": {"fsdp": 1}},
 }
 # the multi-GPU phase: min(GPUs, 4) ranks over each spec's global batch
-DIST_MULTI = ("bert-base", "llama-1b")
-DIST_MULTI_AXIS = {"bert-base": "data", "llama-1b": "fsdp"}
+# (resnet50-cifar's compute replicated over model: each rank the whole batch)
+DIST_MULTI = ("bert-base", "llama-1b", "llama-1b-adafactor", "resnet50-cifar")
+DIST_MULTI_AXIS = {"bert-base": "data", "llama-1b": "fsdp", "llama-1b-adafactor": "fsdp",
+                   "resnet50-cifar": "model"}
+# adafactor's factors after one step (step_digest) at W ranks against one
+# rank's: each factor's sum of squares within DIST_MULTI_RTOL's step-1
+# limit (its bf16 grads are reduced over ranks in other orders)
+ADAFACTOR_DIGEST_RTOL = 5e-3
+# the planted faults of the multi-GPU phases, each of which must fail its
+# check: adafactor factored by the rank's block shape (dist_train_multi's
+# factors against one rank's), a user rule's stored leaf read unresharded
+# (tp_cp_multi: a leaf the rule replicates differs between the model ranks)
+MULTI_FAULTS = {"llama-1b-adafactor": "af_block_shape", "llama-1b-rule/model": "unresharded"}
+# tp_cp_multi's user rule: examples/llama7b_import_lora.yaml's, which removes
+# the token table's built-in model cut
+EMBED_RULES = [["embed/tokens$", [None, "fsdp"]]]
 # W ranks against one at the same global batch: step 0 differs only by the
 # order of the loss's and the metrics' sums over ranks and the bf16
 # products' row blocks (~1e-4 relative); step 1 adds the bf16 grads'
@@ -2931,6 +2961,74 @@ def dist_env_phase(torch) -> dict:
             "cards": smi.stdout.strip().splitlines()}
 
 
+def plant_fault(fault: str) -> None:
+    """A multi-GPU phase's planted fault (MULTI_FAULTS), in this child."""
+    if fault == "af_block_shape":
+        from polyaxon_tpu_torch.train.optimizers import Adafactor
+
+        leaf = Adafactor._leaf
+        Adafactor._leaf = lambda self, i, p: (tuple(p.shape), leaf(self, i, p)[1])
+    elif fault == "unresharded":
+        from polyaxon_tpu_torch.parallel.mesh import Mesh
+
+        Mesh.reshard = lambda self, t, axis, stored, read: t
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def step_digest(torch, spec: dict) -> dict:
+    """One step of the spec's trainer (the builtin's own, from its seeded
+    init and first batch, at the peak learning rate: no warmup, so the
+    step moves every param), then in float64 the sum of squares of this
+    rank's block of each param leaf (with the leaf's cuts) and, under
+    adafactor, of each leaf's whole ``v_row`` and ``v_col``."""
+    from polyaxon_tpu_torch.models.transformer import flatten
+    from polyaxon_tpu_torch.runtime.builtin import build_trainer
+
+    def sumsq(t):
+        return float((t.double() ** 2).sum())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, batches = build_trainer({**spec, "steps": 1, "warmup_steps": 0},
+                                         artifacts_dir=tmp)
+        state = trainer.init_state(seed=0)
+        state, _ = trainer.make_step()(state, next(batches))
+        paths = ["/".join(p) for p, _ in flatten(state.params)]
+        out = {"params": {p: sumsq(t) for p, (_, t) in zip(paths, flatten(state.params))},
+               "cuts": {p: [list(c) for c in cuts] for p, cuts in zip(paths, trainer._cuts)}}
+        if spec.get("optimizer") == "adafactor":
+            out["factors"] = [[sumsq(vr), sumsq(vc)] for vr, vc in
+                              zip(state.opt_state.v_row, state.opt_state.v_col)]
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a / b - 1) if b else abs(a)
+
+
+def check_digests(name: str, digests: list, one: Optional[dict]) -> dict:
+    """W ranks' step digests: every leaf the storage replicates is bit-equal
+    on every rank, and adafactor's factors (whole on every rank) are one
+    rank's within ADAFACTOR_DIGEST_RTOL."""
+    first = digests[0]
+    for path, cuts in first["cuts"].items():
+        if not cuts and len({d["params"][path] for d in digests}) != 1:
+            raise AssertionError(f"{name}: the replicated leaf {path} differs between the "
+                                 f"ranks: {[d['params'][path] for d in digests]}")
+    out = {"replicated_leaves": sum(not c for c in first["cuts"].values())}
+    if one is not None and "factors" in one:
+        rel = max(_rel(x, y) for fa, fb in zip(first["factors"], one["factors"])
+                  for x, y in zip(fa, fb))
+        out["factors_rel"] = rel
+        if rel > ADAFACTOR_DIGEST_RTOL:
+            raise AssertionError(f"{name}: adafactor's factors after one step differ from "
+                                 f"one rank's by {rel} (limit {ADAFACTOR_DIGEST_RTOL})")
+    return out
+
+
 def dist_child(plan: dict) -> int:
     """One process of a distributed phase (``chip_smoke.py --dist-child
     <plan>``), so that no group outlives its phase. ``1rank``: each spec
@@ -2962,6 +3060,8 @@ def dist_child(plan: dict) -> int:
                 out[name]["group"] = train_phase(torch, fa, DIST_SPECS[name])
                 gc.collect()
                 torch.cuda.empty_cache()
+                if DIST_SPECS[name].get("optimizer") == "adafactor":
+                    out[name]["group"]["digest"] = step_digest(torch, DIST_SPECS[name])
         finally:
             dist.destroy_process_group()
     else:
@@ -2974,6 +3074,9 @@ def dist_child(plan: dict) -> int:
                                           "parallelism": {axis: world}}
                      for axis in TP_CP_AXES}
             specs["llama-1b-lora/model"] = {**LORA_DIST_SPEC, "parallelism": {"model": world}}
+            specs["llama-1b-rule/model"] = {**DIST_SPECS["llama-1b"],
+                                            "parallelism": {"model": world},
+                                            "partition_rules": EMBED_RULES}
             if world == 4:
                 specs["llama2-7b/fsdp2-model2"] = LLAMA7B_TP_SPEC
         elif plan["mode"] == "pp_ep":
@@ -2981,14 +3084,27 @@ def dist_child(plan: dict) -> int:
         else:
             specs = {name: {**DIST_SPECS[name], "parallelism": {DIST_MULTI_AXIS[name]: world}}
                      for name in plan["models"]}
+        if plan.get("fault"):
+            # a planted fault runs in a child of its own (nothing undoes it),
+            # on its run alone, and only its digests are read
+            name = next(n for n, f in MULTI_FAULTS.items() if f == plan["fault"])
+            specs = {name: specs[name]}
+            plant_fault(plan["fault"])
         rank = dist.get_rank()
         try:
             for name, spec in specs.items():
-                visits = rank + 1 if "context" in spec["parallelism"] else 1
-                margin = LLAMA7B_LOSS0_MARGIN if spec["model"] == "llama2-7b" else LOSS0_MARGIN
-                out[name] = train_phase(torch, fa, spec, visits, margin)
-                gc.collect()
-                torch.cuda.empty_cache()
+                if not plan.get("fault"):
+                    visits = rank + 1 if "context" in spec["parallelism"] else 1
+                    margin = (LLAMA7B_LOSS0_MARGIN if spec["model"] == "llama2-7b"
+                              else LOSS0_MARGIN)
+                    out[name] = train_phase(torch, fa, spec, visits, margin)
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                if name in MULTI_FAULTS:
+                    # every rank's digest, on rank 0
+                    digests = [None] * world
+                    dist.all_gather_object(digests, step_digest(torch, spec))
+                    out.setdefault(name, {})["digests"] = digests
         finally:
             parallel.shutdown()
         if int(os.environ["PLX_PROCESS_ID"]) != 0:
@@ -3048,8 +3164,12 @@ def dist_train_1rank_phase() -> dict:
             "alone_spread": spread, "group_vs_alone": diff,
             "step_p50_ms_group": g["step_time_p50_ms"],
             "step_p50_ms_alone": [a["step_time_p50_ms"], b["step_time_p50_ms"]],
+            "mfu_group": g["mfu"], "mfu_alone": a["mfu"],
             "peak_gib_group": g["peak_mem_gib"], "peak_gib_alone": a["peak_mem_gib"],
-            "launches": g["launches"]}
+            "launches": g["launches"], "expected_launches": g["expected_launches"]}
+        if "digest" in g:
+            # adafactor's factors after one step, for dist_train_multi
+            out[name]["digest"] = {"factors": g["digest"]["factors"]}
         if diff > spread:
             raise AssertionError(f"{name}: the 1-rank group's losses {g['losses']} differ "
                                  f"from the run without one {a['losses']} by {diff}, "
@@ -3076,12 +3196,29 @@ def dist_train_multi_phase(torch, single: dict) -> dict:
         rel = [abs(x / y - 1) for x, y in zip(r["losses"][:2], one[:2])]
         out[name] = {"losses": r["losses"], "losses_1rank": one, "rel": rel,
                      "step_p50_ms": r["step_time_p50_ms"], "peak_gib": r["peak_mem_gib"],
-                     "launches": r["launches"]}
+                     "launches": r["launches"], "mfu": r["mfu"]}
         if any(x > tol for x, tol in zip(rel, DIST_MULTI_RTOL)):
             raise AssertionError(f"{name}: {world} ranks' losses {r['losses'][:2]} vs one "
                                  f"rank's {one[:2]} (relative {rel}, limits "
                                  f"{DIST_MULTI_RTOL})")
+        if "digests" in r:
+            out[name].update(check_digests(name, r["digests"], single[name]["digest"]))
+    name = "llama-1b-adafactor"
+    out[f"{name}/af_block_shape"] = planted_fault_phase(
+        envs, {"mode": "multi", "models": [name]}, "af_block_shape", single[name]["digest"])
     return out
+
+
+def planted_fault_phase(envs: list, plan: dict, fault: str, one: Optional[dict]) -> dict:
+    """The children of ``plan`` with ``fault`` planted: their digests must
+    fail check_digests (a fault that passes raises)."""
+    res = run_children(envs, {**plan, "fault": fault}, timeout=600)
+    (name, r), = res.items()
+    try:
+        check_digests(name, r["digests"], one)
+    except AssertionError as e:
+        return {"caught": str(e)[:300]}
+    raise AssertionError(f"the planted fault {fault} passed {name}'s digest check")
 
 
 def tp_cp_multi_phase(torch, fa, single: dict) -> dict:
@@ -3107,6 +3244,8 @@ def tp_cp_multi_phase(torch, fa, single: dict) -> dict:
     for name, r in res.items():
         out[name] = {"losses": r["losses"], "step_p50_ms": r["step_time_p50_ms"],
                      "peak_gib_rank0": r["peak_mem_gib"], "launches": r["launches"]}
+        if "digests" in r:
+            out[name].update(check_digests(name, r["digests"], None))
         if name.startswith("llama-1b"):
             one = one_lora if "lora" in name else single["llama-1b"]["losses_group"]
             rel = [abs(x / y - 1) for x, y in zip(r["losses"][:2], one[:2])]
@@ -3115,6 +3254,8 @@ def tp_cp_multi_phase(torch, fa, single: dict) -> dict:
                 raise AssertionError(f"{name}: {world} ranks' losses {r['losses'][:2]} vs "
                                      f"one rank's {one[:2]} (relative {rel}, limits "
                                      f"{DIST_MULTI_RTOL})")
+    out["llama-1b-rule/model/unresharded"] = planted_fault_phase(
+        envs, {"mode": "tp_cp"}, "unresharded", None)
     return out
 
 

@@ -15,8 +15,10 @@ The numerics follow the JAX model:
   ``jnp.var`` takes it (the mean, then the mean of squared deviations);
   the running statistics move as ``momentum * old + (1 - momentum) *
   batch``. Over a mesh both sums are the whole batch's, summed over the
-  ranks by a differentiable all-reduce, as XLA's psum makes them; on one
-  rank the same expression gives the same bits as no mesh.
+  batch ranks by a differentiable all-reduce, as XLA's psum makes them; on
+  one rank the same expression gives the same bits as no mesh. Every
+  ``model`` and ``context`` rank computes the same forward on the same
+  rows (the params are replicated): nothing is summed over those axes.
 - Convolutions in ``cfg.dtype`` (bf16); pooling and the head in f32.
 """
 
@@ -28,6 +30,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..parallel.mesh import TOKEN_AXES
 from .transformer import generator
 
 
@@ -206,18 +209,18 @@ def flops_per_image(cfg: ResNetConfig, image_size: int) -> float:
     return 3.0 * total
 
 
-def batch_mean(values: torch.Tensor, mesh=None) -> torch.Tensor:
+def batch_mean(values: torch.Tensor, mesh=None, axes: tuple = TOKEN_AXES) -> torch.Tensor:
     """The mean of ``values`` (their sum over their count); with a
     ``mesh``, this rank's share of the whole batch's mean (its sum over the
-    batch's count)."""
+    count summed over ``axes``: the ranks that split the batch's terms)."""
     count = torch.full((), float(values.numel()), device=values.device)
-    return values.sum() / (count if mesh is None else mesh.batch_count(count))
+    return values.sum() / (count if mesh is None else mesh.batch_count(count, axes))
 
 
 def classification_loss(logits: torch.Tensor, labels: torch.Tensor,
-                        mesh=None) -> torch.Tensor:
+                        mesh=None, axes: tuple = TOKEN_AXES) -> torch.Tensor:
     """Mean cross entropy of [B, classes] logits (a rank's share of the
-    batch's under a ``mesh``)."""
+    batch's under a ``mesh``, shared over ``axes``)."""
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
-    return batch_mean(logz - gold, mesh)
+    return batch_mean(logz - gold, mesh, axes)

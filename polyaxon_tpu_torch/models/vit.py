@@ -116,23 +116,37 @@ def apply(params: dict, images: torch.Tensor, cfg: ViTConfig, mesh=None) -> torc
     """images [B, H, W, C] -> class logits [B, num_classes] (f32). Under a
     ``model`` axis (``mesh``) the encoder's layers run on this rank's
     heads and mlp columns; the patch embedding, CLS and head are
-    replicated."""
+    replicated. Under ``context`` every rank embeds the whole sequence
+    (patches + CLS), keeps its chunk at its global positions and runs the
+    trunk on it (the non-causal ring or Ulysses); the CLS feature, on the
+    first chunk, is summed over the context ranks (its grad too), so every
+    rank computes the head on it and holds its share of the loss."""
     dt = cfg.encoder.dtype
     x = patchify(images.to(dt), cfg.patch_size)
     x = torch.matmul(x, params["patch"]["w"].to(dt)) + params["patch"]["b"].to(dt)
     cls = params["cls"].to(dt).expand(x.shape[0], 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1)
+    cp = mesh.cp if mesh is not None else 1
+    if cp > 1:
+        s = x.shape[1] // cp
+        x = x[:, mesh.seq_index * s:(mesh.seq_index + 1) * s]
     feats = _encode(params["encoder"], x, cfg, mesh)
     cls_out = feats[:, 0]
+    if cp > 1:
+        # the graph stays whole on every rank: the ring's backward needs all
+        cls_out = mesh.sum_over_context(
+            torch.where(torch.tensor(mesh.seq_index == 0, device=cls_out.device), cls_out,
+                        torch.zeros_like(cls_out)))
     logits = torch.matmul(cls_out, params["head"]["w"].to(dt)) + params["head"]["b"].to(dt)
     return logits.float()
 
 
 def _encode(enc_params: dict, x: torch.Tensor, cfg: ViTConfig, mesh=None) -> torch.Tensor:
-    """The trunk on the embeddings (positions added), then the final norm;
-    no LM head."""
+    """The trunk on the embeddings (positions added at the chunk's global
+    offset), then the final norm; no LM head."""
     ecfg = cfg.encoder
-    x = x + enc_params["embed"]["pos"].to(ecfg.dtype)[None, :x.shape[1]]
+    start = transformer._seq_offset(x.shape[1], mesh)
+    x = x + enc_params["embed"]["pos"].to(ecfg.dtype)[None, start:start + x.shape[1]]
     x, _ = transformer.run_trunk(x, enc_params["layers"], ecfg, mesh=mesh)
     return transformer._norm(x, enc_params["final_norm"], ecfg)
 

@@ -7,6 +7,9 @@ needs:
   (in the grad's own dtype, as XLA reduces a bf16 grad in bf16);
 - :func:`differentiable_sum`: a sum over the group whose backward sums the
   grad over the group (a batch statistic every rank's loss reads);
+- :func:`reshard`: a leaf stored cut one way over the group, read cut
+  another (a user's partition rule on a compute axis); the backward moves
+  the grad back, with no sum;
 - Megatron's pair over the ``model`` group: :func:`copy_to_group`
   (identity forward, the grad summed backward: a column-parallel layer's
   replicated input) and :func:`reduce_from_group` (the sum forward,
@@ -26,6 +29,8 @@ needs:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 _dist = torch.distributed
@@ -41,16 +46,21 @@ def _dense(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _gather(shard: torch.Tensor, dim: int, group, world: int) -> torch.Tensor:
+    """The group's shards joined along ``dim`` (outside autograd), in the
+    shard's own layout, so the model's products take the full leaf as they
+    take an unsharded one."""
+    x = shard.movedim(dim, 0).contiguous()
+    out = x.new_empty((world * x.shape[0],) + tuple(x.shape[1:]))
+    _ALL_GATHER(out, x, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, shard, dim, group, world):
         ctx.dim, ctx.group, ctx.world = dim, group, world
-        x = shard.movedim(dim, 0).contiguous()
-        out = x.new_empty((world * x.shape[0],) + tuple(x.shape[1:]))
-        _ALL_GATHER(out, x, group=group)
-        # in the shard's own layout, so the model's products take the full
-        # leaf as they take an unsharded one
-        return out.movedim(0, dim).contiguous()
+        return _gather(shard, dim, group, world)
 
     @staticmethod
     def backward(ctx, grad):
@@ -64,6 +74,37 @@ def all_gather(shard: torch.Tensor, dim: int, group, world: int) -> torch.Tensor
     """The group's shards of a tensor joined along ``dim`` in group-rank
     order; differentiable (the backward is a reduce-scatter)."""
     return _AllGather.apply(shard, dim, group, world)
+
+
+def _move(x: torch.Tensor, gather: Optional[int], block: Optional[int], group, world: int,
+          index: int) -> torch.Tensor:
+    if gather is not None:
+        x = _gather(x, gather, group, world)
+    if block is not None:
+        n = x.shape[block] // world
+        x = x.narrow(block, index * n, n).contiguous()
+    return x
+
+
+class _Reshard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, stored, read, group, world, index):
+        ctx.args = (read, stored, group, world, index)
+        return _move(x, stored, read, group, world, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_move(grad, *ctx.args),) + (None,) * 5
+
+
+def reshard(x: torch.Tensor, stored: Optional[int], read: Optional[int], group, world: int,
+            index: int) -> torch.Tensor:
+    """A tensor held cut at dim ``stored`` over the group (None: whole on
+    every rank), as rank ``index``'s block at dim ``read`` (None: whole):
+    gathered, then cut. The backward moves the grad the other way, from
+    the read block to the stored one, with no sum: each rank's grad of its
+    read is whole for that block (over ``model``, ``stage``)."""
+    return _Reshard.apply(x, stored, read, group, world, index)
 
 
 class _Sum(torch.autograd.Function):

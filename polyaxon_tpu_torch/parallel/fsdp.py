@@ -12,11 +12,20 @@ remat policy rereads a :meth:`fresh` view in its recompute, so the
 backward gathers the layer again instead of keeping it. Each gather's
 backward reduce-scatters the grad to the shard.
 
+A view may also reshard a leaf that a user's partition rule stores cut
+otherwise than the layer bodies read it over a compute axis (``reshard``:
+a tree of each leaf's ``(axis, stored dim, read dim)`` moves and the
+mesh's ``reshard``): the stored block is gathered on the rule's cut and
+cut as the built-in spec cuts it, before the fsdp gather. A stacked leaf
+is resharded whole (the stage cut is its layer dim), once per view, and
+the per-layer views of :meth:`unstack` and the leaves of :meth:`leaves`
+are of the resharded leaves.
+
 A view may also merge low-rank adapters into the leaves it reads
 (``merge``: a tree of :class:`~..partition.lora.Adapter` at the targeted
-leaves): the leaf is gathered first, then its adapter adds the delta of
-the block the rank holds. A LoRA task's base reads through such a view, so
-each layer gathers once and then adds its delta.
+leaves): the leaf is resharded and gathered first, then its adapter adds
+the delta of the block the rank reads. A LoRA task's base reads through
+such a view, so each layer gathers once and then adds its delta.
 """
 
 from __future__ import annotations
@@ -41,23 +50,42 @@ class ShardedTree:
     """A read-only view of a tree of shards whose leaves read as full
     tensors: ``dims`` holds each leaf's ``(axis, dim)`` cuts, and
     ``gather(shard, dim, axis)`` joins a cut when the leaf is read (a leaf
-    with no cut reads as it is)."""
+    with no cut reads as it is); ``reshard``, when given, is ``(moves,
+    move)``: each leaf's moves and ``move(t, axis, stored, read)``."""
 
     def __init__(self, tree: dict, dims: dict,
                  gather: Optional[Callable[[torch.Tensor, int], torch.Tensor]],
-                 merge: Optional[dict] = None):
+                 merge: Optional[dict] = None, reshard: Optional[tuple] = None):
         self._tree, self._dims, self._gather = tree, dims, gather
         self._merge = merge or {}
+        self._reshard = reshard
         self._read: dict = {}
+        self._moved: dict = {}
+
+    def _sub(self, key: str, value: dict) -> "ShardedTree":
+        reshard = None if self._reshard is None else (self._reshard[0][key], self._reshard[1])
+        return ShardedTree(value, self._dims[key], self._gather, self._merge.get(key), reshard)
+
+    def _stored(self, key: str) -> torch.Tensor:
+        """Leaf ``key`` resharded to the block the layer bodies read (once
+        per view), still cut over the gathered axes."""
+        if key not in self._moved:
+            out = self._tree[key]
+            if self._reshard is not None:
+                moves, move = self._reshard
+                for axis, stored, read in moves[key]:
+                    out = move(out, axis, stored, read)
+            self._moved[key] = out
+        return self._moved[key]
 
     def __getitem__(self, key: str) -> Any:
         if key in self._read:
             return self._read[key]
         value, cuts, merge = self._tree[key], self._dims[key], self._merge.get(key)
         if isinstance(value, dict):
-            out = ShardedTree(value, cuts, self._gather, merge)
+            out = self._sub(key, value)
         else:
-            out = value
+            out = self._stored(key)
             for axis, dim in cuts:
                 out = self._gather(out, dim, axis)
             if merge is not None:
@@ -73,11 +101,20 @@ class ShardedTree:
 
     def with_merge(self, merge: dict) -> "ShardedTree":
         """A view of the same shards that merges ``merge``'s adapters."""
-        return ShardedTree(self._tree, self._dims, self._gather, merge)
+        return ShardedTree(self._tree, self._dims, self._gather, merge, self._reshard)
 
     def fresh(self) -> "ShardedTree":
-        """A new view of the same shards: its reads gather again."""
-        return ShardedTree(self._tree, self._dims, self._gather, self._merge)
+        """A new view of the same shards: its reads reshard and gather
+        again."""
+        return ShardedTree(self._tree, self._dims, self._gather, self._merge, self._reshard)
+
+    def _resharded(self) -> dict:
+        """The tree of the resharded leaves (the tree itself without
+        moves)."""
+        if self._reshard is None:
+            return self._tree
+        return {k: (self[k]._resharded() if isinstance(v, dict) else self._stored(k))
+                for k, v in self._tree.items()}
 
     def unstack(self, n: int) -> list:
         """Views of the ``n`` layers of a stacked ``[L, ...]`` tree: one
@@ -99,21 +136,22 @@ class ShardedTree:
 
         merges = split_merge(self._merge) if self._merge else [None] * n
         return [ShardedTree(t, d, self._gather, m)
-                for (t, d), m in zip(split(self._tree, self._dims), merges)]
+                for (t, d), m in zip(split(self._resharded(), self._dims), merges)]
 
     def leaves(self) -> list:
-        """The shards, in sorted-key order."""
+        """The shards as the layer bodies read them (resharded, still cut
+        over the gathered axes), in sorted-key order."""
 
         def walk(tree):
             if isinstance(tree, dict):
                 return [leaf for k in sorted(tree) for leaf in walk(tree[k])]
             return [tree]
 
-        return walk(self._tree)
+        return walk(self._resharded())
 
     def with_leaves(self, leaves: list) -> "ShardedTree":
         """The same view over other shards (``leaves`` in :meth:`leaves`'
-        order)."""
+        order: resharded already)."""
         it = iter(leaves)
 
         def build(tree):

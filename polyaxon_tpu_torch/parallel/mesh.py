@@ -65,16 +65,18 @@ GATHERED_AXES: tuple[str, ...] = ("fsdp", "expert")
 LOCAL = "local"
 
 
-def grad_sum_axes(cut: Sequence[str]) -> tuple:
+def grad_sum_axes(cut: Sequence[str], token_axes: Sequence[str] = TOKEN_AXES) -> tuple:
     """The axes a leaf's grad is summed over after the backward: the token
-    axes, less those its gathers summed over already (``cut``: the axes the
-    leaf is cut over)."""
-    return tuple(a for a in TOKEN_AXES if not (a in GATHERED_AXES and a in cut))
+    axes (``BATCH_AXES`` for a task that replicates its compute over
+    ``context``), less those its gathers summed over already (``cut``: the
+    axes the leaf is cut over)."""
+    return tuple(a for a in token_axes if not (a in GATHERED_AXES and a in cut))
 
 
-_GROUP_AXES = (("fsdp",), ("data",), BATCH_AXES, TOKEN_AXES, ("model",), ("context",),
-               ("stage",), ("expert",)) + tuple(
-    grad_sum_axes(cut) for cut in (("fsdp",), ("expert",), ("fsdp", "expert")))
+_GROUP_AXES = tuple(dict.fromkeys(
+    (("fsdp",), ("data",), BATCH_AXES, TOKEN_AXES, ("model",), ("context",), ("stage",),
+     ("expert",)) + tuple(grad_sum_axes(cut, token) for token in (TOKEN_AXES, BATCH_AXES)
+                          for cut in (("fsdp",), ("expert",), ("fsdp", "expert")))))
 
 
 def normalize_axis_sizes(parallelism: Union[Mapping[str, int], Any, None]) -> dict[str, int]:
@@ -217,6 +219,24 @@ class Mesh:
                                                    self.sizes[axis])
         return shard
 
+    def reshard(self, t: torch.Tensor, axis: str, stored: Optional[int],
+                read: Optional[int]) -> torch.Tensor:
+        """A leaf stored cut over ``axis`` at dim ``stored`` (None: whole),
+        read as the block at dim ``read`` (None: whole). Over ``model`` and
+        ``stage`` every rank's grad of what it read is whole for that block
+        (a replicated read: the same on every rank), so the backward moves
+        it back without a sum (:func:`~.collectives.reshard`). Over
+        ``expert``, a batch axis, each rank's grad is its tokens' part: the
+        backward is the read's adjoint (a gather's reduce-scatter, a
+        block's zero-padding), and the step's sum over the batch axes
+        completes a leaf stored whole."""
+        if axis == "expert":
+            if stored is not None:
+                t = self.gather(t, stored, axis)
+            return t if read is None else self.block(t, read, axis)
+        return collectives.reshard(t, stored, read, self.group(axis), self.sizes[axis],
+                                   self.coords()[axis])
+
     def shard(self, full: torch.Tensor, cuts: Sequence) -> torch.Tensor:
         """This rank's block of ``full`` along each ``(axis, dim)`` of
         ``cuts`` (a copy when any cuts)."""
@@ -230,16 +250,19 @@ class Mesh:
         n = full.shape[dim] // self.sizes[axis]
         return full.narrow(dim, self.coords()[axis] * n, n)
 
-    def batch_count(self, count: torch.Tensor) -> torch.Tensor:
+    def batch_count(self, count: torch.Tensor,
+                    axes: Sequence[str] = TOKEN_AXES) -> torch.Tensor:
         """A count over the whole batch (every rank's rows and sequence
-        chunks): the denominator of a token mean (not differentiated)."""
-        return self.sum_(count.detach().float(), *TOKEN_AXES)
+        chunks; ``axes``: the batch's alone where the sequence is not cut):
+        the denominator of a token mean (not differentiated)."""
+        return self.sum_(count.detach().float(), *axes)
 
     def batch_mean(self, local_sum: torch.Tensor, local_count: int) -> torch.Tensor:
         """The mean over the whole batch of a quantity whose sum over this
         rank's rows is ``local_sum``; differentiable (its backward
         all-reduces the grad), as XLA's psum of a batch mean."""
-        total = collectives.differentiable_sum(local_sum, self.group(*BATCH_AXES))
+        group = self.group(*BATCH_AXES)
+        total = local_sum if group is LOCAL else collectives.differentiable_sum(local_sum, group)
         return total / (local_count * self.axis_size(*BATCH_AXES))
 
     def sum_(self, t: torch.Tensor, *axes: str) -> torch.Tensor:
@@ -274,6 +297,11 @@ class Mesh:
         """A row-parallel layer's partial output summed over model:
         identity backward (Megatron's g, the JAX ``psum``)."""
         return collectives.reduce_from_group(x, self.group("model")) if self.tp else x
+
+    def sum_over_context(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the context ranks; the grad summed too (every
+        context rank's loss reads the sum)."""
+        return collectives.differentiable_sum(x, self.group("context"))
 
     def max_over_model_(self, t: torch.Tensor) -> torch.Tensor:
         """In-place max of ``t`` over model, outside autograd."""
@@ -376,17 +404,6 @@ def build_mesh(parallelism: Union[Mapping[str, int], Any, None] = None,
     if distributed:
         mesh._make_groups()
     return mesh
-
-
-def refuse_unported_axes(sizes: Mapping[str, int],
-                         refused: Optional[Mapping[str, str]] = None) -> None:
-    """Raise naming the ROADMAP item of each axis in ``refused`` (axis ->
-    item: what a model family does not shard over yet)."""
-    for ax, item in (refused or {}).items():
-        if int(sizes.get(ax, 1)) > 1:
-            raise NotImplementedError(
-                f"parallelism axis {ax!r} of size {sizes[ax]} is not ported "
-                f"for this model family (ROADMAP {item})")
 
 
 def mesh_axis_size(mesh: Mesh, *axes: str) -> int:

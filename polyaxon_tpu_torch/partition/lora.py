@@ -297,6 +297,9 @@ class FrozenBaseOptimizer:
     def init(self, params: list):
         return self.inner.init(params)
 
+    def layout(self, shapes: list, cuts: list, mesh) -> None:
+        self.inner.layout(shapes, cuts, mesh)
+
     def update(self, grads: list, state, params: list,
                g_norm: Optional[torch.Tensor] = None):
         return self.inner.update(grads, state, params, g_norm)

@@ -25,10 +25,10 @@ Spec keys (the JAX runtime's, as far as the port goes):
     anomaly_skip_budget, anomaly_rollback_budget, watchdog (true, false or
     {stall_factor, min_s, compile_grace_s}), parallelism ({data, fsdp,
     model, context, stage, expert}: model and stage for the transformer
-    families, context for the language models, ring or Ulysses as the
-    model config's ``seq_parallel`` says, expert a batch axis that also
-    cuts an MoE model's experts; the vision families' axes the port does
-    not shard yet raise naming their ROADMAP item), num_slices (else
+    families, context for the language models and ViT, ring or Ulysses as
+    the model config's ``seq_parallel`` says, expert a batch axis that also
+    cuts an MoE model's experts; ResNet's compute is replicated over model
+    and context), num_slices (else
     ``$MEGASCALE_NUM_SLICES``, else 1: the slices split the ranks in order
     and must divide data x fsdp).
     Language models (lm, mlm) also take seq_len, remat, attn_block_q /
@@ -52,9 +52,10 @@ Spec keys (the JAX runtime's, as far as the port goes):
         ``{base, lora}``, the optimizer keeps moments for the adapters
         alone and clips them by their own norm; ``grad_norm`` covers both.
     partition_rules: [[regex, spec], ...] laid over the model's built-in
-        specs (``polyaxon_tpu_torch.partition``). A rule may move or drop a
-        cut on fsdp (storage: the leaf is gathered before use); one that
-        moves a cut on model, expert or stage raises (ROADMAP A16).
+        specs (``polyaxon_tpu_torch.partition``): the storage of the params,
+        grads and optimizer state. A leaf whose rule moves, drops or adds a
+        cut on model, stage or (all-to-all) expert is read as the built-in
+        spec cuts it, resharded where it is read.
     fork_from: {path, step?} — start from another run's checkpoint,
         restored read-only (a torn pinned step falls back to the parent's
         newest complete one); resume beats re-fork too.
@@ -377,18 +378,17 @@ def build_trainer(spec: dict[str, Any],
 
         task = LoRATask(task, LoRAConfig.from_spec(spec["lora"]))
         tx = FrozenBaseOptimizer(make_optimizer(tcfg.optimizer))
-    try:
-        trainer = Trainer(tcfg, device=device, mesh=mesh, task=task, track=_track,
-                          chaos=TrainerChaos.from_spec(spec.get("chaos"),
-                                                       state_dir=artifacts_dir),
-                          partition_rules=spec.get("partition_rules"), tx=tx, **hooks)
-    except NotImplementedError as e:  # a user rule on a compute axis
-        raise SystemExit(str(e)) from e
+    trainer = Trainer(tcfg, device=device, mesh=mesh, task=task, track=_track,
+                      chaos=TrainerChaos.from_spec(spec.get("chaos"), state_dir=artifacts_dir),
+                      partition_rules=spec.get("partition_rules"), tx=tx, **hooks)
     data_spec = dict(spec.get("data") or {})
     rows = cols = None
     if trainer.mesh.distributed:
         rows = data_mod.local_rows(batch_size, tcfg.microbatches, trainer.batch_index,
                                    trainer.batch_ranks)
+    if trainer.mesh.distributed and family in ("lm", "mlm"):
+        # a vision batch is whole on every context rank: ViT cuts its
+        # tokens itself, ResNet replicates its compute
         try:
             cols = data_mod.local_cols(batch_size, seq_len, trainer.mesh.seq_index,
                                        trainer.mesh.cp)

@@ -12,6 +12,15 @@ hold), decoupled weight decay on every leaf, then the scheduled -lr;
 clipped to RMS 1 and scaled by the param's RMS). Every schedule reads the
 update count before it is incremented, as optax's does, so with warmup the
 first update is zero.
+
+Over a mesh each leaf is this rank's block of a logical leaf cut over some
+axes (the trainer's ``(axis, dim)`` cuts). adamw, sgd and lion are
+elementwise and run on the blocks as they are. adafactor is not: it reads
+the whole leaf, as optax does under GSPMD. :meth:`Adafactor.layout` gives it
+each leaf's logical shape, its cuts and the mesh; it factors by the logical
+shape, keeps the factors whole on every rank (the JAX trainer replicates
+them), and sums the block's partial means and squares over the axes that
+cut the leaf (see :class:`Adafactor`).
 """
 
 from __future__ import annotations
@@ -209,6 +218,10 @@ class _Optimizer:
     def init(self, params: list):
         raise NotImplementedError
 
+    def layout(self, shapes: list, cuts: list, mesh) -> None:
+        """Each leaf's logical shape and ``(axis, dim)`` cuts over ``mesh``:
+        an elementwise update runs on the blocks as they are."""
+
     def update(self, grads: list, state, params: list,
                g_norm: Optional[torch.Tensor] = None):
         if self.cfg.grad_clip and self.cfg.grad_clip > 0:
@@ -314,12 +327,69 @@ def _rms(t: torch.Tensor) -> torch.Tensor:
 
 class Adafactor(_Optimizer):
     """clip -> ``optax.scale_by_factored_rms`` -> ``clip_by_block_rms(1)``
-    -> lr -> times the param's RMS (at least 1e-3) -> negate."""
+    -> lr -> times the param's RMS (at least 1e-3) -> negate.
+
+    Over a mesh (:meth:`layout`) a leaf is factored by its logical shape,
+    ``v_row`` and ``v_col`` are the whole factors on every rank, and the
+    unfactored ``v`` is the param's block. A factor's mean over a dim is
+    the block's mean, then, for each cut of the leaf: over a dim the
+    factor reduces, the ranks' means summed over that axis and divided by
+    its size (a mean of equal blocks' means); over a dim it keeps, the
+    ranks' slices gathered. The update's and the param's RMS take the
+    block's mean square the same way. On one rank each step is the
+    single-process expression, bit for bit. A leaf replicated over an axis
+    holds the same values on every rank there, and takes no sum over it."""
+
+    def __init__(self, cfg: OptimizerConfig):
+        super().__init__(cfg)
+        self._shapes: Optional[list] = None
+        self._cuts: Optional[list] = None
+        self._mesh = None
+
+    def layout(self, shapes: list, cuts: list, mesh) -> None:
+        if any(cuts):
+            self._shapes, self._cuts, self._mesh = [tuple(s) for s in shapes], list(cuts), mesh
+        else:
+            self._shapes = self._cuts = self._mesh = None
+
+    def _leaf(self, i: int, p: torch.Tensor) -> tuple:
+        """(logical shape, cuts) of leaf ``i``."""
+        if self._cuts is None:
+            return tuple(p.shape), ()
+        return self._shapes[i], self._cuts[i]
+
+    def _mean(self, t: torch.Tensor, dim: int, cuts: tuple) -> torch.Tensor:
+        """The whole leaf's mean over ``dim`` of the block ``t``, whole
+        over the other dims."""
+        out = t.mean(dim=dim)
+        for axis, d in cuts:
+            if d == dim:
+                out = self._mesh.sum_(out.contiguous(), axis) / self._mesh.sizes[axis]
+            else:
+                out = self._mesh.gather_full(out, [(axis, d if d < dim else d - 1)])
+        return out
+
+    def _block(self, t: torch.Tensor, dim: int, cuts: tuple) -> torch.Tensor:
+        """This rank's block of a whole factor that reduced ``dim``."""
+        for axis, d in cuts:
+            if d != dim:
+                t = self._mesh.block(t, d if d < dim else d - 1, axis)
+        return t
+
+    def _rms(self, t: torch.Tensor, cuts: tuple) -> torch.Tensor:
+        """The whole leaf's RMS of the block ``t``."""
+        if not cuts:
+            return _rms(t)
+        ms = torch.mean(t * t).reshape(1)
+        for axis in dict.fromkeys(a for a, _ in cuts):
+            ms = self._mesh.sum_(ms, axis) / self._mesh.sizes[axis]
+        return torch.sqrt(ms[0])
 
     def init(self, params: list) -> AdafactorState:
         state = AdafactorState(count=0, v_row=[], v_col=[], v=[])
-        for p in params:
-            dims = factored_dims(p.shape)
+        for i, p in enumerate(params):
+            shape, _ = self._leaf(i, p)
+            dims = factored_dims(shape)
             one = torch.zeros(1, dtype=p.dtype, device=p.device)
             if dims is None:
                 state.v_row.append(one)
@@ -327,8 +397,10 @@ class Adafactor(_Optimizer):
                 state.v.append(torch.zeros_like(p))
             else:
                 d1, d0 = dims
-                state.v_row.append(torch.zeros_like(p.select(d0, 0)))
-                state.v_col.append(torch.zeros_like(p.select(d1, 0)))
+                zeros = lambda drop: torch.zeros(  # noqa: E731
+                    shape[:drop] + shape[drop + 1:], dtype=p.dtype, device=p.device)
+                state.v_row.append(zeros(d0))
+                state.v_col.append(zeros(d1))
                 state.v.append(one)
         return state
 
@@ -340,29 +412,52 @@ class Adafactor(_Optimizer):
         keep = _f32(1.0 - decay)
         new = AdafactorState(count=state.count + 1, v_row=[], v_col=[], v=[])
         updates = []
-        for g, vr, vc, v, p in zip(grads, state.v_row, state.v_col, state.v, params):
+        for i, (g, vr, vc, v, p) in enumerate(zip(grads, state.v_row, state.v_col, state.v,
+                                                  params)):
+            shape, cuts = self._leaf(i, p)
             sq = g * g + ADAFACTOR_EPS
-            dims = factored_dims(p.shape)
+            dims = factored_dims(shape)
             if dims is None:
                 v = (decay * v + keep * sq).to(p.dtype)
                 u = g * v ** -0.5
             else:
                 d1, d0 = dims
-                vr = (decay * vr + keep * sq.mean(dim=d0)).to(p.dtype)
-                vc = (decay * vc + keep * sq.mean(dim=d1)).to(p.dtype)
+                vr = (decay * vr + keep * self._mean(sq, d0, cuts)).to(p.dtype)
+                vc = (decay * vc + keep * self._mean(sq, d1, cuts)).to(p.dtype)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
                 row = (vr / vr.mean(dim=reduced_d1, keepdim=True)) ** -0.5
-                u = g * row.unsqueeze(d0) * (vc ** -0.5).unsqueeze(d1)
+                u = g * self._block(row, d0, cuts).unsqueeze(d0) \
+                    * self._block(vc ** -0.5, d1, cuts).unsqueeze(d1)
             new.v_row.append(vr)
             new.v_col.append(vc)
             new.v.append(v)
-            u = u / torch.clamp(_rms(u) / ADAFACTOR_CLIP_RMS, min=1.0)
+            u = u / torch.clamp(self._rms(u, cuts) / ADAFACTOR_CLIP_RMS, min=1.0)
             u = torch.tensor(lr, dtype=u.dtype, device=u.device) * u
-            p_rms = _rms(p)
+            p_rms = self._rms(p, cuts)
             u = u * torch.where(p_rms <= ADAFACTOR_MIN_PARAM_RMS,
                                 torch.full_like(p_rms, ADAFACTOR_MIN_PARAM_RMS), p_rms)
             updates.append(-u)
         return updates, new
+
+
+def state_cuts(state, cuts: list) -> dict:
+    """Field name -> the cuts of each of its tensors (``cuts``: the
+    params'): a param-shaped moment is cut as its param; adafactor's
+    factors, and the one-element placeholders beside them, are whole on
+    every rank (the JAX trainer replicates every state leaf whose shape is
+    not its param's)."""
+    out = {}
+    for f in fields(state):
+        if f.name == "count":
+            continue
+        if isinstance(state, AdafactorState) and f.name != "v":
+            out[f.name] = [()] * len(cuts)
+        elif isinstance(state, AdafactorState):
+            # a factored leaf's v is the placeholder; its v_row is not
+            out[f.name] = [() if r.numel() > 1 else c for r, c in zip(state.v_row, cuts)]
+        else:
+            out[f.name] = list(cuts)
+    return out
 
 
 OPTIMIZERS = {"adamw": AdamW, "sgd": Sgd, "lion": Lion, "adafactor": Adafactor}

@@ -12,11 +12,15 @@ batch and context ranks sum to it (a mean's numerator over the batch's
 count). Under ``model`` every model rank computes the same loss from its
 shards of the layers.
 
-Which mesh axes a family's model shards over is the family's
-(:func:`refuse_unsupported_axes`): the transformers' layers over ``model``
-and ``stage``, the token models' sequence over ``context``, the experts
-over ``expert``; the rest raises naming its ROADMAP item or the JAX
-package's own error.
+Which mesh axes a family's model shards over is the family's: the
+transformers' layers over ``model`` and ``stage``, the token models' and
+ViT's sequence over ``context``, the experts over ``expert``. ResNet
+replicates every param (the JAX package's rules), so its compute is
+replicated over ``model`` and ``context``: every such rank draws the same
+rows and computes the same loss, and its loss, metrics, grads and batch
+statistics are the batch axes' alone (``token_axes``). A mesh a model
+cannot run on raises the JAX package's own error
+(:func:`refuse_unsupported_axes`).
 """
 
 from __future__ import annotations
@@ -30,11 +34,7 @@ from ..models import resnet as resnet_mod
 from ..models import transformer
 from ..models import vit as vit_mod
 from ..models.transformer import TransformerConfig
-from ..parallel.mesh import PartitionSpec, ShardingRules, TOKEN_AXES, refuse_unported_axes
-
-#: what each family's model does not shard over yet -> ROADMAP item
-_FAMILY_REFUSALS = {"vit": {"context": "A8 (vision)"},
-                    "resnet": {"model": "A8 (vision)", "context": "A8 (vision)"}}
+from ..parallel.mesh import BATCH_AXES, TOKEN_AXES, PartitionSpec, ShardingRules
 
 
 def family_of(model_cfg: Any) -> str:
@@ -48,13 +48,11 @@ def family_of(model_cfg: Any) -> str:
 
 
 def refuse_unsupported_axes(model_cfg: Any, sizes: dict) -> None:
-    """Raise on a mesh the model cannot run on: an axis the port does not
-    run, or one its family does not shard over yet (naming the ROADMAP
-    item). A ViT sequence (patches + CLS) that a ``context`` axis does not
-    divide raises as the JAX package's shard_map does; so do a trunk whose
-    layers do not divide over ``stage``, a model without a layered trunk
-    under ``stage`` and all-to-all experts that do not divide over
-    ``expert``, each with the JAX package's error."""
+    """Raise on a mesh the model cannot run on, with the JAX package's
+    errors: a ViT sequence (patches + CLS) that a ``context`` axis does not
+    divide (its shard_map's), a trunk whose layers do not divide over
+    ``stage``, a model without a layered trunk under ``stage`` and
+    all-to-all experts that do not divide over ``expert``."""
     family = family_of(model_cfg)
     cp = int(sizes.get("context", 1))
     stages = int(sizes.get("stage", 1))
@@ -76,7 +74,6 @@ def refuse_unsupported_axes(model_cfg: Any, sizes: dict) -> None:
             f"axis sizes that are not evenly divisible by the corresponding mesh axis "
             f"sizes: the sequence of {model_cfg.num_patches + 1} tokens over a "
             f"'context' axis of {cp}")
-    refuse_unported_axes(sizes, _FAMILY_REFUSALS.get(family))
 
 
 class Task(ABC):
@@ -114,8 +111,10 @@ class Task(ABC):
     def flops_per_token(self, seq_len: int) -> float: ...
 
 
-def _accuracy(logits: torch.Tensor, labels: torch.Tensor, mesh=None) -> torch.Tensor:
-    return resnet_mod.batch_mean((torch.argmax(logits, dim=-1) == labels).float(), mesh)
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor, mesh=None,
+              axes: tuple = TOKEN_AXES) -> torch.Tensor:
+    return resnet_mod.batch_mean((torch.argmax(logits, dim=-1) == labels).float(), mesh,
+                                 axes)
 
 
 class LMTask(Task):
@@ -199,6 +198,8 @@ class ResNetTask(Task):
     every microbatch's forward."""
 
     default_data_kind = "synthetic-image"
+    #: the compute is replicated over ``model`` and ``context``
+    token_axes = BATCH_AXES
 
     def __init__(self, cfg: resnet_mod.ResNetConfig, image_size: Optional[int] = None):
         self.cfg = cfg
@@ -221,9 +222,9 @@ class ResNetTask(Task):
     def loss(self, params, extra, batch, mesh=None):
         logits, new_stats = resnet_mod.apply(params, extra, batch["images"], self.cfg,
                                              train=True, mesh=mesh)
-        loss = resnet_mod.classification_loss(logits, batch["labels"], mesh)
-        return loss, {"loss": loss,
-                      "accuracy": _accuracy(logits, batch["labels"], mesh)}, new_stats
+        loss = resnet_mod.classification_loss(logits, batch["labels"], mesh, BATCH_AXES)
+        return loss, {"loss": loss, "accuracy": _accuracy(logits, batch["labels"], mesh,
+                                                          BATCH_AXES)}, new_stats
 
     def tokens_per_step(self, batch_size, seq_len):
         return batch_size  # samples

@@ -43,8 +43,9 @@ is the one the JAX package's SPMD step returns on a mesh of that shape:
   model gathers a leaf where it uses it, each layer's just before the
   layer runs (in ``grad_dtype``), and each gather's backward
   reduce-scatters the grad to the shard; with ``data`` too, shards are
-  then summed over the data ranks. adafactor's factored moments are not
-  sharded yet (ROADMAP A15);
+  then summed over the data ranks. adafactor's factored moments are the
+  whole factors on every rank, as the JAX trainer replicates them, and
+  its update reads the whole leaf (``train/optimizers.py``);
 - ``stage``: each rank holds its block of the stacked layers (the JAX
   trainer's ``layers -> stage`` rule) and runs them as a pipeline stage;
   every leaf outside the trunk (embedding, final norm, head, learned
@@ -64,9 +65,13 @@ is the one the JAX package's SPMD step returns on a mesh of that shape:
   and keep their shard.
 
 The JAX Trainer's ``partition_rules`` lay a user's rules over the task's
-specs before the cuts are derived (a cut on a compute axis may not move:
-ROADMAP A16), and its ``tx`` replaces the config's optimizer: a LoRA run's
-frozen base (``partition/lora.py``) trains the adapters alone. The step
+specs before the cuts are derived. The rule's spec is the leaf's storage:
+its params, grads and param-shaped optimizer state are cut as it says. The
+layer bodies read each leaf as the built-in spec cuts it over the compute
+axes (``model``, ``stage``, and ``expert`` under all-to-all): where the
+two differ, the read reshards the leaf (``parallel/fsdp.py``), as GSPMD
+reshards it where it is read. Its ``tx`` replaces the config's optimizer:
+a LoRA run's frozen base (``partition/lora.py``) trains the adapters alone. The step
 still takes every floating leaf's grad, and ``grad_norm`` and the guard
 cover them all, as ``optax.global_norm(grads)`` does; the optimizer's clip
 reads the norm of the leaves it trains, and the others get no update.
@@ -85,13 +90,14 @@ from ..models.transformer import TransformerConfig, flatten, unflatten
 from ..parallel.fsdp import ShardedTree, fresh, leaf_dims
 from ..parallel.mesh import (
     BATCH_AXES, TOKEN_AXES, Mesh, ShardingRules, build_mesh, grad_sum_axes,
-    normalize_axis_sizes, sharded_dim,
+    normalize_axis_sizes,
 )
 from ..parallel.pipeline import validate_pipeline_mesh
 from .checkpoint import CheckpointConfig, Checkpointer
 from .metrics import ThroughputMeter
 from .optimizers import (
     OptimizerConfig, global_norm, make_optimizer, opt_state_from_tree, opt_state_tree,
+    state_cuts,
 )
 from .tasks import LMTask, Task, ViTTask, refuse_unsupported_axes
 
@@ -196,22 +202,27 @@ class Trainer:
         a2a = getattr(model_cfg, "moe_dispatch", None) == "a2a"
         self._gathered_axes = tuple(a for a in ("expert", "fsdp")
                                     if a in self._cut_axes and not (a == "expert" and a2a))
-        if self._cut_axes and cfg.optimizer.name == "adafactor":
-            raise NotImplementedError(
-                f"adafactor over {'/'.join(self._cut_axes)} is not ported: its factored "
-                f"moments are not sharded (ROADMAP A15); use data parallelism or another "
-                f"optimizer")
+        # the axes whose cut of a leaf the layer bodies read as a block
+        self._compute_axes = tuple(a for a in self._cut_axes if a not in self._gathered_axes)
         self.primary = self.mesh.rank == 0
         # this rank's place over the batch axes, and how many share the batch
         self.batch_ranks = self.mesh.axis_size(*BATCH_AXES)
         self.batch_index = self.mesh.index(BATCH_AXES)
-        self.specs = task.param_specs(rules)
+        # the axes a token's loss term is spread over: the batch's, and the
+        # sequence's where the task cuts it (a task that replicates its
+        # compute over ``context`` keeps the batch's alone)
+        self.token_axes = getattr(task, "token_axes", TOKEN_AXES)
+        # the built-in specs cut what the layer bodies read; a user's rules
+        # lay the storage over them
+        self.compute_specs = task.param_specs(rules)
+        self.specs = self.compute_specs
         if partition_rules:
             self.specs = self._overlay(partition_rules)
-        # each param leaf's (axis, dim) cuts (flatten order), and the tree of
-        # the cuts the model gathers (None: it reads every leaf as it is)
+        # each param leaf's (axis, dim) cuts (flatten order), and the view's
+        # trees: the cuts the model gathers and the compute axes' reshards
+        # (None: the model reads every leaf as it is)
         self._cuts: list = []
-        self._gather_tree: Optional[dict] = None
+        self._view: Optional[tuple] = None
         # the optimizer: the config's, or a given one (a LoRA run's frozen
         # base); ``trains(path)`` names the leaves it updates and keeps state
         # for (every leaf by default)
@@ -236,25 +247,13 @@ class Trainer:
 
     def _overlay(self, partition_rules: Any) -> dict:
         """The task's specs with the user's ``partition_rules`` laid over
-        them, as the JAX trainer lays them. A cut on ``fsdp`` is storage
-        (the leaf is gathered before use), so a rule may move or remove it;
-        one that moves or removes a cut on an axis the layer bodies compute
-        on (``model``, ``expert``, ``stage``) raises."""
-        from ..partition.rules import is_spec, overlay_partition_rules, parse_rules, tree_paths
+        them, as the JAX trainer lays them: the storage of each leaf. It
+        raises what the JAX package raises: an unknown axis here, a cut
+        that does not divide where the leaves are cut."""
+        from ..partition.rules import overlay_partition_rules, parse_rules
 
-        rules = parse_rules(partition_rules)
-        specs = overlay_partition_rules(rules, self.task.abstract_params(), self.specs)
-        live = [a for a in ("stage", "expert", "model") if a in self._live_axes()]
-        for (path, old), (_, new) in zip(tree_paths(self.specs, is_leaf=is_spec),
-                                         tree_paths(specs, is_leaf=is_spec)):
-            for axis in live:
-                if sharded_dim(old, axis) != sharded_dim(new, axis):
-                    raise NotImplementedError(
-                        f"partition rule over {path!r}: {tuple(new)} moves or removes "
-                        f"the {axis!r} cut of its built-in spec {tuple(old)}, which "
-                        f"changes what the layer body computes on each {axis} rank; "
-                        f"user rules on compute axes are not ported (ROADMAP A16)")
-        return specs
+        return overlay_partition_rules(parse_rules(partition_rules),
+                                       self.task.abstract_params(), self.specs)
 
     def _live_axes(self) -> tuple:
         mesh = self.mesh
@@ -274,13 +273,25 @@ class Trainer:
         optimizer state mirrors the blocks."""
         paths, leaves = zip(*flatten(params))
         mesh = self.mesh
-        dims = {a: [d for _, d in flatten(leaf_dims(self.specs, params, mesh.sizes[a], a))]
-                for a in self._cut_axes}
+
+        def cut_dims(specs, axes):
+            return {a: [d for _, d in flatten(leaf_dims(specs, params, mesh.sizes[a], a))]
+                    for a in axes}
+
+        dims = cut_dims(self.specs, self._cut_axes)
         self._cuts = [tuple((a, dims[a][n]) for a in self._cut_axes if dims[a][n] is not None)
                       for n in range(len(leaves))]
         gathered = [tuple(c for c in cuts if c[0] in self._gathered_axes)
                     for cuts in self._cuts]
-        self._gather_tree = unflatten(paths, gathered) if any(gathered) else None
+        # where the storage's cut on a compute axis is not the built-in
+        # one: (axis, stored dim, read dim), the read's reshard
+        read = cut_dims(self.compute_specs, self._compute_axes)
+        moves = [tuple((a, dims[a][n], read[a][n]) for a in self._compute_axes
+                       if dims[a][n] != read[a][n]) for n in range(len(leaves))]
+        self._view = ((unflatten(paths, gathered),
+                       unflatten(paths, moves) if any(moves) else None)
+                      if any(gathered) or any(moves) else None)
+        self._shapes = [tuple(t.shape) for t in leaves]
         if any(self._cuts):
             leaves = [mesh.shard(t, c) for t, c in zip(leaves, self._cuts)]
             params = unflatten(paths, leaves)
@@ -293,6 +304,7 @@ class Trainer:
         partial = partial(mesh if mesh.distributed else None) if partial else {}
         self._partial_axes = [partial.get("/".join(p), ()) for p in paths]
         opt_leaves = [leaves[i] for i in self._opt_index]
+        self.tx.layout([self._shapes[i] for i in self._opt_index], self._opt_cuts(), mesh)
         return TrainState(params=params, opt_state=self.tx.init(opt_leaves), step=0,
                           extra=extra)
 
@@ -362,9 +374,8 @@ class Trainer:
         """(tensor, its cuts) for each param leaf and each param-shaped
         optimizer leaf of ``state``."""
         out = [(t, c) for (_, t), c in zip(flatten(state.params), self._cuts)]
-        for name, value in opt_state_tree(state.opt_state).items():
-            if name != "count":
-                out.extend(zip(value, self._opt_cuts()))
+        for name, cuts in state_cuts(state.opt_state, self._opt_cuts()).items():
+            out.extend(zip(getattr(state.opt_state, name), cuts))
         return out
 
     def _opt_cuts(self) -> list:
@@ -396,8 +407,9 @@ class Trainer:
 
         paths, leaves = zip(*flatten(state.params))
         params = unflatten(paths, [full(t, c) for t, c in zip(leaves, self._cuts)])
+        cuts = state_cuts(state.opt_state, self._opt_cuts())
         opt = {name: value if name == "count" else [full(t, c) for t, c in
-                                                    zip(value, self._opt_cuts())]
+                                                    zip(value, cuts[name])]
                for name, value in opt_state_tree(state.opt_state).items()}
         if not self.primary:
             return None
@@ -435,8 +447,10 @@ class Trainer:
                      else p.detach()).requires_grad_(p.is_floating_point())
                     for p in leaves]
             diff_tree = unflatten(paths, diff)
-            if self._gather_tree is not None:
-                diff_tree = ShardedTree(diff_tree, self._gather_tree, mesh.gather)
+            if self._view is not None:
+                gather, moves = self._view
+                diff_tree = ShardedTree(diff_tree, gather, mesh.gather, reshard=(
+                    None if moves is None else (moves, mesh.reshard)))
             floating = [i for i, p in enumerate(leaves) if p.is_floating_point()]
             cuts = [self._cuts[i] for i in floating]
             partial = [self._partial_axes[i] for i in floating]
@@ -469,14 +483,9 @@ class Trainer:
                 task_metrics = self._sum_metrics(task_metrics)
                 for i, c in enumerate(cuts):
                     # NCCL reduces dense tensors only (autograd may hand back
-                    # a strided view); a gathered shard (fsdp, experts) was
-                    # summed over its axis by the gather's reduce-scatter or
-                    # the experts' all-to-all. A block is summed over the
-                    # token ranks that hold the same block.
-                    g = grads[i] = grads[i].contiguous()
-                    mesh.sum_(g, *grad_sum_axes([a for a, _ in c]))
-                    if partial[i]:
-                        mesh.sum_(g, *partial[i])
+                    # a strided view)
+                    grads[i] = grads[i].contiguous()
+                    self._sum_grad(grads[i], c, partial[i])
                 if any(cuts):
                     whole = self._whole_sums
             loss = task_metrics["loss"]
@@ -507,6 +516,16 @@ class Trainer:
 
         return step_fn
 
+    def _sum_grad(self, g: torch.Tensor, cuts: tuple, partial: tuple) -> None:
+        """A leaf's grad summed in place over the token ranks that hold the
+        same block, less the axes a gathered shard (fsdp, experts) was
+        summed over already by its gather's reduce-scatter or the experts'
+        all-to-all, then over ``partial``: the axes whose ranks each
+        compute a part of it (a LoRA adapter's block deltas)."""
+        self.mesh.sum_(g, *grad_sum_axes([a for a, _ in cuts], self.token_axes))
+        if partial:
+            self.mesh.sum_(g, *partial)
+
     def _norms(self, grads: list, cuts: list, trained: list,
                whole: Optional[Callable]) -> tuple:
         """(the reported grad norm, the norm the optimizer's clip reads):
@@ -525,11 +544,11 @@ class Trainer:
         return norm, global_norm([grads[i] for i in trained], over(sub))
 
     def _sum_metrics(self, metrics: dict) -> dict:
-        """The batch and context ranks' shares of each metric, summed: the
-        batch's values (every model rank holds the same)."""
+        """The token ranks' shares of each metric, summed: the batch's
+        values (every model rank holds the same)."""
         names = sorted(metrics)
         vec = torch.stack([metrics[n].detach().float() for n in names])
-        self.mesh.sum_(vec, *TOKEN_AXES)
+        self.mesh.sum_(vec, *self.token_axes)
         return {n: vec[i] for i, n in enumerate(names)}
 
     def _whole_sums(self, cuts: list, sums: list) -> list:

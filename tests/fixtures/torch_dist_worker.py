@@ -77,6 +77,42 @@ def _plant(fault: str, rank: int, mp) -> None:
         from polyaxon_tpu_torch.partition.lora import LoRATask
 
         mp.setattr(LoRATask, "partial_sum_axes", lambda self, mesh: {})
+    elif fault == "af_block_shape":
+        # adafactor factored by the shape of the rank's block
+        from polyaxon_tpu_torch.train.optimizers import Adafactor
+
+        leaf = Adafactor._leaf
+        mp.setattr(Adafactor, "_leaf", lambda self, i, p: (tuple(p.shape), leaf(self, i, p)[1]))
+    elif fault == "af_local_means":
+        # each rank's factor means over its block alone (slices still gathered)
+        from polyaxon_tpu_torch.train.optimizers import Adafactor
+
+        mean = Adafactor._mean
+        mp.setattr(Adafactor, "_mean", lambda self, t, dim, cuts: mean(
+            self, t, dim, tuple(c for c in cuts if c[1] != dim)))
+    elif fault == "af_block_rms":
+        # the update clip and the param scale read the block's RMS
+        from polyaxon_tpu_torch.train import optimizers
+
+        mp.setattr(optimizers.Adafactor, "_rms", lambda self, t, cuts: optimizers._rms(t))
+    elif fault == "reshard_adjoint":
+        # the reshard's backward as the forward's plain adjoint: the read
+        # block's grad zero-padded, not gathered over the read cut
+        from polyaxon_tpu_torch.parallel import mesh as mesh_mod
+
+        def adjoint(self, t, axis, stored, read):
+            if stored is not None:
+                t = self.gather(t, stored, axis)
+            return t if read is None else self.block(t, read, axis)
+
+        mp.setattr(mesh_mod.Mesh, "reshard", adjoint)
+    elif fault == "resnet_grads_over_model":
+        # the replicated compute's grads summed over the model ranks
+        from polyaxon_tpu_torch.train.trainer import Trainer
+
+        summed = Trainer._sum_grad
+        mp.setattr(Trainer, "_sum_grad", lambda self, g, cuts, partial: (
+            summed(self, g, cuts, partial), self.mesh.sum_(g, "model")))
     elif fault == "pp_microbatch_off_by_one":
         # each tick processes the next microbatch, not its own
         from polyaxon_tpu_torch.parallel import pipeline
@@ -268,6 +304,9 @@ class _Capture:
 
             def init(self, leaves):
                 return self.inner.init(leaves)
+
+            def layout(self, *args):
+                self.inner.layout(*args)
 
             def update(self, grads, *args, **kwargs):
                 if capture.grads is None:

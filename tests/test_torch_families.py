@@ -32,6 +32,7 @@ JAX's bf16 grads do.
 
 from __future__ import annotations
 
+import functools
 import importlib
 from dataclasses import replace
 
@@ -116,8 +117,15 @@ def _jbatch(batch):
 
 
 def _init(case, seed=0):
-    """The JAX init of a case as numpy: (params, extra)."""
-    fam, jcfg, _ = _cfgs(case)
+    """The JAX init of a case as numpy: (params, extra). A dtype override
+    changes no initial value (params and statistics are f32), so the cases
+    of one model share its init."""
+    return _model_init(CASES[case][0], seed)
+
+
+@functools.cache
+def _model_init(name, seed):
+    fam, jcfg = JAX_REGISTRY[name]
     params, extra = jax.jit(jtask_for(fam, jcfg).init)(jax.random.PRNGKey(seed))
     return jax.tree.map(np.asarray, (params, extra))
 
@@ -245,8 +253,9 @@ def fitted(request):
                                     optimizer=optimizers.OptimizerConfig(**opt), **common),
                       device="cpu", task=task_for(fam, tcfg),
                       track=lambda i, m: tlog.append(m))
-    jstate = jtrainer.init_state(seed=0)
-    weights = jax.tree.map(np.asarray, (jstate.params, jstate.extra))
+    # the trainer's own init_state(seed=0) draws the task's init from key 0
+    weights = _init(case)
+    jstate = jtrainer.init_state_from(*jax.tree.map(jnp.asarray, weights))
     jstate, _ = jtrainer.fit(jdata.make_batches(_data_cfg(case, jdata)), num_steps=STEPS,
                              state=jstate)
     state = trainer.init_state_from(*params_from_jax(weights, device="cpu"))

@@ -5,10 +5,13 @@ over N processes against ``build_mesh`` over N CPU devices (rank r at
 device r's place), the logical sharding rules, every family's per-leaf
 PartitionSpecs, each rank's batch rows against JAX's shard of the batch
 (microbatches too) and its chunk of the sequence under ``context``, the
-fsdp and model divisibility errors, the axes each family refuses, and
-adafactor's refusal under fsdp and model."""
+fsdp and model divisibility errors, the axes each family runs or refuses
+with the JAX package's error, and adafactor's logical factors under fsdp
+and model."""
 
 from __future__ import annotations
+
+from dataclasses import replace
 
 import jax
 import numpy as np
@@ -229,27 +232,35 @@ def test_an_fsdp_dim_that_does_not_divide_raises_as_jax_does():
 
 
 def test_adafactor_under_fsdp_is_refused_naming_its_item():
-    """adafactor's factored moments do not mirror the params, so they have
-    no fsdp or model block yet: a sharded mesh refuses it (data parallel
-    takes it)."""
+    """adafactor runs on a mesh that cuts its leaves (it was refused before
+    its factors had a layout): the factors are the whole leaf's, factored
+    by its logical shape, while the unfactored moments take the param's
+    block. A hidden-128 llama's ``mlp/wi`` ``[L, 128, 128]`` factors, but
+    its ``[L, 128, 64]`` model block alone would not."""
     from polyaxon_tpu_torch.train import OptimizerConfig, Trainer, TrainerConfig
 
-    cfg = TrainerConfig(model=REGISTRY["llama-tiny"][1], accelerator=None,
+    wide = replace(REGISTRY["llama-tiny"][1], hidden=128, mlp_dim=128)
+    cfg = TrainerConfig(model=wide, accelerator=None,
                         optimizer=OptimizerConfig(name="adafactor"))
     sharded = tpar.Mesh(sizes=mesh_sizes({"fsdp": 1}, 1), distributed=True,
                         declared=frozenset({"fsdp"}))
     assert sharded.sharded
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        Trainer(cfg, device="cpu", mesh=sharded)
-    replicated = tpar.Mesh(sizes=mesh_sizes({"data": 1}, 1), distributed=True,
-                           declared=frozenset({"data"}))
-    assert not replicated.sharded
-    Trainer(cfg, device="cpu", mesh=replicated)
     split = tpar.Mesh(sizes=mesh_sizes({"model": 2}, 2), distributed=True,
                       declared=frozenset({"model"}))
     assert split.tp and not split.sharded
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        Trainer(cfg, device="cpu", mesh=split)
+    for mesh in (sharded, split):
+        trainer = Trainer(cfg, device="cpu", mesh=mesh)
+        state = trainer.init_state(seed=0)
+        paths = ["/".join(p) for p, _ in flatten(state.params)]
+        i = paths.index("layers/mlp/wi")
+        block = tuple(flatten(state.params)[i][1].shape)
+        assert block == ((2, 128, 64) if mesh is split else (2, 128, 128))
+        assert tuple(state.opt_state.v_row[i].shape) == (2, 128)
+        assert tuple(state.opt_state.v_col[i].shape) == (2, 128)
+        assert tuple(state.opt_state.v[i].shape) == (1,)
+        # the final norm's scale does not factor: its v is the param's block
+        j = paths.index("final_norm/scale")
+        assert state.opt_state.v[j].shape == flatten(state.params)[j][1].shape
 
 
 @pytest.mark.parametrize("spec,n", [({"context": 2}, 2), ({"data": 2, "context": 2}, 4),
@@ -304,8 +315,9 @@ def test_kv_heads_that_do_not_divide_over_model_raise_as_jax_does():
 
 
 @pytest.mark.parametrize("model,axes,error,match", [
-    ("resnet18-cifar", {"model": 2}, NotImplementedError, r"ROADMAP A8 \(vision\)"),
-    ("resnet18-cifar", {"context": 2}, NotImplementedError, r"ROADMAP A8 \(vision\)"),
+    # a ResNet's compute is replicated over model and context: both run
+    ("resnet18-cifar", {"model": 2}, None, None),
+    ("resnet18-cifar", {"context": 2}, None, None),
     # the JAX package's own error: 17 tokens do not cut over 2 context ranks
     ("vit-tiny", {"context": 2}, ValueError, "not evenly divisible"),
     # the JAX package's own errors: a ResNet has no layered trunk to
@@ -315,8 +327,12 @@ def test_kv_heads_that_do_not_divide_over_model_raise_as_jax_does():
     ("llama-tiny", {"stage": 3}, ValueError, "2 layers do not divide over 3 stages"),
 ])
 def test_what_a_family_does_not_shard_over_raises(model, axes, error, match):
+    sizes = tpar.normalize_axis_sizes(axes)
+    if error is None:
+        refuse_unsupported_axes(REGISTRY[model][1], sizes)
+        return
     with pytest.raises(error, match=match):
-        refuse_unsupported_axes(REGISTRY[model][1], tpar.normalize_axis_sizes(axes))
+        refuse_unsupported_axes(REGISTRY[model][1], sizes)
 
 
 @pytest.mark.parametrize("model,axes", [("llama-tiny", {"model": 2, "context": 2}),

@@ -228,9 +228,10 @@ def test_exhausted_skip_budget_raises_with_history(jax_run):
     (dict(parallelism={"fsdp": 2}), ValueError, "Mesh needs 2 devices but only 1 available"),
     # one process does not split into two slices, in build_mesh's words
     (dict(num_slices=2), ValueError, "1 devices not divisible by num_slices=2"),
-    # the layers of a ResNet do not shard over model yet
+    # a ResNet under model is no longer refused (its compute is replicated):
+    # without its Task the Trainer raises the JAX Trainer's own error
     (dict(model=REGISTRY["resnet18-cifar"][1], parallelism={"model": 2}),
-     NotImplementedError, "ROADMAP A8"),
+     ValueError, "model config ResNetConfig needs an explicit Task"),
     # stage runs: at one process its mesh is too big, in build_mesh's (the
     # JAX package's) words
     (dict(parallelism={"stage": 2}), ValueError, "Mesh needs 2 devices but only 1 available"),
