@@ -105,7 +105,8 @@ non-zero:
    their formula (16 layers x 8 microbatches). moe_compare: one
    microbatch (4 x 2048, bf16) with capacity at ample capacity against
    the dense oracle, at cf 0.5 against the dense oracle with the plan's
-   drops weighted zero, streamed against one-shot at cf 1.25, all-to-all
+   drops weighted zero (layer by layer, on the dense oracle's inputs of
+   each layer), streamed against one-shot at cf 1.25, all-to-all
    at ``{expert: 1}`` against capacity (bit-equal) and one MoE layer's
    forward and backward twice (bit-equal); three planted faults (a slot
    off by one, the keep mask ignored, the combine's dw dropped) must
@@ -130,13 +131,30 @@ non-zero:
    decode, tokens/s of both, and the flash runs' launch counts.
 11. restore — one llama-1b training step through the builtin runtime's
    trainer, the state (f32 params, bf16 AdamW moments, step) saved with
-   the port's ``Checkpointer`` (bytes, seconds, GB/s) and restored into a
+   the port's ``Checkpointer`` (one rank's file, its record and the index;
+   bytes, seconds, GB/s beside the one-file layout's save) and restored into a
    fresh state, every leaf bit-equal; then one decode step's logits
    through ``build_engine``'s ``checkpoint:`` and, after
    ``export_hf_llama``, its ``import:`` must equal those of an engine on
    the in-memory params, bit for bit; import_lora: one ``run_builtin`` step
    from that export with ``lora:`` and one without, their step-0 losses
    bit-equal. The files go in a temporary directory that is removed after.
+11b. sharded state — sharded_init, in this process with no group:
+   mixtral-8x7b's blocks of ranks 0 and 63 of examples/mixtral_ep_tpujob.yaml's
+   ``{expert: 8, fsdp: 8}`` (each block's bytes the plan's bytes per
+   device, the rise of ``max_memory_allocated`` at most the block plus
+   one slice plus SHARDED_INIT_SLACK, every slice distinct) and
+   llama2-7b's eight ``{fsdp: 8}`` blocks, each bit-equal to its block of
+   the whole ``{fsdp: 1}`` init; sharded_init_faults: a rank that builds
+   its neighbour's coordinates and a slice seed without its indices must
+   each fail that phase. train_7b_import_lora: a random-init llama2-7b
+   exported in bf16 as hf-llama (a temporary directory, removed after),
+   then ``run_builtin`` with examples/llama7b_import_lora.yaml's keys
+   (IMPORT_7B_SPEC; IMPORT_7B_REDUCED lists the cuts): train_phase's
+   checks (B1-B3 at D=128 launched as their formula says), the step-0 loss
+   bit-equal to the import alone's first step, each import's rise within
+   the bf16 base plus one layer; export and import seconds, step p50, MFU,
+   peak memory.
 12. bridge — the control-plane bridge, reporting to an in-process stdlib
    recorder of the API (``PLX_API_HOST``) with a temporary artifacts
    directory (removed after). bridge_train: the train phase's
@@ -192,7 +210,14 @@ non-zero:
    run's (DIST_MULTI_RTOL); with 4 GPUs also llama-1b ``{stage: 2, model:
    2}`` (examples/llama_pp_tp.yaml's keys, 3 steps) and llama-moe-1b
    ``{stage: 2, expert: 2}`` with a2a, peak memory per rank; with one GPU
-   ``{"skipped": "1 GPU"}``.
+   ``{"skipped": "1 GPU"}``. dist_train_multi also runs llama2-7b ``{fsdp:
+   W}`` (SHARD_7B_SPEC: examples/llama7b_tpujob.yaml's keys, 4 rows a
+   rank): each rank's rise while it builds its blocks at full depth within
+   the f32 params over W plus one slice plus SHARDED_INIT_SLACK; at
+   SHARD_7B_LAYERS layers two steps saved at W restore at world 1 in this
+   process with every rank's blocks bit-equal (sha256), that state saved
+   at world 1 restores at W bit-equal, and with rank 1's file of the
+   newest step left out (a planted fault) the restore walks back a step.
 14. profiles — ``torch.profiler``'s split of the compare phase's decode
    step per impl, of a training microbatch and the AdamW tail, and of a
    speculative iteration's draft steps against its verify step, then
@@ -209,7 +234,10 @@ non-zero:
 15. the ``{"kernels": [...]}`` line (each flash kernel's launches are the
    llama-1b train phase's; ``launches_by_path`` adds train_lora's, train_bert's,
    train_vit's, the 1-rank group runs' of dist_train_1rank, each
-   ring_kernels case's, train_moe's and moe_compare's), then the last line
+   ring_kernels case's, train_moe's, moe_compare's and
+   train_7b_import_lora's; ``d128`` holds that D=128 path's launches
+   beside the kernels' D=128 bf16 times, bounds and SDPA times), then the
+   last line
    ``{"ok": true, "device": {...}}``.
 
 Needs one card and the repository checkout around this file; imports
@@ -1873,6 +1901,21 @@ def moe_against(torch, paths, ref: tuple, got: tuple) -> dict:
             "aux": a1.tolist(), "aux_ref": a0.tolist()}
 
 
+def moe_layers_worst(readings: list) -> dict:
+    """Per-layer moe_against readings as one: the worst hidden and grad
+    errors over the layers (the grad's leaf named with its layer) and each
+    aux term's mean."""
+    worst = max(range(len(readings)), key=lambda i: readings[i]["worst_grad_rel_err"])
+
+    def mean(key):
+        return [sum(col) / len(readings) for col in zip(*(r[key] for r in readings))]
+
+    return {"hidden_rel": max(r["hidden_rel"] for r in readings),
+            "worst_grad_rel_err": readings[worst]["worst_grad_rel_err"],
+            "worst_leaf": f"layers/{worst}/{readings[worst]['worst_leaf']}",
+            "aux": mean("aux"), "aux_ref": mean("aux_ref")}
+
+
 class MoeFault:
     """One planted fault in the port's MoE dispatch (a context manager)."""
 
@@ -1920,9 +1963,14 @@ def moe_compare_phase(torch, fa, spec: dict) -> dict:
 
     - capacity at ample capacity (cf = E/k) against the dense oracle, and
       at cf 0.5 (drops) against the dense oracle with the plan's dropped
-      assignments weighted zero: hidden states, loss and per-leaf grads
-      within MOE_HIDDEN_TOL / MOE_GRAD_TOL; each planted fault
-      (MOE_FAULTS) must break one of the two;
+      assignments weighted zero, layer by layer, each layer on its input
+      in one forward of the dense oracle (the same input for both, so the
+      same routing: through 16 layers a bf16 rounding flips near-tied
+      router choices): each layer's output, and the grads of its input and
+      of its leaves under a seeded cotangent of the output (no balance
+      term: the router's grad comes through the gates), within
+      MOE_HIDDEN_TOL / MOE_GRAD_TOL; each planted
+      fault (MOE_FAULTS) must break one of the two;
     - streamed (the recipe's moe_cap_block) against one-shot at the
       recipe's cf 1.25 on the layer that drops the most (its input from
       one forward, the same for both, so the same plan and drops; through
@@ -1945,25 +1993,42 @@ def moe_compare_phase(torch, fa, spec: dict) -> dict:
     def run(**changes):
         return moe_loss_and_grads(torch, replace(cfg, **changes), batch, paths, leaves)
 
+    def layer_run(i, x, **changes):
+        r = moe_layer_run(torch, replace(cfg, **changes), x, i, paths, leaves, cot)
+        return r[0], r[1], 0.0, r[2:]
+
+    def masked_run(i, x):
+        orig_dense = tm._moe_dense
+        tm._moe_dense = masked
+        try:
+            return layer_run(i, x, moe_dispatch="dense", expert_capacity_factor=MOE_TIGHT_CF)
+        finally:
+            tm._moe_dense = orig_dense
+
     ample = dict(moe_dispatch="capacity", expert_capacity_factor=E / k, moe_cap_block=0)
     tight = dict(moe_dispatch="capacity", expert_capacity_factor=MOE_TIGHT_CF,
                  moe_cap_block=0)
-    dense_ref = run(moe_dispatch="dense")
     masked = moe_masked_dense(torch, cfg)
-    orig_dense = tm._moe_dense
-    tm._moe_dense = masked
-    try:
-        masked_ref = run(moe_dispatch="dense", expert_capacity_factor=MOE_TIGHT_CF)
-    finally:
-        tm._moe_dense = orig_dense
-    out = {"ample": moe_against(torch, paths, dense_ref, run(**ample)),
-           "tight": moe_against(torch, paths, masked_ref, run(**tight))}
-    faults = {}
-    for name in MOE_FAULTS:
-        with MoeFault(name):
-            faults[name] = {"ample": moe_against(torch, paths, dense_ref, run(**ample)),
-                            "tight": moe_against(torch, paths, masked_ref, run(**tight))}
-    del dense_ref, masked_ref
+    lpaths = [("x",)] + moe_layer_paths(paths)
+    xs = moe_layer_inputs(torch, replace(cfg, moe_dispatch="dense"), batch, paths, leaves)[0]
+    # a seeded cotangent of each token's output, at a mean loss's scale
+    gen = torch.Generator(device=xs[0].device).manual_seed(0)
+    cot = torch.randn(xs[0].shape, generator=gen, device=xs[0].device) / xs[0].shape[:2].numel()
+    per = {"ample": [], "tight": []}
+    per_fault = {name: {"ample": [], "tight": []} for name in MOE_FAULTS}
+    for i, x in enumerate(xs):
+        refs = {"ample": layer_run(i, x, moe_dispatch="dense"), "tight": masked_run(i, x)}
+        for case, changes in (("ample", ample), ("tight", tight)):
+            per[case].append(moe_against(torch, lpaths, refs[case], layer_run(i, x, **changes)))
+            for name in MOE_FAULTS:
+                with MoeFault(name):
+                    per_fault[name][case].append(
+                        moe_against(torch, lpaths, refs[case], layer_run(i, x, **changes)))
+        del refs
+    del xs
+    out = {case: moe_layers_worst(r) for case, r in per.items()}
+    faults = {name: {case: moe_layers_worst(r) for case, r in f.items()}
+              for name, f in per_fault.items()}
     layer, x_in, out["streamed_layer_drop"] = moe_dropping_layer(torch, cfg, batch, paths,
                                                                  leaves)
     out["streamed_layer"] = layer
@@ -2013,34 +2078,45 @@ def moe_layer_paths(paths) -> list:
     return [p[1:] for p in paths if p[0] == "layers"]
 
 
-def moe_dropping_layer(torch, cfg, batch, paths, leaves) -> tuple:
-    """One forward without grad (one-shot capacity): the index of the layer
-    that drops the most assignments, its input and its drop fraction."""
+def moe_layer_inputs(torch, cfg, batch, paths, leaves) -> tuple:
+    """One forward of ``cfg`` without grad or remat: each layer's input and
+    the fraction of its assignments that its MoE plan drops."""
     from dataclasses import replace
 
     from polyaxon_tpu_torch.models import transformer as tm
     from polyaxon_tpu_torch.models.transformer import unflatten
     from polyaxon_tpu_torch.ops.layers import rope_frequencies
 
-    cfg = replace(cfg, remat="none", moe_cap_block=0)
+    cfg = replace(cfg, remat="none")
     params = unflatten(paths, leaves)
     x = params["embed"]["tokens"].to(cfg.dtype)[batch["inputs"]]
     s = x.shape[1]
     cos, sin = rope_frequencies(cfg.hd, cfg.max_seq, cfg.rope_theta, device=x.device)
-    best = (-1.0, 0, x)
+    xs, drops = [], []
     with torch.no_grad():
-        for i, lp in enumerate(tm._unstack(params["layers"], cfg.num_layers)):
-            y, aux = tm._layer_body(x, lp, cfg, (cos[:s], sin[:s]))
-            if aux[1].item() > best[0]:
-                best = (aux[1].item(), i, x)
-            x = y
-    return best[1], best[2], best[0]
+        for lp in tm._unstack(params["layers"], cfg.num_layers):
+            xs.append(x)
+            x, aux = tm._layer_body(x, lp, cfg, (cos[:s], sin[:s]))
+            drops.append(aux[1].item())
+    return xs, drops
 
 
-def moe_layer_run(torch, cfg, x, layer: int, paths, leaves) -> list:
+def moe_dropping_layer(torch, cfg, batch, paths, leaves) -> tuple:
+    """One forward without grad (one-shot capacity): the index of the layer
+    that drops the most assignments, its input and its drop fraction."""
+    from dataclasses import replace
+
+    xs, drops = moe_layer_inputs(torch, replace(cfg, moe_cap_block=0), batch, paths, leaves)
+    i = max(range(len(drops)), key=drops.__getitem__)
+    return i, xs[i], drops[i]
+
+
+def moe_layer_run(torch, cfg, x, layer: int, paths, leaves, cot=None) -> list:
     """Layer ``layer`` of the model (attention and the MoE MLP) on input
     ``x``, no remat: [output, aux, grad of the input, grads of the layer's
-    leaves] of ``mean(out^2) + balance``."""
+    leaves] of ``mean(out^2) + balance``, or with ``cot`` of
+    ``sum(out * cot)`` (the router's grad then comes through the gates
+    alone)."""
     from dataclasses import replace
 
     from polyaxon_tpu_torch.models import transformer as tm
@@ -2055,7 +2131,8 @@ def moe_layer_run(torch, cfg, x, layer: int, paths, leaves) -> list:
     cos, sin = rope_frequencies(cfg.hd, cfg.max_seq, cfg.rope_theta, device=x.device)
     diff = [t.detach().requires_grad_() for t in lleaves]
     y, aux = tm._layer_body(x, unflatten(lpaths, diff), cfg, (cos[:s], sin[:s]))
-    grads = torch.autograd.grad((y.float() ** 2).mean() + aux[0], [x] + diff)
+    loss = (y.float() ** 2).mean() + aux[0] if cot is None else (y.float() * cot).sum()
+    grads = torch.autograd.grad(loss, [x] + diff)
     return [y.detach(), aux.detach()] + list(grads)
 
 
@@ -2506,14 +2583,17 @@ def restore_phase(torch, fa, train_spec: dict, serve_spec: dict) -> dict:
         _, nbytes, write_s = ck.last_write
         out.update({"bytes": nbytes, "host_copy_s": t1 - t0, "write_s": write_s,
                     "save_total_s": t2 - t0, "write_gb_per_s": nbytes / write_s / 1e9,
-                    "save_gb_per_s": nbytes / (t2 - t0) / 1e9})
+                    "save_gb_per_s": nbytes / (t2 - t0) / 1e9,
+                    "layout": sorted(os.listdir(os.path.join(tmp, "ck", str(state.step)))),
+                    "one_file_save_total_s": ONE_FILE_SAVE_S})
         fresh = trainer.init_state(seed=1)
         t3 = time.perf_counter()
         tree, step = ck.restore(state_tree(fresh))
         restored = state_from_tree(tree)
         torch.cuda.synchronize()
         out.update({"restored_step": step, "restore_s": time.perf_counter() - t3,
-                    "restore_gb_per_s": nbytes / (time.perf_counter() - t3) / 1e9})
+                    "restore_gb_per_s": nbytes / (time.perf_counter() - t3) / 1e9,
+                    "one_file_restore_s": ONE_FILE_RESTORE_S})
         leaves = 0
         for (path, a), (_, b) in zip(tree_paths(state_tree(state)),
                                      tree_paths(state_tree(restored))):
@@ -2580,6 +2660,278 @@ def import_lora_check(torch, train_spec: dict, hf_dir: str) -> dict:
         raise AssertionError(f"import + lora step-0 loss {losses['import_lora']['loss0']} != "
                              f"the plain import's {losses['import']['loss0']}")
     return {**losses, "bit_equal": True}
+
+
+# -- sharded state ------------------------------------------------------------
+
+# sharded_init: examples/mixtral_ep_tpujob.yaml's mesh, two of its 64 ranks
+# built in this process (no group: a rank's blocks are a pure function of
+# the mesh's sizes and its coordinates); llama2-7b's eight {fsdp: 8} blocks
+# against the whole {fsdp: 1} init
+SHARDED_INIT_MIXTRAL = ("mixtral-8x7b", {"expert": 8, "fsdp": 8}, (0, 63))
+SHARDED_INIT_LLAMA = ("llama2-7b", {"fsdp": 8})
+# the rise of max_memory_allocated over a block's build beyond the block
+# and one slice: the allocator's rounding and the generators' states
+SHARDED_INIT_SLACK = 64 * 2**20
+SHARDED_INIT_FAULTS = ("neighbour_coords", "seed_without_layer")
+# train_7b_import_lora: examples/llama7b_import_lora.yaml's keys at one card
+# (IMPORT_7B_REDUCED lists each cut); its import is the smoke's own hf-llama
+# export of a random init in bf16
+IMPORT_7B_SPEC = {
+    "model": "llama2-7b", "steps": 3, "batch_size": 8, "microbatches": 4, "seq_len": 2048,
+    "learning_rate": 1.0e-4, "remat": "attn_qkv", "lora": LORA_KEYS,
+    "partition_rules": [["embed/tokens$", [None, "fsdp"]]], "parallelism": {"fsdp": 1},
+    "checkpoint": False, "log_interval": 1, "data": {"kind": "synthetic-lm"},
+    "platform": "cuda"}
+IMPORT_7B_REDUCED = {"steps": "2000 -> 3", "batch_size": "64 -> 8 in 4 microbatches",
+                     "parallelism": "{fsdp: 64} -> {fsdp: 1}",
+                     "import.path": "a random init's hf-llama export, not the published weights"}
+# the one-file layout's save and restore of the restore phase's state
+# (NVIDIA H100 80GB HBM3, 700.00 W), beside this layout's
+ONE_FILE_SAVE_S, ONE_FILE_RESTORE_S = 24.79, 9.82
+
+
+def virtual_trainer(torch, model: str, parallelism: dict, rank: int, *, device="cuda"):
+    """The Trainer of ``model`` at ``rank`` of a mesh of ``parallelism``
+    that no process group backs (nothing here runs a collective), on the
+    card."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models import REGISTRY
+    from polyaxon_tpu_torch.parallel.mesh import Mesh, mesh_sizes
+    from polyaxon_tpu_torch.train import Trainer, TrainerConfig, task_for
+
+    family, cfg = REGISTRY[model]
+    if cfg.num_experts:
+        cfg = replace(cfg, moe_dispatch="a2a")  # the example's dispatch
+    world = math.prod(parallelism.values())
+    mesh = Mesh(sizes=mesh_sizes(parallelism, world), rank=rank, distributed=True,
+                declared=frozenset(parallelism))
+    return Trainer(TrainerConfig(model=cfg, parallelism=parallelism),
+                   device=torch.device(device), mesh=mesh, task=task_for(family, cfg))
+
+
+def largest_slice_bytes(task) -> int:
+    """The largest slice of a task's init laws (one layer of a stacked
+    leaf, one expert of one layer, a leaf without layers), in bytes."""
+    from polyaxon_tpu_torch.partition.rules import tree_paths
+
+    return max(math.prod(law.shape[law.lead:]) * law.dtype.itemsize
+               for _, law in tree_paths(task.param_laws()))
+
+
+def distinct_slices(torch, trainer, params: dict, name: str) -> int:
+    """Every drawn leaf's slices in ``params`` differ pairwise (on their
+    first 64 values): a slice seed that loses an index repeats a slice.
+    Returns how many slices were compared."""
+    from polyaxon_tpu_torch.models.transformer import flatten
+    from polyaxon_tpu_torch.partition.rules import tree_paths
+
+    laws = dict(tree_paths(trainer.task.param_laws()))
+    compared = 0
+    for path, t in flatten(params):
+        law = laws["/".join(path)]
+        if law.lead == 0 or law.kind in ("zeros", "ones"):
+            continue
+        rows = t.reshape(math.prod(t.shape[:law.lead]), -1)[:, :64]
+        if torch.unique(rows, dim=0).shape[0] != rows.shape[0]:
+            raise AssertionError(f"{name}: slices of {'/'.join(path)} repeat")
+        compared += rows.shape[0]
+    return compared
+
+
+def sharded_init_phase(torch, fault: Optional[str] = None) -> dict:
+    """mixtral-8x7b's blocks of ranks 0 and 63 at {expert: 8, fsdp: 8}:
+    each block's bytes the plan's bytes per device, the rise of
+    max_memory_allocated at most the block plus one slice plus
+    SHARDED_INIT_SLACK, every slice distinct; llama2-7b's eight {fsdp: 8}
+    blocks each equal to its block of the whole {fsdp: 1} init, bit for
+    bit. ``fault`` (SHARDED_INIT_FAULTS) plants a rank that builds its
+    neighbour's coordinates or a slice seed without its indices; the phase
+    must then fail."""
+    from polyaxon_tpu_torch.models.transformer import flatten
+    from polyaxon_tpu_torch.parallel import blocks
+    from polyaxon_tpu_torch.parallel.mesh import Mesh
+    from polyaxon_tpu_torch.partition.plan import build_plan
+
+    seed_fn = blocks.slice_seed
+    if fault == "seed_without_layer":
+        blocks.slice_seed = lambda seed, key, index: seed_fn(seed, key, ())
+    try:
+        out = {}
+        model, para, ranks = SHARDED_INIT_MIXTRAL
+        plan = build_plan(model, parallelism=para, num_devices=math.prod(para.values()))
+        want = plan["summary"]["bytes_per_device"]
+        for rank in ranks:
+            trainer = virtual_trainer(torch, model, para, rank)
+            slice_bytes = largest_slice_bytes(trainer.task)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            params = trainer.init_params(seed=0)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rise = torch.cuda.max_memory_allocated() - start
+            nbytes = sum(t.numel() * t.element_size() for _, t in flatten(params))
+            bound = nbytes + slice_bytes + SHARDED_INIT_SLACK
+            row = {"block_bytes": nbytes, "plan_bytes_per_device": want,
+                   "largest_slice_bytes": slice_bytes, "peak_rise_bytes": rise,
+                   "bound_bytes": bound, "seconds": seconds,
+                   "coords": {a: c for a, c in trainer.mesh.coords().items()
+                              if trainer.mesh.sizes[a] > 1}}
+            if nbytes != want:
+                raise AssertionError(f"{model} rank {rank}: block of {nbytes} bytes, the plan's "
+                                     f"bytes per device {want}")
+            if rise > bound:
+                raise AssertionError(f"{model} rank {rank}: the build rose {rise} bytes over "
+                                     f"its start, beyond the block + a slice + slack {bound}")
+            row["slices_distinct"] = distinct_slices(torch, trainer, params,
+                                                     f"{model} rank {rank}")
+            out[f"{model}/rank{rank}"] = row
+            del params, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        model, para = SHARDED_INIT_LLAMA
+        world = math.prod(para.values())
+        t0 = time.perf_counter()
+        whole = virtual_trainer(torch, model, {"fsdp": 1}, 0).init_params(seed=0)
+        torch.cuda.synchronize()
+        row = {"whole_seconds": time.perf_counter() - t0,
+               "whole_bytes": sum(t.numel() * t.element_size() for _, t in flatten(whole)),
+               "rank_seconds": []}
+        for rank in range(world):
+            # the planted fault builds the next rank's blocks in rank's place
+            built = (rank + 1) % world if fault == "neighbour_coords" else rank
+            trainer = virtual_trainer(torch, model, para, built)
+            t0 = time.perf_counter()
+            params = trainer.init_params(seed=0)
+            torch.cuda.synchronize()
+            row["rank_seconds"].append(time.perf_counter() - t0)
+            ref = Mesh(sizes=trainer.mesh.sizes, rank=rank)
+            cuts = trainer.placement().cuts
+            for (path, b), (_, w) in zip(flatten(params), flatten(whole)):
+                for axis, dim in cuts.get("/".join(path), ()):
+                    w = ref.block(w, dim, axis)
+                if not torch.equal(b, w):
+                    raise AssertionError(f"{model} rank {rank}'s block of {'/'.join(path)} "
+                                         f"differs from its block of the whole init")
+            if rank == 0:
+                row["slices_distinct"] = distinct_slices(torch, trainer, params,
+                                                         f"{model} rank 0")
+            del params, trainer
+        row["blocks_bit_equal"] = world
+        out[f"{model}/fsdp{world}"] = row
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        blocks.slice_seed = seed_fn
+
+
+def sharded_init_faults_phase(torch) -> dict:
+    """Each SHARDED_INIT_FAULTS fault must fail sharded_init."""
+    out = {}
+    for fault in SHARDED_INIT_FAULTS:
+        try:
+            sharded_init_phase(torch, fault)
+        except AssertionError as e:
+            out[fault] = {"caught": str(e)[:300]}
+        else:
+            raise AssertionError(f"the planted fault {fault} passed sharded_init")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_7b_import_lora_phase(torch, fa) -> dict:
+    """A random-init llama2-7b exported in bf16 as hf-llama (the port's
+    ``export_hf_llama``, into a temporary directory removed after), then
+    ``run_builtin`` at IMPORT_7B_SPEC with ``import: {layout: hf-llama,
+    dtype: bfloat16}`` (train_phase's checks: losses finite, step 0 near ln
+    32000, B1-B3 at D=128 launched as their formula says), and the
+    trainer's first step on the import alone with nothing trained: its
+    loss must equal the LoRA run's step-0 loss bit for bit (b = 0). Each import's rise of max_memory_allocated must stay
+    within the bf16 base plus one layer."""
+    import shutil
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models import REGISTRY
+    from polyaxon_tpu_torch.models.transformer import flatten
+    from polyaxon_tpu_torch.models.transformer import init as init_params
+    from polyaxon_tpu_torch.partition import convert
+    from polyaxon_tpu_torch.partition.lora import FrozenBaseOptimizer
+    from polyaxon_tpu_torch.runtime.builtin import build_trainer
+
+    cfg = replace(REGISTRY["llama2-7b"][1], param_dtype=torch.bfloat16)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_7b_")
+    hf = os.path.join(tmp, "hf")
+    real = convert.import_params
+    try:
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device=torch.device("cuda", 0))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        convert.export_hf_llama(params, cfg, hf)
+        out = {"reduced": IMPORT_7B_REDUCED, "init_s": t1 - t0,
+               "export_s": time.perf_counter() - t1, "tmp_dir": tmp,
+               "free_disk_gib": shutil.disk_usage(tmp).free / 2**30}
+        base = sum(t.numel() * t.element_size() for _, t in flatten(params))
+        layer = sum(t[0].numel() * t.element_size() for _, t in flatten(params["layers"]))
+        out.update(base_bytes=base, layer_bytes=layer)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        imports = []
+
+        def measured(*args, **kwargs):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            result = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            imports.append({"seconds": time.perf_counter() - t,
+                            "peak_rise_bytes": torch.cuda.max_memory_allocated() - start})
+            return result
+
+        convert.import_params = measured
+        spec = {**IMPORT_7B_SPEC, "import": {"path": hf, "layout": "hf-llama",
+                                             "dtype": "bfloat16"}}
+        run = train_phase(torch, fa, spec, loss0_margin=LLAMA7B_LOSS0_MARGIN)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the import alone: the trainer's first step on the same batch with
+        # nothing trained (the step-0 loss comes before any update; no
+        # optimizer of the whole base fits beside its f32 grads on one card)
+        t2 = time.monotonic()
+        trainer, batches = build_trainer({k: v for k, v in spec.items() if k != "lora"})
+        trainer.tx = FrozenBaseOptimizer(trainer.tx)
+        state = trainer.init_state_from_blocks(convert.import_params(
+            hf, trainer.cfg.model, device=trainer.device, layout="hf-llama",
+            dtype="bfloat16", placement=trainer.placement()))
+        alone = float(trainer.make_step()(state, next(batches))[1]["loss"])
+        del trainer, state
+        out.update(run, import_alone_loss0=alone, import_alone_wall_s=time.monotonic() - t2,
+                   imports=imports)
+        if run["losses"][0] != alone:
+            raise AssertionError(f"import + lora step-0 loss {run['losses'][0]} != the "
+                                 f"import alone's {alone}")
+        for imp in imports:
+            if imp["peak_rise_bytes"] > base + layer:
+                raise AssertionError(f"an import rose {imp['peak_rise_bytes']} bytes over its "
+                                     f"start, beyond the bf16 base + one layer {base + layer}")
+        out["loss0_bit_equal"] = True
+        return out
+    finally:
+        convert.import_params = real
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # -- the control-plane bridge ----------------------------------------------------
@@ -2942,6 +3294,194 @@ PP_EP_SPECS = {
 LLAMA7B_LOSS0_MARGIN = 1.0
 
 
+# dist_train_multi's llama2-7b {fsdp: W}: examples/llama7b_tpujob.yaml's
+# keys, the batch cut from 256 to 4 rows a rank (2 microbatches); the init's
+# peak at full depth, the checkpoints at SHARD_7B_LAYERS layers (a step of
+# the whole state is ~54 GB, and the card's disk holds ~75 GB)
+SHARD_7B_SPEC = {
+    "model": "llama2-7b", "steps": 2, "seq_len": 2048, "learning_rate": 3.0e-4,
+    "warmup_steps": 1, "remat": "attn_qkv", "mu_dtype": "bfloat16", "nu_dtype": "bfloat16",
+    "grad_dtype": "bfloat16", "microbatches": 2, "accum_dtype": "bfloat16",
+    "loss_chunk_tokens": 4096, "log_interval": 1, "data": {"kind": "synthetic-lm"},
+    "platform": "cuda",
+    "checkpoint": {"save_interval_steps": 1, "max_to_keep": 3, "async_save": True}}
+SHARD_7B_LAYERS = 4
+
+
+def sha256_of(torch, t) -> str:
+    """sha256 of a tensor's bytes."""
+    import hashlib
+
+    t = t.detach().contiguous().cpu()
+    return hashlib.sha256(t.view(-1).view(torch.uint8).numpy().tobytes()).hexdigest()
+
+
+def state_leaves(state) -> dict:
+    """A state's param leaves and AdamW moments by ``params/<path>``,
+    ``mu/<path>`` and ``nu/<path>``."""
+    from polyaxon_tpu_torch.models.transformer import flatten
+
+    flat = [("/".join(p), t) for p, t in flatten(state.params)]
+    out = {f"params/{p}": t for p, t in flat}
+    for name in ("mu", "nu"):
+        out.update({f"{name}/{p}": t
+                    for (p, _), t in zip(flat, getattr(state.opt_state, name))})
+    return out
+
+
+def shard_7b_spec(world: int) -> dict:
+    return {**SHARD_7B_SPEC, "batch_size": 4 * world, "parallelism": {"fsdp": world}}
+
+
+def with_layers(model: str, layers: int):
+    """Set ``model``'s depth in the registry; returns the undo."""
+    from dataclasses import replace
+
+    from polyaxon_tpu_torch.models import REGISTRY
+
+    saved = REGISTRY[model]
+    REGISTRY[model] = (saved[0], replace(saved[1], num_layers=layers))
+    return lambda: REGISTRY.__setitem__(model, saved)
+
+
+def shard_7b_child(torch, plan: dict) -> dict:
+    """This rank of llama2-7b {fsdp: W}: with ``step: save``, the rise of
+    max_memory_allocated while it builds its blocks of the params at full
+    depth, then two steps at SHARD_7B_LAYERS layers that save each step into
+    ``plan["dir"]``; with ``step: restore``, the restore of that directory's
+    newest step. Returns every rank's block hashes (on rank 0)."""
+    from polyaxon_tpu_torch.models.transformer import flatten
+    from polyaxon_tpu_torch.runtime.builtin import build_trainer
+
+    dist = torch.distributed
+    world, rank = dist.get_world_size(), dist.get_rank()
+    spec = shard_7b_spec(world)
+    out: dict = {}
+    if plan["step"] == "save":
+        trainer, _ = build_trainer({**spec, "checkpoint": False})
+        slice_bytes = largest_slice_bytes(trainer.task)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        params = trainer.init_params(seed=0)
+        block = sum(t.numel() * t.element_size() for _, t in flatten(params))
+        whole = trainer.cfg.model.num_params() * 4
+        rise = torch.cuda.max_memory_allocated() - start
+        bound = whole // world + slice_bytes + SHARDED_INIT_SLACK
+        out["init"] = {"block_bytes": block, "whole_bytes": whole, "peak_rise_bytes": rise,
+                       "largest_slice_bytes": slice_bytes, "bound_bytes": bound}
+        if rise > bound:
+            raise AssertionError(f"rank {rank}'s init rose {rise} bytes, beyond the f32 params "
+                                 f"over {world} ranks + a slice + slack {bound}")
+        del params, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    undo = with_layers(spec["model"], SHARD_7B_LAYERS)
+    try:
+        trainer, batches = build_trainer(spec, artifacts_dir=plan["dir"])
+        if plan["step"] == "save":
+            state, _ = trainer.fit(batches, int(spec["steps"]), state=trainer.init_state(0))
+            step = int(state.step)
+        else:
+            state, step = trainer.restore_or_init()
+        mine = {"step": step,
+                "hashes": {k: sha256_of(torch, t) for k, t in state_leaves(state).items()},
+                "cuts": {p: [list(c) for c in cuts] for p, cuts in trainer.placement().cuts.items()},
+                "sizes": trainer.mesh.sizes, **out}
+    finally:
+        undo()
+    ranks = [None] * world
+    dist.all_gather_object(ranks, mine)
+    return {"ranks": ranks}
+
+
+def whole_block_hashes(torch, state, ranks: list) -> list:
+    """For each rank's cuts, the hashes of its blocks of a whole state."""
+    from polyaxon_tpu_torch.parallel.mesh import Mesh
+
+    out = []
+    for r, mine in enumerate(ranks):
+        mesh = Mesh(sizes=mine["sizes"], rank=r)
+        hashes = {}
+        for key, t in state_leaves(state).items():
+            for axis, dim in mine["cuts"].get(key.split("/", 1)[1], ()):
+                t = mesh.block(t, dim, axis)
+            hashes[key] = sha256_of(torch, t)
+        out.append(hashes)
+    return out
+
+
+def shard_7b_multi(torch, envs: list) -> dict:
+    """llama2-7b {fsdp: W} (shard_7b_child): every rank's init peak within
+    its bound; the step saved at W restored at world 1 in this process, each
+    rank's blocks bit-equal (sha256) to the restored state's; that state
+    saved at world 1 and restored at W, bit-equal again; then one rank's
+    file left out of the newest step (a planted fault): the restore walks
+    back to the step before it."""
+    import shutil
+
+    from polyaxon_tpu_torch.runtime.builtin import build_trainer
+    from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+    from polyaxon_tpu_torch.train.trainer import state_tree
+
+    world = len(envs)
+    spec = shard_7b_spec(world)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard7b_")
+    saved_dir, one_dir = os.path.join(tmp, "w"), os.path.join(tmp, "one")
+    out: dict = {"world": world, "layers": SHARD_7B_LAYERS}
+    try:
+        t0 = time.monotonic()
+        saved = run_children(envs, {"mode": "shard7b", "step": "save", "dir": saved_dir},
+                             timeout=900)["ranks"]
+        out["save_run_s"] = time.monotonic() - t0
+        out["init"] = [r["init"] for r in saved]
+        undo = with_layers(spec["model"], SHARD_7B_LAYERS)
+        try:
+            one = {**spec, "parallelism": None}
+            trainer, _ = build_trainer(one, artifacts_dir=saved_dir)
+            t1 = time.monotonic()
+            state, step = trainer.restore_or_init()
+            out["restore_at_1_s"] = time.monotonic() - t1
+            if step != int(spec["steps"]):
+                raise AssertionError(f"world 1 restored step {step} of the W-rank save")
+            want = whole_block_hashes(torch, state, saved)
+            for r, mine in enumerate(saved):
+                if mine["hashes"] != want[r]:
+                    bad = sorted(k for k in want[r] if mine["hashes"].get(k) != want[r][k])
+                    raise AssertionError(f"rank {r}'s blocks differ from the world-1 "
+                                         f"restore's: {bad[:5]}")
+            ck = Checkpointer(CheckpointConfig(directory=os.path.join(one_dir, "outputs",
+                                                                      "checkpoints"),
+                                               async_save=False))
+            ck.maybe_save(step, state_tree(state), force=True)
+            del state, trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            t2 = time.monotonic()
+            restored = run_children(envs, {"mode": "shard7b", "step": "restore",
+                                           "dir": one_dir}, timeout=900)["ranks"]
+            out["restore_at_w_run_s"] = time.monotonic() - t2
+            if any(r["step"] != step or r["hashes"] != w for r, w in zip(restored, want)):
+                raise AssertionError("a rank's blocks restored from the world-1 step differ "
+                                     "from that step's")
+            out["bit_equal"] = ["W -> 1", "1 -> W"]
+            # the planted fault: rank 1's file of the newest step left out
+            os.unlink(os.path.join(saved_dir, "outputs", "checkpoints", str(step),
+                                   "shard-00001.pt"))
+            trainer, _ = build_trainer(one, artifacts_dir=saved_dir)
+            _, walked = trainer.restore_or_init()
+            if walked != step - 1:
+                raise AssertionError(f"with rank 1's file of step {step} gone the restore "
+                                     f"landed on step {walked}, not {step - 1}")
+            out["missing_rank_file_walked_back_to"] = walked
+            del trainer
+        finally:
+            undo()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def free_port() -> int:
     import socket
 
@@ -3045,7 +3585,17 @@ def dist_child(plan: dict) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dist = torch.distributed
     out: dict = {}
-    if plan["mode"] == "1rank":
+    if plan["mode"] == "shard7b":
+        dev = torch.device("cuda", parallel.local_rank())
+        torch.cuda.set_device(dev)
+        parallel.initialize(device=dev)
+        try:
+            out = shard_7b_child(torch, plan)
+        finally:
+            parallel.shutdown()
+        if int(os.environ["PLX_PROCESS_ID"]) != 0:
+            return 0
+    elif plan["mode"] == "1rank":
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
         for name in plan["models"]:
@@ -3206,6 +3756,7 @@ def dist_train_multi_phase(torch, single: dict) -> dict:
     name = "llama-1b-adafactor"
     out[f"{name}/af_block_shape"] = planted_fault_phase(
         envs, {"mode": "multi", "models": [name]}, "af_block_shape", single[name]["digest"])
+    out["llama2-7b/fsdp"] = shard_7b_multi(torch, envs)
     return out
 
 
@@ -3423,6 +3974,10 @@ def main() -> int:
     log("restore", **restore_phase(torch, fa, TRAIN_SPEC, SERVE_SPEC))
     gc.collect()
     torch.cuda.empty_cache()
+    log("sharded_init", **sharded_init_phase(torch))
+    log("sharded_init_faults", **sharded_init_faults_phase(torch))
+    import_7b = train_7b_import_lora_phase(torch, fa)
+    log("train_7b_import_lora", **import_7b)
     bridged = bridge_train_phase(torch, fa, TRAIN_SPEC)
     log("bridge_train", **bridged)
     if not bridged["outputs_mfu"]:
@@ -3491,6 +4046,7 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
     }]
     flash_main = flash_rows[0]  # D=64 bf16: the training shape
+    flash_d128 = flash_rows[2]  # D=128 bf16: llama2-7b's attention
     for name, source, replaces in (
             ("flash_fwd", "flash_fwd.cu", "polyaxon_tpu/ops/flash_attention.py:77"),
             ("flash_bwd_dq", "flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:210"),
@@ -3513,7 +4069,12 @@ def main() -> int:
                                  **{f"ring_kernels/{case}": row["launches"][name]
                                     for case, row in ring_rows.items()},
                                  "train_moe": moe_run["launches"][name],
-                                 "moe_compare": moe_cmp["launches"][name]}})
+                                 "moe_compare": moe_cmp["launches"][name],
+                                 "train_7b_import_lora": import_7b["launches"][name]},
+            "d128": {"launches": import_7b["launches"][name],
+                     **{key: flash_d128[name][key] for key in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms")}}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

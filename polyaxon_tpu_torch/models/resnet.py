@@ -30,8 +30,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..parallel.blocks import Law, init_tree, keyed
 from ..parallel.mesh import TOKEN_AXES
-from .transformer import generator
 
 
 @dataclass(frozen=True)
@@ -56,26 +56,20 @@ CONFIGS = {"resnet50": RESNET50, "resnet50-cifar": RESNET50_CIFAR,
 _BOTTLENECK = 4
 
 
-def init(cfg: ResNetConfig, *, seed: int = 0, device: Any) -> tuple[dict, dict]:
-    """Returns (params, batch_stats): He-normal convs, BatchNorm scale 1 and
-    bias 0, running mean 0 and variance 1, the head normal at 0.01 — the JAX
-    package's law, drawn from a ``torch.Generator`` seeded with ``seed``."""
-    device = torch.device(device)
-    gen = generator(device, seed)
+def laws(cfg: ResNetConfig) -> tuple[dict, dict]:
+    """(params, batch_stats) laws (``parallel/blocks.py``): He-normal
+    convs, BatchNorm scale 1 and bias 0, running mean 0 and variance 1, the
+    head normal at 0.01 — the JAX package's law. Each leaf is one slice."""
     params: dict = {}
     stats: dict = {}
 
-    def normal(shape, std):
-        return torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * std
-
     def conv(name, kh, kw, cin, cout):
-        params[name] = {"w": normal((kh, kw, cin, cout), (2.0 / (kh * kw * cin)) ** 0.5)}
+        params[name] = {"w": Law((kh, kw, cin, cout), "normal",
+                                 (2.0 / (kh * kw * cin)) ** 0.5)}
 
     def bn(name, c):
-        params[name] = {"scale": torch.ones(c, device=device),
-                        "bias": torch.zeros(c, device=device)}
-        stats[name] = {"mean": torch.zeros(c, device=device),
-                       "var": torch.ones(c, device=device)}
+        params[name] = {"bias": Law((c,), "zeros"), "scale": Law((c,), "ones")}
+        stats[name] = {"mean": Law((c,), "zeros"), "var": Law((c,), "ones")}
 
     w = cfg.width
     stem_k = 3 if cfg.small_inputs else 7
@@ -97,9 +91,16 @@ def init(cfg: ResNetConfig, *, seed: int = 0, device: Any) -> tuple[dict, dict]:
                 conv(f"{pre}_proj", 1, 1, cin, cout)
                 bn(f"{pre}_projbn", cout)
             cin = cout
-    params["head"] = {"w": normal((cin, cfg.num_classes), 0.01),
-                      "b": torch.zeros(cfg.num_classes, device=device)}
-    return params, stats
+    params["head"] = {"b": Law((cfg.num_classes,), "zeros"),
+                      "w": Law((cin, cfg.num_classes), "normal", 0.01)}
+    return keyed(params), keyed(stats, "extra/")
+
+
+def init(cfg: ResNetConfig, *, seed: int = 0, device: Any) -> tuple[dict, dict]:
+    """Returns (params, batch_stats) by :func:`laws`, each leaf from a
+    ``torch.Generator`` of its own seeded from ``seed`` and its path."""
+    params, stats = laws(cfg)
+    return init_tree(params, seed, device), init_tree(stats, seed, device)
 
 
 def same_pads(n: int, k: int, stride: int) -> tuple[int, int]:

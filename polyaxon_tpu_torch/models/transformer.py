@@ -44,7 +44,6 @@ from a dense layer), averaged over layers by :func:`run_trunk`.
 from __future__ import annotations
 
 import functools
-import math
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -59,6 +58,7 @@ from ..ops.layers import apply_rope, gelu, layer_norm, rms_norm, rope_frequencie
 from ..ops.ring_attention import ring_attention
 from ..ops.ulysses import ulysses_attention
 from ..parallel import collectives
+from ..parallel.blocks import Law, init_tree, keyed, lead_of
 from ..parallel.fsdp import ShardedTree, fresh
 from ..parallel.mesh import BATCH_AXES, LOCAL, TOKEN_AXES, ShardingRules
 
@@ -232,52 +232,37 @@ def param_specs(cfg: TransformerConfig, rules: Optional[ShardingRules] = None) -
     return build(abstract_params(cfg))
 
 
-def generator(device, seed: int) -> Optional[torch.Generator]:
-    """A ``torch.Generator`` on ``device`` seeded with ``seed``; None on the
-    ``meta`` device, whose draws have a shape and no values (an abstract
-    tree allocates nothing)."""
-    device = torch.device(device)
-    if device.type == "meta":
-        return None
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return gen
-
-
-def _trunc_normal(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """Standard normal truncated to [-2, 2], by the inverse CDF of a
-    uniform draw between the two bounds' CDF values."""
-    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
-    x = torch.erfinv(2.0 * (lo + u * (hi - lo)) - 1.0) * math.sqrt(2.0)
-    return x.clamp_(-2.0, 2.0)
-
-
-def init(cfg: TransformerConfig, *, seed: int = 0, device: Any) -> dict:
-    """Initialize params: truncated normal at ±2σ with σ=0.02, output
-    projections ``wo`` divided by sqrt(2L), norm scales 1, biases 0 — the
-    JAX package's init law. Draws come from a ``torch.Generator`` seeded
-    with ``seed`` on ``device``, so the values differ from JAX's; tests
-    carry JAX weights across with :func:`polyaxon_tpu_torch.convert.params_from_jax`."""
-    device = torch.device(device)
-    gen = generator(device, seed)
+def param_laws(cfg: TransformerConfig) -> dict:
+    """The init law of every leaf (:class:`~..parallel.blocks.Law`, keyed
+    by its path): truncated normal at ±2σ with σ=0.02, output projections
+    ``wo`` divided by sqrt(2L), norm scales 1, biases 0 — the JAX package's
+    law. A stacked leaf's slices are its layers, an expert stack's its
+    (layer, expert) pairs."""
 
     def build(tree, name=None):
         if isinstance(tree, dict):
             return {k: build(v, k) for k, v in sorted(tree.items())}
-        shape, _axes = tree
+        shape, axes = tree
+        lead = lead_of(axes)
         if name == "scale":
-            return torch.ones(shape, dtype=cfg.param_dtype, device=device)
+            return Law(shape, "ones", lead=lead, dtype=cfg.param_dtype)
         if name.startswith("b") or name == "bias":
-            return torch.zeros(shape, dtype=cfg.param_dtype, device=device)
-        w = _trunc_normal(shape, gen, device) * 0.02
-        if name == "wo":  # residual-path projections
-            w = w / (2 * cfg.num_layers) ** 0.5
-        return w.to(cfg.param_dtype)
+            return Law(shape, "zeros", lead=lead, dtype=cfg.param_dtype)
+        # residual-path projections
+        scale = 0.02 / (2 * cfg.num_layers) ** 0.5 if name == "wo" else 0.02
+        return Law(shape, "trunc_normal", scale, lead, cfg.param_dtype)
 
-    return build(abstract_params(cfg))
+    return keyed(build(abstract_params(cfg)))
+
+
+def init(cfg: TransformerConfig, *, seed: int = 0, device: Any) -> dict:
+    """Initialize params by :func:`param_laws`: each slice (a layer, an
+    expert of a layer, a leaf without layers) from a ``torch.Generator`` of
+    its own seeded from (``seed``, its path, its indices) on ``device``, so
+    a rank can build its block alone (``parallel/blocks.py``). The values
+    differ from JAX's; tests carry JAX weights across with
+    :func:`polyaxon_tpu_torch.convert.params_from_jax`."""
+    return init_tree(param_laws(cfg), seed, device)
 
 
 def _norm(x: torch.Tensor, p: dict, cfg: TransformerConfig) -> torch.Tensor:

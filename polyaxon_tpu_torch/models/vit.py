@@ -15,9 +15,10 @@ from typing import Any, Optional
 
 import torch
 
+from ..parallel.blocks import Law, init_tree, keyed
 from ..parallel.mesh import ShardingRules
 from . import transformer
-from .transformer import TransformerConfig, _trunc_normal
+from .transformer import TransformerConfig
 
 
 @dataclass(frozen=True)
@@ -68,25 +69,29 @@ VIT_TINY = ViTConfig(
 CONFIGS = {"vit-b16": VIT_B16, "vit-l16": VIT_L16, "vit-tiny": VIT_TINY}
 
 
-def init(cfg: ViTConfig, *, seed: int = 0, device: Any) -> dict:
+def param_laws(cfg: ViTConfig) -> dict:
     """The JAX package's init law (truncated normal at ±2σ, σ = 0.02; CLS
-    and biases zero), drawn from a ``torch.Generator`` seeded with ``seed``.
-    The encoder has no token table, and its positions are
-    ``(num_patches + 1, hidden)``."""
-    device = torch.device(device)
-    enc = transformer.init(cfg.encoder, seed=seed, device=device)
-    gen = transformer.generator(device, int(seed) + 1)
+    and biases zero), leaf by leaf (``parallel/blocks.py``): the encoder's
+    trunk is the transformer's, without a token table, and its positions
+    are ``(num_patches + 1, hidden)``."""
     h = cfg.encoder.hidden
+    enc = transformer.param_laws(cfg.encoder)
     del enc["embed"]["tokens"]
-    enc["embed"]["pos"] = _trunc_normal((cfg.num_patches + 1, h), gen, device) * 0.02
-    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
-    return {
-        "encoder": enc,
-        "patch": {"w": _trunc_normal((cfg.patch_dim, h), gen, device) * 0.02, "b": zeros(h)},
+    enc["embed"]["pos"] = Law((cfg.num_patches + 1, h), "trunc_normal", 0.02)
+    zeros = lambda *shape: Law(shape, "zeros")  # noqa: E731
+    return keyed({
         "cls": zeros(1, 1, h),
-        "head": {"w": _trunc_normal((h, cfg.num_classes), gen, device) * 0.02,
-                 "b": zeros(cfg.num_classes)},
-    }
+        "encoder": enc,
+        "head": {"b": zeros(cfg.num_classes),
+                 "w": Law((h, cfg.num_classes), "trunc_normal", 0.02)},
+        "patch": {"b": zeros(h), "w": Law((cfg.patch_dim, h), "trunc_normal", 0.02)},
+    })
+
+
+def init(cfg: ViTConfig, *, seed: int = 0, device: Any) -> dict:
+    """Params by :func:`param_laws`, each slice from a ``torch.Generator``
+    of its own seeded from ``seed`` and its path."""
+    return init_tree(param_laws(cfg), seed, device)
 
 
 def param_specs(cfg: ViTConfig, rules: Optional[ShardingRules] = None) -> dict:

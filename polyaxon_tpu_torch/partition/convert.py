@@ -1,13 +1,18 @@
 """Foreign-checkpoint import and export of the port — counterpart of
-``polyaxon_tpu/partition/convert.py`` on one device.
+``polyaxon_tpu/partition/convert.py``: import never materializes the model
+unsharded on one rank.
 
 A foreign checkpoint is a flat ``name -> array`` mapping in some container
 (a directory of ``.npy`` files, one ``.npz``, or a ``.safetensors`` file)
 and some *layout* (the native flat paths, or HF-style llama keys). Sources
 hand out CPU tensors backed by a memory map where the container allows
-(``.npy`` and ``.safetensors``); import moves them onto the device leaf by
-leaf (a stacked HF weight layer by layer), so the host never holds a
-second copy of the tree.
+(``.npy`` and ``.safetensors``). Import reads each leaf's block of this
+rank (``placement``: the trainer's layout, user rules included, as the JAX
+package takes ``shardings=``): a direct leaf reads only the block's part
+of the mapped source, a stacked HF leaf only the block's layers, one at a
+time, each transformed and then cut. An ``.npz`` cannot be sliced without
+reading an array whole: it reads one leaf at a time and keeps the block,
+as the JAX package's npz source does.
 
 Layouts:
 
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from ..models.transformer import TransformerConfig, abstract_params, flatten, unflatten
+from ..parallel.blocks import Placement
 from .rules import tree_paths
 
 
@@ -166,15 +172,27 @@ def open_source(path: str) -> Any:
 # ---------------------------------------------------------------------------
 
 
+def _expand_idx(idx: Any, ndim: int) -> tuple:
+    if not isinstance(idx, tuple):
+        idx = (idx,)
+    return tuple(idx) + (slice(None),) * (ndim - len(idx))
+
+
+def _block_shape(idx: tuple, shape: tuple) -> tuple:
+    return tuple(len(range(*i.indices(n))) for i, n in zip(idx, shape))
+
+
 class DirectReader:
-    """Target == one source array, optionally permuted."""
+    """Target == one source array, optionally permuted (a view on the
+    mapped containers, so the block is the only data read)."""
 
     def __init__(self, source: Any, key: str, shape: tuple,
                  transpose: Optional[Sequence[int]] = None):
         self.source, self.key, self.shape = source, key, tuple(shape)
         self.transpose = tuple(transpose) if transpose is not None else None
 
-    def materialize(self, dtype: torch.dtype, device) -> torch.Tensor:
+    def read(self, idx: Any, dtype: torch.dtype, device) -> torch.Tensor:
+        """The block ``idx`` (slices per dim) of the target on ``device``."""
         t = self.source.get(self.key)
         if self.transpose is not None:
             t = t.permute(self.transpose)
@@ -182,24 +200,27 @@ class DirectReader:
             raise ImportError_(
                 f"source key {self.key!r} has shape {tuple(t.shape)}, "
                 f"target wants {self.shape}")
-        return torch.empty(self.shape, dtype=dtype, device=device).copy_(t)
+        part = t[_expand_idx(idx, len(self.shape))]
+        return torch.empty(part.shape, dtype=dtype, device=device).copy_(part)
 
 
 class StackedReader:
     """Target dim 0 stacks per-layer source arrays (the HF -> scan-stacked
-    mapping): each layer is read, transformed (transpose/reshape: a view,
-    or one layer's copy) and copied into its slot on the device, so the
-    host holds one layer at a time."""
+    mapping): the block's layers are read one at a time, each transformed
+    (transpose/reshape: a view, or one layer's copy), cut to the block and
+    copied into its slot on the device, so the host holds one layer at a
+    time and never the stack."""
 
     def __init__(self, per_layer: Sequence[Callable[[], torch.Tensor]],
                  shape: tuple):
         self.per_layer = list(per_layer)
         self.shape = tuple(shape)
 
-    def materialize(self, dtype: torch.dtype, device) -> torch.Tensor:
-        out = torch.empty(self.shape, dtype=dtype, device=device)
-        for i, layer in enumerate(self.per_layer):
-            out[i].copy_(layer())
+    def read(self, idx: Any, dtype: torch.dtype, device) -> torch.Tensor:
+        idx = _expand_idx(idx, len(self.shape))
+        out = torch.empty(_block_shape(idx, self.shape), dtype=dtype, device=device)
+        for j, i in enumerate(range(*idx[0].indices(self.shape[0]))):
+            out[j].copy_(self.per_layer[i]()[idx[1:]])
         return out
 
 
@@ -372,11 +393,13 @@ def import_params(
     dtype: Optional[Any] = None,
     key_map: Optional[Sequence[tuple[str, str]]] = None,
     transpose: Optional[Sequence[tuple[str, Sequence[int]]]] = None,
+    placement: Optional[Placement] = None,
 ) -> dict:
     """Read a foreign param source into the model's param tree on
-    ``device``, leaf by leaf. Leaves take ``cfg.param_dtype``, or ``dtype``
-    (e.g. ``"bfloat16"`` for a serving import of an f32 export) when
-    given."""
+    ``device``, leaf by leaf: each leaf this rank's block of it under
+    ``placement`` (the trainer's layout; None: the whole leaf). Leaves take
+    ``cfg.param_dtype``, or ``dtype`` (e.g. ``"bfloat16"`` for a serving
+    import of an f32 export) when given."""
     if isinstance(source, str):
         source = open_source(source)
     if not isinstance(cfg, TransformerConfig):
@@ -396,8 +419,9 @@ def import_params(
             f"unknown import layout {layout!r}; valid: flat | hf-llama")
     dt = _torch_dtype(dtype) if dtype is not None else cfg.param_dtype
     device = torch.device(device)
+    place = placement if placement is not None else Placement()
     return unflatten([tuple(p.split("/")) for p in shapes],
-                     [entries[p].materialize(dt, device) for p in shapes])
+                     [entries[p].read(place.index(p, shapes[p]), dt, device) for p in shapes])
 
 
 def _to_numpy(x: Any) -> np.ndarray:

@@ -37,6 +37,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..parallel.blocks import Law, init_tree, keyed
 from ..parallel.mesh import PartitionSpec as P
 from ..parallel.mesh import sharded_dim
 from ..train.tasks import Task
@@ -159,33 +160,35 @@ def _get_path(tree: Any, path: str) -> Any:
     return node
 
 
+def lora_laws(base_tree: Any, cfg: LoRAConfig, dtype: torch.dtype = torch.float32) -> dict:
+    """The adapters' init laws (``parallel/blocks.py``), keyed by their
+    paths under ``lora/``: ``a`` a standard normal truncated at ±2 times
+    ``init_scale`` (a stacked pair's slices are its layers), ``b`` zero.
+    ``base_tree``: the base leaves (their shapes; ``meta`` tensors will
+    do)."""
+    out: dict = {}
+    for path, lead, n_in in target_paths(base_tree, cfg):
+        shape = tuple(_get_path(base_tree, path).shape)
+        a_shape, b_shape = _fan_shapes(shape, lead, n_in, cfg.rank)
+        _set_path(out, path, {
+            "a": Law(a_shape, "trunc_normal", cfg.init_scale, lead, dtype),
+            "b": Law(b_shape, "zeros", lead=lead, dtype=dtype),
+        })
+    return keyed(out, "lora/")
+
+
 def init_lora(base_tree: Any, cfg: LoRAConfig, *, seed: int = 0,
               device: Any = None, dtype: torch.dtype = torch.float32) -> dict:
     """Adapter tree mirroring the targeted base leaves: for base path
     ``layers/attn/wq`` the adapters live at ``layers/attn/wq/a`` and
     ``.../b`` (under the task's ``lora`` branch, so the full param paths
-    are ``lora/layers/attn/wq/a`` — matched by ``builtins.LORA_RULES``).
-    ``a`` is a standard normal truncated at ±2 times ``init_scale``, drawn
-    from a ``torch.Generator`` seeded with ``seed`` in target order; ``b``
-    is zero. ``device``: the base leaves' by default (``meta``: shapes
-    only)."""
-    from ..models.transformer import _trunc_normal, generator
-
-    targets = target_paths(base_tree, cfg)
+    are ``lora/layers/attn/wq/a`` — matched by ``builtins.LORA_RULES``), by
+    :func:`lora_laws` with ``seed``: the ``lora`` subtree of a
+    :class:`LoRATask`'s init at that seed. ``device``: the base leaves' by
+    default (``meta``: shapes only)."""
     if device is None:
-        device = _get_path(base_tree, targets[0][0]).device
-    device = torch.device(device)
-    gen = generator(device, seed)
-    out: dict = {}
-    for path, lead, n_in in targets:
-        shape = tuple(_get_path(base_tree, path).shape)
-        a_shape, b_shape = _fan_shapes(shape, lead, n_in, cfg.rank)
-        a = _trunc_normal(a_shape, gen, device) * cfg.init_scale
-        _set_path(out, path, {
-            "a": a.to(dtype),
-            "b": torch.zeros(b_shape, dtype=dtype, device=device),
-        })
-    return out
+        device = _get_path(base_tree, target_paths(base_tree, cfg)[0][0]).device
+    return init_tree(lora_laws(base_tree, cfg, dtype), seed, device)
 
 
 def _delta(a: torch.Tensor, b: torch.Tensor, shape: tuple, scaling: float) -> torch.Tensor:
@@ -325,14 +328,14 @@ class LoRATask(Task):
             self._abstract = self.inner.abstract_params()
         return self._abstract
 
-    def init(self, seed: int, device) -> tuple[dict, Any]:
-        base, extra = self.inner.init(seed, device)
-        lora = init_lora(base, self.cfg, seed=int(seed) + 1, device=device)
-        return {"base": base, "lora": lora}, extra
+    def param_laws(self) -> dict:
+        # the base keeps the inner task's keys: at one seed its init is the
+        # plain model's
+        return {"base": self.inner.param_laws(),
+                "lora": lora_laws(self._base_abstract(), self.cfg)}
 
-    def abstract_params(self) -> dict:
-        base = self._base_abstract()
-        return {"base": base, "lora": init_lora(base, self.cfg, device="meta")}
+    def extra_laws(self):
+        return self.inner.extra_laws()
 
     def param_specs(self, rules) -> dict:
         self._base_specs = self.inner.param_specs(rules)

@@ -635,11 +635,13 @@ def _fit(spec: dict, trainer, batches, state, steps: int, artifacts_dir: str,
 
 
 def _initial_params(spec: dict, trainer, mcfg, device) -> tuple[Optional[dict], Any]:
-    """(params, extra) to start from instead of a fresh init: ``import:``
-    (a foreign checkpoint; no extra) or ``fork_from:`` (another run's
-    checkpoint, read-only, with its extra: ResNet's batch statistics).
-    (None, None) when neither is asked for, or when the run has a complete
-    checkpoint of its own — resume beats re-import and re-fork."""
+    """(this rank's blocks of the params, extra) to start from instead of
+    a fresh init: ``import:`` (a foreign checkpoint, read by block under
+    the trainer's layout; no extra) or ``fork_from:`` (another run's
+    checkpoint, read-only: this rank's blocks of its params, with its
+    extra: ResNet's batch statistics). (None, None) when neither is asked
+    for, or when the run has a complete checkpoint of its own — resume
+    beats re-import and re-fork."""
     import_spec, fork_spec = spec.get("import"), spec.get("fork_from")
     if not (import_spec or fork_spec):
         return None, None
@@ -655,38 +657,44 @@ def _initial_params(spec: dict, trainer, mcfg, device) -> tuple[Optional[dict], 
         if not isinstance(getattr(trainer.task, "inner", trainer.task), LMTask):
             raise SystemExit(f"import: is only supported for LM/MLM models "
                              f"(got {spec.get('model')!r})")
-
+        lora = spec.get("lora")
+        place = trainer.placement()
         params = pconvert.import_params(
             import_spec["path"], mcfg, device=device,
             layout=import_spec.get("layout", "auto"),
             dtype=import_spec.get("dtype"),
             key_map=import_spec.get("key_map"),
-            transpose=import_spec.get("transpose"))
-        if spec.get("lora"):
-            # the imported tree is the frozen base, beside fresh adapters
-            from ..partition.lora import init_lora
+            transpose=import_spec.get("transpose"),
+            placement=place.under("base") if lora else place)
+        if lora:
+            # the imported tree is the frozen base, beside fresh adapters:
+            # this rank's blocks of their laws, as a fresh init builds them
+            from ..parallel.blocks import init_tree
 
-            params = {"base": params, "lora": init_lora(params, trainer.task.cfg,
-                                                        seed=int(spec.get("seed", 0)))}
+            params = {"base": params, "lora": init_tree(
+                trainer.task.param_laws()["lora"], int(spec.get("seed", 0)), device,
+                place, "lora/")}
     if fork_spec:
-        from ..train.checkpoint import Checkpointer, to_device
+        from ..train.checkpoint import Checkpointer
 
         ro = Checkpointer(CheckpointConfig(directory=fork_spec["path"]), read_only=True)
         fork_step = fork_spec.get("step")
+        # this rank's blocks of the parent's params; its extra whole
+        place = trainer.placement().prefixed("params")
         try:
             raw, restored = ro.restore_raw(
-                step=int(fork_step) if fork_step is not None else None)
+                step=int(fork_step) if fork_step is not None else None,
+                device=device, placement=place, keys=("params", "extra"))
         except Exception as e:
             if fork_step is None:
                 raise
             # the pinned step tore with the parent's preemption: fall back
             # to the parent's newest complete step
-            raw, restored = ro.restore_raw()
+            raw, restored = ro.restore_raw(device=device, placement=place,
+                                           keys=("params", "extra"))
             print(f"[builtin] fork step {fork_step} not restorable ({e}); "
                   f"using parent step {restored}", flush=True)
-        params = to_device(raw["params"], device)
-        if raw.get("extra") is not None:
-            extra = to_device(raw["extra"], device)
+        params, extra = raw["params"], raw.get("extra")
         print(f"[builtin] forked from {fork_spec['path']} @ step {restored}",
               flush=True)
     return params, extra

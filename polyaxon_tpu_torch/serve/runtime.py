@@ -91,14 +91,16 @@ def load_params(spec: dict, cfg, device) -> tuple[dict, dict]:
     (params, provenance dict)."""
     ckpt = spec.get("checkpoint")
     if ckpt:
-        from ..train.checkpoint import CheckpointConfig, Checkpointer, to_device
+        from ..train.checkpoint import CheckpointConfig, Checkpointer
 
         path = ckpt if isinstance(ckpt, str) else ckpt.get("path")
         step = None if isinstance(ckpt, str) else ckpt.get("step")
         ro = Checkpointer(CheckpointConfig(directory=path), read_only=True)
+        # the whole tree on the device, assembled from the rank files one
+        # leaf at a time (serving is one device, as in the JAX package)
         raw, restored_step = ro.restore_raw(
-            step=int(step) if step is not None else None)
-        return to_device(raw["params"], device), {
+            step=int(step) if step is not None else None, device=device, keys=("params",))
+        return raw["params"], {
             "restored_from": path, "restored_step": int(restored_step)}
     imp = spec.get("import")
     if imp:

@@ -159,7 +159,10 @@ def global_norm(tensors: list, whole: Optional[Callable[[list], list]] = None) -
     """optax's ``global_norm``: each leaf's squares in its dtype, summed
     (in f32, rounded to the leaf's dtype), then summed across leaves in
     order, then the square root. ``whole`` turns the list of each leaf's
-    f32 sums into the whole leaves' (fsdp shards: summed over the ranks)."""
+    f32 sums into the whole leaves' (fsdp shards: summed over the ranks).
+    No leaves: 0 (an optimizer that trains none of them)."""
+    if not tensors:
+        return torch.zeros(())
     sums = [(t * t).float().sum() for t in tensors]
     if whole is not None:
         sums = whole(sums)

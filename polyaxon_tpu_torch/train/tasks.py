@@ -34,6 +34,7 @@ from ..models import resnet as resnet_mod
 from ..models import transformer
 from ..models import vit as vit_mod
 from ..models.transformer import TransformerConfig
+from ..parallel.blocks import init_tree
 from ..parallel.mesh import BATCH_AXES, TOKEN_AXES, PartitionSpec, ShardingRules
 
 
@@ -77,15 +78,26 @@ def refuse_unsupported_axes(model_cfg: Any, sizes: dict) -> None:
 
 
 class Task(ABC):
-    """One trainable workload family."""
+    """One trainable workload family. Its params (and non-param state) are
+    a tree of init laws (``parallel/blocks.py``): :meth:`init` evaluates
+    them whole, and the trainer evaluates each rank's block of them."""
 
     #: DataConfig.kind to default to when the spec names none
     default_data_kind: str = "synthetic-lm"
 
     @abstractmethod
+    def param_laws(self) -> Any:
+        """The tree of the params' :class:`~..parallel.blocks.Law`."""
+
+    def extra_laws(self) -> Any:
+        """The laws of the non-param state (None: the model has none)."""
+        return None
+
     def init(self, seed: int, device) -> tuple[Any, Any]:
-        """Returns (params, extra); extra is None when the model has no
-        non-param state."""
+        """Returns (params, extra), every leaf whole; extra is None when the
+        model has no non-param state."""
+        return (init_tree(self.param_laws(), seed, device),
+                init_tree(self.extra_laws(), seed, device))
 
     @abstractmethod
     def param_specs(self, rules: ShardingRules) -> Any:
@@ -97,7 +109,7 @@ class Task(ABC):
     def abstract_params(self) -> Any:
         """The param tree as ``meta`` tensors: shapes and dtypes, no
         storage."""
-        return self.init(0, "meta")[0]
+        return init_tree(self.param_laws(), 0, "meta")
 
     @abstractmethod
     def loss(self, params: Any, extra: Any, batch: dict,
@@ -124,8 +136,8 @@ class LMTask(Task):
     def __init__(self, cfg: TransformerConfig):
         self.cfg = cfg
 
-    def init(self, seed, device):
-        return transformer.init(self.cfg, seed=seed, device=device), None
+    def param_laws(self):
+        return transformer.param_laws(self.cfg)
 
     def param_specs(self, rules):
         return transformer.param_specs(self.cfg, rules)
@@ -172,8 +184,8 @@ class ViTTask(Task):
     def __init__(self, cfg: vit_mod.ViTConfig):
         self.cfg = cfg
 
-    def init(self, seed, device):
-        return vit_mod.init(self.cfg, seed=seed, device=device), None
+    def param_laws(self):
+        return vit_mod.param_laws(self.cfg)
 
     def param_specs(self, rules):
         return vit_mod.param_specs(self.cfg, rules)
@@ -205,13 +217,16 @@ class ResNetTask(Task):
         self.cfg = cfg
         self.image_size = image_size or (32 if cfg.small_inputs else 224)
 
-    def init(self, seed, device):
-        return resnet_mod.init(self.cfg, seed=seed, device=device)
+    def param_laws(self):
+        return resnet_mod.laws(self.cfg)[0]
+
+    def extra_laws(self):
+        return resnet_mod.laws(self.cfg)[1]
 
     def param_specs(self, rules):
         # conv kernels replicate, as in the JAX package (small beside the
-        # activations); the tree's shapes come from the meta device
-        params, _ = resnet_mod.init(self.cfg, seed=0, device="meta")
+        # activations)
+        params = self.abstract_params()
 
         def build(tree):
             return ({k: build(v) for k, v in tree.items()} if isinstance(tree, dict)

@@ -60,9 +60,12 @@ is the one the JAX package's SPMD step returns on a mesh of that shape:
   model, stage, expert), so each logical element counts once, and the
   guard's verdict reads the summed metrics, so every rank skips the same
   steps;
-- checkpoints hold the full state at every world size: rank 0 gathers it
-  leaf by leaf and alone writes, the others restore the step rank 0 names
-  and keep their shard.
+- no rank ever holds a leaf whole unless its block is the leaf: a fresh
+  init builds each rank's blocks alone from the task's init laws
+  (``parallel/blocks.py``), an import or a fork reads them alone, and a
+  checkpoint is each rank's blocks, written by the first rank that holds
+  each and read back by overlap at any world size and mesh
+  (``train/checkpoint.py``); rank 0 names the step the others restore.
 
 The JAX Trainer's ``partition_rules`` lay a user's rules over the task's
 specs before the cuts are derived. The rule's spec is the leaf's storage:
@@ -87,6 +90,7 @@ from typing import Any, Callable, Iterator, Optional
 import torch
 
 from ..models.transformer import TransformerConfig, flatten, unflatten
+from ..parallel.blocks import Placement, init_tree
 from ..parallel.fsdp import ShardedTree, fresh, leaf_dims
 from ..parallel.mesh import (
     BATCH_AXES, TOKEN_AXES, Mesh, ShardingRules, build_mesh, grad_sum_axes,
@@ -222,6 +226,7 @@ class Trainer:
         # trees: the cuts the model gathers and the compute axes' reshards
         # (None: the model reads every leaf as it is)
         self._cuts: list = []
+        self._paths: Optional[tuple] = None
         self._view: Optional[tuple] = None
         # the optimizer: the config's, or a given one (a LoRA run's frozen
         # base); ``trains(path)`` names the leaves it updates and keeps state
@@ -241,8 +246,10 @@ class Trainer:
         self.on_progress = on_progress
         self.on_stalled = on_stalled
         self.log_line = log_line
-        # rank 0 owns the directory; the others only read the steps it names
-        self.checkpointer = (Checkpointer(cfg.checkpoint, read_only=not self.primary)
+        # rank 0 owns the directory; every rank writes its own blocks of a
+        # step, and restores the steps rank 0 names
+        self.checkpointer = (Checkpointer(cfg.checkpoint, rank=self.mesh.rank,
+                                          world=self.mesh.size if self.mesh.distributed else 1)
                              if cfg.checkpoint else None)
 
     def _overlay(self, partition_rules: Any) -> dict:
@@ -263,14 +270,10 @@ class Trainer:
 
     # -- init ---------------------------------------------------------------
 
-    def init_state(self, seed: int = 0) -> TrainState:
-        params, extra = self.task.init(seed, self.device)
-        return self.init_state_from(params, extra)
-
-    def init_state_from(self, params: dict, extra: Any = None) -> TrainState:
-        """A state around full ``params`` (every rank's alike): under the
-        cutting axes each rank keeps its block of each leaf, and the
-        optimizer state mirrors the blocks."""
+    def _layout(self, params: dict) -> None:
+        """Resolve each param leaf's cuts, the view the model reads through,
+        the optimizer's leaves and the partial-sum axes from a tree with
+        the params' shapes (``meta`` tensors will do)."""
         paths, leaves = zip(*flatten(params))
         mesh = self.mesh
 
@@ -291,10 +294,8 @@ class Trainer:
         self._view = ((unflatten(paths, gathered),
                        unflatten(paths, moves) if any(moves) else None)
                       if any(gathered) or any(moves) else None)
+        self._paths = paths
         self._shapes = [tuple(t.shape) for t in leaves]
-        if any(self._cuts):
-            leaves = [mesh.shard(t, c) for t, c in zip(leaves, self._cuts)]
-            params = unflatten(paths, leaves)
         trains = getattr(self.tx, "trains", None)
         self._opt_index = [i for i, p in enumerate(paths)
                            if trains is None or trains("/".join(p))]
@@ -303,8 +304,58 @@ class Trainer:
         partial = getattr(self.task, "partial_sum_axes", None)
         partial = partial(mesh if mesh.distributed else None) if partial else {}
         self._partial_axes = [partial.get("/".join(p), ()) for p in paths]
+
+    def placement(self) -> Placement:
+        """Where this rank's blocks of the params lie: each leaf's cuts (by
+        its ``/``-joined path), the mesh's sizes and this rank's
+        coordinates."""
+        if self._paths is None:
+            self._layout(self.task.abstract_params())
+        return Placement(cuts={"/".join(p): c for p, c in zip(self._paths, self._cuts) if c},
+                         sizes=dict(self.mesh.sizes), coords=self.mesh.coords())
+
+    def init_params(self, seed: int = 0) -> dict:
+        """This rank's blocks of a fresh init of the params: each leaf's
+        block built alone from the task's init laws
+        (``parallel/blocks.py``), never the whole leaf unless the block is
+        it; the values are the same blocks of the whole-tree init."""
+        return init_tree(self.task.param_laws(), seed, self.device, self.placement())
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        """A fresh state: this rank's blocks of the params, the extra state
+        (replicated) and the optimizer state on the blocks."""
+        params = self.init_params(seed)
+        return self._state_around(params, init_tree(self.task.extra_laws(), seed,
+                                                     self.device))
+
+    def init_state_from(self, params: dict, extra: Any = None) -> TrainState:
+        """A state around full ``params`` (every rank's alike; the JAX
+        parity tests and serving hold such trees): under the cutting axes
+        each rank keeps its block of each leaf, and the optimizer state
+        mirrors the blocks."""
+        self._layout(params)
+        if any(self._cuts):
+            paths, leaves = zip(*flatten(params))
+            params = unflatten(paths, [self.mesh.shard(t, c)
+                                       for t, c in zip(leaves, self._cuts)])
+        return self._state_around(params, extra)
+
+    def init_state_from_blocks(self, params: dict, extra: Any = None) -> TrainState:
+        """A state around this rank's blocks of the params (an import or a
+        fork read by block): each must have its block's shape."""
+        place = self.placement()
+        for path, t in flatten(params):
+            name = "/".join(path)
+            want = place.bounds(name, self._shapes[self._paths.index(path)])[1]
+            if list(t.shape) != list(want):
+                raise ValueError(f"the block of {name} has shape {tuple(t.shape)}, this "
+                                 f"rank's is {tuple(want)}")
+        return self._state_around(params, extra)
+
+    def _state_around(self, params: dict, extra: Any) -> TrainState:
+        leaves = [t for _, t in flatten(params)]
         opt_leaves = [leaves[i] for i in self._opt_index]
-        self.tx.layout([self._shapes[i] for i in self._opt_index], self._opt_cuts(), mesh)
+        self.tx.layout([self._shapes[i] for i in self._opt_index], self._opt_cuts(), self.mesh)
         return TrainState(params=params, opt_state=self.tx.init(opt_leaves), step=0,
                           extra=extra)
 
@@ -316,12 +367,13 @@ class Trainer:
     def restore_or_init(self, seed: int = 0, init_params: Optional[dict] = None,
                         init_extra: Any = None) -> tuple[TrainState, int]:
         """Latest complete checkpoint wins (resume); else ``init_params``
-        and ``init_extra`` (checkpoint import, fork) when given; else a
-        fresh init. A directory of the JAX package's Orbax steps raises
+        (this rank's blocks of the params: a checkpoint import, a fork) and
+        ``init_extra`` when given; else a fresh init. A directory of the
+        JAX package's Orbax steps raises
         :class:`~.checkpoint.ForeignCheckpointError` instead of starting
         over."""
         if init_params is not None:
-            state = self.init_state_from(init_params, init_extra)
+            state = self.init_state_from_blocks(init_params, init_extra)
         else:
             state = self.init_state(seed)
         if self.checkpointer and self._agreed(
@@ -346,8 +398,9 @@ class Trainer:
     def restore(self, state: TrainState, step: Optional[int] = None) -> tuple[TrainState, int]:
         """Restore the newest complete checkpoint (or ``step``) into
         ``state``'s tensors in place; returns the restored state and its
-        step. Over a mesh every rank restores the step rank 0 names, and
-        under model and fsdp keeps its block of each full leaf."""
+        step. Over a mesh every rank restores the step rank 0 names, each
+        reading its blocks from the parts of the saved blocks they overlap
+        (the step may have been saved at any world size and mesh)."""
         like = state_tree(state)
         if self.mesh.distributed:
             chosen = step
@@ -363,58 +416,32 @@ class Trainer:
             if step is None:
                 raise FileNotFoundError(
                     f"No complete checkpoint under {self.checkpointer.cfg.directory}")
-        select = None
-        if any(self._cuts):
-            places = {id(t): cuts for t, cuts in self._placed(state)}
-            select = functools.partial(self._shard_of, places)
-        tree, s = self.checkpointer.restore(like, step=step, select=select)
+        tree, s = self.checkpointer.restore(like, step=step,
+                                            placement=self.state_placement(state))
         return state_from_tree(tree), s
 
-    def _placed(self, state: TrainState) -> list:
-        """(tensor, its cuts) for each param leaf and each param-shaped
-        optimizer leaf of ``state``."""
-        out = [(t, c) for (_, t), c in zip(flatten(state.params), self._cuts)]
-        for name, cuts in state_cuts(state.opt_state, self._opt_cuts()).items():
-            out.extend(zip(getattr(state.opt_state, name), cuts))
-        return out
+    def state_placement(self, state: TrainState) -> Placement:
+        """Where this rank's blocks of ``state``'s checkpoint tree lie: the
+        params' cuts under ``params/``, each param-shaped optimizer leaf's
+        under ``opt_state/<field>/<i>`` (the factors and extra are
+        whole)."""
+        place = self.placement().prefixed("params")
+        cuts = dict(place.cuts)
+        for name, leaf_cuts in state_cuts(state.opt_state, self._opt_cuts()).items():
+            cuts.update({f"opt_state/{name}/{i}": c for i, c in enumerate(leaf_cuts) if c})
+        return Placement(cuts=cuts, sizes=place.sizes, coords=place.coords)
 
     def _opt_cuts(self) -> list:
         """The cuts of the leaves the optimizer keeps state for, in its
         state's order."""
         return [self._cuts[i] for i in self._opt_index]
 
-    def _shard_of(self, places: dict, full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-        """This rank's block of a full checkpoint leaf whose block ``like``
-        is (the leaf itself when the shapes agree; the shape check names
-        any other mismatch)."""
-        if full.shape == like.shape or id(like) not in places:
-            return full
-        for axis, dim in places[id(like)]:
-            full = self.mesh.block(full, dim, axis)
-        return full
-
-    def _save_tree(self, state: TrainState) -> Optional[dict]:
-        """The checkpoint's tree: the full state on rank 0 (None on the
-        others). Under model and fsdp each sharded leaf is gathered in turn
-        and copied to rank 0's host, so no rank ever holds the whole state
-        on its device."""
-        if not any(self._cuts):
-            return state_tree(state) if self.primary else None
-
-        def full(t, cuts):
-            g = self.mesh.gather_full(t, cuts)
-            return g.to("cpu", copy=True) if self.primary else None
-
-        paths, leaves = zip(*flatten(state.params))
-        params = unflatten(paths, [full(t, c) for t, c in zip(leaves, self._cuts)])
-        cuts = state_cuts(state.opt_state, self._opt_cuts())
-        opt = {name: value if name == "count" else [full(t, c) for t, c in
-                                                    zip(value, cuts[name])]
-               for name, value in opt_state_tree(state.opt_state).items()}
-        if not self.primary:
-            return None
-        return {"params": params, "opt_state": opt, "step": int(state.step),
-                "extra": state.extra}
+    def _save(self, step: int, state: TrainState) -> bool:
+        """Every rank hands the checkpointer its blocks of the state (each
+        block is written by the first rank that holds it; no rank gathers a
+        leaf); returns whether the save started."""
+        return self.checkpointer.maybe_save(step, state_tree(state), force=True,
+                                            placement=self.state_placement(state))
 
     # -- the step -------------------------------------------------------------
 
@@ -725,9 +752,7 @@ class Trainer:
                 if self.checkpointer and consec == 0 and self._agreed(
                         self.primary and self.checkpointer.should_save(i + 1)):
                     t_save = time.time()
-                    tree = self._save_tree(state)
-                    if self.primary:
-                        self.checkpointer.maybe_save(i + 1, tree, force=True)
+                    self._save(i + 1, state)
                     if self.on_span:
                         # async: the span covers the copy to the host and
                         # the hand-off to the writer thread
@@ -743,9 +768,7 @@ class Trainer:
         if self.checkpointer:
             if self._agreed(self.primary and self.checkpointer.latest_step() != num_steps):
                 t_save = time.time()
-                tree = self._save_tree(state)
-                if self.primary and self.checkpointer.maybe_save(num_steps, tree, force=True) \
-                        and self.on_span:
+                if self._save(num_steps, state) and self.on_span:
                     self.on_span("checkpoint-save", t_save, time.time(), step=num_steps)
             self.checkpointer.wait()
             self.mesh.barrier()  # the step is on disk before any rank reads it

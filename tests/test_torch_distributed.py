@@ -83,7 +83,7 @@ from polyaxon_tpu_torch.models.transformer import flatten
 from polyaxon_tpu_torch.parallel import ShardingRules
 from polyaxon_tpu_torch.parallel.mesh import sharded_dim
 from polyaxon_tpu_torch.runtime.builtin import build_trainer, run_builtin
-from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer, read_step
 from polyaxon_tpu_torch.train.tasks import LMTask
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -277,8 +277,7 @@ def _one_process(art: Path, spec: dict, f32: bool = False) -> list:
 
 
 def _final_params(case_dir: Path) -> dict:
-    state = torch.load(case_dir / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
-                       weights_only=True)
+    state = read_step(case_dir / "outputs" / "checkpoints" / str(STEPS))
     return {"/".join(p): t.numpy() for p, t in flatten(state["params"])}
 
 
@@ -334,8 +333,7 @@ def test_a_nan_in_one_ranks_batch_skips_the_step_on_both(runs):
         summary = _rank(out / "nan", rank)["summary"]
         assert summary["train_anomalies_loss"] == 1, summary
         assert summary["processes"] == WORLD
-    state = torch.load(out / "nan" / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
-                       weights_only=True)
+    state = read_step(out / "nan" / "outputs" / "checkpoints" / str(STEPS))
     assert state["opt_state"]["count"] == STEPS - 1  # the skipped step froze it
 
 
@@ -355,8 +353,7 @@ def test_a_transient_nan_rolls_both_ranks_back_together(runs):
 def test_fsdp_checkpoint_restores_at_world_one_bit_equal(runs):
     _, _, out, _ = runs
     case = out / "llama_fsdp"
-    saved = torch.load(case / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
-                       weights_only=True)
+    saved = read_step(case / "outputs" / "checkpoints" / str(STEPS))
     spec = {k: v for k, v in _spec("llama_fsdp", "unused").items()
             if k not in ("parallelism", "fork_from")}
     trainer, _ = build_trainer(spec, artifacts_dir=str(case))
@@ -375,7 +372,7 @@ def test_a_world_one_step_restores_into_fsdp_shards(runs):
     world-1 checkpoint's leaves."""
     _, _, out, _ = runs
     case = out / "restore_shards"
-    full = torch.load(case / "outputs" / "checkpoints" / "2" / "state.pt", weights_only=True)
+    full = read_step(case / "outputs" / "checkpoints" / "2")
     specs = [s for _, s in flatten(LLAMA_TASK.param_specs(ShardingRules()))]
     leaves, dims = {}, {}
     for i, (path, t) in enumerate(flatten(full["params"])):

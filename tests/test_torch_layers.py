@@ -24,6 +24,7 @@ from polyaxon_tpu.ops import layers as jl
 from polyaxon_tpu_torch.models import REGISTRY
 from polyaxon_tpu_torch.models import transformer as T
 from polyaxon_tpu_torch.ops import layers as tl
+from polyaxon_tpu_torch.parallel.blocks import Law, draw_slice
 
 RNG = np.random.default_rng(1234)
 
@@ -173,9 +174,9 @@ class TestInit:
 
     def test_truncated_normal_moments_match_jax(self):
         # the two packages draw different values from a seed, but the
-        # same distribution: compare the moments of a large draw
-        ours = T._trunc_normal((200_000,), torch.Generator().manual_seed(0),
-                               "cpu").numpy()
+        # same distribution: compare the moments of a large draw of the
+        # port's init law
+        ours = draw_slice(Law((200_000,), "trunc_normal"), (), 0, "cpu").numpy()
         ref = np.asarray(jax.random.truncated_normal(
             jax.random.PRNGKey(0), -2, 2, (200_000,), jnp.float32))
         assert abs(ours.std() - ref.std()) < 5e-3

@@ -54,6 +54,7 @@ from polyaxon_tpu_torch.partition.rules import tree_paths
 from polyaxon_tpu_torch.runtime.builtin import build_trainer, run_builtin
 from polyaxon_tpu_torch.train import data as tdata
 from polyaxon_tpu_torch.train import optimizers as topt
+from polyaxon_tpu_torch.train.checkpoint import read_step
 from polyaxon_tpu_torch.train.tasks import task_for
 from polyaxon_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -330,11 +331,11 @@ def test_a_lora_checkpoint_saves_restores_and_resumes(tmp_path, monkeypatch):
     spec = dict(BUILTIN, steps=4, checkpoint={"save_interval_steps": 2, "async_save": False})
     _logged_run(dict(spec))
     ckdir = tmp_path / "outputs" / "checkpoints"
-    saved = torch.load(ckdir / "4" / "state.pt", weights_only=True)
+    saved = read_step(ckdir / "4")
     assert set(saved["params"]) == {"base", "lora"}
     n_adapters = len(tree_paths(saved["params"]["lora"]))
     assert len(saved["opt_state"]["mu"]) == len(saved["opt_state"]["nu"]) == n_adapters
-    first = torch.load(ckdir / "2" / "state.pt", weights_only=True)
+    first = read_step(ckdir / "2")
     for (path, a), (_, b) in zip(tree_paths(first["params"]["base"]),
                                  tree_paths(saved["params"]["base"])):
         assert torch.equal(a, b), path

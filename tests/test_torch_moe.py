@@ -69,7 +69,7 @@ from polyaxon_tpu_torch.models import transformer as tt
 from polyaxon_tpu_torch.models.transformer import flatten, unflatten
 from polyaxon_tpu_torch.parallel import ShardingRules
 from polyaxon_tpu_torch.parallel.mesh import normalize_axis_sizes
-from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer, read_step
 from polyaxon_tpu_torch.train.tasks import LMTask, refuse_unsupported_axes
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -482,8 +482,7 @@ def test_expert_data_training_matches_the_jax_trainer(ranks):
                                        atol=GRAD_TOL[1] * np.abs(jgrads[path]).max(),
                                        err_msg=f"rank {rank} {path}")
     assert jlogged[0]["router_drop_frac"] > 0
-    state = torch.load(case / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
-                       weights_only=True)
+    state = read_step(case / "outputs" / "checkpoints" / str(STEPS))
     for path, t in flatten(state["params"]):
         key = "/".join(path)
         np.testing.assert_allclose(t.numpy(), jparams[key], atol=param_tol, err_msg=key)

@@ -77,7 +77,7 @@ from polyaxon_tpu_torch.models.transformer import flatten
 from polyaxon_tpu_torch.parallel import pipeline
 from polyaxon_tpu_torch.parallel.mesh import Mesh, normalize_axis_sizes
 from polyaxon_tpu_torch.runtime.builtin import build_trainer
-from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer, read_step
 from polyaxon_tpu_torch.train.tasks import refuse_unsupported_axes
 from polyaxon_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -388,8 +388,7 @@ def _train_misses(case_dir: Path, name: str, trains: dict) -> float:
         cap = torch.load(case_dir / f"grads{rank}.pt", weights_only=True)
         worst = max(worst, _grad_misses({k: v.numpy() for k, v in cap["grads"].items()},
                                         cap["cuts"], cap["coords"], _sizes(para), jgrads))
-    state = torch.load(case_dir / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
-                       weights_only=True)
+    state = read_step(case_dir / "outputs" / "checkpoints" / str(STEPS))
     for path, t in flatten(state["params"]):
         key = "/".join(path)
         worst = max(worst, float(np.abs(t.numpy() - jparams[key]).max() / param_tol))
@@ -441,8 +440,7 @@ def test_each_pipeline_planted_fault_fails_the_jax_comparison(runs, fault):
 def test_a_stage_checkpoint_restores_at_world_one_bit_equal(runs):
     _, _, out, _ = runs
     case = out / "stage2"
-    saved = torch.load(case / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
-                       weights_only=True)
+    saved = read_step(case / "outputs" / "checkpoints" / str(STEPS))
     trainer, _ = build_trainer({**BASE, "model": "llama-tiny"}, artifacts_dir=str(case))
     state, step = trainer.restore_or_init()
     assert step == STEPS

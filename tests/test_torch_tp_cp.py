@@ -104,7 +104,7 @@ from polyaxon_tpu_torch.models import REGISTRY, resnet
 from polyaxon_tpu_torch.models.transformer import flatten
 from polyaxon_tpu_torch.parallel.mesh import normalize_axis_sizes
 from polyaxon_tpu_torch.runtime.builtin import build_trainer, run_builtin
-from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer, read_step
 from polyaxon_tpu_torch.train.tasks import LMTask
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -416,8 +416,7 @@ def _one_process(art: Path, spec: dict, seq_parallel: str, variant: str) -> list
 
 
 def _final_params(case_dir: Path) -> dict:
-    state = torch.load(case_dir / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
-                       weights_only=True)
+    state = read_step(case_dir / "outputs" / "checkpoints" / str(STEPS))
     return {"/".join(p): t.numpy() for p, t in flatten(state["params"])}
 
 
@@ -551,8 +550,7 @@ def test_each_tp_cp_planted_fault_fails_the_jax_comparison(runs, fault):
 def test_fsdp_model_checkpoint_restores_at_world_one_bit_equal(runs):
     _, _, out, _, _ = runs
     case = out / "llama_fsdp_model"
-    saved = torch.load(case / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
-                       weights_only=True)
+    saved = read_step(case / "outputs" / "checkpoints" / str(STEPS))
     spec = {**BASE, "model": "llama-tiny"}
     trainer, _ = build_trainer(spec, artifacts_dir=str(case))
     state, step = trainer.restore_or_init()
@@ -569,8 +567,7 @@ def test_the_checkpoint_restores_into_each_ranks_block(runs):
     leaf, cut again by fsdp where the leaf is fsdp-sharded too (``wi``:
     hidden over fsdp, mlp over model), of the params and both moments."""
     _, _, out, _, _ = runs
-    full = torch.load(out / "llama_fsdp_model" / "outputs" / "checkpoints" / str(STEPS)
-                      / "state.pt", weights_only=True)
+    full = read_step(out / "llama_fsdp_model" / "outputs" / "checkpoints" / str(STEPS))
     from polyaxon_tpu_torch.parallel import ShardingRules
     from polyaxon_tpu_torch.parallel.mesh import sharded_dim
 
@@ -705,8 +702,7 @@ def test_first_step_grads_match_jax_leaf_by_leaf(runs, name):
 def _factor_misses(case_dir: Path, want: dict) -> float:
     """The worst adafactor moment of a run's final state against JAX's, as
     a multiple of FACTOR_TOL (a shape that differs: inf)."""
-    state = torch.load(case_dir / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
-                       weights_only=True)
+    state = read_step(case_dir / "outputs" / "checkpoints" / str(STEPS))
     paths = ["/".join(p) for p, _ in flatten(state["params"])]
     worst = 0.0
     for field in ("v_row", "v_col", "v"):
@@ -727,8 +723,7 @@ def test_adafactor_factors_match_the_jax_mesh(runs, name):
     orders: FACTOR_TOL relative, as the losses)."""
     jax_results, _, out, _, _ = runs
     assert _factor_misses(out / name, jax_results[name][2]) <= 1
-    state = torch.load(out / name / "outputs" / "checkpoints" / str(STEPS) / "state.pt",
-                       weights_only=True)
+    state = read_step(out / name / "outputs" / "checkpoints" / str(STEPS))
     # the embedding, wi/wg and wo factor at hidden 128
     assert sum(t.numel() > 1 for t in state["opt_state"]["v_row"]) >= 3
 
