@@ -218,6 +218,34 @@ non-zero:
    process with every rank's blocks bit-equal (sha256), that state saved
    at world 1 restores at W bit-equal, and with rank 1's file of the
    newest step left out (a planted fault) the restore walks back a step.
+13b. tools — the port's measurement tools through their library calls.
+   bench: ``polyaxon_tpu_torch.bench.run_bench`` at its one-GPU recipe
+   (bench.py's: llama-1b, 64 x 2048 in 32 microbatches, remat attn_qkv,
+   flash blocks 1024, bf16 moments, grads and accumulator), BENCH_STEPS
+   steps; bench_moe: its ``--moe`` recipe (llama-moe-1b, 32 x 2048 in 8
+   microbatches, capacity streamed in cap blocks of 512); bench_tokens:
+   the dense recipe on ``--data tokens-file``'s 200 M-token uint16 corpus
+   (written into a temporary directory, removed after), its tokens/s over
+   bench's (reported, no limit). Each: the line parses with bench.py's
+   keys and metric name, every loss is finite, the MFU is in (0, 1] and
+   equals tokens/s/chip x flops per token / 989e12, and each flash
+   kernel's launches equal ``flash_launch_formula``. serve_bench:
+   ``polyaxon_tpu_torch.scripts.serve_bench`` with the paged kernel
+   (attn_impl flash) — the sweep at llama-1b with block 128
+   (examples/llama1b_service.yaml) over widths 1, 2, 4, 8 at the tool's
+   16 requests of 24 + 32 tokens, prefix share at llama-1b
+   (PREFIX_SHARE_REQUESTS requests of the tool's 1024-token system prompt,
+   PREFIX_SHARE_BEST_OF repeat) and the tool's speculative fixture
+   (llama-tiny against itself plus 31 x 2 identity layers, k 6), whose
+   decode steps give the paged kernel f32 at D 16: before it runs,
+   kernel_tiny holds the kernel against its plain version at that shape
+   (TINY_KERNEL_SHAPE; phase 3's tolerance, planted faults, times and
+   bound). Each
+   result has scripts/serve_bench.py's keys, every sweep row's tokens are
+   requests x max_new, the paged kernel runs in every sweep row and in both
+   other benches, no KV audit violation, prefix hits at least requests x
+   (sys_len // block) with at most one extra block a request, and
+   acceptance at least ACCEPT_MIN. No timing ratio is a check.
 14. profiles — ``torch.profiler``'s split of the compare phase's decode
    step per impl, of a training microbatch and the AdamW tail, and of a
    speculative iteration's draft steps against its verify step, then
@@ -234,8 +262,11 @@ non-zero:
 15. the ``{"kernels": [...]}`` line (each flash kernel's launches are the
    llama-1b train phase's; ``launches_by_path`` adds train_lora's, train_bert's,
    train_vit's, the 1-rank group runs' of dist_train_1rank, each
-   ring_kernels case's, train_moe's, moe_compare's and
-   train_7b_import_lora's; ``d128`` holds that D=128 path's launches
+   ring_kernels case's, train_moe's, moe_compare's,
+   train_7b_import_lora's, bench's, bench_moe's and bench_tokens'; the
+   paged kernel's ``launches_by_path`` holds the serve phase's and each
+   serve_bench part's, and its ``d16_f32`` the speculative fixture's
+   launches beside kernel_tiny's error, times and bound; ``d128`` holds that D=128 path's launches
    beside the kernels' D=128 bf16 times, bounds and SDPA times), then the
    last line
    ``{"ok": true, "device": {...}}``.
@@ -268,10 +299,17 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-KERNEL_SHAPE = dict(batch=8, kv_heads=4, groups=8, block_size=128, max_blocks=16)
+KERNEL_SHAPE = dict(batch=8, kv_heads=4, groups=8, block_size=128, max_blocks=16,
+                    long_row=5,                # the 2048-token row
+                    alias=(7, 5, 4))           # row 7 reads row 5's first 4 blocks
 KERNEL_LENGTHS = (0, 1, 127, 128, 129, 2048, 700, 1000)
-LONG_ROW = 5                                   # the 2048-token row
-ALIAS_ROW, ALIAS_SRC, ALIAS_BLOCKS = 7, 5, 4   # row 7 reads row 5's first 4 blocks
+# the decode shape of serve_bench's speculative fixture (its draft's decode
+# steps, and plain decode of its target): llama-tiny, f32, KVH 2, G 2, D 16,
+# 4 slots, block 16, 150 tokens of capacity (32 + 96 + k 6 + one block)
+TINY_KERNEL_SHAPE = dict(batch=4, kv_heads=2, groups=2, block_size=16, max_blocks=10,
+                         long_row=1, alias=(3, 1, 4))
+TINY_KERNEL_LENGTHS = (0, 150, 33, 100)
+TINY_HEAD_DIM = 16
 # kernel vs plain version, held elementwise to |out - ref| <= atol + rtol|ref|.
 # Both compute in f32. In f32 only the order of the sums differs (~1e-6
 # relative). In bf16 the two split the softmax differently (each warp's
@@ -511,11 +549,11 @@ def build_phase(libs) -> None:
 # -- phase 3 helpers ----------------------------------------------------------
 
 
-def kernel_inputs(torch, head_dim: int, dtype, seed: int = 0):
-    """q, pools, tables and lengths at the serving shape, made from a seed
-    on the card. Rows own disjoint blocks except ALIAS_ROW, whose leading
-    ALIAS_BLOCKS entries are ALIAS_SRC's."""
-    s = KERNEL_SHAPE
+def kernel_inputs(torch, head_dim: int, dtype, seed: int = 0, s: dict = KERNEL_SHAPE,
+                  lengths=KERNEL_LENGTHS):
+    """q, pools, tables and lengths at a decode shape (the serving one by
+    default), made from a seed on the card. Rows own disjoint blocks except
+    the shape's alias row, whose leading blocks are its source row's."""
     b, kvh, g, bs, t = (s["batch"], s["kv_heads"], s["groups"],
                         s["block_size"], s["max_blocks"])
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -525,8 +563,9 @@ def kernel_inputs(torch, head_dim: int, dtype, seed: int = 0):
     v = torch.randn(n, bs, kvh, head_dim, generator=gen, device="cuda").to(dtype)
     perm = torch.randperm(n - 1, generator=gen, device="cuda")
     tables = perm[:b * t].reshape(b, t).to(torch.int32)
-    tables[ALIAS_ROW, :ALIAS_BLOCKS] = tables[ALIAS_SRC, :ALIAS_BLOCKS]
-    lengths = torch.tensor(KERNEL_LENGTHS, dtype=torch.int32, device="cuda")
+    row, src, blocks = s["alias"]
+    tables[row, :blocks] = tables[src, :blocks]
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     return q, k, v, tables.contiguous(), lengths
 
 
@@ -540,8 +579,8 @@ def live_kv_bytes(tables, lengths, block_size: int, row_bytes: int) -> int:
     return 2 * len(rows) * row_bytes
 
 
-def bound_ms(q, tables, lengths, head_dim: int, dtype_name: str) -> tuple[float, str]:
-    s = KERNEL_SHAPE
+def bound_ms(q, tables, lengths, head_dim: int, dtype_name: str,
+             s: dict = KERNEL_SHAPE) -> tuple[float, str]:
     esize = q.element_size()
     kv = live_kv_bytes(tables, lengths, s["block_size"],
                        s["kv_heads"] * head_dim * esize)
@@ -608,14 +647,14 @@ def worst_ratio(out, ref, tol) -> float:
     return ((out - ref).abs() / (atol + rtol * ref.abs())).max().item()
 
 
-def planted_faults(pa, q, k, v, tables, lengths, ref, scale, tol) -> dict:
+def planted_faults(pa, q, k, v, tables, lengths, ref, scale, tol, long_row: int) -> dict:
     """The kernel run on inputs that model two faults of the long row's
     walk, held against the true plain output by the same check: each must
     fail it (ratio > 1), or the check could not see such a fault."""
     skipped = lengths.clone()
-    skipped[LONG_ROW] -= 32                       # its last 32-token tile
+    skipped[long_row] -= 32                       # its last 32-token tile
     shifted = tables.clone()
-    shifted[LONG_ROW, 7] = tables[LONG_ROW, 8]    # block 7 read as block 8
+    shifted[long_row, 7] = tables[long_row, 8]    # block 7 read as block 8
     ratios = {
         "skipped_last_tile": worst_ratio(
             pa.paged_decode_cuda(q, k, v, tables, skipped, sm_scale=scale), ref, tol),
@@ -630,75 +669,83 @@ def planted_faults(pa, q, k, v, tables, lengths, ref, scale, tol) -> dict:
 
 
 def kernel_phase(torch, pa) -> list[dict]:
-    import torch.nn.functional as F
-
     results = []
-    s = KERNEL_SHAPE
     for head_dim in (64, 128):
         for dtype in (torch.bfloat16, torch.float32):
-            name = str(dtype).split(".")[1]
-            q, k, v, tables, lengths = kernel_inputs(torch, head_dim, dtype)
-            scale = head_dim ** -0.5
-            before = pa.launch_counts["paged_decode"]
-            out = pa.paged_decode_cuda(q, k, v, tables, lengths, sm_scale=scale)
-            torch.cuda.synchronize()
-            if pa.launch_counts["paged_decode"] != before + 1:
-                raise AssertionError("the kernel wrapper did not count its launch")
-            ref = pa.paged_decode_plain(q, k, v, tables, lengths, sm_scale=scale)
-            if not torch.isfinite(out.float()).all():
-                raise AssertionError(f"non-finite kernel output at D={head_dim} {name}")
-            if out[0].abs().max().item() != 0.0:
-                raise AssertionError("a length-0 row must come back as zeros")
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = KERNEL_TOL[name]
-            ratio = worst_ratio(out, ref, tol)
-            if not ratio <= 1.0:
-                raise AssertionError(
-                    f"kernel vs plain at D={head_dim} {name}: max abs err "
-                    f"{err}, {ratio} times the tolerance {tol}")
-            faults = planted_faults(pa, q, k, v, tables, lengths, ref, scale, tol)
-
-            # cold-L2 timing over copies of the pools (and gathered caches)
-            pair_bytes = 2 * k.numel() * k.element_size()
-            copies = max(2, math.ceil(200e6 / pair_bytes))
-            pools = [(q, k.clone(), v.clone(), tables, lengths) for _ in range(copies)]
-            t = s["max_blocks"] * s["block_size"]
-            mask = (torch.arange(t, device="cuda")[None, :]
-                    < lengths[:, None].long())[:, None, None, :]
-            qh = q.reshape(s["batch"], s["kv_heads"] * s["groups"], 1, head_dim)
-            gathered = [(qh, pa.gather_blocks(kk, tables).transpose(1, 2).contiguous(),
-                         pa.gather_blocks(vv, tables).transpose(1, 2).contiguous(), mask)
-                        for _, kk, vv, _, _ in pools]
-            kern = lambda *a: pa.paged_decode_cuda(*a, sm_scale=scale)  # noqa: E731
-            plain = lambda *a: pa.paged_decode_plain(*a, sm_scale=scale)  # noqa: E731
-            lib = lambda *a: F.scaled_dot_product_attention(  # noqa: E731
-                *a[:3], attn_mask=a[3], scale=scale, enable_gqa=True)
-            # ms, plain_ms and library_ms are launched from the host, as in
-            # every slice; a call this short is paced by its wrapper's host
-            # work, so the log row adds both from a CUDA graph replay
-            ms = time_ms(torch, kern, pools, 200)
-            ms_graph = graph_time_ms(torch, kern, pools, 200)
-            plain_ms = time_ms(torch, plain, pools, 20)
-            library_ms = time_ms(torch, lib, gathered, 200)
-            library_ms_graph = graph_time_ms(torch, lib, gathered, 200)
-            b_ms, b_by = bound_ms(q, tables, lengths, head_dim, name)
-            splits = pa.split_workspace(s["batch"], s["kv_heads"], s["groups"], head_dim,
-                                        s["max_blocks"], s["block_size"],
-                                        pa.split_tokens())[0]
-            row = {"head_dim": head_dim, "dtype": name, "max_abs_err": err,
-                   "atol": tol[0], "rtol": tol[1], "tol_ratio": ratio,
-                   "planted_fault_ratios": faults, "ms": ms, "ms_graph": ms_graph,
-                   "plain_ms": plain_ms, "library_ms": library_ms,
-                   "library_ms_graph": library_ms_graph, "bound_ms": b_ms,
-                   "bound_us": b_ms * 1e3, "bound_by": b_by,
-                   "splits": splits if dtype == torch.bfloat16 else None,
-                   **pa.kernel_resources(head_dim, dtype)}
-            if (head_dim, name) == (64, "bfloat16"):
-                row["prev_ms_recorded"] = PREV_MS_RECORDED["paged_decode"]
+            row = kernel_case(torch, pa, head_dim, dtype)
             log("kernel", **row)
             results.append(row)
-            del pools, gathered
     return results
+
+
+def kernel_case(torch, pa, head_dim: int, dtype, s: dict = KERNEL_SHAPE,
+                lengths=KERNEL_LENGTHS) -> dict:
+    """The paged kernel against its plain version at one decode shape, the
+    planted faults, the times and the bound."""
+    import torch.nn.functional as F
+
+    name = str(dtype).split(".")[1]
+    q, k, v, tables, lengths = kernel_inputs(torch, head_dim, dtype, s=s,
+                                             lengths=lengths)
+    scale = head_dim ** -0.5
+    before = pa.launch_counts["paged_decode"]
+    out = pa.paged_decode_cuda(q, k, v, tables, lengths, sm_scale=scale)
+    torch.cuda.synchronize()
+    if pa.launch_counts["paged_decode"] != before + 1:
+        raise AssertionError("the kernel wrapper did not count its launch")
+    ref = pa.paged_decode_plain(q, k, v, tables, lengths, sm_scale=scale)
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"non-finite kernel output at D={head_dim} {name}")
+    if out[0].abs().max().item() != 0.0:
+        raise AssertionError("a length-0 row must come back as zeros")
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = KERNEL_TOL[name]
+    ratio = worst_ratio(out, ref, tol)
+    if not ratio <= 1.0:
+        raise AssertionError(
+            f"kernel vs plain at D={head_dim} {name}: max abs err "
+            f"{err}, {ratio} times the tolerance {tol}")
+    faults = planted_faults(pa, q, k, v, tables, lengths, ref, scale, tol, s["long_row"])
+
+    # cold-L2 timing over copies of the pools (and gathered caches)
+    pair_bytes = 2 * k.numel() * k.element_size()
+    copies = max(2, math.ceil(200e6 / pair_bytes))
+    pools = [(q, k.clone(), v.clone(), tables, lengths) for _ in range(copies)]
+    t = s["max_blocks"] * s["block_size"]
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+    qh = q.reshape(s["batch"], s["kv_heads"] * s["groups"], 1, head_dim)
+    gathered = [(qh, pa.gather_blocks(kk, tables).transpose(1, 2).contiguous(),
+                 pa.gather_blocks(vv, tables).transpose(1, 2).contiguous(), mask)
+                for _, kk, vv, _, _ in pools]
+    kern = lambda *a: pa.paged_decode_cuda(*a, sm_scale=scale)  # noqa: E731
+    plain = lambda *a: pa.paged_decode_plain(*a, sm_scale=scale)  # noqa: E731
+    lib = lambda *a: F.scaled_dot_product_attention(  # noqa: E731
+        *a[:3], attn_mask=a[3], scale=scale, enable_gqa=True)
+    # ms, plain_ms and library_ms are launched from the host, as in
+    # every slice; a call this short is paced by its wrapper's host
+    # work, so the log row adds both from a CUDA graph replay
+    ms = time_ms(torch, kern, pools, 200)
+    ms_graph = graph_time_ms(torch, kern, pools, 200)
+    plain_ms = time_ms(torch, plain, pools, 20)
+    library_ms = time_ms(torch, lib, gathered, 200)
+    library_ms_graph = graph_time_ms(torch, lib, gathered, 200)
+    b_ms, b_by = bound_ms(q, tables, lengths, head_dim, name, s)
+    splits = pa.split_workspace(s["batch"], s["kv_heads"], s["groups"], head_dim,
+                                s["max_blocks"], s["block_size"],
+                                pa.split_tokens())[0]
+    row = {"head_dim": head_dim, "dtype": name, "max_abs_err": err,
+           "atol": tol[0], "rtol": tol[1], "tol_ratio": ratio,
+           "planted_fault_ratios": faults, "ms": ms, "ms_graph": ms_graph,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_ms_graph": library_ms_graph, "bound_ms": b_ms,
+           "bound_us": b_ms * 1e3, "bound_by": b_by,
+           "splits": splits if dtype == torch.bfloat16 else None,
+           **pa.kernel_resources(head_dim, dtype)}
+    if (head_dim, name, s) == (64, "bfloat16", KERNEL_SHAPE):
+        row["prev_ms_recorded"] = PREV_MS_RECORDED["paged_decode"]
+    del pools, gathered
+    return row
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -3846,6 +3893,195 @@ def pp_ep_multi_phase(torch, single: dict) -> dict:
     return out
 
 
+# -- slice 14: the measurement tools -------------------------------------------------
+
+# the bench phases' steps (the tool's own count is 8; 20 for llama2-7b)
+BENCH_STEPS = 3
+# the keys of the repository's bench.py line and its metric names
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+BENCH_METRICS = {False: "llama_train_tokens_per_sec_per_chip",
+                 True: "llama_moe_train_tokens_per_sec_per_chip"}
+# serve_bench's sweep at llama-1b's serving width (examples/llama1b_service.yaml:
+# block 128) over the tool's widths, requests and lengths
+SERVE_BENCH_MODEL = "llama-1b"
+SERVE_BENCH_BLOCK = 128
+SERVE_BENCH_WIDTHS = (1, 2, 4, 8)
+# prefix share at llama-1b with the tool's lengths (a 1024-token system
+# prompt, 8-token tails, 8 new tokens): 64 requests cut to 16 and 3 repeats
+# to 1, which hold the phase's time (each re-prefill request is 33 chunks)
+PREFIX_SHARE_REQUESTS = 16
+PREFIX_SHARE_BEST_OF = 1
+# the keys of scripts/serve_bench.py's results
+SWEEP_KEYS = {"kind", "model", "platform", "rows", "batched_vs_sequential"}
+SWEEP_ROW_KEYS = {"concurrency", "requests", "prompt_len", "max_new", "wall_s", "tokens",
+                  "tokens_per_sec", "ttft_p50_ms", "ttft_p95_ms", "req_wall_p50_s"}
+PREFIX_KEYS = {"kind", "requests", "sys_len", "tail_len", "max_new", "block_size",
+               "shared_prefix_blocks", "shared", "reprefill", "ttft_p50_speedup",
+               "ttft_p95_speedup"}
+PREFIX_SIDE_KEYS = {"ttft_p50_ms", "ttft_p95_ms", "wall_s", "prefix_hits", "prefix_misses",
+                    "extra_kv_blocks_per_request", "cow_copies", "kv_audit_violations"}
+SPEC_BENCH_KEYS = {"kind", "requests", "prompt_len", "max_new", "spec_k", "target_layers",
+                   "draft_layers", "plain_tokens_per_sec", "spec_tokens_per_sec", "speedup",
+                   "tokens_proposed", "tokens_accepted", "acceptance_rate",
+                   "kv_audit_violations"}
+
+
+def check_keys(what: str, got: dict, want: set) -> None:
+    if set(got) != want:
+        raise AssertionError(f"{what} keys {sorted(got)} != the JAX tool's {sorted(want)}")
+
+
+def bench_phase(torch, fa, moe: bool = False, data: Optional[str] = None) -> dict:
+    """``polyaxon_tpu_torch.bench.run_bench`` on the card at its one-GPU
+    recipe (llama-1b 64 x 2048 in 32 microbatches, or llama-moe-1b 32 x
+    2048 in 8), ``BENCH_STEPS`` steps, the corpus of ``--data tokens-file``
+    in a temporary directory removed after: its line parses with
+    bench.py's keys and metric, every loss is finite, the MFU is the
+    meter's identity and in (0, 1], and the flash launches equal their
+    formula."""
+    import shutil
+
+    from polyaxon_tpu_torch import bench
+
+    logged = []
+    token_dir = tempfile.mkdtemp(prefix="plx_bench_tokens_") if data else None
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.monotonic()
+        res = bench.run_bench(moe=moe, data=data, steps=BENCH_STEPS, token_dir=token_dir,
+                              track=lambda step, m: logged.append((step, m)))
+        wall_s = time.monotonic() - t0
+        launches = dict(fa.launch_counts)
+    finally:
+        if token_dir:
+            shutil.rmtree(token_dir, ignore_errors=True)
+    line = json.loads(json.dumps(res.line))
+    check_keys("bench line", line, BENCH_KEYS)
+    if line["metric"] != BENCH_METRICS[moe]:
+        raise AssertionError(f"bench metric {line['metric']!r}")
+    losses = [m["loss"] for _, m in sorted(logged, key=lambda e: e[0])]
+    if len(losses) != BENCH_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"bench losses {losses}")
+    m = res.metrics
+    identity = m["tokens_per_sec_per_chip"] * res.flops_per_token / PEAK_FLOPS["bfloat16"]
+    if not (0 < m["mfu"] <= 1 and math.isclose(m["mfu"], identity, rel_tol=1e-9)):
+        raise AssertionError(f"bench mfu {m['mfu']} is not in (0, 1] or is not "
+                             f"tokens/s/chip x flops/token / 989e12 = {identity}")
+    recipe = res.recipe
+    expected = flash_launch_formula({"steps": BENCH_STEPS, "microbatches": recipe.microbatches,
+                                     "remat": recipe.model.remat}, recipe.model.num_layers)
+    if launches != expected:
+        raise AssertionError(f"bench flash launches {launches} != formula {expected}")
+    out = {"line": line, "losses": losses, "tokens_per_sec_per_chip":
+           m["tokens_per_sec_per_chip"], "mfu": m["mfu"], "mfu_identity": identity,
+           "step_time_ms": m["step_time_ms"], "step_time_p50_ms": m["step_time_p50_ms"],
+           "flops_per_token": res.flops_per_token, "batch": recipe.batch, "seq": recipe.seq,
+           "microbatches": recipe.microbatches, "chips": res.chips, "steps": res.steps,
+           "launches": launches, "expected_launches": expected,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "wall_s": wall_s}
+    if moe:
+        out["router_drop_frac"] = m.get("router_drop_frac")
+    return out
+
+
+def serve_bench_phase(torch, pa) -> dict:
+    """``polyaxon_tpu_torch.scripts.serve_bench`` on the card with the
+    paged kernel (attn_impl flash): the sweep at llama-1b's serving width,
+    prefix share at llama-1b, and speculation on the 32x identity-extended
+    llama-tiny fixture. Each result has the JAX tool's keys, the paged
+    kernel runs in every row, no KV audit violation, the prefix hits cover
+    every request's shared blocks with at most one extra block each, and
+    acceptance is at least ACCEPT_MIN."""
+    from polyaxon_tpu_torch.scripts import serve_bench as sb
+
+    row_launches = []
+    inner = sb.run_engine_bench
+
+    def counted(concurrency, **kw):
+        before = pa.launch_counts["paged_decode"]
+        row = inner(concurrency, **kw)
+        row_launches.append(pa.launch_counts["paged_decode"] - before)
+        return row
+
+    pa.reset_launch_counts()
+    t0 = time.monotonic()
+    sb.run_engine_bench = counted
+    try:
+        sweep = sb.run_sweep(SERVE_BENCH_WIDTHS, model=SERVE_BENCH_MODEL,
+                             block_size=SERVE_BENCH_BLOCK)
+    finally:
+        sb.run_engine_bench = inner
+    sweep_s = time.monotonic() - t0
+    check_keys("sweep", sweep, SWEEP_KEYS)
+    for row in sweep["rows"]:
+        check_keys("sweep row", row, SWEEP_ROW_KEYS)
+        if row["tokens"] != row["requests"] * row["max_new"]:
+            raise AssertionError(f"sweep row {row}")
+    if len(row_launches) != len(SERVE_BENCH_WIDTHS) or not all(row_launches):
+        raise AssertionError(f"the paged kernel did not run in every sweep row: {row_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pa.reset_launch_counts()
+    t0 = time.monotonic()
+    share = sb.run_prefix_share_bench(model=SERVE_BENCH_MODEL, block_size=SERVE_BENCH_BLOCK,
+                                      requests=PREFIX_SHARE_REQUESTS,
+                                      best_of=PREFIX_SHARE_BEST_OF)
+    share_s = time.monotonic() - t0
+    share_launches = pa.launch_counts["paged_decode"]
+    check_keys("prefix share", share, PREFIX_KEYS)
+    for side in ("shared", "reprefill"):
+        check_keys(f"prefix share {side}", share[side], PREFIX_SIDE_KEYS)
+        if share[side]["kv_audit_violations"]:
+            raise AssertionError(f"KV refcount audit violations (prefix share, {side})")
+    need_hits = share["requests"] * (share["sys_len"] // share["block_size"])
+    if not (share["shared"]["extra_kv_blocks_per_request"] <= 1
+            and share["shared"]["prefix_hits"] >= need_hits):
+        raise AssertionError(f"prefix share: {share['shared']}; hits must reach {need_hits} "
+                             f"with at most one extra block a request")
+    if not share_launches:
+        raise AssertionError("the paged kernel did not run in the prefix share bench")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the paged kernel at the fixture's decode shape (f32, D 16), against
+    # its plain version, before the fixture runs it
+    from polyaxon_tpu_torch.models import REGISTRY
+
+    tiny = REGISTRY["llama-tiny"][1]
+    got = (tiny.num_kv_heads, tiny.num_heads // tiny.num_kv_heads, tiny.hidden // tiny.num_heads)
+    want = (TINY_KERNEL_SHAPE["kv_heads"], TINY_KERNEL_SHAPE["groups"], TINY_HEAD_DIM)
+    if got != want:
+        raise AssertionError(f"llama-tiny's decode heads {got} != TINY_KERNEL_SHAPE's {want}")
+    tiny_row = kernel_case(torch, pa, TINY_HEAD_DIM, torch.float32, TINY_KERNEL_SHAPE,
+                           TINY_KERNEL_LENGTHS)
+    log("kernel_tiny", **tiny_row)
+
+    pa.reset_launch_counts()
+    t0 = time.monotonic()
+    spec = sb.run_speculative_bench()
+    spec_s = time.monotonic() - t0
+    spec_launches = pa.launch_counts["paged_decode"]
+    check_keys("speculative", spec, SPEC_BENCH_KEYS)
+    if spec["kv_audit_violations"]:
+        raise AssertionError("KV refcount audit violations (speculative bench)")
+    if not spec["acceptance_rate"] >= ACCEPT_MIN:
+        raise AssertionError(f"speculative bench acceptance {spec['acceptance_rate']} < "
+                             f"{ACCEPT_MIN}")
+    if not spec_launches:
+        raise AssertionError("the paged kernel did not run in the speculative bench")
+    return {"sweep": sweep, "sweep_row_launches": row_launches, "sweep_s": sweep_s,
+            "prefix_share": share, "prefix_share_launches": share_launches,
+            "prefix_share_s": share_s, "speculative": spec,
+            "speculative_launches": spec_launches, "speculative_s": spec_s,
+            "kernel_tiny": tiny_row,
+            "launches": {"serve_bench/sweep": sum(row_launches),
+                         "serve_bench/prefix_share": share_launches,
+                         "serve_bench/speculative": spec_launches}}
+
+
 def main() -> int:
     import torch
 
@@ -4007,6 +4243,27 @@ def main() -> int:
     log("tp_cp_multi", **tp_cp_multi_phase(torch, fa, dist_1rank))
     log("pp_ep_multi", **pp_ep_multi_phase(torch, dist_1rank))
 
+    # the measurement tools, through their library calls (slice 14)
+    t_tools = time.monotonic()
+    benched = {}
+    for phase, kw in (("bench", {}), ("bench_moe", {"moe": True}),
+                      ("bench_tokens", {"data": "tokens-file"})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        benched[phase] = bench_phase(torch, fa, **kw)
+        if phase == "bench_tokens":
+            benched[phase]["tokens_per_sec_over_bench"] = (
+                benched[phase]["tokens_per_sec_per_chip"]
+                / benched["bench"]["tokens_per_sec_per_chip"])
+        log(phase, **benched[phase])
+    gc.collect()
+    torch.cuda.empty_cache()
+    tools_serve = serve_bench_phase(torch, pa)
+    log("serve_bench", **tools_serve)
+    log("tools", seconds=time.monotonic() - t_tools)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # the profiler last: once torch.profiler has run, every later kernel
     # launch in the process pays CUPTI's overhead (a tiny launch's host
     # cost 5.1-5.4 -> 7.1-10.0 us, a decode step's 16-20 -> 26-33 ms, on
@@ -4044,6 +4301,12 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "launches_by_path": {"serve": served["launches"], **tools_serve["launches"]},
+        # the speculative fixture's f32 D=16 decode (llama-tiny)
+        "d16_f32": {"launches": tools_serve["speculative_launches"],
+                    **{key: tools_serve["kernel_tiny"][key] for key in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")}},
     }]
     flash_main = flash_rows[0]  # D=64 bf16: the training shape
     flash_d128 = flash_rows[2]  # D=128 bf16: llama2-7b's attention
@@ -4070,7 +4333,9 @@ def main() -> int:
                                     for case, row in ring_rows.items()},
                                  "train_moe": moe_run["launches"][name],
                                  "moe_compare": moe_cmp["launches"][name],
-                                 "train_7b_import_lora": import_7b["launches"][name]},
+                                 "train_7b_import_lora": import_7b["launches"][name],
+                                 **{phase: run["launches"][name]
+                                    for phase, run in benched.items()}},
             "d128": {"launches": import_7b["launches"][name],
                      **{key: flash_d128[name][key] for key in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

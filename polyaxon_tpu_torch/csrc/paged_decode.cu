@@ -52,11 +52,13 @@
 // keeps its own online softmax (m, l and the G x D accumulator in
 // registers); in a tile each lane owns one token and computes its G scores
 // on the CUDA cores (tensor cores would round to tf32) against q in shared
-// memory, and for p.V each lane owns D/32 output dims, the tile's V rows read
-// in batches with their pool offsets passed by shuffles; the warps' partial
-// results are merged through shared memory (45.6 KB at D = 128, under the
-// 48 KB static limit). f32 is llama-tiny's dtype, never on the card's main
-// path.
+// memory, and for p.V each lane owns D/32 output dims (at D = 16 the first
+// 16 lanes own one each), the tile's V rows read in batches with their pool
+// offsets passed by shuffles; the warps' partial results are merged through
+// shared memory (45.6 KB at D = 128, under the 48 KB static limit). f32 is
+// llama-tiny's dtype (D = 16), which serve_bench's speculative fixture
+// decodes on the card; the f32 kernel takes D = 16, 32, 64 and 128, the
+// bf16 walk 64 and 128.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -369,11 +371,14 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
                     int kv_heads, int groups, int num_blocks, int block_size,
                     int max_blocks, float sm_scale) {
   constexpr int kVec = 4;                  // K elements per 16-byte load
-  constexpr int kDims = D / 32;            // output dims per lane
+  // output dims per lane, and the lanes that own them: D / 32 on every lane
+  // from D = 32 on, one on each of the first D lanes below
+  constexpr int kDims = D >= 32 ? D / 32 : 1;
+  constexpr int kLanes = D / kDims;
   // V rows in flight per batch: 32 at D = 64; 16 at D = 128, where a lane's
   // slice of a row is twice as wide (32 rows there spill registers)
   constexpr int kVBatch = D <= 64 ? 32 : 16;
-  static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
+  static_assert(D == 16 || D % 32 == 0, "head_dim must be 16 or a multiple of 32");
 
   __shared__ float q_s[kMaxG][D];
   __shared__ float p_s[kWarps][kMaxG][kTile];
@@ -387,6 +392,7 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int gd = groups * D;
+  const bool owns_dims = kLanes == 32 || lane < kLanes;
 
   const int len = max(0, min(lengths[b], max_blocks * block_size));
   const int* table = tables + static_cast<size_t>(b) * max_blocks;
@@ -469,13 +475,13 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
 #pragma unroll
       for (int i = 0; i < kVBatch; ++i) {
         const int row_t = __shfl_sync(kFull, row, t0 + i);
-        if (t0 + i < n_live)
+        if (t0 + i < n_live && owns_dims)
           vc[i] = load_chunk<kDims>(v_pool + static_cast<size_t>(row_t) * row_stride +
                                     head_off + lane * kDims);
       }
 #pragma unroll
       for (int i = 0; i < kVBatch; ++i) {
-        if (t0 + i < n_live) {
+        if (t0 + i < n_live && owns_dims) {
 #pragma unroll
           for (int r = 0; r < kMaxG; ++r) {
             if (r < groups) {
@@ -500,8 +506,10 @@ paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_poo
         m_s[warp][r] = m_row[r];
         l_s[warp][r] = l_row[r];
       }
+      if (owns_dims) {
 #pragma unroll
-      for (int j = 0; j < kDims; ++j) acc_s[warp][r][lane * kDims + j] = acc[r][j];
+        for (int j = 0; j < kDims; ++j) acc_s[warp][r][lane * kDims + j] = acc[r][j];
+      }
     }
   }
   __syncthreads();
@@ -605,6 +613,10 @@ int paged_decode(const void* q, const void* k_pool, const void* v_pool, const vo
     rc = launch<64>(dtype, a);
   else if (head_dim == 128)
     rc = launch<128>(dtype, a);
+  else if (head_dim == 16 && dtype == 0)
+    rc = launch_f32<16>(a);
+  else if (head_dim == 32 && dtype == 0)
+    rc = launch_f32<32>(a);
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;
@@ -618,6 +630,8 @@ int paged_decode(const void* q, const void* k_pool, const void* v_pool, const vo
 int paged_decode_resources(int head_dim, int dtype, int* out) {
   if (head_dim == 64) return resources_of<64>(dtype, out);
   if (head_dim == 128) return resources_of<128>(dtype, out);
+  if (head_dim == 16 && dtype == 0) return resources(paged_decode_kernel<16>, kThreads, 0, out);
+  if (head_dim == 32 && dtype == 0) return resources(paged_decode_kernel<32>, kThreads, 0, out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -58,7 +58,8 @@ PAGED_DECODE_LIB = _Library(
 
 #: query heads per KV head the kernels take (their shared-memory sizing)
 KERNEL_MAX_GROUPS = 8
-KERNEL_HEAD_DIMS = (64, 128)
+#: head dims each dtype's kernel takes (f32's CUDA-core walk also llama-tiny's 16)
+KERNEL_HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: the bf16 walk's f32 workspace, one flat buffer per (device, stream)
@@ -218,9 +219,9 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, lengths):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary (the "
                              f"kernel reads it in 16-byte vectors)")
-    if d not in KERNEL_HEAD_DIMS:
+    if d not in KERNEL_HEAD_DIMS[q.dtype]:
         raise ValueError(f"paged_decode kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
+                         f"{KERNEL_HEAD_DIMS[q.dtype]} in {q.dtype}, got {d}")
     if not 1 <= g <= KERNEL_MAX_GROUPS:
         raise ValueError(f"paged_decode kernel takes 1..{KERNEL_MAX_GROUPS} "
                          f"query heads per KV head, got {g}")

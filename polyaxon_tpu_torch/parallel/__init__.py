@@ -12,6 +12,7 @@ from .distributed import (
     ENV_PROCESS_ID,
     ProcessInfo,
     initialize,
+    joined_group,
     local_rank,
     process_info_from_env,
     rendezvous_env,
@@ -44,6 +45,7 @@ __all__ = [
     "ENV_PROCESS_ID",
     "ProcessInfo",
     "initialize",
+    "joined_group",
     "local_rank",
     "process_info_from_env",
     "rendezvous_env",

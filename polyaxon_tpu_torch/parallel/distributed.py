@@ -21,6 +21,7 @@ raises.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 from dataclasses import dataclass
@@ -111,6 +112,20 @@ def shutdown() -> None:
     """Leave the process group, if there is one."""
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
+
+
+@contextlib.contextmanager
+def joined_group(device=None):
+    """:func:`initialize` for the block, and :func:`shutdown` after it of a
+    group joined here: a caller that made the group keeps it."""
+    joined = not torch.distributed.is_initialized()
+    initialize(device=device)
+    joined = joined and torch.distributed.is_initialized()
+    try:
+        yield
+    finally:
+        if joined:
+            shutdown()
 
 
 def rendezvous_env(coordinator_host: str, port: int, num_processes: int,

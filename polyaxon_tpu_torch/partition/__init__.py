@@ -31,6 +31,7 @@ from .plan import (
     build_plan,
     format_plan,
     needs_validation,
+    plan_for_builtin_spec,
     plan_summary_from_shardings,
     validate_builtin_spec,
 )
@@ -68,6 +69,7 @@ __all__ = [
     "overlay_partition_rules",
     "parse_rules",
     "path_str",
+    "plan_for_builtin_spec",
     "plan_summary_from_shardings",
     "rules_for",
     "rules_for_config",

@@ -156,6 +156,29 @@ def build_plan(
     }
 
 
+def plan_for_builtin_spec(builtin: dict, *, num_devices: Optional[int] = None,
+                          num_slices: int = 1) -> dict:
+    """:func:`build_plan` of a compiled builtin spec (the dict a pod gets
+    in ``PLX_BUILTIN_SPEC``: the runtime block with the run's parallelism
+    and partition rules merged in), with the precedence of the JAX
+    ``polyaxon partition plan`` verb: ``num_devices`` and ``num_slices``
+    are the topology's, and the spec's own ``num_slices`` wins over the
+    topology's."""
+    if not builtin or not isinstance(builtin, dict):
+        raise ValueError("partition plan needs a `runtime:` builtin-trainer block "
+                         "(user containers own their own sharding)")
+    if builtin.get("num_slices") is not None:
+        num_slices = int(builtin["num_slices"])
+    return build_plan(
+        builtin.get("model", "llama-tiny"),
+        parallelism=builtin.get("parallelism"),
+        num_devices=num_devices,
+        num_slices=num_slices,
+        partition_rules=builtin.get("partition_rules"),
+        lora=builtin.get("lora"),
+    )
+
+
 def format_plan(plan: dict) -> str:
     rows = plan["rows"]
     s = plan["summary"]

@@ -258,10 +258,7 @@ def build_trainer(spec: dict[str, Any],
     ``artifacts_dir`` (default ``$PLX_ARTIFACTS_PATH``, else the working
     directory) holds the checkpoints and the chaos budgets."""
     from ..models import REGISTRY
-    from ..train import (
-        DataConfig, OptimizerConfig, Trainer, TrainerConfig, make_batches, task_for,
-    )
-    from ..train import data as data_mod
+    from ..train import OptimizerConfig, Trainer, TrainerConfig, task_for
 
     _refuse_unsupported(spec)
     name = spec.get("model", "llama-tiny")
@@ -382,23 +379,34 @@ def build_trainer(spec: dict[str, Any],
                       chaos=TrainerChaos.from_spec(spec.get("chaos"), state_dir=artifacts_dir),
                       partition_rules=spec.get("partition_rules"), tx=tx, **hooks)
     data_spec = dict(spec.get("data") or {})
+    batches = trainer_batches(
+        trainer, family, kind=data_spec.get("kind") or task.default_data_kind,
+        path=data_spec.get("path"), seed=int(data_spec.get("seed", 0)), **data_kwargs)
+    return trainer, batches
+
+
+def trainer_batches(trainer, family: str, **data: Any):
+    """The trainer's batch stream, ``DataConfig(**data)`` at the trainer's
+    batch and sequence sizes, cut to this rank's rows of the global batch
+    (and, for the token families, its chunk of the sequence)."""
+    from ..train import DataConfig, make_batches
+    from ..train import data as data_mod
+
+    tcfg = trainer.cfg
     rows = cols = None
     if trainer.mesh.distributed:
-        rows = data_mod.local_rows(batch_size, tcfg.microbatches, trainer.batch_index,
+        rows = data_mod.local_rows(tcfg.batch_size, tcfg.microbatches, trainer.batch_index,
                                    trainer.batch_ranks)
     if trainer.mesh.distributed and family in ("lm", "mlm"):
         # a vision batch is whole on every context rank: ViT cuts its
         # tokens itself, ResNet replicates its compute
         try:
-            cols = data_mod.local_cols(batch_size, seq_len, trainer.mesh.seq_index,
+            cols = data_mod.local_cols(tcfg.batch_size, tcfg.seq_len, trainer.mesh.seq_index,
                                        trainer.mesh.cp)
         except ValueError as e:
             raise SystemExit(f"parallelism {tcfg.parallelism}: {e}") from e
-    batches = make_batches(DataConfig(
-        kind=data_spec.get("kind") or task.default_data_kind, batch_size=batch_size,
-        seq_len=seq_len, path=data_spec.get("path"), seed=int(data_spec.get("seed", 0)),
-        rows=rows, cols=cols, **data_kwargs))
-    return trainer, batches
+    return make_batches(DataConfig(batch_size=tcfg.batch_size, seq_len=tcfg.seq_len,
+                                   rows=rows, cols=cols, **data))
 
 
 def num_slices(spec: dict) -> int:
@@ -503,10 +511,7 @@ def run_builtin(spec: dict[str, Any],
     process, or when the caller made the group) and leaves a group it
     joined at the end."""
     _refuse_unsupported(spec)  # before a run directory or a device is touched
-    joined = not torch.distributed.is_initialized()
-    parallel.initialize(device=resolve_device(spec))
-    joined = joined and torch.distributed.is_initialized()
-    try:
+    with parallel.joined_group(resolve_device(spec)):
         run = _tracked_run()
         try:
             return _run_builtin(spec, track, run)
@@ -514,9 +519,6 @@ def run_builtin(spec: dict[str, Any],
             if run is not None:
                 run.end()  # flush and close the writers of a failed attempt
             raise
-    finally:
-        if joined:
-            parallel.shutdown()
 
 
 def _run_builtin(spec: dict, track, run) -> dict[str, Any]:

@@ -55,7 +55,8 @@ def test_the_scan_sees_every_port_module():
                      "parallel/mesh.py", "parallel/collectives.py", "parallel/fsdp.py",
                      "ops/ring_attention.py", "ops/ulysses.py", "ops/gating.py",
                      "parallel/pipeline.py", "partition/builtins.py", "partition/lora.py",
-                     "partition/plan.py", "partition/__main__.py"):
+                     "partition/plan.py", "partition/__main__.py", "bench.py",
+                     "scripts/__init__.py", "scripts/perf_exp.py", "scripts/serve_bench.py"):
         assert expected in names
 
 
@@ -120,6 +121,38 @@ print(json.dumps({"bad": bad}))
                           capture_output=True, text=True, timeout=90)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1])["bad"] == []
+
+
+def test_the_measurement_tools_run_without_jax(tmp_path):
+    """The bench, perf_exp, serve_bench and the partition plan, each through
+    its CLI on the CPU in one fresh interpreter: each prints its line and
+    nothing forbidden is ever imported."""
+    code = """
+import json, os, sys
+from polyaxon_tpu_torch import bench
+from polyaxon_tpu_torch.partition.__main__ import main as partition
+from polyaxon_tpu_torch.scripts import perf_exp, serve_bench
+assert bench.main(["--platform", "cpu"]) == 0
+assert perf_exp.main(["llama-tiny", "2", "32", "none", "2", "--platform", "cpu"]) == 0
+assert serve_bench.main(["--platform", "cpu", "--requests", "2", "--max-new", "2",
+                         "--sweep", "1,2"]) == 0
+os.environ["PLX_BUILTIN_SPEC"] = json.dumps({"model": "llama-tiny"})
+assert partition(["plan"]) == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "flax", "orbax",
+                                    "polyaxon_tpu", "pydantic", "requests", "aiohttp"))
+print(json.dumps({"bad": bad}))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=90)
+    assert proc.returncode == 0, proc.stderr
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    assert lines[0]["metric"] == "llama_train_tokens_per_sec_per_chip"
+    assert lines[1]["model"] == "llama-tiny" and lines[2]["kind"] == "serve_bench"
+    assert "llama-tiny: 106,816 params in 12 tensors" in proc.stdout
+    assert lines[-1]["bad"] == []
 
 
 def test_cpu_speculative_serving_and_checkpoint_restore_run_without_jax(tmp_path):

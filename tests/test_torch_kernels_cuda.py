@@ -144,6 +144,23 @@ def test_kernel_one_long_row(cuda, dtype, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("g", [1, 2, 8])
+def test_f32_kernel_small_head_dims(cuda, d, bs, g):
+    # llama-tiny's head dim (16, the speculative fixture's draft and
+    # target) and 32, where not every lane owns an output dim: lengths 0
+    # and 1, a tile and one past it, a block and one past it, the
+    # capacity and past it; the last row aliases the first's blocks
+    t = 256 // bs
+    cap = t * bs
+    lengths = [cap, 0, 1, 31, 32, 33, bs, bs + 1, cap - 1, cap + 5, 150]
+    out = _assert_matches_plain(*_inputs(cuda, torch.float32, g=g, d=d, bs=bs, t=t,
+                                         seed=d + bs + g, lengths=lengths))
+    assert out[1].abs().max().item() == 0.0          # length 0 -> zeros
+
+
+@pytest.mark.cuda
 def test_refused_arguments_raise(cuda):
     q, k, v, tables, lengths = _inputs(cuda, torch.float32)
     with pytest.raises(TypeError, match="int32"):
@@ -151,6 +168,9 @@ def test_refused_arguments_raise(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         pa.paged_decode(q[..., :48].contiguous(), k[..., :48].contiguous(),
                         v[..., :48].contiguous(), tables, lengths)
+    with pytest.raises(ValueError, match="head_dim"):  # the bf16 walk takes 64 and 128
+        pa.paged_decode(*(x[..., :16].to(torch.bfloat16).contiguous() for x in (q, k, v)),
+                        tables, lengths)
 
 
 # -- flash attention (forward, dQ, dK/dV) --------------------------------------

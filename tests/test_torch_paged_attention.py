@@ -150,6 +150,7 @@ class TestDispatch:
         ("pool_dtype", "q's dtype"),
         ("table_dtype", "int32"),
         ("head_dim", "head_dim"),
+        ("bf16_head_dim_16", "head_dim"),
         ("groups", "query heads"),
         ("contiguous", "contiguous"),
         ("shape", "pool heads"),
@@ -170,6 +171,8 @@ class TestDispatch:
         elif bad == "head_dim":
             q, k, v = q[..., :48], k[..., :48].contiguous(), v[..., :48].contiguous()
             q = q.contiguous()
+        elif bad == "bf16_head_dim_16":  # the split walk takes 64 and 128
+            q, k, v = (x[..., :16].bfloat16().contiguous() for x in (q, k, v))
         elif bad == "groups":
             q = torch.zeros(b, kvh, 9, d)
         elif bad == "contiguous":
@@ -178,6 +181,14 @@ class TestDispatch:
             k = v = torch.zeros(n, bs, kvh + 1, d)
         with pytest.raises((TypeError, ValueError), match=match):
             pa._check_kernel_args(q, k, v, tables, lengths)
+
+    @pytest.mark.parametrize("d", [16, 32, 64, 128])
+    def test_the_f32_kernel_takes_small_head_dims(self, d):
+        """llama-tiny's 16 and 32 go to the f32 CUDA-core walk."""
+        q = torch.zeros(2, 2, 2, d)
+        k = v = torch.zeros(6, 8, 2, d)
+        pa._check_kernel_args(q, k, v, torch.zeros(2, 3, dtype=torch.int32),
+                              torch.zeros(2, dtype=torch.int32))
 
 
 class TestSplitWorkspace:
