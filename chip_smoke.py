@@ -53,7 +53,17 @@ non-zero:
    plain versions at the visit's global offsets, and a planted fault
    (k_offset + 1 on rank 0's diagonal visit when causal, the last rank's
    visit of chunk 0 dropped when not) must fail; the ring's fwd+bwd time
-   against the single call's.
+   against the single call's. Then ring_bench (slice 15):
+   ``polyaxon_tpu_torch.scripts.ring_bench.run_ring_bench`` on a loopback
+   ring of cp 8 in bf16 at seq 8192 and 16384, at the tool's 4 heads and at
+   llama-1b's 32 q heads over 4 kv heads: its lines carry the JAX script's
+   keys (``v5e_`` as ``h100_``, plus platform, dtype and ranks), its B1
+   launches equal seqs x (1 + steps) x (36 visits + 8 gathered calls); per
+   sequence one call of each path launches B1 36 and 8 times, the ring
+   agrees with the gather path within RING_TOL normwise, the gather
+   path's first q chunk placed one block late (a planted fault) must not,
+   and each path's rise of ``max_memory_allocated`` and CUDA-event time
+   are printed beside the tool's host-clock times.
 6. serve — the port's ``build_engine`` at llama-1b full width (22 layers,
    hidden 2048, bf16, random init from seed 0) with the
    examples/llama1b_service.yaml runtime settings and attn_impl flash,
@@ -210,6 +220,12 @@ non-zero:
    run's (DIST_MULTI_RTOL); with 4 GPUs also llama-1b ``{stage: 2, model:
    2}`` (examples/llama_pp_tp.yaml's keys, 3 steps) and llama-moe-1b
    ``{stage: 2, expert: 2}`` with a2a, peak memory per rank; with one GPU
+   ``{"skipped": "1 GPU"}``. ring_bench_multi: with 2+ GPUs
+   scripts/ring_bench.py as W NCCL ranks (the largest power of two up to
+   min(GPUs, 8)), its ring crossing NVLink, at both head counts, with each
+   rank's peak memory; pp_bench_multi: scripts/pp_bench.py as 4 ranks
+   (``{stage: 2, model: 2}``) with 4+ GPUs, else 2 (``{stage: 2}``), both
+   gates' losses within 1e-6 and its lines' keys; with one GPU each prints
    ``{"skipped": "1 GPU"}``. dist_train_multi also runs llama2-7b ``{fsdp:
    W}`` (SHARD_7B_SPEC: examples/llama7b_tpujob.yaml's keys, 4 rows a
    rank): each rank's rise while it builds its blocks at full depth within
@@ -262,7 +278,7 @@ non-zero:
 15. the ``{"kernels": [...]}`` line (each flash kernel's launches are the
    llama-1b train phase's; ``launches_by_path`` adds train_lora's, train_bert's,
    train_vit's, the 1-rank group runs' of dist_train_1rank, each
-   ring_kernels case's, train_moe's, moe_compare's,
+   ring_kernels case's, each ring_bench case's (B1's), train_moe's, moe_compare's,
    train_7b_import_lora's, bench's, bench_moe's and bench_tokens'; the
    paged kernel's ``launches_by_path`` holds the serve phase's and each
    serve_bench part's, and its ``d16_f32`` the speculative fixture's
@@ -393,6 +409,23 @@ RING_CASES = {
 # 90-91 times it. 2^-6 is a bf16 place or two of the largest element
 RING_TOL = 2.0 ** -6
 RING_TIMINGS = 5
+# ring_bench (slice 15): scripts/ring_bench.py's loopback ring of cp 8 in
+# bf16 over its default sequences, at the tool's own 4 heads and at
+# llama-1b's 32 q heads over 4 kv heads (D 64, one row, blocks of 512)
+RING_BENCH_SEQS = (8192, 16384)
+RING_BENCH_CP = 8
+RING_BENCH_STEPS = 3
+RING_BENCH_CASES = {"tool": dict(heads=4, kv_heads=4),
+                    "llama-1b": dict(heads=32, kv_heads=4)}
+# the repository's scripts/ring_bench.py line (v5e_ as h100_) and the port's
+# additions
+RING_BENCH_KEYS = {"seq", "cp", "b", "heads", "head_dim", "ring_fwd_ms", "gather_fwd_ms",
+                   "ring_over_gather", "kv_resident_mb_ring", "kv_resident_mb_gather",
+                   "h100_step_compute_us_llama1b", "h100_step_comm_us_llama1b_gqa_compact",
+                   "h100_compute_over_comm", "platform", "dtype", "ranks"}
+# pp_bench_multi: scripts/pp_bench.py's lines, each gate's and the last
+PP_BENCH_KEYS = ({"gate", "step_ms", "loss", "resolved_gate"},
+                 {"gated_over_ungated", "bubble_fraction", "note", "mesh"})
 
 TRAIN_SPEC = {
     # examples/llama1b_tpujob.yaml runtime, steps cut from 8 to 3, on the card
@@ -1407,6 +1440,92 @@ def ring_phase(torch, fa) -> dict:
         rows[name] = ring_case(torch, fa, ra, name, c)
         log("ring_kernels", case=name, **rows[name])
     return rows
+
+
+def ring_bench_case(torch, fa, rb, name: str, c: dict) -> dict:
+    """One RING_BENCH_CASES head count through scripts/ring_bench.py's
+    library call (the launches of B1 it makes are the path's), then per
+    sequence: one call of each path (B1's launches a call: the visits
+    cp(cp+1)/2 on the ring, cp on the gather path), the rise of
+    ``max_memory_allocated`` over each, ring against gather within
+    RING_TOL normwise, a planted fault (the gather path's first q chunk
+    one block late) that must fail it, and each path's CUDA-event time."""
+    from polyaxon_tpu_torch.ops.ring_attention import LoopbackRing
+
+    cp, steps = RING_BENCH_CP, RING_BENCH_STEPS
+    visits = cp * (cp + 1) // 2
+    fa.reset_launch_counts()
+    rows = rb.run_ring_bench(RING_BENCH_SEQS, cp, platform="cuda", steps=steps, **c)
+    torch.cuda.synchronize()
+    launches = dict(fa.launch_counts)
+    want = len(RING_BENCH_SEQS) * (1 + steps) * (visits + cp)
+    if launches != {"flash_fwd": want, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}:
+        raise AssertionError(f"ring_bench {name}: launches {launches}, want {want} of "
+                             f"flash_fwd ({len(RING_BENCH_SEQS)} seqs x {1 + steps} calls x "
+                             f"({visits} visits + {cp} gathered calls))")
+    for row in rows:
+        check_keys(f"ring_bench {name}", row, RING_BENCH_KEYS)
+        if (row["platform"], row["dtype"], row["ranks"]) != ("cuda", "bfloat16", 1):
+            raise AssertionError(f"ring_bench {name}: {row}")
+    ring = LoopbackRing(cp)
+    seqs = {}
+    for seq in RING_BENCH_SEQS:
+        q, k, v = rb.make_inputs(seq, batch=rb.BATCH, kv_heads=c["kv_heads"],
+                                 heads=c["heads"], head_dim=rb.HEAD_DIM,
+                                 dtype=torch.bfloat16, device="cuda")
+        paths = {"ring": lambda: rb.ring_forward(q, k, v, ring),
+                 "gather": lambda: rb.gather_forward(q, k, v, ring)}
+        got, per_call, rise = {}, {}, {}
+        for path, fn in paths.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()
+            got[path] = fn()
+            torch.cuda.synchronize()
+            per_call[path] = fa.launch_counts["flash_fwd"]
+            rise[path] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        if per_call != {"ring": visits, "gather": cp}:
+            raise AssertionError(f"ring_bench {name} seq {seq}: B1 launches a call "
+                                 f"{per_call}, want ring {visits}, gather {cp}")
+        ratio = norm_ratio(got["ring"], got["gather"])
+        if not (torch.isfinite(got["ring"].float()).all() and ratio <= 1.0):
+            raise AssertionError(f"ring_bench {name} seq {seq}: ring vs gather "
+                                 f"{ratio} times RING_TOL {RING_TOL} of the largest element")
+        # the planted fault on position 0, whose first rows see a few keys:
+        # one block more moves them far (a late last chunk, whose rows see
+        # thousands, moves them little beside RING_TOL's normwise bound)
+        offset, s_l = rb.gather_q_offset, seq // cp
+        rb.gather_q_offset = lambda i, n: offset(i, n) + (rb.BLOCK if i == 0 else 0)
+        try:
+            fault_ratio = norm_ratio(got["ring"], rb.gather_forward(q, k, v, ring))
+        finally:
+            rb.gather_q_offset = offset
+        if not fault_ratio > 1.0:
+            raise AssertionError(f"ring_bench {name} seq {seq}: the gather path's first q "
+                                 f"chunk one block late passes (ratio {fault_ratio})")
+        seqs[seq] = {"s_l": s_l, "launches_per_call": per_call,
+                     "mem_rise_mib": rise, "ring_vs_gather_tol_ratio": ratio,
+                     "max_abs_err": (got["ring"].float() - got["gather"].float()).abs()
+                     .max().item(),
+                     "planted_fault_tol_ratio": fault_ratio,
+                     "ring_event_ms": fwd_bwd_ms(torch, paths["ring"]),
+                     "gather_event_ms": fwd_bwd_ms(torch, paths["gather"])}
+        del q, k, v, got, paths
+        torch.cuda.empty_cache()
+    return {**c, "rows": rows, "launches": launches, "seqs": seqs}
+
+
+def ring_bench_phase(torch, fa) -> dict:
+    """Each RING_BENCH_CASES head count through ring_bench_case."""
+    rb = importlib.import_module("polyaxon_tpu_torch.scripts.ring_bench")
+    out = {}
+    for name, c in RING_BENCH_CASES.items():
+        t0 = time.monotonic()
+        out[name] = ring_bench_case(torch, fa, rb, name, c)
+        out[name]["seconds"] = time.monotonic() - t0
+        log("ring_bench", case=name, **out[name])
+    return out
 
 
 # -- phase 6: train ----------------------------------------------------------------
@@ -3537,6 +3656,14 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def rank_envs(world: int) -> list:
+    """The PLX_* env of each of ``world`` child ranks on this host, one GPU
+    a rank."""
+    port = free_port()
+    return [{"PLX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "PLX_NUM_PROCESSES": str(world),
+             "PLX_PROCESS_ID": str(r), "LOCAL_RANK": str(r)} for r in range(world)]
+
+
 def dist_env_phase(torch) -> dict:
     """What the distributed phases run on: the card count, NCCL's version,
     the card's name and power limit."""
@@ -3642,6 +3769,16 @@ def dist_child(plan: dict) -> int:
             parallel.shutdown()
         if int(os.environ["PLX_PROCESS_ID"]) != 0:
             return 0
+    elif plan["mode"] in ("ring_bench", "pp_bench"):
+        dev = torch.device("cuda", parallel.local_rank())
+        torch.cuda.set_device(dev)
+        parallel.initialize(device=dev)
+        try:
+            out = tool_child(torch, fa, plan)
+        finally:
+            parallel.shutdown()
+        if int(os.environ["PLX_PROCESS_ID"]) != 0:
+            return 0
     elif plan["mode"] == "1rank":
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
@@ -3708,6 +3845,32 @@ def dist_child(plan: dict) -> int:
             return 0
     print(json.dumps({DIST_RESULT: out}), flush=True)
     return 0
+
+
+def tool_child(torch, fa, plan: dict) -> dict:
+    """One rank of ring_bench_multi or pp_bench_multi: the tool's library
+    call over the group this child joined; every rank's peak memory (and
+    B1 launches) gathered on rank 0."""
+    dist = torch.distributed
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    if plan["mode"] == "ring_bench":
+        from polyaxon_tpu_torch.scripts import ring_bench
+
+        out = {name: ring_bench.run_ring_bench(RING_BENCH_SEQS, platform="cuda",
+                                               steps=RING_BENCH_STEPS, **c)
+               for name, c in RING_BENCH_CASES.items()}
+    else:
+        from polyaxon_tpu_torch.scripts import pp_bench
+
+        res = pp_bench.run_pp_bench(platform="cuda")
+        out = {"lines": res["lines"], "summary": res["summary"]}
+    torch.cuda.synchronize()
+    mine = {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "flash_fwd": fa.launch_counts["flash_fwd"]}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return {**out, "ranks": ranks}
 
 
 def run_children(envs: list, plan: dict, timeout: float) -> dict:
@@ -3782,9 +3945,7 @@ def dist_train_multi_phase(torch, single: dict) -> dict:
     if count < 2:
         return {"skipped": f"{count} GPU"}
     world = min(count, 4)
-    port = free_port()
-    envs = [{"PLX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "PLX_NUM_PROCESSES": str(world),
-             "PLX_PROCESS_ID": str(r), "LOCAL_RANK": str(r)} for r in range(world)]
+    envs = rank_envs(world)
     t0 = time.monotonic()
     res = run_children(envs, {"mode": "multi", "models": list(DIST_MULTI)}, timeout=600)
     out = {"world": world, "seconds": time.monotonic() - t0}
@@ -3833,9 +3994,7 @@ def tp_cp_multi_phase(torch, fa, single: dict) -> dict:
     one_lora = train_phase(torch, fa, {**LORA_DIST_SPEC, "parallelism": None})["losses"]
     gc.collect()
     torch.cuda.empty_cache()
-    port = free_port()
-    envs = [{"PLX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}", "PLX_NUM_PROCESSES": str(world),
-             "PLX_PROCESS_ID": str(r), "LOCAL_RANK": str(r)} for r in range(world)]
+    envs = rank_envs(world)
     t0 = time.monotonic()
     res = run_children(envs, {"mode": "tp_cp"}, timeout=900)
     out = {"world": world, "seconds": time.monotonic() - t0}
@@ -3868,10 +4027,7 @@ def pp_ep_multi_phase(torch, single: dict) -> dict:
         return {"skipped": f"{count} GPU"}
     out = {}
     for world in ((2, 4) if count >= 4 else (2,)):
-        port = free_port()
-        envs = [{"PLX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-                 "PLX_NUM_PROCESSES": str(world), "PLX_PROCESS_ID": str(r),
-                 "LOCAL_RANK": str(r)} for r in range(world)]
+        envs = rank_envs(world)
         t0 = time.monotonic()
         res = run_children(envs, {"mode": "pp_ep"}, timeout=900)
         out[f"world{world}_seconds"] = time.monotonic() - t0
@@ -3891,6 +4047,48 @@ def pp_ep_multi_phase(torch, single: dict) -> dict:
                                          f"rank's {one[:2]} (relative {rel}, limits "
                                          f"{DIST_MULTI_RTOL})")
     return out
+
+
+def ring_bench_multi_phase(torch) -> dict:
+    """scripts/ring_bench.py as W NCCL ranks (W the largest power of two
+    up to min(GPUs, 8), so that its sequences cut into W chunks), one GPU
+    a rank: the ring crosses NVLink, the gather path all-gathers K and V;
+    each RING_BENCH_CASES head count, the tool's lines (its own
+    ring-against-gather check passed on every rank) and each rank's peak
+    memory. A statement, not a failure, on one GPU."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        return {"skipped": f"{count} GPU"}
+    world = 1 << (min(count, 8).bit_length() - 1)
+    t0 = time.monotonic()
+    res = run_children(rank_envs(world), {"mode": "ring_bench"}, timeout=600)
+    for name in RING_BENCH_CASES:
+        for row in res[name]:
+            check_keys(f"ring_bench_multi {name}", row, RING_BENCH_KEYS)
+            if (row["ranks"], row["cp"]) != (world, world):
+                raise AssertionError(f"ring_bench_multi {name}: {row}")
+    return {"world": world, "seconds": time.monotonic() - t0, **res}
+
+
+def pp_bench_multi_phase(torch) -> dict:
+    """scripts/pp_bench.py as 4 NCCL ranks ({stage: 2, model: 2}) with 4+
+    GPUs, else 2 ({stage: 2}): both gates' lines (their losses within 1e-6,
+    the tool's assert) and the last line, each rank's peak memory. A
+    statement, not a failure, on one GPU."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        return {"skipped": f"{count} GPU"}
+    world = 4 if count >= 4 else 2
+    t0 = time.monotonic()
+    res = run_children(rank_envs(world), {"mode": "pp_bench"}, timeout=600)
+    gate_keys, last_keys = PP_BENCH_KEYS
+    for line in res["lines"]:
+        check_keys("pp_bench_multi", line, gate_keys)
+    check_keys("pp_bench_multi", res["summary"], last_keys)
+    losses = [line["loss"] for line in res["lines"]]
+    if not (all(math.isfinite(x) for x in losses) and abs(losses[0] - losses[1]) < 1e-6):
+        raise AssertionError(f"pp_bench_multi: the gates' losses {losses}")
+    return {"world": world, "seconds": time.monotonic() - t0, **res}
 
 
 # -- slice 14: the measurement tools -------------------------------------------------
@@ -4113,6 +4311,7 @@ def main() -> int:
     flash_rows = flash_kernel_phase(torch, fa)
     flash_bidir_phase(torch, fa)
     ring_rows = ring_phase(torch, fa)
+    ring_bench_rows = ring_bench_phase(torch, fa)
 
     from polyaxon_tpu_torch.models import REGISTRY
 
@@ -4242,6 +4441,8 @@ def main() -> int:
     log("dist_train_multi", **dist_train_multi_phase(torch, dist_1rank))
     log("tp_cp_multi", **tp_cp_multi_phase(torch, fa, dist_1rank))
     log("pp_ep_multi", **pp_ep_multi_phase(torch, dist_1rank))
+    log("ring_bench_multi", **ring_bench_multi_phase(torch))
+    log("pp_bench_multi", **pp_bench_multi_phase(torch))
 
     # the measurement tools, through their library calls (slice 14)
     t_tools = time.monotonic()
@@ -4331,6 +4532,9 @@ def main() -> int:
                                     if isinstance(run, dict) and run["launches"][name]},
                                  **{f"ring_kernels/{case}": row["launches"][name]
                                     for case, row in ring_rows.items()},
+                                 **{f"ring_bench/{case}": row["launches"][name]
+                                    for case, row in ring_bench_rows.items()
+                                    if row["launches"][name]},
                                  "train_moe": moe_run["launches"][name],
                                  "moe_compare": moe_cmp["launches"][name],
                                  "train_7b_import_lora": import_7b["launches"][name],

@@ -847,6 +847,23 @@ def _scan_layers(x, layers, cfg: TransformerConfig, rope_tables=None, mesh=None,
     return x, torch.stack(auxes).mean(dim=0)
 
 
+def resolve_pp_gate(cfg: TransformerConfig, mesh) -> str:
+    """The gate of a pipeline's stage bodies on ``mesh``: ``cfg.pp_gate``,
+    ``auto`` resolved to ``inner`` when the bodies hold collectives (model,
+    context, or the experts' all-to-all) and to ``full`` otherwise;
+    ``full`` with collectives raises."""
+    # the expert all-to-all exists only in MoE layers: a dense model on an
+    # expert axis takes the whole-body gate
+    has_collectives = mesh.tp or mesh.cp > 1 or bool(cfg.num_experts and mesh.ep > 1)
+    gate = cfg.pp_gate
+    if gate == "auto":
+        return "inner" if has_collectives else "full"
+    if gate == "full" and has_collectives:
+        raise ValueError("pp_gate='full' is unsound for stage bodies with collectives "
+                         "(TP/CP/EP) — use 'auto', 'inner', or 'none'")
+    return gate
+
+
 def run_trunk(x: torch.Tensor, layers: dict, cfg: TransformerConfig,
               rope_tables=None, mesh=None):
     """The stacked layers over ``x`` [batch, seq, hidden]: ``(x, aux)``;
@@ -868,15 +885,7 @@ def run_trunk(x: torch.Tensor, layers: dict, cfg: TransformerConfig,
                 raise ValueError(f"num_experts {cfg.num_experts} not divisible by expert "
                                  f"mesh axis {ep}")
         inner = InnerAxes(tp=mesh.tp, cp=mesh.cp > 1, ep_size=ep)
-        # the expert all-to-all exists only in MoE layers: a dense model on
-        # an expert axis takes the whole-body gate
-        has_collectives = inner.tp or inner.cp or bool(cfg.num_experts and ep > 1)
-        gate = cfg.pp_gate
-        if gate == "auto":
-            gate = "inner" if has_collectives else "full"
-        elif gate == "full" and has_collectives:
-            raise ValueError("pp_gate='full' is unsound for stage bodies with collectives "
-                             "(TP/CP/EP) — use 'auto', 'inner', or 'none'")
+        gate = resolve_pp_gate(cfg, mesh)
 
         def body(xl, lp, active=None):
             return _scan_layers(xl, lp, cfg, rope_tables, mesh, inner, active)

@@ -19,8 +19,12 @@ expect ``run_builtin`` to refuse the spec and record its message
 (``expect_error``),
 or run one forward and backward of the trunk (``grads``: the hidden
 states, aux and the grads of ``mean(hidden^2) + coef * balance``, reduced
-as the trainer reduces them, with the tensors autograd saved). A training
-case may save each rank's first-step grads (``capture_grads``).
+as the trainer reduces them, with the tensors autograd saved), or run a
+tool over the group: ``ring_bench`` (the ring and gather paths of
+``scripts/ring_bench.py`` on the given inputs, and its line) or
+``pp_bench`` (``scripts/pp_bench.py`` on the given params and tokens: its
+lines and each gate's grad blocks). A training case may save each rank's
+first-step grads (``capture_grads``).
 """
 
 from __future__ import annotations
@@ -287,6 +291,44 @@ def _grads(case: dict, case_dir: str, rank: int) -> dict:
             "saved_bytes": int(sum(saved))}
 
 
+def _ring_bench(case: dict, case_dir: str, rank: int) -> dict:
+    """The ring and gather paths of ``scripts/ring_bench.py`` on this
+    rank's chunk of ``case["inputs"]`` (a saved q, k, v), over the group's
+    ring; saves both outputs and returns the tool's line at
+    ``case["seq"]``."""
+    import numpy as np
+    import torch
+
+    from polyaxon_tpu_torch.scripts import ring_bench as rb
+
+    exchange, cp = rb.ring_of(None, torch.device("cpu"))
+    saved = np.load(case["inputs"])
+    s_l = saved["q"].shape[2] // cp
+    q, k, v = (torch.from_numpy(saved[n][:, :, rank * s_l:(rank + 1) * s_l].copy())
+               for n in ("q", "k", "v"))
+    torch.save({"ring": rb.ring_forward(q, k, v, exchange),
+                "gather": rb.gather_forward(q, k, v, exchange)},
+               os.path.join(case_dir, f"rank{rank}.pt"))
+    rows = rb.run_ring_bench([case["seq"]], platform="cpu", steps=1)
+    return {"rows": rows, "chunk": [rank * s_l, (rank + 1) * s_l]}
+
+
+def _pp_bench(case: dict, case_dir: str, rank: int) -> dict:
+    """``scripts/pp_bench.py`` over the group on ``case["params"]`` (a
+    saved whole tree) and ``case["tokens"]``, one timed step: saves each
+    gate's grad blocks and returns its lines, the cuts and coordinates."""
+    import numpy as np
+    import torch
+
+    from polyaxon_tpu_torch.scripts import pp_bench
+
+    params = torch.load(case["params"], weights_only=True)
+    tokens = torch.from_numpy(np.load(case["tokens"]).astype(np.int64))
+    result = pp_bench.run_pp_bench(steps=1, platform="cpu", params=params, tokens=tokens)
+    torch.save(result["grads"], os.path.join(case_dir, f"rank{rank}.pt"))
+    return {k: result[k] for k in ("lines", "summary", "cuts", "coords")}
+
+
 class _Capture:
     """The first step's grads of a training run on this rank: the trainer's
     optimizer wrapped so its first update records the grads it is given."""
@@ -390,6 +432,10 @@ def main() -> None:
                 result = _forward(case, case_dir, rank)
             elif case.get("grads"):
                 result = _grads(case, case_dir, rank)
+            elif case.get("ring_bench"):
+                result = _ring_bench(case, case_dir, rank)
+            elif case.get("pp_bench"):
+                result = _pp_bench(case, case_dir, rank)
             elif case.get("expect_error"):
                 try:
                     run_builtin(case["spec"])

@@ -56,7 +56,8 @@ def test_the_scan_sees_every_port_module():
                      "ops/ring_attention.py", "ops/ulysses.py", "ops/gating.py",
                      "parallel/pipeline.py", "partition/builtins.py", "partition/lora.py",
                      "partition/plan.py", "partition/__main__.py", "bench.py",
-                     "scripts/__init__.py", "scripts/perf_exp.py", "scripts/serve_bench.py"):
+                     "scripts/__init__.py", "scripts/perf_exp.py", "scripts/serve_bench.py",
+                     "scripts/ring_bench.py", "scripts/pp_bench.py"):
         assert expected in names
 
 
@@ -124,18 +125,25 @@ print(json.dumps({"bad": bad}))
 
 
 def test_the_measurement_tools_run_without_jax(tmp_path):
-    """The bench, perf_exp, serve_bench and the partition plan, each through
-    its CLI on the CPU in one fresh interpreter: each prints its line and
-    nothing forbidden is ever imported."""
+    """The bench, perf_exp, serve_bench, ring_bench and the partition plan,
+    each through its CLI on the CPU in one fresh interpreter (pp_bench up
+    to its refusal of a lone process): each prints its line and nothing
+    forbidden is ever imported."""
     code = """
 import json, os, sys
 from polyaxon_tpu_torch import bench
 from polyaxon_tpu_torch.partition.__main__ import main as partition
-from polyaxon_tpu_torch.scripts import perf_exp, serve_bench
+from polyaxon_tpu_torch.scripts import perf_exp, pp_bench, ring_bench, serve_bench
 assert bench.main(["--platform", "cpu"]) == 0
 assert perf_exp.main(["llama-tiny", "2", "32", "none", "2", "--platform", "cpu"]) == 0
 assert serve_bench.main(["--platform", "cpu", "--requests", "2", "--max-new", "2",
                          "--sweep", "1,2"]) == 0
+assert ring_bench.main(["--platform", "cpu", "--seq", "512", "--cp", "2"]) == 0
+try:
+    pp_bench.main(["--platform", "cpu"])
+    raise AssertionError("pp_bench ran as a lone process")
+except SystemExit as e:
+    assert "stage ranks" in str(e)
 os.environ["PLX_BUILTIN_SPEC"] = json.dumps({"model": "llama-tiny"})
 assert partition(["plan"]) == 0
 bad = sorted(m for m in sys.modules
@@ -151,6 +159,7 @@ print(json.dumps({"bad": bad}))
     lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
     assert lines[0]["metric"] == "llama_train_tokens_per_sec_per_chip"
     assert lines[1]["model"] == "llama-tiny" and lines[2]["kind"] == "serve_bench"
+    assert lines[3]["seq"] == 512 and lines[3]["ranks"] == 1
     assert "llama-tiny: 106,816 params in 12 tensors" in proc.stdout
     assert lines[-1]["bad"] == []
 

@@ -26,7 +26,16 @@ rank), against JAX on CPU meshes of the same shape, with drops:
 - two training steps of ``{expert: 2, data: 2}`` (capacity at cf 0.5: the
   experts gathered where the layer runs, drops at every step) through
   ``run_builtin`` against the JAX ``Trainer``: losses, grad norms, router
-  drop fractions, final params and every rank's first-step grads.
+  drop fractions, final params and every rank's first-step grads;
+- the two user-rule paths held nowhere else, two steps each against the
+  JAX ``Trainer`` given the same ``partition_rules`` (the same readings):
+  llama-moe-tiny with all-to-all under ``{data: 2, expert: 2}`` whose
+  ``wi`` expert stack is stored cut over ``expert`` on its embed dim, not
+  its expert dim (read resharded; ``expert`` is a batch axis, so the
+  read's backward is the plain adjoint), and gpt2-tiny under ``{model:
+  2}`` whose token table, which is also its tied head, is stored cut over
+  ``model`` on its embed dim, not its vocab dim (the embedding and the
+  vocab-parallel head read it resharded).
 
 Tolerances (those of ``tests/test_torch_tp_cp.py`` and
 ``tests/test_torch_pipeline.py``): the forward 3e-5 absolute and 1e-4
@@ -97,6 +106,17 @@ MESH_CASES = {"capacity_data2": ({"data": 2}, {"expert_capacity_factor": 0.5}),
                                               "expert_capacity_factor": 0.5})}
 TRAIN_PARA = {"expert": 2, "data": 2}
 TRAIN_CFG = {"expert_capacity_factor": 0.5}   # drops at every step
+# the user-rule paths: name -> (model, parallelism, config changes, partition
+# rules, (the ruled leaf, its stored cuts))
+RULE_CASES = {
+    "a2a_expert_rule": ("llama-moe-tiny", {"data": 2, "expert": 2},
+                        {"moe_dispatch": "a2a", "expert_capacity_factor": 0.5},
+                        [["mlp/wi$", [None, None, "expert", None]]],
+                        ("layers/mlp/wi", [["expert", 2]])),
+    "gpt2_tied_head_rule": ("gpt2-tiny", {"model": 2}, {},
+                            [["embed/tokens$", [None, "model"]]],
+                            ("embed/tokens", [["model", 1]])),
+}
 TRAIN_BASE = {"steps": STEPS, "batch_size": 8, "seq_len": 32, "learning_rate": LR,
               "warmup_steps": 1, "log_interval": 1, "platform": "cpu", "watchdog": False,
               "checkpoint": {"save_interval_steps": STEPS, "async_save": False}}
@@ -359,53 +379,75 @@ def _join(procs: list, logs: list) -> None:
     assert codes == [0] * len(procs), [log.read_text()[-4000:] for log in logs]
 
 
-def _jax_train(init) -> tuple:
-    """The JAX Trainer on ``{expert: 2, data: 2}``: per-step metrics,
-    final params and the first step's grads."""
-    mesh = jax_build_mesh(TRAIN_PARA, devices=jax.devices()[:_world(TRAIN_PARA)])
-    cfg = replace(JCFG, **TRAIN_CFG)
+def _jax_train(init, model: str = MODEL, para: dict = TRAIN_PARA,
+               changes: dict = TRAIN_CFG, rules=None) -> tuple:
+    """The JAX Trainer on ``para`` (``{expert: 2, data: 2}`` by default)
+    with the user's ``rules``: per-step metrics, final params and the
+    first step's grads."""
+    mesh = jax_build_mesh(para, devices=jax.devices()[:_world(para)])
+    cfg = replace(JAX_REGISTRY[model][1], **changes)
     logged = []
     trainer = JaxTrainer(
         JaxTrainerConfig(model=cfg, batch_size=TRAIN_BASE["batch_size"],
                          seq_len=TRAIN_BASE["seq_len"], log_interval=1,
-                         parallelism=TRAIN_PARA,
+                         parallelism=para,
                          optimizer=jopt.OptimizerConfig(learning_rate=LR, warmup_steps=1,
                                                         total_steps=STEPS)),
-        mesh=mesh, task=JaxLMTask(cfg), track=lambda i, m: logged.append(m))
+        mesh=mesh, task=JaxLMTask(cfg), track=lambda i, m: logged.append(m),
+        partition_rules=rules)
     state = trainer.init_state_from(jax.tree.map(jnp.asarray, init))
     dcfg = jdata.DataConfig(kind="synthetic-lm", batch_size=TRAIN_BASE["batch_size"],
-                            seq_len=TRAIN_BASE["seq_len"], vocab_size=JCFG.vocab_size, seed=0)
+                            seq_len=TRAIN_BASE["seq_len"], vocab_size=cfg.vocab_size, seed=0)
     batch = next(iter(jdata.make_batches(dcfg, mesh)))
     grads = jax.jit(jax.grad(lambda p: trainer.task.loss(p, None, batch, mesh=mesh)[0]))(
         state.params)
     state, _ = trainer.fit(jdata.make_batches(dcfg, mesh), num_steps=STEPS, state=state)
-    return ([{k: float(m[k]) for k in ("loss", "grad_norm", "router_drop_frac")}
+    return ([{k: float(m[k]) for k in ("loss", "grad_norm", "router_drop_frac") if k in m}
              for m in logged], _flat(state.params), _flat(grads))
+
+
+def _fork(root: Path, name: str, params) -> str:
+    """A port checkpoint of the JAX init ``params`` at step 0, for
+    ``fork_from``."""
+    fork = root / name
+    ckpt = Checkpointer(CheckpointConfig(directory=str(fork), async_save=False))
+    ckpt.maybe_save(0, {"params": params_from_jax(params, device="cpu"), "opt_state": {},
+                        "step": 0, "extra": None}, force=True)
+    ckpt.wait()
+    return str(fork)
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    """The gloo groups (two ranks for the mesh cases, four for training)
-    run in the background while this process runs JAX's side. Returns
-    (JAX mesh results, JAX training, the case dir root, the tokens)."""
+    """The gloo groups (two ranks for the mesh cases and gpt2's rule, four
+    for training and the a2a rule) run in the background while this
+    process runs JAX's side. Returns (JAX mesh results, JAX training, the
+    case dir root, the tokens, JAX's runs of the rule cases)."""
     root = tmp_path_factory.mktemp("moe")
     out = root / "cases"
     params = _params()
     tokens = _tokens((8, 16))
     np.save(root / "tokens.npy", tokens)
     torch.save(params_from_jax(params, device="cpu"), root / "params.pt")
-    fork = root / "fork"
-    ckpt = Checkpointer(CheckpointConfig(directory=str(fork), async_save=False))
-    ckpt.maybe_save(0, {"params": params_from_jax(params, device="cpu"), "opt_state": {},
-                        "step": 0, "extra": None}, force=True)
-    ckpt.wait()
+    fork = _fork(root, "fork", params)
     cases2 = [{"name": name, "grads": True, "cfg": changes, "params": str(root / "params.pt"),
                "tokens": str(root / "tokens.npy"),
                "spec": {"model": MODEL, "parallelism": para}}
               for name, (para, changes) in MESH_CASES.items()]
     cases4 = [{"name": "train", "capture_grads": True, "model_cfg": TRAIN_CFG,
                "spec": {**TRAIN_BASE, "model": MODEL, "parallelism": TRAIN_PARA,
-                        "fork_from": {"path": str(fork)}}}]
+                        "fork_from": {"path": fork}}}]
+    # llama-moe-tiny's rule case starts from the same init as the cases above
+    rule_inits, forks = {MODEL: params}, {MODEL: fork}
+    for name, (model, para, changes, rules, _) in RULE_CASES.items():
+        if model not in rule_inits:
+            rule_inits[model] = jax.tree.map(np.asarray, jt.init(
+                jax.random.PRNGKey(0), JAX_REGISTRY[model][1]))
+            forks[model] = _fork(root, f"fork-{model}", rule_inits[model])
+        case = {"name": name, "capture_grads": True, "model_cfg": changes,
+                "spec": {**TRAIN_BASE, "model": model, "parallelism": para,
+                         "partition_rules": rules, "fork_from": {"path": forks[model]}}}
+        (cases2 if _world(para) == 2 else cases4).append(case)
     ports = _free_ports(2)
     groups = [_start_group(root, out, 2, ports[0], cases2),
               _start_group(root, out, 4, ports[1], cases4)]
@@ -415,10 +457,12 @@ def ranks(tmp_path_factory):
             mesh = jax_build_mesh(para, devices=jax.devices()[:_world(para)])
             mesh_results[name] = _jax_run(params, tokens, replace(JCFG, **changes), mesh)
         train = _jax_train(params)
+        rule_runs = {name: _jax_train(rule_inits[model], model, para, changes, rules)
+                     for name, (model, para, changes, rules, _) in RULE_CASES.items()}
     finally:
         for procs, logs in groups:
             _join(procs, logs)
-    return mesh_results, train, out, tokens
+    return mesh_results, train, out, tokens, rule_runs
 
 
 def _block(full: np.ndarray, cuts: list, coords: dict, sizes: dict) -> np.ndarray:
@@ -437,7 +481,7 @@ def test_moe_ranks_match_the_jax_mesh(ranks, name):
     """capacity_data2: the plan over the whole batch (drops and balance
     global, each rank its rows); a2a_expert2: the plan local to each rank,
     the drop fraction its ranks' mean, the balance global."""
-    mesh_results, _, out, _ = ranks
+    mesh_results, _, out, _, _ = ranks
     jh, jaux, jloss, jgrads = mesh_results[name]
     para = MESH_CASES[name][0]
     sizes = normalize_axis_sizes(para)
@@ -463,7 +507,7 @@ def test_moe_ranks_match_the_jax_mesh(ranks, name):
 
 
 def test_expert_data_training_matches_the_jax_trainer(ranks):
-    _, (jlogged, jparams, jgrads), out, _ = ranks
+    _, (jlogged, jparams, jgrads), out, _, _ = ranks
     case = out / "train"
     loss_tol, norm_tol, param_tol = JAX_TOL
     sizes = normalize_axis_sizes(TRAIN_PARA)
@@ -482,6 +526,41 @@ def test_expert_data_training_matches_the_jax_trainer(ranks):
                                        atol=GRAD_TOL[1] * np.abs(jgrads[path]).max(),
                                        err_msg=f"rank {rank} {path}")
     assert jlogged[0]["router_drop_frac"] > 0
+    state = read_step(case / "outputs" / "checkpoints" / str(STEPS))
+    for path, t in flatten(state["params"]):
+        key = "/".join(path)
+        np.testing.assert_allclose(t.numpy(), jparams[key], atol=param_tol, err_msg=key)
+
+
+@pytest.mark.parametrize("name", sorted(RULE_CASES))
+def test_a_user_rule_trains_as_the_jax_trainer_with_it(ranks, name):
+    """Each rule path (RULE_CASES): the ruled leaf stored as the rule says,
+    and every reading of two steps as the JAX Trainer's given the same
+    rules (losses, grad norms, drop fractions, every rank's first-step
+    grad blocks, final params)."""
+    *_, out, _, rule_runs = ranks
+    jlogged, jparams, jgrads = rule_runs[name]
+    model, para, _, _, (ruled, stored) = RULE_CASES[name]
+    case = out / name
+    loss_tol, norm_tol, param_tol = JAX_TOL
+    sizes = normalize_axis_sizes(para)
+    for rank in range(_world(para)):
+        logged = _rank_meta(case, rank)["logged"]
+        for key, tol in (("loss", loss_tol), ("grad_norm", norm_tol)):
+            np.testing.assert_allclose([m[key] for m in logged], [m[key] for m in jlogged],
+                                       rtol=tol, err_msg=f"rank {rank} {key}")
+        if "router_drop_frac" in jlogged[0]:
+            assert [m["router_drop_frac"] for m in logged] == pytest.approx(
+                [m["router_drop_frac"] for m in jlogged], abs=1e-7)
+        cap = torch.load(case / f"grads{rank}.pt", weights_only=True)
+        assert cap["cuts"][ruled] == stored
+        for path, g in cap["grads"].items():
+            if path.endswith("attn/bk"):
+                continue  # a key bias's exact grad is zero: its relative error is noise
+            want = _block(jgrads[path], cap["cuts"][path], cap["coords"], sizes)
+            np.testing.assert_allclose(g.numpy(), want, rtol=GRAD_TOL[0],
+                                       atol=GRAD_TOL[1] * np.abs(jgrads[path]).max(),
+                                       err_msg=f"rank {rank} {path}")
     state = read_step(case / "outputs" / "checkpoints" / str(STEPS))
     for path, t in flatten(state["params"]):
         key = "/".join(path)

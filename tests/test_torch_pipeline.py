@@ -25,7 +25,14 @@ the JAX side:
 - three planted faults in the schedule (a tick's microbatch index off by
   one, the stages' output cotangents summed, the trunk input's cotangent
   left on stage 0) must each fail that comparison;
-- a checkpoint saved at ``{stage: 2}`` restores at world 1 bit-equal.
+- a checkpoint saved at ``{stage: 2}`` restores at world 1 bit-equal;
+- the tools over the groups: ``scripts/ring_bench.py``'s ring and gather
+  paths over the 2-rank ring equal the loopback ring's on the same inputs,
+  and ``scripts/pp_bench.py`` at ``{stage: 2, model: 2}`` (one step of its
+  widened llama-tiny from the JAX init) gives both gates a loss within
+  1e-6 of each other and 1e-5 relative of JAX's ``apply_hidden(...).mean()``
+  on a 4-device mesh of the same shape, and every rank's grad blocks
+  within 1e-5 of each leaf's largest |grad| of JAX's.
 
 In this process: an inactive layer body emits exact zeros and an active
 one equals the ungated body (ROADMAP C1), and the refusals (``full`` with
@@ -75,8 +82,10 @@ from polyaxon_tpu_torch.models import REGISTRY
 from polyaxon_tpu_torch.models import transformer as tt
 from polyaxon_tpu_torch.models.transformer import flatten
 from polyaxon_tpu_torch.parallel import pipeline
+from polyaxon_tpu_torch.ops.ring_attention import LoopbackRing
 from polyaxon_tpu_torch.parallel.mesh import Mesh, normalize_axis_sizes
 from polyaxon_tpu_torch.runtime.builtin import build_trainer
+from polyaxon_tpu_torch.scripts import ring_bench as rb
 from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer, read_step
 from polyaxon_tpu_torch.train.tasks import refuse_unsupported_axes
 from polyaxon_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -123,6 +132,16 @@ TRUNKS = {
     "context2": ("llama-tiny", {"stage": 2, "context": 2}, {"seq_parallel": "ring"}),
     "expert2": ("llama-moe-tiny", {"stage": 2, "expert": 2}, {"moe_dispatch": "a2a"}),
 }
+# the tools over the groups: ring_bench's inputs (one row of 4 heads, D 64,
+# over the 2-rank ring: one 512-row chunk, one flash block, a rank) and
+# pp_bench's mesh at 4 ranks; its widened llama-tiny is scripts/pp_bench.py's
+RING_BENCH_SHAPE = (1, 4, 1024, 64)
+PP_BENCH_MESH = {"stage": 2, "model": 2}
+PP_BENCH_CFG = dict(hidden=256, num_heads=8, num_kv_heads=8, mlp_dim=1024, num_layers=4,
+                    max_seq=128, pp_microbatches=2)
+PP_BENCH_TOL = (1e-6, 1e-5, 1e-5)  # gates' losses abs, loss vs JAX rel, grad of leaf max
+#: scripts/pp_bench.py:71-81: a gate's keys and the last line's
+PP_BENCH_KEYS = ({"gate", "step_ms", "loss"}, {"gated_over_ungated", "bubble_fraction", "note"})
 # the trunks JAX computes (the gates and the remat pair share {stage: 2}'s)
 JAX_TRUNK = {"gate_none": "gate_none", "gate_full": "gate_none", "gate_inner": "gate_none",
              "remat_off": "gate_none", "remat_ticks": "gate_none", "model2": "model2",
@@ -203,6 +222,26 @@ def _jax_trunk(name: str, params, tokens) -> tuple:
     return np.asarray(hidden), float(value), _flat(grads)
 
 
+def _jax_pp_bench(params, tokens) -> tuple:
+    """The JAX script's loss, ``apply_hidden(...).mean()``, and its grads on
+    a mesh of PP_BENCH_MESH's shape."""
+    cfg = replace(JAX_REGISTRY["llama-tiny"][1], **PP_BENCH_CFG)
+    mesh = jax_build_mesh(PP_BENCH_MESH, devices=jax.devices()[:_world(PP_BENCH_MESH)])
+    toks = jnp.asarray(tokens)
+
+    def loss(p):
+        return jt.apply_hidden(p, toks, cfg, mesh=mesh).astype(jnp.float32).mean()
+
+    value, grads = jax.jit(jax.value_and_grad(loss))(jax.tree.map(jnp.asarray, params))
+    return float(value), _flat(grads)
+
+
+def _ring_inputs() -> dict:
+    rng = np.random.default_rng(5)
+    return {n: (rng.standard_normal(RING_BENCH_SHAPE) * 0.1).astype(np.float32)
+            for n in ("q", "k", "v")}
+
+
 def _jax_train(name: str, init) -> tuple:
     """The JAX Trainer on the case's mesh from ``init``: per-step metrics,
     final params and the first step's grads (the task loss's on the first
@@ -278,11 +317,23 @@ def runs(tmp_path_factory):
         cases[2].append({"name": fault, "fault": fault, "capture_grads": True,
                          "spec": {**BASE, "model": "llama-tiny", "parallelism": {"stage": 2},
                                   "fork_from": {"path": forks["stage2"]}}})
+    np.savez(root / "ring_inputs.npz", **_ring_inputs())
+    cases[2].append({"name": "ring_bench", "ring_bench": True,
+                     "inputs": str(root / "ring_inputs.npz"), "seq": RING_BENCH_SHAPE[2]})
+    pp_cfg = replace(JAX_REGISTRY["llama-tiny"][1], **PP_BENCH_CFG)
+    pp_params = jax.tree.map(np.asarray, jt.init(jax.random.PRNGKey(0), pp_cfg))
+    pp_tokens = np.random.default_rng(1).integers(0, pp_cfg.vocab_size, (8, 128))
+    torch.save(params_from_jax(pp_params, device="cpu"), root / "pp_params.pt")
+    np.save(root / "pp_tokens.npy", pp_tokens)
+    cases[4].append({"name": "pp_bench", "pp_bench": True,
+                     "params": str(root / "pp_params.pt"),
+                     "tokens": str(root / "pp_tokens.npy")})
     ports = _free_ports(2)
     groups = [_start_group(root, out, w, port, cases[w]) for w, port in zip((2, 4), ports)]
     try:
         trunks = {name: _jax_trunk(name, params[TRUNKS[name][0]], tokens)
                   for name in set(JAX_TRUNK.values())}
+        trunks["pp_bench"] = _jax_pp_bench(pp_params, pp_tokens)
         trains = {name: _jax_train(name, inits[name]) for name in TRAIN}
     finally:
         for procs, logs in groups:
@@ -452,6 +503,65 @@ def test_a_stage_checkpoint_restores_at_world_one_bit_equal(runs):
     for name in ("mu", "nu"):
         for t, s in zip(getattr(state.opt_state, name), saved["opt_state"][name]):
             assert torch.equal(t, s)
+
+
+# -- the tools over the groups -----------------------------------------------------
+
+
+def test_ring_bench_over_a_two_rank_ring_equals_the_loopback(runs):
+    """Each rank's chunk of the ring path and of the gather path (K and V
+    all-gathered over the group) equals the loopback ring's on the same
+    inputs; the tool's line counts the group's two ranks."""
+    _, _, out, _ = runs
+    q, k, v = (torch.from_numpy(a) for a in _ring_inputs().values())
+    loop = LoopbackRing(2)
+    want = {"ring": rb.ring_forward(q, k, v, loop), "gather": rb.gather_forward(q, k, v, loop)}
+    for rank, meta in enumerate(_rank_files(out / "ring_bench")):
+        saved = torch.load(out / "ring_bench" / f"rank{rank}.pt", weights_only=True)
+        c0, c1 = meta["chunk"]
+        for path, ref in want.items():
+            assert torch.equal(saved[path], ref[:, :, c0:c1]), (rank, path)
+        (row,) = meta["rows"]
+        assert (row["ranks"], row["cp"], row["platform"]) == (2, 2, "cpu")
+
+
+@pytest.mark.parametrize("gate", ["none", "auto"])
+def test_pp_bench_matches_the_jax_pipeline(runs, gate):
+    """scripts/pp_bench.py's loss and grads under each gate against JAX's on
+    the same mesh shape: the loss within PP_BENCH_TOL, every rank's block of
+    every leaf's grad within 1e-5 of the leaf's largest |grad| (a pipeline
+    is compared leaf by leaf, ROADMAP C2)."""
+    trunks, _, out, _ = runs
+    jloss, jgrads = trunks["pp_bench"]
+    gates_abs, loss_rel, grad_share = PP_BENCH_TOL
+    sizes = _sizes(PP_BENCH_MESH)
+    for rank, meta in enumerate(_rank_files(out / "pp_bench")):
+        lines = {line["gate"]: line for line in meta["lines"]}
+        assert abs(lines["none"]["loss"] - lines["auto"]["loss"]) < gates_abs
+        np.testing.assert_allclose(lines[gate]["loss"], jloss, rtol=loss_rel)
+        grads = torch.load(out / "pp_bench" / f"rank{rank}.pt", weights_only=True)[gate]
+        assert set(grads) == set(jgrads)
+        for path, g in grads.items():
+            want = _block(jgrads[path], meta["cuts"][path], meta["coords"], sizes)
+            err = float(np.abs(g.numpy().astype(np.float64) - want).max())
+            assert err <= grad_share * np.abs(jgrads[path]).max(), (rank, path, err)
+
+
+def test_pp_bench_lines_carry_the_jax_keys(runs):
+    """The JAX script's keys, with the gate ``auto`` resolved to beside
+    each gate's line and the mesh beside the last: ``inner`` under model,
+    and the bubble (S-1)/(M+S-1) = 1/3 at two stages and two microbatches."""
+    _, _, out, _ = runs
+    meta = _rank_files(out / "pp_bench")[0]
+    gate_keys, last_keys = PP_BENCH_KEYS
+    assert [line["gate"] for line in meta["lines"]] == ["none", "auto"]
+    for line in meta["lines"]:
+        assert set(line) == gate_keys | {"resolved_gate"}
+    assert [line["resolved_gate"] for line in meta["lines"]] == ["none", "inner"]
+    summary = meta["summary"]
+    assert set(summary) == last_keys | {"mesh"}
+    assert summary["mesh"] == PP_BENCH_MESH and summary["bubble_fraction"] == 1 / 3
+    assert '"stage": 2, "model": 2' in summary["note"]
 
 
 # -- in this process ---------------------------------------------------------------

@@ -16,8 +16,19 @@ CPU at tiny sizes:
   ``polyaxon partition plan`` verb on every polyaxonfile under
   ``examples/``, fed the compiled runtime dict and the topology's devices
   and slices;
+- ``polyaxon_tpu_torch.scripts.ring_bench`` on a loopback ring (seq 2048,
+  cp 4, f32) against ``scripts/ring_bench.py``'s ring and gather, rebuilt
+  from the JAX package's ``ring_attention`` and ``_flash_fwd`` in
+  interpret mode on 4 of the 8 CPU devices: each output within 1e-5 of
+  its largest element, the line's keys those of the JAX script's own line
+  (``v5e_`` as ``h100_``, plus ``platform``, ``dtype`` and ``ranks``), the
+  ``kv_resident_mb_*`` columns equal, the ``h100_*`` columns the formula
+  at 989e12 FLOP/s and 450e9 B/s, and a planted fault (the gather path's
+  first q chunk placed one block late) breaking the agreement;
 - every CLI without ``--platform cpu`` on a machine without CUDA exits
-  non-zero, naming CUDA.
+  non-zero, naming CUDA; ``pp_bench`` alone in one process exits
+  non-zero, naming the stage ranks (its group paths run in
+  ``tests/test_torch_pipeline.py``'s gloo groups).
 """
 
 from __future__ import annotations
@@ -40,7 +51,10 @@ from polyaxon_tpu_torch import bench as tbench
 from polyaxon_tpu_torch.convert import params_from_jax
 from polyaxon_tpu_torch.models import REGISTRY, llama
 from polyaxon_tpu_torch.partition import __main__ as tpartition_cli
+from polyaxon_tpu_torch.ops.ring_attention import LoopbackRing
 from polyaxon_tpu_torch.scripts import perf_exp as tperf
+from polyaxon_tpu_torch.scripts import pp_bench as tpp
+from polyaxon_tpu_torch.scripts import ring_bench as trb
 from polyaxon_tpu_torch.scripts import serve_bench as tsb
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -308,6 +322,137 @@ def test_perf_exp_profile_writes_a_chrome_trace(tmp_path):
     assert trace["traceEvents"]
 
 
+# -- scripts/ring_bench.py --------------------------------------------------
+
+RING_SEQ, RING_CP = 2048, 4
+RING_TOL = 1e-5  # of the output's largest element
+
+
+def _ring_inputs() -> tuple:
+    rng = np.random.default_rng(0)
+    shape = (trb.BATCH, trb.HEADS, RING_SEQ, trb.HEAD_DIM)
+    return tuple((rng.standard_normal(shape) * 0.1).astype(np.float32) for _ in range(3))
+
+
+@pytest.fixture(scope="module")
+def jax_ring_bench():
+    """The JAX script's ring and gather (``scripts/ring_bench.py:86-112``)
+    on ``_ring_inputs`` over a ``{context: 4}`` mesh of 4 CPU devices, and
+    the script's own line at seq 2048, cp 4."""
+    import contextlib
+    import functools
+    import io
+
+    from jax.sharding import PartitionSpec as P
+
+    from polyaxon_tpu.ops import ring_attention
+    from polyaxon_tpu.ops.flash_attention import _flash_fwd
+    from polyaxon_tpu.parallel import build_mesh
+    from polyaxon_tpu.parallel.compat import shard_map
+
+    mesh = build_mesh({"context": RING_CP}, devices=jax.devices()[:RING_CP])
+    spec = P(None, None, "context", None)
+    block, s = trb.BLOCK, RING_SEQ
+    on_mesh = functools.partial(shard_map, mesh=mesh, check_vma=False,
+                                in_specs=(spec,) * 3, out_specs=spec)
+
+    @on_mesh
+    def ring(q, k, v):
+        return ring_attention(q, k, v, axis_name="context", axis_size=RING_CP, causal=True,
+                              block_q=block, block_k=block, interpret=True)
+
+    @on_mesh
+    def gather(q, k, v):
+        kf = jax.lax.all_gather(k, "context", axis=2, tiled=True)
+        vf = jax.lax.all_gather(v, "context", axis=2, tiled=True)
+        bq, nq, sl, dq = q.shape
+        my = jax.lax.axis_index("context")
+        o, _ = _flash_fwd(q.reshape(bq * nq, sl, dq), kf.reshape(bq * nq, s, dq),
+                          vf.reshape(bq * nq, s, dq), my * sl, 0, sm_scale=dq ** -0.5,
+                          causal=True, block_q=block, block_k=block, interpret=True)
+        return o.reshape(bq, nq, sl, dq).astype(q.dtype)
+
+    qkv = [jax.numpy.asarray(a) for a in _ring_inputs()]
+    outs = {"ring": np.asarray(jax.jit(ring)(*qkv)), "gather": np.asarray(jax.jit(gather)(*qkv))}
+    script = _load("jax_ring_bench", ROOT / "scripts" / "ring_bench.py")
+    argv, sys.argv = sys.argv, ["ring_bench.py", "--seq", str(RING_SEQ), "--cp", str(RING_CP)]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            script.main()
+    finally:
+        sys.argv = argv
+    return outs, _json_lines(buf.getvalue())[-1]
+
+
+@pytest.mark.parametrize("path", ["ring", "gather"])
+def test_ring_bench_paths_match_the_jax_script(jax_ring_bench, path):
+    outs, _ = jax_ring_bench
+    q, k, v = (torch.from_numpy(a) for a in _ring_inputs())
+    fn = trb.ring_forward if path == "ring" else trb.gather_forward
+    got = fn(q, k, v, LoopbackRing(RING_CP)).numpy()
+    want = outs[path]
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert np.abs(got - want).max() <= RING_TOL * np.abs(want).max()
+
+
+def test_ring_bench_line_has_the_jax_keys(jax_ring_bench):
+    _, jline = jax_ring_bench
+    (row,) = trb.run_ring_bench([RING_SEQ], RING_CP, platform="cpu", steps=1)
+    renamed = {k.replace("v5e_", "h100_") for k in jline}
+    assert set(row) == renamed | {"platform", "dtype", "ranks"}
+    assert (row["platform"], row["dtype"], row["ranks"]) == ("cpu", "float32", 1)
+    for key in ("seq", "cp", "b", "heads", "head_dim", "kv_resident_mb_ring",
+                "kv_resident_mb_gather"):
+        assert row[key] == jline[key], key
+    assert row["ring_fwd_ms"] > 0 and row["gather_fwd_ms"] > 0
+
+
+@pytest.mark.parametrize("seq,ratio", [(8192, 1.86), (16384, 3.73)])
+def test_ring_bench_h100_columns_are_the_formula(seq, ratio):
+    """llama-1b's ring step at the H100's data-sheet peaks: 4 x 32 heads x
+    s_l^2 x 64 x 0.5 FLOPs at 989e12, 2 x 2 x 4 kv heads x s_l x 64 bytes at
+    450e9 B/s, cp 8."""
+    s_l = seq // 8
+    compute = 4 * 32 * s_l * s_l * 64 * 0.5 / 989e12
+    comm = 2 * 2 * 4 * s_l * 64 / 450e9
+    got = trb.analytic(seq, 8)
+    assert got["h100_step_compute_us_llama1b"] == pytest.approx(compute * 1e6, rel=1e-12)
+    assert got["h100_step_comm_us_llama1b_gqa_compact"] == pytest.approx(comm * 1e6, rel=1e-12)
+    assert got["h100_compute_over_comm"] == pytest.approx(compute / comm, rel=1e-12)
+    assert round(got["h100_compute_over_comm"], 2) == ratio
+
+
+def test_a_late_q_chunk_breaks_the_ring_bench_agreement(monkeypatch):
+    """The gather path's first position placed one block late: the tool's
+    agreement check fails (the sound paths pass it, above)."""
+    offset = trb.gather_q_offset
+    monkeypatch.setattr(trb, "gather_q_offset", lambda i, s_l: offset(i, s_l) + (
+        trb.BLOCK if i == 0 else 0))
+    q, k, v = (torch.from_numpy(a) for a in _ring_inputs())
+    ring = LoopbackRing(RING_CP)
+    worst = trb.agreement(trb.ring_forward(q, k, v, ring), trb.gather_forward(q, k, v, ring))
+    assert worst > trb.AGREE_TOL[torch.float32]
+    with pytest.raises(AssertionError, match="differs from the gather path"):
+        trb.run_ring_bench([RING_SEQ], RING_CP, platform="cpu", steps=1)
+
+
+def test_ring_bench_cp_must_be_the_world_size_under_a_group(monkeypatch):
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    with pytest.raises(ValueError, match="--cp 4 differs from the 2 ranks"):
+        trb.ring_of(4, torch.device("cpu"))
+
+
+def test_pp_bench_alone_exits_naming_the_stage_ranks(monkeypatch):
+    for name in ("PLX_NUM_PROCESSES", "PLX_PROCESS_ID", "PLX_COORDINATOR_ADDRESS",
+                 "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(SystemExit) as exc:
+        tpp.main(["--platform", "cpu"])
+    assert exc.value.code != 0 and "stage ranks" in str(exc.value.code)
+
+
 # -- partition plan ---------------------------------------------------------
 
 EXAMPLES = sorted(p.name for p in (ROOT / "examples").glob("*.yaml"))
@@ -393,6 +538,8 @@ CLIS = {
     "bench-tokens": (tbench.main, ["--data", "tokens-file"]),
     "perf_exp": (tperf.main, ["llama-tiny", "4", "32", "none"]),
     "serve_bench": (tsb.main, ["--prefix-share", "--speculative"]),
+    "ring_bench": (trb.main, []),
+    "pp_bench": (tpp.main, []),
 }
 
 
