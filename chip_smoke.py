@@ -9,7 +9,9 @@ non-zero:
 1. device — the card's name and power limit (nvidia-smi); CUDA required.
 2. build  — nvcc builds the three kernel libraries from
    ``polyaxon_tpu_torch/csrc`` at once, one nvcc per source (seconds, and
-   ptxas's register, spill and shared-memory report).
+   ptxas's register, spill and shared-memory report); then sass: the f32
+   flash kernels' TF32 tensor-core instructions (``cuobjdump -sass``), which
+   the split-TF32 forward and dK/dV must issue.
 3. kernel — the paged-decode kernels against their plain PyTorch version
    at the llama-1b serving shape (B=8, KVH=4, G=8, D=64, bs=128, T=16,
    ragged lengths incl. 0/1/127/128/129/2048, one table aliasing another
@@ -27,15 +29,21 @@ non-zero:
    versions at the llama-1b training shape (BH = 2 x 32 heads, S = 2048,
    D = 64, causal) and at D = 128, in bf16 and f32, with cold L2, plus
    small cases with nonzero offsets, rows that see no key, and lengths
-   (64, 129, 200, 383) that end in a partial tile: errors and tolerances,
+   (64, 129, 200, 383) that end in a partial tile, and in f32 lengths one
+   row short of and past the split-TF32 kernels' tiles at D 64 and 128
+   (F32_EDGE_SEQS): errors and tolerances,
    kernel, plain and library times (scaled_dot_product_attention with
    is_causal, and the median of five timings of its backward for dQ +
-   dK/dV), the bounds, the previous design's time beside each redesigned
-   kernel's (bf16: wgmma and TMA), and each kernel's
-   registers, shared memory per CTA and CTAs per SM. Three faults planted
-   in the kernels (``walk_cut=1``: the forward and dQ stop before the
-   diagonal kv tile, dK/dV starts one q tile late) must fail the same
-   check.
+   dK/dV), the bounds (f32: split-TF32, three products at 495 TFLOP/s),
+   the previous design's time beside each redesigned kernel's (bf16: wgmma
+   and TMA; the f32 forward and dK/dV: split-TF32), and each kernel's
+   registers, shared memory per CTA, CTAs per SM and spills. Three faults
+   planted in the kernels (``walk_cut=1``: the forward and dQ stop before
+   the diagonal kv tile, dK/dV starts one q tile late) must fail the same
+   check. Then flash_f32_path: ``ops.attention.attention(impl="flash")``
+   forward and backward in f32 at llama-1b's training attention (32 q
+   heads over 4 kv heads, S 2048) at D 64 and 128, each kernel launched
+   once (counts set to 0 before, read after), against dense attention.
 5. flash_bidir — the three kernels non-causal in bf16 at the new
    families' shapes: BERT-base (BH = 16 x 12, S = 512) and ViT-B/16 (BH =
    32 x 12, S = 197 = 128 + 69, a partial last q and kv tile on every
@@ -283,8 +291,9 @@ non-zero:
    paged kernel's ``launches_by_path`` holds the serve phase's and each
    serve_bench part's, and its ``d16_f32`` the speculative fixture's
    launches beside kernel_tiny's error, times and bound; ``d128`` holds that D=128 path's launches
-   beside the kernels' D=128 bf16 times, bounds and SDPA times), then the
-   last line
+   beside the kernels' D=128 bf16 times, bounds and SDPA times; the
+   ``*_f32`` entries are the f32 kernels, with flash_f32_path's launches
+   and the D=64 and D=128 f32 rows' numbers), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs one card and the repository checkout around this file; imports
@@ -311,9 +320,13 @@ from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense)
+# H100 SXM data-sheet peaks (dense): bf16 and TF32 on the tensor cores, f32
+# on the CUDA cores. The f32 flash kernels' products run as split-TF32,
+# three TF32 products each, so f32 flash work is bound at a third of the
+# TF32 rate (a figure no f32 kernel can beat without dropping below f32).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+SPLIT_TF32_PASSES = 3
 
 KERNEL_SHAPE = dict(batch=8, kv_heads=4, groups=8, block_size=128, max_blocks=16,
                     long_row=5,                # the 2048-token row
@@ -355,8 +368,9 @@ FLASH_SHAPE = dict(bh=64, seq=2048)
 FLASH_BLOCK = 1024   # the recipe's attn_block_q/k: the plain versions' blocks
 # kernel vs plain, elementwise |out - ref| <= atol + rtol|ref|. f32: both
 # compute in f32 and differ in the order of the sums and in how the online
-# softmax is split (the kernel's 32-row tiles against 1024-row blocks):
-# sums over up to 2048 keys keep that under 1e-5 relative, so 5e-5. bf16:
+# softmax is split (the kernel's tiles against 1024-row blocks), and the
+# forward and dK/dV run each product as split-TF32 (~2^-22 of |A||B| a
+# term): sums over up to 2048 keys keep that under 1e-5 relative, so 5e-5. bf16:
 # p and dS are rounded to bf16 in both, but against other running maxima
 # (forward) or after other f32 sums (backward), which moves a rounded term
 # by up to one bf16 place (2^-8 relative), and outputs round to bf16: the
@@ -372,6 +386,13 @@ LSE_TOL = (1e-4, 1e-5)
 # line
 PREV_MS_RECORDED = {"flash_fwd": 0.9156, "flash_bwd_dq": 1.0534, "flash_bwd_dkv": 2.2295,
                     "paged_decode": 0.0930}
+# the same for the f32 forward and dK/dV, whose CUDA-core designs gave way
+# to split-TF32 ones: their D=64 f32 times as PERF.md records them
+PREV_MS_RECORDED_F32 = {"flash_fwd": 7.244, "flash_bwd_dkv": 14.29}
+# the f32 kernels' tiles (forward: 128 q rows and 64 keys at D 64, 64 and
+# 32 at D 128; dK/dV: 64 keys and 64 q rows at D 64, 16 q rows at D 128):
+# small causal lengths one short of and one past them, per head dim
+F32_EDGE_SEQS = {64: (63, 65, 127), 128: (15, 17, 31, 33, 63, 65)}
 # SDPA's backward, the yardstick for dQ + dK/dV, moves from timing to
 # timing: its median of this many
 LIBRARY_BWD_TIMINGS = 5
@@ -577,6 +598,43 @@ def build_phase(libs) -> None:
             if ("registers" in line or "Compiling entry" in line or "spill" in line
                     or "smem" in line or "warning" in line):
                 print("  " + line.strip(), flush=True)
+
+
+def sass_phase(fa) -> dict:
+    """The f32 flash kernels' tensor-core instructions in the built
+    libraries (``cuobjdump -sass``), per kernel and head dim: the
+    split-TF32 forward and dK/dV must issue HGMMA (wgmma) or HMMA
+    (mma.sync) on TF32; the f32 dQ, a CUDA-core kernel, issues neither."""
+    import re
+
+    from polyaxon_tpu_torch.ops.cuda_build import _nvcc
+
+    cuobjdump = str(Path(_nvcc()).parent / "cuobjdump")
+    counts = {}
+    for lib in (fa.FLASH_FWD_LIB, fa.FLASH_BWD_LIB):
+        sass = subprocess.run([cuobjdump, "-sass", str(lib.path())], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        kernel = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = re.search(r"\d(flash_\w+?_kernel)ILi(\d+)", line)
+                kernel = f"{m.group(1)}/d{m.group(2)}" if m else None
+                if kernel:
+                    counts.setdefault(kernel, {"hgmma_tf32": 0, "hmma_tf32": 0})
+            elif kernel and "TF32" in line:
+                for op in ("HGMMA", "HMMA"):
+                    if f"{op}." in line:
+                        counts[kernel][f"{op.lower()}_tf32"] += 1
+    for name in ("flash_fwd_tf32_kernel", "flash_bwd_dkv_tf32_kernel"):
+        for head_dim in (64, 128):
+            c = counts.get(f"{name}/d{head_dim}")
+            if not c or not c["hgmma_tf32"] + c["hmma_tf32"]:
+                raise AssertionError(f"{name} at D {head_dim} issues no TF32 tensor-core "
+                                     f"instruction: {c}")
+    for head_dim in (64, 128):
+        if sum(counts[f"flash_bwd_dq_kernel/d{head_dim}"].values()):
+            raise AssertionError("the f32 dQ kernel issues tensor-core instructions")
+    return counts
 
 
 # -- phase 3 helpers ----------------------------------------------------------
@@ -1102,8 +1160,9 @@ def flash_inputs(torch, bh: int, seq: int, head_dim: int, dtype, seed: int = 0):
 def flash_bounds(bh, sq, sk, d, esize, q_offset, k_offset, causal, dtype_name) -> dict:
     """Least time of each kernel on these inputs: the larger of its bytes
     (each input read once, each output written once) over 3.35 TB/s and
-    its products' FLOPs over the dtype's peak. The FLOPs count the (q, k)
-    pairs the causal mask leaves visible on these offsets."""
+    its products' FLOPs over the dtype's peak (f32: split-TF32, three TF32
+    products each). The FLOPs count the (q, k) pairs the causal mask leaves
+    visible on these offsets."""
     if causal:
         pairs = sum(min(max(q_offset + i - k_offset + 1, 0), sk) for i in range(sq))
     else:
@@ -1115,9 +1174,11 @@ def flash_bounds(bh, sq, sk, d, esize, q_offset, k_offset, causal, dtype_name) -
         "flash_bwd_dq": (3 * per_product, 3 * rows + 2 * keys + 2 * stats),
         "flash_bwd_dkv": (4 * per_product, 2 * rows + 4 * keys + 2 * stats),
     }
+    peak = (PEAK_FLOPS["tf32"] / SPLIT_TF32_PASSES if dtype_name == "float32"
+            else PEAK_FLOPS[dtype_name])
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / HBM_BYTES_PER_S
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
         out[name] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
     return out
 
@@ -1281,27 +1342,75 @@ def flash_kernel_phase(torch, fa) -> list[dict]:
         for dtype in (torch.bfloat16, torch.float32):
             row = flash_case(torch, fa, bh, seq, head_dim, dtype, True, heads=32,
                              seed=head_dim)
-            if (head_dim, row["dtype"]) == (64, "bfloat16"):
-                for kname, prev in PREV_MS_RECORDED.items():
-                    if kname in row:
-                        row[kname]["prev_ms_recorded"] = prev
+            prev_recorded = {(64, "bfloat16"): PREV_MS_RECORDED,
+                             (64, "float32"): PREV_MS_RECORDED_F32}
+            for kname, prev in prev_recorded.get((head_dim, row["dtype"]), {}).items():
+                if kname in row:
+                    row[kname]["prev_ms_recorded"] = prev
             log("flash_kernel", **row)
             results.append(row)
     # small cases with nonzero offsets, one of them hiding the first rows'
     # every key (O = 0, LSE = -inf there), and lengths that end in a partial
-    # tile in both dtypes (128- and 64-row tiles in bf16, 32 in f32): 64 is
-    # shorter than one bf16 tile, 129 and 383 one row past and short of one
-    for dtype in (torch.bfloat16, torch.float32):
+    # tile in both dtypes (128- and 64-row tiles in bf16): 64 is shorter
+    # than one bf16 tile, 129 and 383 one row past and short of one; then
+    # F32_EDGE_SEQS in f32 at each head dim, once with a q offset of 72
+    cases = [(dtype, 64, seq, q_offset, k_offset)
+             for dtype in (torch.bfloat16, torch.float32)
+             for seq, q_offset, k_offset in ((256, 64, 0), (256, 0, 128), (200, 0, 0),
+                                             (200, 72, 0), (64, 0, 0), (129, 72, 0),
+                                             (383, 0, 0))]
+    cases += [(torch.float32, head_dim, seq, q_offset, 0)
+              for head_dim, seqs in F32_EDGE_SEQS.items() for seq in seqs
+              for q_offset in (0, 72)]
+    for dtype, head_dim, seq, q_offset, k_offset in cases:
         name = str(dtype).split(".")[1]
-        for seq, q_offset, k_offset in ((256, 64, 0), (256, 0, 128), (200, 0, 0),
-                                        (200, 72, 0), (64, 0, 0), (129, 72, 0),
-                                        (383, 0, 0)):
-            q, k, v, do = flash_inputs(torch, 4, seq, 64, dtype, seed=seq + q_offset + k_offset)
-            checked = flash_check(torch, fa, q, k, v, do, q_offset, k_offset, True, name)
-            log("flash_small", dtype=name, seq=seq, q_offset=q_offset, k_offset=k_offset,
-                **{kname: {"max_abs_err": e, "tol_ratio": r}
-                   for kname, (e, r) in checked["checks"].items()})
+        q, k, v, do = flash_inputs(torch, 4, seq, head_dim, dtype,
+                                   seed=seq + q_offset + k_offset)
+        checked = flash_check(torch, fa, q, k, v, do, q_offset, k_offset, True, name)
+        log("flash_small", dtype=name, head_dim=head_dim, seq=seq, q_offset=q_offset,
+            k_offset=k_offset, **{kname: {"max_abs_err": e, "tol_ratio": r}
+                                  for kname, (e, r) in checked["checks"].items()})
     return results
+
+
+def flash_f32_path_phase(torch, fa) -> dict:
+    """The f32 kernels through the entry point a user calls:
+    ``ops.attention.attention(impl="flash")`` forward and backward by
+    autograd, at llama-1b's training attention (2 x 32 q heads over 4 kv
+    heads, S 2048, causal) in f32 at D 64 and 128. Every count is set to 0
+    before each run and read after it (one launch of each kernel), and the
+    output and grads are held against dense attention's in f32 within
+    FLASH_TOL."""
+    from polyaxon_tpu_torch.ops.attention import attention, dense_attention
+
+    out = {}
+    for head_dim in (64, 128):
+        gen = torch.Generator(device="cuda").manual_seed(head_dim + 1)
+        shapes = [(2, 32, 2048, head_dim), (2, 4, 2048, head_dim), (2, 4, 2048, head_dim),
+                  (2, 32, 2048, head_dim)]
+        q, k, v, g = (torch.randn(s, generator=gen, device="cuda") for s in shapes)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_launch_counts()
+        o = attention(*leaves, causal=True, impl="flash", block_q=FLASH_BLOCK,
+                      block_k=FLASH_BLOCK)
+        o.backward(g)
+        torch.cuda.synchronize()
+        launches = dict(fa.launch_counts)
+        if launches != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
+            raise AssertionError(f"f32 flash at D {head_dim} launched {launches}")
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        o_ref = dense_attention(*ref, causal=True)
+        o_ref.backward(g)
+        ratios = {"o": worst_ratio(o.detach(), o_ref.detach(), FLASH_TOL["float32"])}
+        for name, leaf, r in zip(("dq", "dk", "dv"), leaves, ref):
+            ratios[name] = worst_ratio(leaf.grad, r.grad, FLASH_TOL["float32"])
+        if not max(ratios.values()) <= 1.0:
+            raise AssertionError(f"f32 flash vs dense at D {head_dim}: {ratios} times "
+                                 f"the tolerance {FLASH_TOL['float32']}")
+        out[f"d{head_dim}"] = {"launches": launches, "tol_ratio_vs_dense": ratios}
+        del q, k, v, g, leaves, ref, o, o_ref
+        torch.cuda.empty_cache()
+    return out
 
 
 def flash_bidir_phase(torch, fa) -> list[dict]:
@@ -4306,9 +4415,12 @@ def main() -> int:
 
     fa = importlib.import_module("polyaxon_tpu_torch.ops.flash_attention")
     build_phase([pa.PAGED_DECODE_LIB, fa.FLASH_FWD_LIB, fa.FLASH_BWD_LIB])
+    log("sass", **sass_phase(fa))
 
     kernel_rows = kernel_phase(torch, pa)
     flash_rows = flash_kernel_phase(torch, fa)
+    f32_path = flash_f32_path_phase(torch, fa)
+    log("flash_f32_path", **f32_path)
     flash_bidir_phase(torch, fa)
     ring_rows = ring_phase(torch, fa)
     ring_bench_rows = ring_bench_phase(torch, fa)
@@ -4544,6 +4656,24 @@ def main() -> int:
                      **{key: flash_d128[name][key] for key in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms")}}})
+    # the f32 kernels (split-TF32 forward and dK/dV, CUDA-core dQ): their
+    # launches are flash_f32_path's, their numbers the D=64 f32 row's, and
+    # ``d128`` the D=128 ones
+    for name, source, replaces in (
+            ("flash_fwd", "flash_fwd.cu", "polyaxon_tpu/ops/flash_attention.py:77"),
+            ("flash_bwd_dq", "flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:210"),
+            ("flash_bwd_dkv", "flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:262")):
+        row = {"name": f"{name}_f32", "route": "cuda",
+               "source": f"polyaxon_tpu_torch/csrc/{source}", "replaces": replaces,
+               "launches": f32_path["d64"]["launches"][name]}
+        for key, flash_row in (("", flash_rows[1]), ("d128", flash_rows[3])):
+            numbers = {k: flash_row[name][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            if key:
+                row[key] = {"launches": f32_path["d128"]["launches"][name], **numbers}
+            else:
+                row.update(numbers)
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

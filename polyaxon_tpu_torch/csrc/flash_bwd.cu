@@ -6,7 +6,7 @@
 // - dQ   <- _bwd_dq_kernel:  dQ = sum_j dS K
 //   (bf16: flash_bwd_dq_wgmma_kernel; f32: flash_bwd_dq_kernel)
 // - dK/dV <- _bwd_dkv_kernel: dV = sum_i P^T dO, dK = sum_i dS^T Q
-//   (bf16: flash_bwd_dkv_wgmma_kernel; f32: flash_bwd_dkv_kernel)
+//   (bf16: flash_bwd_dkv_wgmma_kernel; f32: flash_bwd_dkv_tf32_kernel)
 //
 // with, for each visible (i, j),
 //   P  = exp(q_i . k_j * scale - LSE_i)   (0 where LSE_i = -inf or hidden)
@@ -65,13 +65,35 @@
 // dO and Q MN-major from the stage. Shared memory: 67 KB at D = 64, 131 KB
 // at D = 128.
 //
-// f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): 32-row tiles, 2 warps,
-// staged in shared memory by the whole CTA; each warp computes its 16-row
-// blocks of S and dO V^T (or S^T = K Q^T and V dO^T) on the CUDA cores
-// (tensor cores would round to tf32), the elementwise P and dS (two lanes
-// per row), and adds its products into f32 accumulators in shared memory.
-// Loads do not overlap the products. f32 is llama-tiny's dtype, never on the
-// card's main path.
+// dK/dV in f32 (flash_bwd_dkv_tf32_kernel): the bf16 kernel's walk and
+// rules with split-TF32 products (hopper.cuh: A_hi B_lo + A_lo B_hi + A_hi
+// B_hi, within ~2^-22 of f32), bound at 3 x 4 products over 495 TFLOP/s:
+// 0.417 ms at the llama-1b shape in f32, 0.833 ms at D = 128. A split pass
+// first writes Q (in three parts: hi, lo and the rest, x - hi - lo), dO, K
+// and V (hi and lo) into a workspace. A CTA takes 64 keys, whose K and V
+// hi and lo stay in shared memory for the whole walk (64 KB at D = 64, 128
+// KB at D = 128), while the producer streams the Q and dO parts, with their
+// LSE and delta, through a ring of 32-row stages (16 rows at D = 128; four
+// stages at D = 64, two at D = 128): 226 KiB of shared memory at D = 64,
+// 209 KiB at D = 128, one CTA to an SM. Two consumer warpgroups take the
+// q tiles in turn, each summing dK and dV for all 64 keys over its half of
+// the walk; at the end one adds its sums into the other's through shared
+// memory. S^T = K Q^T and dP^T = V dO^T are tf32 wgmma products (K-major
+// on both sides); S^T takes K_hi Q_rest^T as a fourth product and keeps
+// K_hi Q_hi^T in an accumulator of its own, added once (P = exp(s scale -
+// LSE) with an LSE from outside turns a score's error times |s scale| into
+// P's relative error). P^T and dS^T stay in registers. dV += P^T dO and
+// dK += dS^T Q reduce over q rows, which Q and dO do not store
+// contiguously, and tf32 wgmma has no transpose, so they run on mma.sync
+// m16n8k8 (each warp its 16 keys, the B elements loaded from the swizzled
+// tiles), each tile's products summed apart before they join the running
+// sums: a transposed copy of Q and dO would not fit beside them.
+//
+// dQ in f32 (flash_bwd_dq_kernel): 32-row tiles, 2 warps, staged in shared
+// memory by the whole CTA; each warp computes its 16-row blocks of S and dO
+// V^T on the CUDA cores, the elementwise P and dS (two lanes per row), and
+// adds dS K into an f32 accumulator in shared memory. Loads do not overlap
+// the products. Its split-TF32 redesign is still to come.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -91,26 +113,22 @@ struct BwdSmem {
   static constexpr size_t s = pad128(sizeof(float) * kWarps * 16 * ldf_of<kTile>());
   static constexpr size_t p = pad128(sizeof(float) * kWarps * 16 * ld_of<kTile>());
   static constexpr size_t acc = pad128(sizeof(float) * kWarps * 16 * ldf_of<D>());
-  // dQ: q, do, k, v; lse, delta; S, dP; dS; dQ
+  // q, do, k, v; lse, delta; S, dP; dS; dQ
   static constexpr size_t dq_total = 4 * tile + 2 * rows + 2 * s + p + acc;
-  // dK/dV: dQ's buffers plus P and a second accumulator
-  static constexpr size_t dkv_total = dq_total + p + acc;
 };
 
-// The tile's elementwise step for one lane's half row: P and dS from the f32
-// products S (= q.k) and dP (= dO.v); `hidden(c)` says whether the pair at
-// column c is masked (causally, or its key lies past the end), and the
-// callers' maps give each column's LSE and delta. Writes dS (and P when
-// p_out is set).
+// The tile's elementwise step for one lane's half row: dS from the f32
+// products S (= q.k) and dP (= dO.v) through P; `hidden(c)` says whether the
+// pair at column c is masked (causally, or its key lies past the end), and
+// the caller's maps give each column's LSE and delta.
 template <int N, typename Hidden, typename LseOf, typename DeltaOf>
 __device__ __forceinline__ void probs_and_ds(const float* s_row, const float* dp_row,
-                                             float* p_out, float* ds_out, int half, float scale,
+                                             float* ds_out, int half, float scale,
                                              Hidden hidden, LseOf lse_of, DeltaOf delta_of) {
   for (int c = half * (N / 2); c < (half + 1) * (N / 2); ++c) {
     const float lse = lse_of(c);
     float p = 0.f;
     if (lse != -CUDART_INF_F && !hidden(c)) p = expf(s_row[c] * scale - lse);
-    if (p_out != nullptr) p_out[c] = p;
     ds_out[c] = p * (dp_row[c] - delta_of(c)) * scale;
   }
 }
@@ -182,7 +200,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     warp_mma<true, kTile, D>(dp_w, LDS, do_s + warp * 16 * LD, LD, v_s, LD, false);  // dO v^T
     __syncwarp();
     probs_and_ds<kTile>(
-        s_w + r * LDS, dp_w + r * LDS, nullptr, ds_w + r * LDP, half, scale,
+        s_w + r * LDS, dp_w + r * LDS, ds_w + r * LDP, half, scale,
         [&](int c) { return k0 + c >= sk || (causal && qid < k_offset + k0 + c); },
         [&](int) { return lse_s[row]; }, [&](int) { return delta_s[row]; });
     __syncwarp();
@@ -193,101 +211,6 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (q0 + row >= sq) return;  // a row past the end of a partial tile
   float* dq_row = dq + (row0 + row) * D;
   for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) dq_row[c] = acc_w[r * LDA + c];
-}
-
-// ---- dK/dV in f32: CUDA cores, products and accumulators in shared memory ----
-
-template <int D>
-__global__ void __launch_bounds__(BwdSmem<D>::kWarps * 32)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
-                     int q_offset, int k_offset, int causal, int walk_cut, float scale) {
-  using L = BwdSmem<D>;
-  constexpr int kTile = L::kTile;
-  constexpr int kThreads = L::kWarps * 32;
-  constexpr int LD = ld_of<D>();
-  constexpr int LDS = ldf_of<kTile>();
-  constexpr int LDP = ld_of<kTile>();
-  constexpr int LDA = ldf_of<D>();
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* at = smem;
-  float* k_s = reinterpret_cast<float*>(at);
-  float* v_s = reinterpret_cast<float*>(at += L::tile);
-  float* q_s = reinterpret_cast<float*>(at += L::tile);
-  float* do_s = reinterpret_cast<float*>(at += L::tile);
-  float* lse_s = reinterpret_cast<float*>(at += L::tile);
-  float* delta_s = reinterpret_cast<float*>(at += L::rows);
-  float* st_all = reinterpret_cast<float*>(at += L::rows);
-  float* dpt_all = reinterpret_cast<float*>(at += L::s);
-  float* pt_all = reinterpret_cast<float*>(at += L::s);
-  float* dst_all = reinterpret_cast<float*>(at += L::p);
-  float* dk_all = reinterpret_cast<float*>(at += L::p);
-  float* dv_all = reinterpret_cast<float*>(at += L::acc);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  float* st_w = st_all + warp * 16 * LDS;
-  float* dpt_w = dpt_all + warp * 16 * LDS;
-  float* pt_w = pt_all + warp * 16 * LDP;
-  float* dst_w = dst_all + warp * 16 * LDP;
-  float* dk_w = dk_all + warp * 16 * LDA;
-  float* dv_w = dv_all + warp * 16 * LDA;
-
-  const size_t key0 = static_cast<size_t>(bh) * sk + k0;
-  load_tile<D>(k_s, k + key0 * D, kTile, sk - k0, tid, kThreads);
-  load_tile<D>(v_s, v + key0 * D, kTile, sk - k0, tid, kThreads);
-  for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) {
-    dk_w[r * LDA + c] = 0.f;
-    dv_w[r * LDA + c] = 0.f;
-  }
-
-  const int nq = tiles_of(sq, kTile);
-  const int first = q_tiles_begin(k0, kTile, q_offset, k_offset, causal, walk_cut);
-  const int row = warp * 16 + r;  // this lane's key within the tile
-  const int kid = k_offset + k0 + row;
-
-  for (int t = first; t < nq; ++t) {
-    const int q0 = t * kTile;
-    const size_t qrow0 = static_cast<size_t>(bh) * sq + q0;
-    __syncthreads();
-    load_tile<D>(q_s, q + qrow0 * D, kTile, sq - q0, tid, kThreads);
-    load_tile<D>(do_s, dout + qrow0 * D, kTile, sq - q0, tid, kThreads);
-    for (int i = tid; i < kTile; i += kThreads) {
-      const bool in = q0 + i < sq;
-      lse_s[i] = in ? lse[qrow0 + i] : -CUDART_INF_F;
-      delta_s[i] = in ? delta[qrow0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    warp_mma<true, kTile, D>(st_w, LDS, k_s + warp * 16 * LD, LD, q_s, LD, false);   // k q^T
-    warp_mma<true, kTile, D>(dpt_w, LDS, v_s + warp * 16 * LD, LD, do_s, LD, false); // v dO^T
-    __syncwarp();
-    // a key past the end is never written, so only the causal mask hides
-    // pairs here; a query past the end has LSE = -inf
-    probs_and_ds<kTile>(
-        st_w + r * LDS, dpt_w + r * LDS, pt_w + r * LDP, dst_w + r * LDP, half, scale,
-        [&](int c) { return causal && q_offset + q0 + c < kid; },
-        [&](int c) { return lse_s[c]; }, [&](int c) { return delta_s[c]; });
-    __syncwarp();
-    warp_mma<false, D, kTile>(dv_w, LDA, pt_w, LDP, do_s, LD, true);   // dV += P^T dO
-    warp_mma<false, D, kTile>(dk_w, LDA, dst_w, LDP, q_s, LD, true);   // dK += dS^T Q
-    __syncwarp();
-  }
-
-  if (k0 + row >= sk) return;  // a key past the end of a partial tile
-  const size_t out = (key0 + row) * D;
-  for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) {
-    dk[out + c] = dk_w[r * LDA + c];
-    dv[out + c] = dv_w[r * LDA + c];
-  }
 }
 
 // ---- dK/dV in bf16: wgmma, TMA, accumulators in registers ---------------------
@@ -500,6 +423,298 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ---- dK/dV in f32: split-TF32 wgmma and mma.sync, TMA, registers ---------------
+
+template <int D>
+struct DkvTilesF32 {
+  static constexpr int kKeys = 64;          // both consumer warpgroups' keys
+  static constexpr int kThreads = 3 * 128;  // two consumer warpgroups and the producer
+  static constexpr int kRows = 2048 / D;    // q rows per streamed tile: 32, or 16 at D = 128
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr uint32_t kv = kKeys * D * 4;  // one of K hi, K lo, V hi, V lo
+  static constexpr uint32_t q = kRows * D * 4;   // one of Q hi, lo, rest; dO hi, lo
+  static constexpr uint32_t stage = 5 * q;
+  static constexpr uint32_t stats = 2 * kRows * sizeof(float);  // LSE, delta of a stage
+  // K/V, the stages, their LSE and delta, the barriers (K/V, full and empty
+  // per stage), plus the room to align the start to 1024 bytes
+  static constexpr size_t total =
+      4 * kv + kStages * (stage + stats) + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// both consumer warpgroups (256 threads) meet here (named barrier 1)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// the workspace of the split pass, in floats: Q [3, bh, sq, D] (hi, lo,
+// rest), dO [2, bh, sq, D] and K, V [2, bh, sk, D] (hi, lo)
+inline size_t dkv_workspace_floats(int bh, int sq, int sk, int d) {
+  return static_cast<size_t>(bh) * d * (5 * static_cast<size_t>(sq) + 4 * sk);
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvTilesF32<D>::kThreads, 1)
+flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv, int sq, int sk,
+                          int q_offset, int k_offset, int causal, int walk_cut, float scale) {
+  using namespace hopper;
+  using L = DkvTilesF32<D>;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kRows = L::kRows;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  // K hi, K lo, V hi, V lo, for the whole walk
+  auto kv_of = [&](int i) { return reinterpret_cast<float*>(smem + i * L::kv); };
+  unsigned char* ring = smem + 4 * L::kv;
+  // stage s: Q hi, Q lo, Q rest, dO hi, dO lo; then each stage's LSE and
+  // delta, and the barriers
+  auto tile_of = [&](int s, int i) {
+    return reinterpret_cast<float*>(ring + s * L::stage + i * L::q);
+  };
+  float* stats = reinterpret_cast<float*>(ring + kStages * L::stage);
+  auto lse_of = [&](int s) { return stats + s * 2 * kRows; };
+  auto delta_of = [&](int s) { return stats + s * 2 * kRows + kRows; };
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + kStages * 2 * kRows);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.y;
+  const int nbh = gridDim.y;  // part i of head bh is head bh + i nbh of each map
+  const int k0 = blockIdx.x * kKeys;  // the first kv tiles see the most q tiles
+  const int first = q_tiles_begin(k0, kRows, q_offset, k_offset, causal, walk_cut);
+  const int nq = tiles_of(sq, kRows);
+
+  if (threadIdx.x == 0) {
+    bar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 32);  // every producer lane writes LSE/delta
+      bar_init(&empty[s], 4);  // one arrival per warp of the warpgroup that takes it
+    }
+    fence_bar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer: the first warp; lane 0 issues the TMA loads, the lanes
+    // write the rows' LSE and delta
+    regs_dec<24>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 288) {
+      if (lane == 0) {
+        bar_arrive_expect_tx(kv_full, 4 * L::kv);
+        for (int i = 0; i < 2; ++i) {
+          tma_panels<D / 32, kKeys>(kv_of(i), &k_map, kv_full, 0, k0, bh + i * nbh);
+          tma_panels<D / 32, kKeys>(kv_of(2 + i), &v_map, kv_full, 0, k0, bh + i * nbh);
+        }
+      }
+      for (int t = first; t < nq; ++t) {
+        const int i = t - first;
+        const int s = i % kStages;
+        bar_wait(&empty[s], ((i / kStages) & 1) ^ 1);  // the first round finds it free
+        const int q0 = t * kRows;
+        if (lane == 0) {
+          bar_expect_tx(&full[s], L::stage);
+          for (int part = 0; part < 3; ++part)
+            tma_panels<D / 32, kRows>(tile_of(s, part), &q_map, &full[s], 0, q0,
+                                      bh + part * nbh);
+          for (int part = 0; part < 2; ++part)
+            tma_panels<D / 32, kRows>(tile_of(s, 3 + part), &do_map, &full[s], 0, q0,
+                                      bh + part * nbh);
+        }
+        for (int r = lane; r < kRows; r += 32) {
+          const bool in = q0 + r < sq;
+          const size_t at = static_cast<size_t>(bh) * sq + q0 + r;
+          // +inf where the row sees no key or lies past the end, so that
+          // its P = exp2(-inf) is 0 with no test per score
+          const float x = in ? lse[at] : -CUDART_INF_F;
+          lse_of(s)[r] = x == -CUDART_INF_F ? CUDART_INF_F : x;
+          delta_of(s)[r] = in ? delta[at] : 0.f;
+        }
+        bar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: keys k0 .. k0 + 63 (warp w keys 16w .. 16w + 15)
+  // over the q tiles first + wg, first + wg + 2, ...: the two take turns, so
+  // that one's products overlap the other's elementwise work and loads
+  regs_inc<240>();
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int row0 = (tid / 32) * 16 + g;  // this thread's keys: row0, row0 + 8
+  const int col0 = 2 * (lane % 4);        // and q columns col0, col0 + 1 of each 8
+  const int kid0 = k_offset + k0 + row0;
+  const float* k_hi = kv_of(0);
+  const float* k_lo = kv_of(1);
+  const float* v_hi = kv_of(2);
+  const float* v_lo = kv_of(3);
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+  // S^T's largest part (K_hi Q_hi^T) and the rest apart, and dP^T; then
+  // P^T in st, dS^T in dpt
+  float st[kRows / 2], st_rest[kRows / 2], dpt[kRows / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRows / 2; ++i) st[i] = st_rest[i] = dpt[i] = 0.f;
+
+  bar_wait(kv_full, 0);
+  for (int t = first + wg; t < nq; t += 2) {
+    const int i = t - first;
+    const int s = i % kStages;
+    const int q0 = t * kRows;
+    bar_wait(&full[s], (i / kStages) & 1);
+    const float* q_hi = tile_of(s, 0);
+    const float* q_lo = tile_of(s, 1);
+    const float* q_rest = tile_of(s, 2);
+    const float* do_hi = tile_of(s, 3);
+    const float* do_lo = tile_of(s, 4);
+    const float* lse_st = lse_of(s);
+    const float* delta_st = delta_of(s);
+
+    // S^T = K Q^T and dP^T = V dO^T by wgmma along D (k8 steps, 32 columns
+    // to a panel). S^T sums K_hi Q_hi^T into st and K_hi Q_rest^T + K_lo
+    // Q_hi^T + K_hi Q_lo^T into st_rest, added once at the end: Q is split
+    // into three parts, so that a score is exact to f32 where K is exact in
+    // tf32, and the large part is not truncated against the small ones in
+    // the tensor cores' sums. P = exp(s scale - LSE) turns a score's error
+    // into P's relative error times |s scale|, which reaches hundreds.
+    hold(st);
+    hold(st_rest);
+    hold(dpt);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int a = (kk / 4) * kKeys * 32 + (kk % 4) * 8;
+      const int b = (kk / 4) * kRows * 32 + (kk % 4) * 8;
+      mma_ss_tf32<kRows>(st_rest, desc_k(k_hi + a), desc_k(q_rest + b), kk > 0);
+      mma_ss_tf32<kRows>(st_rest, desc_k(k_lo + a), desc_k(q_hi + b), 1);
+      mma_ss_tf32<kRows>(st_rest, desc_k(k_hi + a), desc_k(q_lo + b), 1);
+      mma_ss_tf32<kRows>(st, desc_k(k_hi + a), desc_k(q_hi + b), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int a = (kk / 4) * kKeys * 32 + (kk % 4) * 8;
+      const int b = (kk / 4) * kRows * 32 + (kk % 4) * 8;
+      mma_ss_tf32<kRows>(dpt, desc_k(v_lo + a), desc_k(do_hi + b), kk > 0);
+      mma_ss_tf32<kRows>(dpt, desc_k(v_hi + a), desc_k(do_lo + b), 1);
+      mma_ss_tf32<kRows>(dpt, desc_k(v_hi + a), desc_k(do_hi + b), 1);
+    }
+    mma_commit();
+    mma_wait<0>();
+    hold(st);
+    hold(st_rest);
+    hold(dpt);
+
+    // P^T and dS^T, as in the bf16 kernel: column c is q row q0 + c; a tile
+    // whose first row lies before this CTA's last key is masked. P =
+    // exp2((s scale - LSE) log2(e)): the difference is taken in natural
+    // units, as the plain version takes it, since LSE and s scale rounded
+    // to base 2 apart would each miss by up to half a place of ~|s scale|
+    const bool masked = causal && q_offset + q0 < k_offset + k0 + kKeys - 1;
+#pragma unroll
+    for (int j = 0; j < kRows / 8; ++j) {
+      const int c = 8 * j + col0;
+      const float2 lse2 = *reinterpret_cast<const float2*>(lse_st + c);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_st + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int idx = 4 * j + e;
+        const float lse_c = (e & 1) ? lse2.y : lse2.x;
+        const float delta_c = (e & 1) ? dl.y : dl.x;
+        float p = exp2_fast(fmaf(st[idx] + st_rest[idx], scale, -lse_c) * kLog2e);
+        if (masked && q_offset + q0 + c + (e & 1) < kid0 + 8 * (e >> 1)) p = 0.f;
+        st[idx] = p;
+        dpt[idx] = p * (dpt[idx] - delta_c) * scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q by mma.sync: wgmma would need dO and Q
+    // stored transposed (K-major in q), more tiles a stage than shared
+    // memory has room for. Each warp takes its 16 keys; P^T and dS^T feed
+    // the A operand from the accumulators (to_a_tf32's key_of order), and
+    // each thread loads its B elements (q rows 8ks + key_of(t%4) and
+    // 8ks + key_of(t%4 + 4), column 8nt + t/4) from the swizzled tiles,
+    // split already. Each 8-column group of dV and dK sums this tile's
+    // products apart and is added to the running sum once: the tensor
+    // cores' sums truncate, and over a whole walk into one accumulator that
+    // bias grows with the number of products.
+    uint32_t p_hi[kRows / 8][4], p_lo[kRows / 8][4], ds_hi[kRows / 8][4], ds_lo[kRows / 8][4];
+    to_a_tf32<kRows>(st, p_hi, p_lo);
+    to_a_tf32<kRows>(dpt, ds_hi, ds_lo);
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      float dv_t[4] = {0.f, 0.f, 0.f, 0.f}, dk_t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < kRows / 8; ++ks) {
+        const int r = 8 * ks + key_of(lane % 4);  // b0's q row; b1's is r + 1
+        const int at0 = swizzled_f32<kRows>(r, 8 * nt + g);
+        const int at1 = swizzled_f32<kRows>(r + 1, 8 * nt + g);
+        const uint32_t doh0 = __float_as_uint(do_hi[at0]), doh1 = __float_as_uint(do_hi[at1]);
+        const uint32_t dol0 = __float_as_uint(do_lo[at0]), dol1 = __float_as_uint(do_lo[at1]);
+        const uint32_t qh0 = __float_as_uint(q_hi[at0]), qh1 = __float_as_uint(q_hi[at1]);
+        const uint32_t ql0 = __float_as_uint(q_lo[at0]), ql1 = __float_as_uint(q_lo[at1]);
+        mma_sync_tf32(dv_t, p_lo[ks], doh0, doh1);
+        mma_sync_tf32(dv_t, p_hi[ks], dol0, dol1);
+        mma_sync_tf32(dv_t, p_hi[ks], doh0, doh1);
+        mma_sync_tf32(dk_t, ds_lo[ks], qh0, qh1);
+        mma_sync_tf32(dk_t, ds_hi[ks], ql0, ql1);
+        mma_sync_tf32(dk_t, ds_hi[ks], qh0, qh1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dv_acc[4 * nt + e] += dv_t[e];
+        dk_acc[4 * nt + e] += dk_t[e];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+  // the two warpgroups' sums over their halves of the walk: once both
+  // have passed every tile the ring is free, warpgroup 1 leaves its sums
+  // there, and warpgroup 0 adds them and writes
+  float* part = reinterpret_cast<float*>(ring);
+  consumers_sync();
+  if (wg == 1) {
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) {
+      part[j * 128 + tid] = dk_acc[j];
+      part[(D / 2 + j) * 128 + tid] = dv_acc[j];
+    }
+  }
+  consumers_sync();
+  if (wg == 1) return;
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) {
+    dk_acc[j] += part[j * 128 + tid];
+    dv_acc[j] += part[(D / 2 + j) * 128 + tid];
+  }
+
+  // epilogue: the rows of keys inside Sk
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = k0 + row0 + 8 * h;
+    if (key >= sk) continue;
+    const size_t at = (static_cast<size_t>(bh) * sk + key) * D;
+    float2* dk_row = reinterpret_cast<float2*>(dk + at);
+    float2* dv_row = reinterpret_cast<float2*>(dv + at);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      dk_row[4 * j + lane % 4] = make_float2(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+      dv_row[4 * j + lane % 4] = make_float2(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 // ---- dQ in bf16: wgmma, TMA, accumulators in registers ------------------------
 
 // one consumer warpgroup of 64 q rows and a producer warpgroup per CTA, two
@@ -692,6 +907,7 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *dq, *dk, *dv;
+  float* ws;  // the split pass's workspace (f32 dK/dV)
   int bh, sq, sk, q_offset, k_offset, causal, walk_cut;
   float scale;
   cudaStream_t stream;
@@ -729,17 +945,35 @@ int launch_dq_wgmma(const Args& a) {
   return 0;
 }
 
+// The split pass (Q into hi, lo and rest; dO, K and V into hi and lo),
+// then the kernel over its output.
 template <int D>
-int launch_dkv_f32(const Args& a) {
-  using L = BwdSmem<D>;
-  static const cudaError_t attr = allow_smem(flash_bwd_dkv_kernel<D>, L::dkv_total);
+int launch_dkv_tf32(const Args& a) {
+  using L = DkvTilesF32<D>;
+  static const cudaError_t attr = allow_smem(flash_bwd_dkv_tf32_kernel<D>, L::total);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  flash_bwd_dkv_kernel<D><<<dim3(tiles_of(a.sk, L::kTile), a.bh), L::kWarps * 32, L::dkv_total,
-                            a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq, a.sk, a.q_offset, a.k_offset,
-      a.causal, a.walk_cut, a.scale);
+  if (a.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t rows = static_cast<size_t>(a.bh) * a.sq * D;
+  const size_t keys = static_cast<size_t>(a.bh) * a.sk * D;
+  float* q_s = a.ws;
+  float* do_s = q_s + 3 * rows;
+  float* k_s = do_s + 2 * rows;
+  float* v_s = k_s + 2 * keys;
+  hopper::split_tf32_launch(a.q, q_s, rows, 3, a.stream);
+  hopper::split_tf32_launch(a.dout, do_s, rows, 2, a.stream);
+  hopper::split_tf32_launch(a.k, k_s, keys, 2, a.stream);
+  hopper::split_tf32_launch(a.v, v_s, keys, 2, a.stream);
+  CUtensorMap maps[4];
+  int rc = hopper::make_map_f32(&maps[0], q_s, 3 * a.bh, a.sq, D, L::kRows);
+  if (rc == 0) rc = hopper::make_map_f32(&maps[1], k_s, 2 * a.bh, a.sk, D, L::kKeys);
+  if (rc == 0) rc = hopper::make_map_f32(&maps[2], v_s, 2 * a.bh, a.sk, D, L::kKeys);
+  if (rc == 0) rc = hopper::make_map_f32(&maps[3], do_s, 2 * a.bh, a.sq, D, L::kRows);
+  if (rc != 0) return rc;
+  flash_bwd_dkv_tf32_kernel<D><<<dim3(tiles_of(a.sk, L::kKeys), a.bh), L::kThreads, L::total,
+                                 a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.lse, a.delta, static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), a.sq, a.sk, a.q_offset, a.k_offset, a.causal, a.walk_cut,
+      a.scale);
   return 0;
 }
 
@@ -762,10 +996,11 @@ int launch_dkv_wgmma(const Args& a) {
   return 0;
 }
 
-// dtype 0 = f32 runs the CUDA-core kernels, 1 = bf16 the wgmma ones
+// dtype 0 = f32 runs the CUDA-core dQ and the split-TF32 dK/dV, 1 = bf16
+// the wgmma ones
 template <bool kDq, int D>
 int launch(int dtype, const Args& a) {
-  if (dtype == 0) return kDq ? launch_dq_f32<D>(a) : launch_dkv_f32<D>(a);
+  if (dtype == 0) return kDq ? launch_dq_f32<D>(a) : launch_dkv_tf32<D>(a);
   if (dtype == 1) return kDq ? launch_dq_wgmma<D>(a) : launch_dkv_wgmma<D>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -794,7 +1029,8 @@ int resources_of(int kernel, int dtype, int* out) {
   if (kernel == 0 && dtype == 1)
     return resources(flash_bwd_dq_wgmma_kernel<D>, kDqThreads, DqTiles<D>::total, out);
   if (kernel == 1 && dtype == 0)
-    return resources(flash_bwd_dkv_kernel<D>, B::kWarps * 32, B::dkv_total, out);
+    return resources(flash_bwd_dkv_tf32_kernel<D>, DkvTilesF32<D>::kThreads,
+                     DkvTilesF32<D>::total, out);
   if (kernel == 1 && dtype == 1)
     return resources(flash_bwd_dkv_wgmma_kernel<D>, kThreadsWG, DkvTiles<D>::total, out);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -815,19 +1051,28 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, 
                  int q_offset, int k_offset, int causal, int walk_cut, float scale, int dtype,
                  void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               dq, nullptr, nullptr, bh, sq, sk, q_offset, k_offset, causal, walk_cut, scale,
-               static_cast<cudaStream_t>(stream)};
+               dq, nullptr, nullptr, nullptr, bh, sq, sk, q_offset, k_offset, causal, walk_cut,
+               scale, static_cast<cudaStream_t>(stream)};
   return run<true>(head_dim, dtype, a);
 }
 
+// workspace: flash_bwd_workspace(1, ...) bytes for the split pass (f32),
+// 16-byte aligned, or null where that is 0
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
-                  int sk, int head_dim, int q_offset, int k_offset, int causal, int walk_cut,
-                  float scale, int dtype, void* stream) {
+                  const void* lse, const void* delta, void* dk, void* dv, void* workspace,
+                  int bh, int sq, int sk, int head_dim, int q_offset, int k_offset, int causal,
+                  int walk_cut, float scale, int dtype, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               nullptr, dk, dv, bh, sq, sk, q_offset, k_offset, causal, walk_cut, scale,
-               static_cast<cudaStream_t>(stream)};
+               nullptr, dk, dv, static_cast<float*>(workspace), bh, sq, sk, q_offset, k_offset,
+               causal, walk_cut, scale, static_cast<cudaStream_t>(stream)};
   return run<false>(head_dim, dtype, a);
+}
+
+// Bytes of workspace the kernel (0 = dQ, 1 = dK/dV) needs for these shapes
+// (0 but for dK/dV in f32).
+size_t flash_bwd_workspace(int kernel, int bh, int sq, int sk, int head_dim, int dtype) {
+  if (kernel != 1 || dtype != 0 || bh <= 0 || sq <= 0 || sk <= 0) return 0;
+  return dkv_workspace_floats(bh, sq, sk, head_dim) * sizeof(float);
 }
 
 // What the kernel (0 = dQ, 1 = dK/dV) for (head_dim, dtype) holds on the

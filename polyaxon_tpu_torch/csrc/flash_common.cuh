@@ -1,14 +1,12 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the causal walk bounds, and for the f32 kernels, which stage tiles by hand
-// (the bf16 kernels are built from hopper.cuh), their tile size, a tile copy
-// from device memory to shared memory, and their one matrix-product
-// primitive.
+// the causal walk bounds, and for the f32 dQ kernel, which stages tiles by
+// hand (the others are built from hopper.cuh), its tile size, a tile copy
+// from device memory to shared memory, and its one matrix-product primitive.
 //
-// Every product in the f32 kernels has one shape: a warp owns 16 rows and
+// Every product in the f32 dQ kernel has one shape: a warp owns 16 rows and
 // computes C[16 x N] (+)= A[16 x K] * B', all three in shared memory, where
 // B' is B ([K x N], row-major) or B transposed (B stored [N x K], row-major),
-// as a plain loop on the CUDA cores, so an f32 call stays f32 throughout
-// (tensor cores would round its inputs to tf32).
+// as a plain loop on the CUDA cores, so it stays f32 throughout.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,7 +22,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;  // the bf16 kernels' softmax runs in base 2
 constexpr float kLn2 = 0.6931471805599453f;
 
-// f32 tiles: 32 rows, 2 warps per CTA
+// the f32 dQ kernel's tiles: 32 rows, 2 warps per CTA
 constexpr int kTileF32 = 32;
 
 // leading dimension (elements) of a tile of D-wide rows in shared memory:

@@ -54,10 +54,20 @@
 // faster, while a third stage, a third consumer warpgroup or an
 // in-warpgroup pipelined loop did not help.
 //
-// f32 (flash_fwd_kernel): 32-row tiles, 2 warps per CTA, products on the
-// CUDA cores (tensor cores would round to tf32), scores, p and the
-// accumulator in shared memory. f32 is llama-tiny's dtype, never on the
-// card's main path.
+// f32 (flash_fwd_tf32_kernel): the same structure with split-TF32 products
+// (hopper.cuh): each product runs as three tf32 wgmma products, A_hi B_lo +
+// A_lo B_hi + A_hi B_hi, which keeps it within ~2^-22 of f32. At 3 x 2 Sq Sk
+// D FLOP over 495 TFLOP/s its bound is 0.208 ms at the llama-1b shape in
+// f32 (0.417 ms at D = 128). A split pass first writes Q and K as hi and lo
+// and V as V^T hi and lo into a workspace (tf32 wgmma reads shared memory
+// only K-major, and P V reduces over V's rows), with each group of 8 keys of
+// V^T in the order in which P's accumulator feeds the register A operand
+// (key_of), so that P needs no shuffle. A CTA holds two consumer warpgroups
+// of 64 q rows at D = 64 (one at D = 128) and streams 64-key tiles (32 at
+// D = 128) of K hi, K lo, V^T hi and V^T lo, 64 KB a stage, through two
+// stages: 193 KiB of shared memory, one CTA to an SM. P is split into hi and
+// lo in registers. Every other rule (the base-2 softmax, the masks, the
+// walk, the scale's sign) is the bf16 kernel's.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -65,130 +75,6 @@
 namespace {
 
 using namespace flash;
-
-// ---- f32: CUDA cores, scores and accumulator in shared memory ----------------
-
-template <int D>
-struct FwdSmem {
-  static constexpr int kTile = kTileF32;
-  static constexpr int kWarps = kTile / 16;
-  static constexpr size_t q = pad128(sizeof(float) * kTile * ld_of<D>());
-  static constexpr size_t kv = q;  // each of K and V
-  static constexpr size_t s = pad128(sizeof(float) * kWarps * 16 * ldf_of<kTile>());
-  static constexpr size_t p = pad128(sizeof(float) * kWarps * 16 * ld_of<kTile>());
-  static constexpr size_t o = pad128(sizeof(float) * kWarps * 16 * ldf_of<D>());
-  static constexpr size_t total = q + 2 * kv + s + p + o;
-};
-
-template <int D>
-__global__ void __launch_bounds__(FwdSmem<D>::kWarps * 32)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                 int sq, int sk, int q_offset, int k_offset, int causal, int walk_cut,
-                 float scale) {
-  using L = FwdSmem<D>;
-  constexpr int kTile = L::kTile;
-  constexpr int kThreads = L::kWarps * 32;
-  constexpr int LD = ld_of<D>();
-  constexpr int LDS = ldf_of<kTile>();
-  constexpr int LDP = ld_of<kTile>();
-  constexpr int LDO = ldf_of<D>();
-  constexpr int kHalfS = kTile / 2;
-  constexpr int kHalfD = D / 2;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* k_s = reinterpret_cast<float*>(smem + L::q);
-  float* v_s = reinterpret_cast<float*>(smem + L::q + L::kv);
-  float* s_all = reinterpret_cast<float*>(smem + L::q + 2 * L::kv);
-  float* p_all = reinterpret_cast<float*>(smem + L::q + 2 * L::kv + L::s);
-  float* o_all = reinterpret_cast<float*>(smem + L::q + 2 * L::kv + L::s + L::p);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int r = lane >> 1;     // this lane's row of the warp's 16
-  const int half = lane & 1;   // and which half of the row's columns
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // heaviest tiles first
-  float* s_w = s_all + warp * 16 * LDS;
-  float* p_w = p_all + warp * 16 * LDP;
-  float* o_w = o_all + warp * 16 * LDO;
-  const float* q_w = q_s + warp * 16 * LD;
-
-  load_tile<D>(q_s, q + (static_cast<size_t>(bh) * sq + q0) * D, kTile, sq - q0, tid, kThreads);
-  for (int c = half * kHalfD; c < (half + 1) * kHalfD; ++c) o_w[r * LDO + c] = 0.f;
-
-  const int kend = kv_tiles_end(q0, kTile, kTile, tiles_of(sk, kTile), q_offset, k_offset,
-                                causal, walk_cut);
-  const int row = warp * 16 + r;  // this lane's row of the q tile
-  const int qid = q_offset + q0 + row;
-  float m = -CUDART_INF_F;
-  float l = 0.f;
-
-  for (int t = 0; t < kend; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();  // the previous tile's K/V are no longer read
-    const size_t key0 = static_cast<size_t>(bh) * sk + k0;
-    load_tile<D>(k_s, k + key0 * D, kTile, sk - k0, tid, kThreads);
-    load_tile<D>(v_s, v + key0 * D, kTile, sk - k0, tid, kThreads);
-    __syncthreads();
-    // key c of the tile is hidden: past the end, or past the row's position
-    auto hidden = [&](int c) { return k0 + c >= sk || (causal && qid < k_offset + k0 + c); };
-
-    warp_mma<true, kTile, D>(s_w, LDS, q_w, LD, k_s, LD, false);  // S = Q K^T
-    __syncwarp();
-
-    // online softmax over this lane's half row
-    float mx = -CUDART_INF_F;
-    for (int c = half * kHalfS; c < (half + 1) * kHalfS; ++c) {
-      float sc = s_w[r * LDS + c] * scale;
-      if (hidden(c)) sc = kMaskValue;
-      s_w[r * LDS + c] = sc;
-      mx = fmaxf(mx, sc);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const float safe_m = m_new == -CUDART_INF_F ? 0.f : m_new;
-    const float alpha = m == -CUDART_INF_F ? 0.f : expf(m - safe_m);
-    float sum = 0.f;
-    for (int c = half * kHalfS; c < (half + 1) * kHalfS; ++c) {
-      float p = expf(s_w[r * LDS + c] - safe_m);
-      if (hidden(c)) p = 0.f;
-      sum += p;
-      p_w[r * LDP + c] = p;
-    }
-    sum += __shfl_xor_sync(kFull, sum, 1);
-    l = alpha * l + sum;
-    m = m_new;
-    for (int c = half * kHalfD; c < (half + 1) * kHalfD; ++c) o_w[r * LDO + c] *= alpha;
-    __syncwarp();
-
-    warp_mma<false, D, kTile>(o_w, LDO, p_w, LDP, v_s, LD, true);  // O += P V
-    __syncwarp();
-  }
-
-  if (q0 + row >= sq) return;  // a row past the end of a partial tile
-  const float l_safe = l == 0.f ? 1.f : l;
-  float* o_row = o + (static_cast<size_t>(bh) * sq + q0 + row) * D;
-  for (int c = half * kHalfD; c < (half + 1) * kHalfD; ++c) o_row[c] = o_w[r * LDO + c] / l_safe;
-  if (half == 0)
-    lse[static_cast<size_t>(bh) * sq + q0 + row] = l == 0.f ? -CUDART_INF_F : m + logf(l_safe);
-}
-
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int sq,
-               int sk, int q_offset, int k_offset, int causal, int walk_cut, float scale,
-               cudaStream_t stream) {
-  using L = FwdSmem<D>;
-  static const cudaError_t attr = allow_smem(flash_fwd_kernel<D>, L::total);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(tiles_of(sq, L::kTile), bh);
-  flash_fwd_kernel<D><<<grid, L::kWarps * 32, L::total, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, sq, sk, q_offset, k_offset, causal, walk_cut, scale);
-  return 0;
-}
 
 // ---- bf16: wgmma, TMA, accumulators in registers ------------------------------
 
@@ -405,14 +291,264 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   return 0;
 }
 
-// f32 (dtype 0) runs the CUDA-core kernel, bf16 (dtype 1) the wgmma one
+// ---- f32: split-TF32 wgmma, TMA, accumulators in registers --------------------
+
 template <int D>
-int launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-           int sq, int sk, int q_offset, int k_offset, int causal, int walk_cut, float scale,
-           cudaStream_t stream) {
+struct FwdTilesF32 {
+  // consumer warpgroups of 64 q rows per CTA: two at D = 64, one at D = 128;
+  // keys per kv tile: 64 at D = 64, 32 at D = 128 (a stage is 64 KB either
+  // way, and the CTA takes one SM)
+  static constexpr int kConsumers = D == 64 ? 2 : 1;
+  static constexpr int kBlockQ = 64 * kConsumers;
+  static constexpr int kBlockK = 4096 / D;
+  static constexpr int kThreads = (kConsumers + 1) * 128;
+  static constexpr uint32_t q = kBlockQ * D * 4;   // one of Q hi, Q lo
+  static constexpr uint32_t kv = kBlockK * D * 4;  // one of K hi, K lo, V^T hi, V^T lo
+  static constexpr uint32_t stage = 4 * kv;
+  // tiles, then the barriers (Q, full and empty per stage), plus the room
+  // to align the start to 1024 bytes
+  static constexpr size_t total = 2 * q + kStages * stage + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// the workspace of the split pass, in floats: Q, K [2, bh, s, D] (hi, then
+// lo) and V^T [2, bh, D, sk rounded up to 8]
+inline size_t f32_workspace_floats(int bh, int sq, int sk, int d) {
+  return 2 * static_cast<size_t>(bh) * d * (sq + sk + (sk + 7) / 8 * 8);
+}
+
+template <int D, bool kNegScale>
+__global__ void __launch_bounds__(FwdTilesF32<D>::kThreads, 1)
+flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap vt_map, float* __restrict__ o,
+                      float* __restrict__ lse, int sq, int sk, int q_offset, int k_offset,
+                      int causal, int walk_cut, float scale) {
+  using namespace hopper;
+  using L = FwdTilesF32<D>;
+  constexpr int kConsumers = L::kConsumers;
+  constexpr int kBlockQ = L::kBlockQ;
+  constexpr int kBlockK = L::kBlockK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  float* q_hi = reinterpret_cast<float*>(smem);
+  float* q_lo = q_hi + kBlockQ * D;
+  unsigned char* ring = smem + 2 * L::q;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + kStages * L::stage);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+  // stage s: K hi, K lo, V^T hi, V^T lo
+  auto tile_of = [&](int s, int i) {
+    return reinterpret_cast<float*>(ring + s * L::stage + i * L::kv);
+  };
+
+  const int bh = blockIdx.y;
+  const int nbh = gridDim.y;  // head bh's lo half is head bh + nbh of each map
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // heaviest tiles first
+  const int kend = kv_tiles_end(q0, kBlockQ, kBlockK, tiles_of(sk, kBlockK), q_offset, k_offset,
+                                causal, walk_cut);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    bar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kConsumers * 4);  // one arrival per consumer warp
+    }
+    fence_bar_init();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one thread issues every load
+    regs_dec<24>();
+    if (threadIdx.x == kConsumers * 128) {
+      bar_arrive_expect_tx(q_full, 2 * L::q);
+      tma_panels<D / 32, kBlockQ>(q_hi, &q_map, q_full, 0, q0, bh);
+      tma_panels<D / 32, kBlockQ>(q_lo, &q_map, q_full, 0, q0, bh + nbh);
+      for (int t = 0; t < kend; ++t) {
+        const int s = t % kStages;
+        const int k0 = t * kBlockK;
+        bar_wait(&empty[s], ((t / kStages) & 1) ^ 1);  // the first round finds it free
+        bar_arrive_expect_tx(&full[s], L::stage);
+        tma_panels<D / 32, kBlockK>(tile_of(s, 0), &k_map, &full[s], 0, k0, bh);
+        tma_panels<D / 32, kBlockK>(tile_of(s, 1), &k_map, &full[s], 0, k0, bh + nbh);
+        tma_panels<kBlockK / 32, D>(tile_of(s, 2), &vt_map, &full[s], k0, 0, bh);
+        tma_panels<kBlockK / 32, D>(tile_of(s, 3), &vt_map, &full[s], k0, 0, bh + nbh);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: q rows wg * 64 .. + 63 of the tile
+  regs_inc<240>();
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int row0 = wg * 64 + (tid / 32) * 16 + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int col0 = 2 * (lane % 4);                         // and columns col0, col0 + 1 of each 8
+  const int qid0 = q_offset + q0 + row0;
+  const float scale_log2 = scale * kLog2e;
+  // as in the bf16 kernel: a row's reference is its largest raw score times
+  // the scale, or its smallest when scale < 0
+  constexpr float raw_mask = kNegScale ? -kMaskValue : kMaskValue;
+  auto top = [](float a, float b) { return kNegScale ? fminf(a, b) : fmaxf(a, b); };
+  const float* qh = q_hi + wg * 64 * 32;  // this warpgroup's rows of each panel
+  const float* ql = q_lo + wg * 64 * 32;
+
+  float acc[D / 2];
+  float s_acc[kBlockK / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kBlockK / 2; ++i) s_acc[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max of each row, base 2
+  float l[2] = {0.f, 0.f};                      // this thread's part of each row's sum
+  uint32_t p_hi[kBlockK / 8][4], p_lo[kBlockK / 8][4];
+
+  bar_wait(q_full, 0);
+  for (int t = 0; t < kend; ++t) {
+    const int s = t % kStages;
+    const int k0 = t * kBlockK;
+    bar_wait(&full[s], (t / kStages) & 1);
+    const float* kh = tile_of(s, 0);
+    const float* kl = tile_of(s, 1);
+    const float* vh = tile_of(s, 2);
+    const float* vl = tile_of(s, 3);
+
+    // S = Q K^T in three products per k8 step along D (32 columns to a panel)
+    hold(s_acc);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int a = (kk / 4) * kBlockQ * 32 + (kk % 4) * 8;
+      const int b = (kk / 4) * kBlockK * 32 + (kk % 4) * 8;
+      mma_ss_tf32<kBlockK>(s_acc, desc_k(ql + a), desc_k(kh + b), kk > 0);
+      mma_ss_tf32<kBlockK>(s_acc, desc_k(qh + a), desc_k(kl + b), 1);
+      mma_ss_tf32<kBlockK>(s_acc, desc_k(qh + a), desc_k(kh + b), 1);
+    }
+    mma_commit();
+    mma_wait<0>();
+    hold(s_acc);
+
+    // the online softmax in registers, in base 2, as in the bf16 kernel
+    const bool masked = k0 + kBlockK > sk ||
+                        (causal && q_offset + q0 < k_offset + k0 + kBlockK - 1);
+    auto hidden = [&](int i) {
+      const int key = k0 + (i / 4) * 8 + col0 + (i & 1);
+      return key >= sk || (causal && qid0 + 8 * ((i >> 1) & 1) < k_offset + key);
+    };
+    if (masked) {
+#pragma unroll
+      for (int i = 0; i < kBlockK / 2; ++i)
+        if (hidden(i)) s_acc[i] = raw_mask;
+    }
+    float mx[2] = {s_acc[0], s_acc[2]};
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i) mx[(i >> 1) & 1] = top(mx[(i >> 1) & 1], s_acc[i]);
+    float ref[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = top(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+      mx[h] = top(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h] * scale_log2);
+      ref[h] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      const float alpha = m[h] == -CUDART_INF_F ? 0.f : exp2_fast(m[h] - ref[h]);
+      m[h] = m_new;
+      l[h] *= alpha;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        if (((i >> 1) & 1) == h) acc[i] *= alpha;
+    }
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i) {
+      float p = exp2_fast(fmaf(s_acc[i], scale_log2, -ref[(i >> 1) & 1]));
+      if (masked && hidden(i)) p = 0.f;
+      l[(i >> 1) & 1] += p;
+      s_acc[i] = p;
+    }
+    to_a_tf32<kBlockK>(s_acc, p_hi, p_lo);
+
+    // O += P V: three products per k8 step of 8 keys, V^T read K-major (its
+    // keys stored in key_of order by the split pass)
+    hold(acc);
+    hold(p_hi);
+    hold(p_lo);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 8; ++kk) {
+      const int b = (kk / 4) * D * 32 + (kk % 4) * 8;
+      mma_rs_tf32<D>(acc, p_lo[kk], desc_k(vh + b));
+      mma_rs_tf32<D>(acc, p_hi[kk], desc_k(vl + b));
+      mma_rs_tf32<D>(acc, p_hi[kk], desc_k(vh + b));
+    }
+    mma_commit();
+    mma_wait<0>();
+    hold(acc);
+    hold(p_hi);
+    hold(p_lo);
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+  // epilogue: O / l and the LSE of each row inside Sq
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+    const int row = q0 + row0 + 8 * h;
+    if (row >= sq) continue;
+    const float inv = l[h] == 0.f ? 1.f : 1.f / l[h];
+    float2* out = reinterpret_cast<float2*>(o + (static_cast<size_t>(bh) * sq + row) * D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      out[(8 * j + col0) / 2] = make_float2(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+    if (lane % 4 == 0)
+      lse[static_cast<size_t>(bh) * sq + row] =
+          l[h] == 0.f ? -CUDART_INF_F : m[h] * kLn2 + logf(l[h]);
+  }
+}
+
+// The split pass (Q and K into hi and lo, V into V^T hi and lo), then the
+// kernel over its output.
+template <int D, bool kNegScale>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse, float* ws,
+                int bh, int sq, int sk, int q_offset, int k_offset, int causal, int walk_cut,
+                float scale, cudaStream_t stream) {
+  using L = FwdTilesF32<D>;
+  static const cudaError_t attr = allow_smem(flash_fwd_tf32_kernel<D, kNegScale>, L::total);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int sk8 = (sk + 7) / 8 * 8;
+  float* q_s = ws;
+  float* k_s = q_s + 2 * static_cast<size_t>(bh) * sq * D;
+  float* vt_s = k_s + 2 * static_cast<size_t>(bh) * sk * D;
+  hopper::split_tf32_launch(q, q_s, static_cast<size_t>(bh) * sq * D, 2, stream);
+  hopper::split_tf32_launch(k, k_s, static_cast<size_t>(bh) * sk * D, 2, stream);
+  hopper::split_tf32_t_kernel<<<dim3(tiles_of(sk8, 32), D / 32, bh), dim3(32, 8), 0, stream>>>(
+      static_cast<const float*>(v), vt_s, vt_s + static_cast<size_t>(bh) * D * sk8, sk, sk8, D);
+  CUtensorMap maps[3];
+  int rc = hopper::make_map_f32(&maps[0], q_s, 2 * bh, sq, D, L::kBlockQ);
+  if (rc == 0) rc = hopper::make_map_f32(&maps[1], k_s, 2 * bh, sk, D, L::kBlockK);
+  if (rc == 0) rc = hopper::make_map_f32(&maps[2], vt_s, 2 * bh, D, sk8, D);
+  if (rc != 0) return rc;
+  const dim3 grid(tiles_of(sq, L::kBlockQ), bh);
+  flash_fwd_tf32_kernel<D, kNegScale><<<grid, L::kThreads, L::total, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<float*>(o), lse, sq, sk, q_offset, k_offset, causal,
+      walk_cut, scale);
+  return 0;
+}
+
+// f32 (dtype 0) runs the split-TF32 kernel, bf16 (dtype 1) the bf16 one, each
+// instantiated for the sign of the scale
+template <int D>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse, float* ws,
+           int bh, int sq, int sk, int q_offset, int k_offset, int causal, int walk_cut,
+           float scale, cudaStream_t stream) {
+  if (dtype == 0 && scale < 0.f)
+    return launch_tf32<D, true>(q, k, v, o, lse, ws, bh, sq, sk, q_offset, k_offset, causal,
+                                walk_cut, scale, stream);
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, lse, bh, sq, sk, q_offset, k_offset, causal, walk_cut,
-                         scale, stream);
+    return launch_tf32<D, false>(q, k, v, o, lse, ws, bh, sq, sk, q_offset, k_offset, causal,
+                                 walk_cut, scale, stream);
   if (dtype == 1 && scale < 0.f)
     return launch_wgmma<D, true>(q, k, v, o, lse, bh, sq, sk, q_offset, k_offset, causal,
                                  walk_cut, scale, stream);
@@ -424,8 +560,9 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o, floa
 
 template <int D>
 int resources_of(int dtype, int* out) {
-  using F = FwdSmem<D>;
-  if (dtype == 0) return resources(flash_fwd_kernel<D>, F::kWarps * 32, F::total, out);
+  if (dtype == 0)
+    return resources(flash_fwd_tf32_kernel<D, false>, FwdTilesF32<D>::kThreads,
+                     FwdTilesF32<D>::total, out);
   if (dtype == 1)
     return resources(flash_fwd_wgmma_kernel<D, false>, FwdTiles<D>::kThreads, FwdTiles<D>::total,
                      out);
@@ -436,30 +573,38 @@ int resources_of(int dtype, int* out) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. walk_cut: kv tiles cut from the end of
-// each walk, 0 in use (1 plants a fault that a check must see). Returns
-// cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a shape or dtype the kernel does not take.
-// Launches on `stream`, does not synchronise.
-int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
-              int sk, int head_dim, int q_offset, int k_offset, int causal, int walk_cut,
-              float scale, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. workspace: flash_fwd_workspace() bytes
+// for the split pass (f32), 16-byte aligned, or null where that is 0.
+// walk_cut: kv tiles cut from the end of each walk, 0 in use (1 plants a
+// fault that a check must see). Returns cudaGetLastError() after the launch
+// (0 on success), or cudaErrorInvalidValue for a shape or dtype the kernel
+// does not take. Launches on `stream`, does not synchronise.
+int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, void* workspace,
+              int bh, int sq, int sk, int head_dim, int q_offset, int k_offset, int causal,
+              int walk_cut, float scale, int dtype, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || walk_cut < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();  // start from a clean error state
   auto s = static_cast<cudaStream_t>(stream);
   auto* lse_f = static_cast<float*>(lse);
+  auto* ws = static_cast<float*>(workspace);
   int rc;
   if (head_dim == 64)
-    rc = launch<64>(dtype, q, k, v, o, lse_f, bh, sq, sk, q_offset, k_offset, causal, walk_cut,
-                    scale, s);
+    rc = launch<64>(dtype, q, k, v, o, lse_f, ws, bh, sq, sk, q_offset, k_offset, causal,
+                    walk_cut, scale, s);
   else if (head_dim == 128)
-    rc = launch<128>(dtype, q, k, v, o, lse_f, bh, sq, sk, q_offset, k_offset, causal, walk_cut,
-                     scale, s);
+    rc = launch<128>(dtype, q, k, v, o, lse_f, ws, bh, sq, sk, q_offset, k_offset, causal,
+                     walk_cut, scale, s);
   else
     rc = static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of workspace flash_fwd needs for these shapes (0 in bf16).
+size_t flash_fwd_workspace(int bh, int sq, int sk, int head_dim, int dtype) {
+  if (dtype != 0 || bh <= 0 || sq <= 0 || sk <= 0) return 0;
+  return f32_workspace_floats(bh, sq, sk, head_dim) * sizeof(float);
 }
 
 // What the kernel for (head_dim, dtype) holds on the card, into out[5]:

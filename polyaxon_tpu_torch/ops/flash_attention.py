@@ -13,7 +13,11 @@ Three kernels, each the counterpart of a TPU kernel of the JAX package:
 
 In bf16 all three are Hopper kernels (``csrc/hopper.cuh``): TMA loads into
 an mbarrier-guarded ring, wgmma products, accumulators and the softmax in
-registers. In f32 they are CUDA-core kernels that stage every tile in
+registers. In f32 the forward and dK/dV are the same kind of kernel with
+split-TF32 products (each f32 operand as a tf32 hi + lo, each product as
+three tensor-core products, within ~2^-22 of f32), behind a split pass
+that writes the operands' hi and lo into a workspace this module
+allocates; the f32 dQ is a CUDA-core kernel that stages every tile in
 shared memory.
 
 δ = rowsum(dO∘O) is a plain tensor op outside the kernels
@@ -52,8 +56,10 @@ _DIMS = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 _HEADERS = ("flash_common.cuh", "hopper.cuh")
 FLASH_FWD_LIB = _Library("flash_fwd", ("flash_fwd.cu",), headers=_HEADERS, signatures={
-    # q, k, v, o, lse
-    "flash_fwd": ([ctypes.c_void_p] * 5 + _DIMS, ctypes.c_int),
+    # q, k, v, o, lse, workspace
+    "flash_fwd": ([ctypes.c_void_p] * 6 + _DIMS, ctypes.c_int),
+    # bh, sq, sk, head_dim, dtype -> bytes
+    "flash_fwd_workspace": ([ctypes.c_int] * 5, ctypes.c_size_t),
     # head_dim, dtype, int[5] out
     "flash_fwd_resources": ([ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
     "flash_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -61,8 +67,10 @@ FLASH_FWD_LIB = _Library("flash_fwd", ("flash_fwd.cu",), headers=_HEADERS, signa
 FLASH_BWD_LIB = _Library("flash_bwd", ("flash_bwd.cu",), headers=_HEADERS, signatures={
     # q, k, v, do, lse, delta, dq
     "flash_bwd_dq": ([ctypes.c_void_p] * 7 + _DIMS, ctypes.c_int),
-    # q, k, v, do, lse, delta, dk, dv
-    "flash_bwd_dkv": ([ctypes.c_void_p] * 8 + _DIMS, ctypes.c_int),
+    # q, k, v, do, lse, delta, dk, dv, workspace
+    "flash_bwd_dkv": ([ctypes.c_void_p] * 9 + _DIMS, ctypes.c_int),
+    # kernel (0 dQ, 1 dK/dV), bh, sq, sk, head_dim, dtype -> bytes
+    "flash_bwd_workspace": ([ctypes.c_int] * 6, ctypes.c_size_t),
     # kernel (0 dQ, 1 dK/dV), head_dim, dtype, int[5] out
     "flash_bwd_resources": ([ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
     "flash_error_string": ([ctypes.c_int], ctypes.c_char_p),
@@ -119,6 +127,10 @@ def _visible(q_offset, k_offset, j, s, block_q, block_k) -> bool:
 # Plain versions (CPU tensors)
 # ---------------------------------------------------------------------------
 
+#: every product of the plain versions, in f32; the CPU tests swap in a
+#: model of the f32 kernels' split-TF32 products
+_matmul = torch.matmul
+
 
 def flash_fwd_plain(q, k, v, q_offset: int, k_offset: int, *, sm_scale: float,
                     causal: bool, block_q: int, block_k: int):
@@ -144,7 +156,7 @@ def flash_fwd_plain(q, k, v, q_offset: int, k_offset: int, *, sm_scale: float,
                 break
             kb = k[:, s * block_k:(s + 1) * block_k]
             vb = v[:, s * block_k:(s + 1) * block_k]
-            scores = torch.matmul(qb, kb.float().transpose(1, 2)) * sm_scale
+            scores = _matmul(qb, kb.float().transpose(1, 2)) * sm_scale
             if causal:
                 mask = q_ids[:, None] >= (k_offset + s * block_k + ar_k)[None, :]
                 scores = torch.where(mask, scores, torch.full_like(scores, DEFAULT_MASK_VALUE))
@@ -155,7 +167,7 @@ def flash_fwd_plain(q, k, v, q_offset: int, k_offset: int, *, sm_scale: float,
             if causal:
                 p = torch.where(mask, p, torch.zeros_like(p))
             l = alpha * l + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vb.float())
+            acc = acc * alpha + _matmul(p.to(v.dtype).float(), vb.float())
             m = m_new
         l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
         o[:, j * block_q:(j + 1) * block_q] = (acc / l_safe).to(q.dtype)
@@ -168,14 +180,14 @@ def _probs_and_ds(qb, kb, vb, dob, lse_b, delta_b, q_ids, k_ids, *, sm_scale,
                   causal, ds_dtype):
     """The backward kernels' shared tile math: P (0 where LSE = -inf or
     masked) and dS = P∘(dO·Vᵀ − δ)·scale rounded to ``ds_dtype``."""
-    scores = torch.matmul(qb.float(), kb.float().transpose(1, 2)) * sm_scale
+    scores = _matmul(qb.float(), kb.float().transpose(1, 2)) * sm_scale
     lse = lse_b[..., None]
     safe_lse = torch.where(lse == float("-inf"), torch.zeros_like(lse), lse)
     p = torch.exp(scores - safe_lse)
     p = torch.where(lse == float("-inf"), torch.zeros_like(p), p)
     if causal:
         p = torch.where(q_ids[:, None] >= k_ids[None, :], p, torch.zeros_like(p))
-    dp = torch.matmul(dob.float(), vb.float().transpose(1, 2))
+    dp = _matmul(dob.float(), vb.float().transpose(1, 2))
     ds = (p * (dp - delta_b[..., None]) * sm_scale).to(ds_dtype)
     return p, ds
 
@@ -201,7 +213,7 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, q_offset: int, k_offset: int, *,
             _, ds = _probs_and_ds(q[:, rows], k[:, cols], v[:, cols], do[:, rows],
                                   lse[:, rows], delta[:, rows], q_ids, k_ids,
                                   sm_scale=sm_scale, causal=causal, ds_dtype=k.dtype)
-            acc = acc + torch.matmul(ds.float(), k[:, cols].float())
+            acc = acc + _matmul(ds.float(), k[:, cols].float())
         dq[:, rows] = acc.to(q.dtype)
     return dq
 
@@ -228,9 +240,9 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_offset: int, k_offset: int, *
             p, ds = _probs_and_ds(q[:, rows], k[:, cols], v[:, cols], do[:, rows],
                                   lse[:, rows], delta[:, rows], q_ids, k_ids,
                                   sm_scale=sm_scale, causal=causal, ds_dtype=q.dtype)
-            dv_acc = dv_acc + torch.matmul(p.to(do.dtype).float().transpose(1, 2),
-                                           do[:, rows].float())
-            dk_acc = dk_acc + torch.matmul(ds.float().transpose(1, 2), q[:, rows].float())
+            dv_acc = dv_acc + _matmul(p.to(do.dtype).float().transpose(1, 2),
+                                      do[:, rows].float())
+            dk_acc = dk_acc + _matmul(ds.float().transpose(1, 2), q[:, rows].float())
         dk[:, cols] = dk_acc.to(k.dtype)
         dv[:, cols] = dv_acc.to(v.dtype)
     return dk, dv
@@ -276,6 +288,13 @@ def _raise_on(rc: int, lib, what: str) -> None:
                            f"({lib.flash_error_string(rc).decode()})")
 
 
+def _workspace(nbytes: int, device) -> Optional[torch.Tensor]:
+    """The split pass's workspace (f32 forward and dK/dV), or None. It is
+    freed when the caller drops it: the allocator hands it out again only
+    to work that is queued on the stream after the kernel."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+
+
 def _dims(q, k, q_offset, k_offset, sm_scale, causal, walk_cut):
     bh, sq, d = q.shape
     if walk_cut < 0:
@@ -299,9 +318,10 @@ def flash_fwd_cuda(q, k, v, q_offset: int, k_offset: int, *, sm_scale: float,
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
+    dims = _dims(q, k, q_offset, k_offset, sm_scale, causal, walk_cut)
+    ws = _workspace(lib.flash_fwd_workspace(*dims[:4], dims[9]), q.device)
     rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                       lse.data_ptr(),
-                       *_dims(q, k, q_offset, k_offset, sm_scale, causal, walk_cut))
+                       lse.data_ptr(), None if ws is None else ws.data_ptr(), *dims)
     _raise_on(rc, lib, "flash_fwd")
     launch_counts["flash_fwd"] += 1
     return o, lse
@@ -331,9 +351,11 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, q_offset: int, k_offset: int, *,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if k.numel() == 0:
         return dk, dv
+    dims = _dims(q, k, q_offset, k_offset, sm_scale, causal, walk_cut)
+    ws = _workspace(lib.flash_bwd_workspace(1, *dims[:4], dims[9]), q.device)
     rc = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                           *_dims(q, k, q_offset, k_offset, sm_scale, causal, walk_cut))
+                           None if ws is None else ws.data_ptr(), *dims)
     _raise_on(rc, lib, "flash_bwd_dkv")
     launch_counts["flash_bwd_dkv"] += 1
     return dk, dv

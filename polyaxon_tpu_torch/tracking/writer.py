@@ -42,9 +42,10 @@ class EventFileWriter:
         self._q.put((kind, name, event))
 
     def _path(self, kind: str, name: str) -> str:
-        d = os.path.join(self.events_dir, kind)
-        os.makedirs(d, exist_ok=True)
-        return os.path.join(d, f"{name}.jsonl")
+        # a namespaced name ("train/loss") is a subdirectory of events/<kind>/
+        path = os.path.join(self.events_dir, kind, f"{name}.jsonl")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        return path
 
     def _loop(self) -> None:
         while True:

@@ -20,6 +20,7 @@ relative): atol 1e-2 and rtol 2^-7.
 from __future__ import annotations
 
 import importlib
+import itertools
 
 import jax
 import jax.numpy as jnp
@@ -169,6 +170,98 @@ def test_return_lse_matches_the_forward():
     o, lse = fa.flash_attention_bhsd(q, k, v, block_q=64, block_k=64, return_lse=True)
     o2 = fa.flash_attention_bhsd(q, k, v, block_q=64, block_k=64)
     assert torch.equal(o, o2) and lse.shape == (2, 128)
+
+
+# -- the f32 kernels' split-TF32 arithmetic ----------------------------------------
+#
+# On the card the f32 forward and dK/dV kernels run each product A B on the
+# tensor cores as A_hi B_lo + A_lo B_hi + A_hi B_hi, with hi = tf32(x) and
+# lo = tf32(x - hi) rounded by cvt.rna.tf32.f32 (csrc/hopper.cuh). hi + lo
+# misses x by up to one place of x, so dK/dV's scores take Q in three parts
+# (A_rest = A - A_hi - A_lo adds A_rest B_hi): there P = exp(s scale - LSE)
+# with the LSE from outside, and a score's error times |s scale| becomes
+# P's relative error. The model below repeats that arithmetic in the plain
+# versions' products, in the order they make them, so the JAX kernels can
+# hold it here. It is held to the tolerance the card holds those kernels
+# to against their f32 plain versions (FLASH_TOL in
+# tests/test_torch_kernels_cuda.py and chip_smoke.py): 5e-5 + 5e-5 |ref|.
+# The other models must fall outside it: a single tf32 pass (~2^-12
+# relative per operand) everywhere, and two-part scores where they reach
+# hundreds (key 0 at 2000 along one axis, a scale of +-1/8: the cuda test
+# of the scale's sign).
+SPLIT_TOL = dict(atol=5e-5, rtol=5e-5)
+
+
+def _tf32(x):
+    """x rounded to tf32 on its bits, as cvt.rna.tf32.f32 does: to nearest,
+    ties away from zero, on the 13 low mantissa bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product(a, b, a_parts=2):
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    small = torch.matmul(a_hi, b_lo) + torch.matmul(a_lo, b_hi)
+    if a_parts == 3:
+        small = small + torch.matmul(a - a_hi - a_lo, b_hi)
+    return small + torch.matmul(a_hi, b_hi)
+
+
+def _kernel_products(kernel, model):
+    """``_matmul`` for the plain version of ``kernel`` ("fwd" or "dkv"):
+    ``model`` "kernel" as the kernels compute, "two_part" with dK/dV's
+    scores from two parts of Q, "single" one tf32 pass."""
+    calls = itertools.count()
+
+    def matmul(a, b):
+        if model == "single":
+            return torch.matmul(_tf32(a), _tf32(b))
+        # the dK/dV plain version makes S, dP, dV, dK for each pair of tiles
+        scores = kernel == "dkv" and next(calls) % 4 == 0
+        return _product(a, b, a_parts=3 if scores and model == "kernel" else 2)
+    return matmul
+
+
+@pytest.mark.parametrize("d,q_offset,causal,large,model", [
+    (64, 0, True, 0, "kernel"), (64, 0, False, 0, "kernel"), (64, 40, True, 0, "kernel"),
+    (128, 0, True, 0, "kernel"), (128, 0, False, 0, "kernel"), (128, 40, True, 0, "kernel"),
+    (64, 0, True, 1, "kernel"), (128, 0, True, -1, "kernel"),
+    (64, 40, True, 0, "single"), (128, 0, False, 0, "single"),
+    (64, 0, True, 1, "two_part"),
+])
+def test_split_tf32_products_hold_the_f32_tolerance(monkeypatch, d, q_offset, causal, large,
+                                                    model):
+    bh, s, block = 2, 128, 64
+    q, k, v, do = _arrays(10 + d + q_offset, [(bh, s, d)] * 4, "float32")
+    scale = d ** -0.5
+    if large:  # scores of +-2000 q[i, 0] / 8 on key 0, exact in f32
+        k[:, 0] = 0.0
+        k[:, 0, 0] = 2000.0
+        scale = 0.125 * large
+    kw = dict(sm_scale=scale, causal=causal, block_q=block, block_k=block)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    o_j, lse_j = jfa._flash_fwd(jq, jk, jv, q_offset, 0, interpret=True, **kw)
+    _, dk_j, dv_j = jfa._flash_bwd(jq, jk, jv, o_j, lse_j, jdo, q_offset, 0, interpret=True,
+                                   **kw)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    monkeypatch.setattr(fa, "_matmul", _kernel_products("fwd", model))
+    o, lse = fa.flash_fwd_plain(tq, tk, tv, q_offset, 0, **kw)
+    # the dK/dV kernel takes LSE and delta from outside (the reference's here)
+    lse_ref, delta = fa.bwd_row_stats(torch.tensor(_np(o_j)), torch.tensor(_np(lse_j)), tdo)
+    monkeypatch.setattr(fa, "_matmul", _kernel_products("dkv", model))
+    dk, dv = fa.flash_bwd_dkv_plain(tq, tk, tv, tdo, lse_ref, delta, q_offset, 0, **kw)
+    pairs = {"o": (o, o_j), "dk": (dk, dk_j), "dv": (dv, dv_j)}
+    if model == "two_part":  # only dK/dV's scores differ from the kernels'
+        pairs = {"dv": pairs["dv"]}
+    for name, (out, ref) in pairs.items():
+        if model == "kernel":
+            np.testing.assert_allclose(_np(out), _np(ref), err_msg=name, **SPLIT_TOL)
+        else:
+            with pytest.raises(AssertionError):
+                np.testing.assert_allclose(_np(out), _np(ref), err_msg=name, **SPLIT_TOL)
+    if model == "kernel":
+        np.testing.assert_allclose(_np(lse), _np(lse_j), atol=1e-4, rtol=1e-5)
 
 
 # -- ops/attention.py ----------------------------------------------------------

@@ -1,9 +1,10 @@
 """The CUDA kernels (paged decode; flash forward, dQ and dK/dV) against
 their plain PyTorch versions, on the card. In bf16 the flash kernels are
 the wgmma/TMA ones (tiles of 64 or 128 rows; dQ streams 128-key tiles at
-D = 64, 64 at D = 128) and paged decode is split over CTAs of 256 tokens; in f32 they
-are the CUDA-core ones (32-row tiles; one paged CTA per sequence and KV
-head). Every test here needs a CUDA device (the kernels have no CPU build)
+D = 64, 64 at D = 128) and paged decode is split over CTAs of 256 tokens; in f32 the
+flash forward and dK/dV are split-TF32 wgmma/TMA kernels (tiles of 16 to
+128 rows), the flash dQ a CUDA-core one (32-row tiles), and paged decode
+takes one CTA per sequence and KV head. Every test here needs a CUDA device (the kernels have no CPU build)
 and skips without one; this file imports nothing of JAX, so it runs on a
 machine with the card alone:
 
@@ -178,9 +179,10 @@ def test_refused_arguments_raise(cuda):
 fa = importlib.import_module("polyaxon_tpu_torch.ops.flash_attention")
 ta = importlib.import_module("polyaxon_tpu_torch.ops.attention")
 
-# kernel vs plain, elementwise |out - ref| <= atol + rtol |ref|. f32: both
-# f32, only the order of the sums and the online-softmax split differ (the
-# kernel's 32-row tiles vs the plain version's blocks): 5e-5. bf16: p (and
+# kernel vs plain, elementwise |out - ref| <= atol + rtol |ref|. f32: the
+# order of the sums and the online-softmax split differ (the kernel's tiles
+# vs the plain version's blocks), and the forward and dK/dV run each product
+# as three tf32 products (~2^-22 of |A||B| per term): 5e-5. bf16: p (and
 # dS) are rounded to bf16 against other running maxima or other f32 sums in
 # the two, and outputs round to bf16 (one place is <= 2^-7 relative): the
 # paged kernel's 3e-3 + 2^-6 |ref|.
@@ -294,11 +296,27 @@ def test_flash_tile_edges(cuda, d, q_offset, length):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("q_offset", [0, 72])
+@pytest.mark.parametrize("length", [15, 16, 17, 31, 32, 33, 63, 64, 65, 127, 128, 129])
+def test_flash_f32_tile_edges(cuda, d, q_offset, length):
+    # the f32 split-TF32 kernels' tiles: the forward's 128 q rows and 64
+    # keys at D = 64, 64 q rows and 32 keys at D = 128; dK/dV's 64 keys and
+    # 64 q rows at D = 64, 16 q rows at D = 128 (and the split pass's groups
+    # of 8 keys): lengths one short of, equal to and one past each
+    q, k, v, do = _flash_inputs(cuda, torch.float32, sq=length, sk=length, d=d,
+                                seed=length + q_offset + d)
+    pairs = _both_ways(q, k, v, do, q_offset, 0, True, (length, length))
+    _assert_pairs_close(pairs, torch.float32)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_planted_faults_fail_the_tolerance(cuda, dtype):
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_planted_faults_fail_the_tolerance(cuda, dtype, d):
     # walk_cut=1: the forward and dQ stop before the diagonal kv tile, dK/dV
     # starts one q tile late; the check must see each
-    q, k, v, do = _flash_inputs(cuda, dtype, seed=3)
+    q, k, v, do = _flash_inputs(cuda, dtype, d=d, seed=3)
     pairs = _both_ways(q, k, v, do, 0, 0, True, walk_cut=1)
     atol, rtol = FLASH_TOL[dtype]
     for name in ("o", "dq", "dk", "dv"):

@@ -306,6 +306,22 @@ class TestChaos:
 # -- history points and the serve reporter --------------------------------------
 
 
+def test_a_namespaced_metric_name_keeps_the_writer_alive(tmp_path):
+    # "train/loss" is a subdirectory of events/metric/; the writer's thread
+    # must create it, write there and live on to write the next metrics
+    run = Run(run_uuid="u1", project="p", artifacts_path=str(tmp_path))
+    run.log_metrics(step=0, **{"train/loss": 2.5})
+    for step in range(3):
+        run.log_metrics(step=step, loss=1.0 - step)
+    run._writer.flush()
+    assert run._writer._thread.is_alive()
+    nested = read_events(str(tmp_path), "metric", "train/loss")
+    flat = read_events(str(tmp_path), "metric", "loss")
+    assert [(e.step, e.metric) for e in nested] == [(0, 2.5)]
+    assert [(e.step, e.metric) for e in flat] == [(0, 1.0), (1, 0.0), (2, -1.0)]
+    run.end()
+
+
 def test_series_buffer_drains_equal_points():
     t = [100.0]
     port, ref = SeriesBuffer(clock=lambda: t[0]), JaxSeriesBuffer(clock=lambda: t[0])
