@@ -11,7 +11,7 @@ non-zero:
    ``polyaxon_tpu_torch/csrc`` at once, one nvcc per source (seconds, and
    ptxas's register, spill and shared-memory report); then sass: the f32
    flash kernels' TF32 tensor-core instructions (``cuobjdump -sass``), which
-   the split-TF32 forward and dK/dV must issue.
+   the split-TF32 forward, dQ and dK/dV must each issue.
 3. kernel — the paged-decode kernels against their plain PyTorch version
    at the llama-1b serving shape (B=8, KVH=4, G=8, D=64, bs=128, T=16,
    ragged lengths incl. 0/1/127/128/129/2048, one table aliasing another
@@ -36,7 +36,7 @@ non-zero:
    is_causal, and the median of five timings of its backward for dQ +
    dK/dV), the bounds (f32: split-TF32, three products at 495 TFLOP/s),
    the previous design's time beside each redesigned kernel's (bf16: wgmma
-   and TMA; the f32 forward and dK/dV: split-TF32), and each kernel's
+   and TMA; f32: split-TF32), and each kernel's
    registers, shared memory per CTA, CTAs per SM and spills. Three faults
    planted in the kernels (``walk_cut=1``: the forward and dQ stop before
    the diagonal kv tile, dK/dV starts one q tile late) must fail the same
@@ -281,8 +281,9 @@ non-zero:
    splits a llama-moe-1b microbatch and its AdamW tail the same way (with
    the index and sort/scan kernels' shares); lora_profile sets a LoRA
    microbatch's device time, wall time and kernel launches beside a plain
-   one's. Last, one step of each new
-   family's trainer (BERT, ViT, ResNet) by kernel.
+   one's; flash_f32_split_profile reads the f32 backward's split pass
+   beside the dQ and dK/dV kernels at BH 64, S 2048, D 64 and 128. Last,
+   one step of each new family's trainer (BERT, ViT, ResNet) by kernel.
 15. the ``{"kernels": [...]}`` line (each flash kernel's launches are the
    llama-1b train phase's; ``launches_by_path`` adds train_lora's, train_bert's,
    train_vit's, the 1-rank group runs' of dist_train_1rank, each
@@ -386,13 +387,14 @@ LSE_TOL = (1e-4, 1e-5)
 # line
 PREV_MS_RECORDED = {"flash_fwd": 0.9156, "flash_bwd_dq": 1.0534, "flash_bwd_dkv": 2.2295,
                     "paged_decode": 0.0930}
-# the same for the f32 forward and dK/dV, whose CUDA-core designs gave way
-# to split-TF32 ones: their D=64 f32 times as PERF.md records them
-PREV_MS_RECORDED_F32 = {"flash_fwd": 7.244, "flash_bwd_dkv": 14.29}
+# the same for the f32 kernels, whose CUDA-core designs gave way to
+# split-TF32 ones: their D=64 f32 times as PERF.md records them
+PREV_MS_RECORDED_F32 = {"flash_fwd": 7.244, "flash_bwd_dq": 11.14, "flash_bwd_dkv": 14.29}
 # the f32 kernels' tiles (forward: 128 q rows and 64 keys at D 64, 64 and
-# 32 at D 128; dK/dV: 64 keys and 64 q rows at D 64, 16 q rows at D 128):
-# small causal lengths one short of and one past them, per head dim
-F32_EDGE_SEQS = {64: (63, 65, 127), 128: (15, 17, 31, 33, 63, 65)}
+# 32 at D 128; dK/dV: 64 keys and 64 q rows at D 64, 16 q rows at D 128;
+# dQ: 64 q rows and 32 keys at D 64, 16 keys at D 128): small causal
+# lengths one short of and one past them, per head dim
+F32_EDGE_SEQS = {64: (31, 33, 63, 65, 127), 128: (15, 17, 31, 33, 63, 65)}
 # SDPA's backward, the yardstick for dQ + dK/dV, moves from timing to
 # timing: its median of this many
 LIBRARY_BWD_TIMINGS = 5
@@ -603,8 +605,8 @@ def build_phase(libs) -> None:
 def sass_phase(fa) -> dict:
     """The f32 flash kernels' tensor-core instructions in the built
     libraries (``cuobjdump -sass``), per kernel and head dim: the
-    split-TF32 forward and dK/dV must issue HGMMA (wgmma) or HMMA
-    (mma.sync) on TF32; the f32 dQ, a CUDA-core kernel, issues neither."""
+    split-TF32 forward, dQ and dK/dV must each issue HGMMA (wgmma) or HMMA
+    (mma.sync) on TF32."""
     import re
 
     from polyaxon_tpu_torch.ops.cuda_build import _nvcc
@@ -625,15 +627,13 @@ def sass_phase(fa) -> dict:
                 for op in ("HGMMA", "HMMA"):
                     if f"{op}." in line:
                         counts[kernel][f"{op.lower()}_tf32"] += 1
-    for name in ("flash_fwd_tf32_kernel", "flash_bwd_dkv_tf32_kernel"):
+    for name in ("flash_fwd_tf32_kernel", "flash_bwd_dq_tf32_kernel",
+                 "flash_bwd_dkv_tf32_kernel"):
         for head_dim in (64, 128):
             c = counts.get(f"{name}/d{head_dim}")
             if not c or not c["hgmma_tf32"] + c["hmma_tf32"]:
                 raise AssertionError(f"{name} at D {head_dim} issues no TF32 tensor-core "
                                      f"instruction: {c}")
-    for head_dim in (64, 128):
-        if sum(counts[f"flash_bwd_dq_kernel/d{head_dim}"].values()):
-            raise AssertionError("the f32 dQ kernel issues tensor-core instructions")
     return counts
 
 
@@ -1094,7 +1094,7 @@ def profile_steps(torch, fn, steps: int = 3,
                   kernels: tuple = ("paged_decode", "paged_decode_combine")) -> dict:
     """Device time of ``steps`` calls of ``fn`` by kernel, from
     torch.profiler: the per-step device time, each named kernel's time and
-    share of it (``name`` counts every ``name_*kernel<...>`` of the port, so
+    share of it (``name`` counts every ``name_*kernel`` of the port, so
     ``paged_decode`` holds the bf16 split and combine kernels together), the
     device's idle share of the wall time, and the largest kernels."""
     import re
@@ -1126,7 +1126,7 @@ def profile_steps(torch, fn, steps: int = 3,
         "device_idle_share": (1.0 - total / wall_us) if total else None,
     }
     for name in kernels:
-        named = re.compile(rf"\b{name}_(\w+_)?kernel<")
+        named = re.compile(rf"\b{name}_(\w+_)?kernel[<(]")
         t = sum(r[1] for r in rows if named.search(r[0]))
         out[f"{name}_ms_per_step"] = t / steps / 1e3
         out[f"{name}_share"] = t / total if total else None
@@ -1409,6 +1409,31 @@ def flash_f32_path_phase(torch, fa) -> dict:
                                  f"the tolerance {FLASH_TOL['float32']}")
         out[f"d{head_dim}"] = {"launches": launches, "tol_ratio_vs_dense": ratios}
         del q, k, v, g, leaves, ref, o, o_ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_f32_split_profile_phase(torch, fa) -> dict:
+    """The f32 backward kernels' split pass (``split_tf32*_kernel``), which
+    each f32 dQ and dK/dV launch runs before its kernel: its device time
+    and share beside the kernel's in a torch.profiler trace of three
+    launches of each, at the flash_kernel phase's shape (BH 64, S 2048,
+    causal) at D 64 and 128."""
+    out = {}
+    for head_dim in (64, 128):
+        q, k, v, do = flash_inputs(torch, 64, 2048, head_dim, torch.float32, seed=head_dim)
+        kw = dict(sm_scale=head_dim ** -0.5, causal=True)
+        o, lse = fa.flash_fwd_cuda(q, k, v, 0, 0, **kw)
+        args = (q, k, v, do, *fa.bwd_row_stats(o, lse, do), 0, 0)
+        for kname, fn in (("flash_bwd_dq", fa.flash_bwd_dq_cuda),
+                          ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda)):
+            prof = profile_steps(torch, lambda: fn(*args, **kw), 3,
+                                 kernels=("split_tf32", kname))
+            out[f"{kname}_d{head_dim}"] = {
+                "split_ms": prof["split_tf32_ms_per_step"],
+                "kernel_ms": prof[f"{kname}_ms_per_step"],
+                "split_share": prof["split_tf32_share"]}
+        del q, k, v, do, o, lse, args
         torch.cuda.empty_cache()
     return out
 
@@ -4598,6 +4623,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log("bridge_profile", **bridge_profile_phase(torch, TRAIN_SPEC))
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("flash_f32_split_profile", **flash_f32_split_profile_phase(torch, fa))
     for phase, spec in (("train_bert", BERT_SPEC), ("train_vit", VIT_SPEC),
                         ("train_resnet", RESNET_SPEC)):
         gc.collect()
@@ -4656,9 +4684,9 @@ def main() -> int:
                      **{key: flash_d128[name][key] for key in (
                          "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms")}}})
-    # the f32 kernels (split-TF32 forward and dK/dV, CUDA-core dQ): their
-    # launches are flash_f32_path's, their numbers the D=64 f32 row's, and
-    # ``d128`` the D=128 ones
+    # the f32 kernels (split-TF32 forward, dQ and dK/dV): their launches are
+    # flash_f32_path's, their numbers the D=64 f32 row's, and ``d128`` the
+    # D=128 ones
     for name, source, replaces in (
             ("flash_fwd", "flash_fwd.cu", "polyaxon_tpu/ops/flash_attention.py:77"),
             ("flash_bwd_dq", "flash_bwd.cu", "polyaxon_tpu/ops/flash_attention.py:210"),

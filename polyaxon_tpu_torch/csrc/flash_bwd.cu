@@ -4,7 +4,7 @@
 // launched by _flash_bwd:
 //
 // - dQ   <- _bwd_dq_kernel:  dQ = sum_j dS K
-//   (bf16: flash_bwd_dq_wgmma_kernel; f32: flash_bwd_dq_kernel)
+//   (bf16: flash_bwd_dq_wgmma_kernel; f32: flash_bwd_dq_tf32_kernel)
 // - dK/dV <- _bwd_dkv_kernel: dV = sum_i P^T dO, dK = sum_i dS^T Q
 //   (bf16: flash_bwd_dkv_wgmma_kernel; f32: flash_bwd_dkv_tf32_kernel)
 //
@@ -65,35 +65,56 @@
 // dO and Q MN-major from the stage. Shared memory: 67 KB at D = 64, 131 KB
 // at D = 128.
 //
-// dK/dV in f32 (flash_bwd_dkv_tf32_kernel): the bf16 kernel's walk and
-// rules with split-TF32 products (hopper.cuh: A_hi B_lo + A_lo B_hi + A_hi
-// B_hi, within ~2^-22 of f32), bound at 3 x 4 products over 495 TFLOP/s:
-// 0.417 ms at the llama-1b shape in f32, 0.833 ms at D = 128. A split pass
-// first writes Q (in three parts: hi, lo and the rest, x - hi - lo), dO, K
-// and V (hi and lo) into a workspace. A CTA takes 64 keys, whose K and V
-// hi and lo stay in shared memory for the whole walk (64 KB at D = 64, 128
-// KB at D = 128), while the producer streams the Q and dO parts, with their
-// LSE and delta, through a ring of 32-row stages (16 rows at D = 128; four
-// stages at D = 64, two at D = 128): 226 KiB of shared memory at D = 64,
-// 209 KiB at D = 128, one CTA to an SM. Two consumer warpgroups take the
-// q tiles in turn, each summing dK and dV for all 64 keys over its half of
-// the walk; at the end one adds its sums into the other's through shared
-// memory. S^T = K Q^T and dP^T = V dO^T are tf32 wgmma products (K-major
-// on both sides); S^T takes K_hi Q_rest^T as a fourth product and keeps
-// K_hi Q_hi^T in an accumulator of its own, added once (P = exp(s scale -
-// LSE) with an LSE from outside turns a score's error times |s scale| into
-// P's relative error). P^T and dS^T stay in registers. dV += P^T dO and
-// dK += dS^T Q reduce over q rows, which Q and dO do not store
-// contiguously, and tf32 wgmma has no transpose, so they run on mma.sync
-// m16n8k8 (each warp its 16 keys, the B elements loaded from the swizzled
-// tiles), each tile's products summed apart before they join the running
-// sums: a transposed copy of Q and dO would not fit beside them.
+// The f32 kernels (flash_bwd_dkv_tf32_kernel, flash_bwd_dq_tf32_kernel) keep
+// the bf16 kernels' rules and the shape of their walks, with split-TF32
+// products (hopper.cuh:
+// A_hi B_lo + A_lo B_hi + A_hi B_hi, within ~2^-22 of f32), bound at 3
+// passes per product over 495 TFLOP/s: dK/dV (4 products) 0.417 ms at the
+// llama-1b shape in f32 and 0.833 ms at D = 128, dQ (3 products) 0.3125 and
+// 0.625 ms. Each launch first runs the same split pass, which writes Q in
+// three parts (hi, lo and the rest, x - hi - lo), dO, K and V in two (hi
+// and lo) into a workspace the wrapper allocates. Scores take Q in three
+// parts (a fourth product, Q_rest K_hi) and keep Q_hi K_hi in an
+// accumulator of their own, added once: P = exp(s scale - LSE) with an LSE
+// from outside turns a score's error times |s scale| (hundreds) into P's
+// relative error, and s scale - LSE is taken in natural units, as the plain
+// version takes it. The products that reduce over the streamed dimension
+// (dV = P^T dO and dK = dS^T Q over q rows, dQ = dS K over keys) would need
+// their B operand stored transposed for tf32 wgmma, which reads shared
+// memory only K-major; a transposed copy beside the tiles does not fit in
+// shared memory at D = 128, so they run on mma.sync m16n8k8, each warp its
+// 16 rows of the output, with A (P, dS) from the accumulators through
+// to_a_tf32 and the B elements loaded from the swizzled tiles. Each tile's
+// products are summed apart before they join the running sums: the tensor
+// cores' sums truncate, and over a whole walk into one accumulator that
+// bias grows with the number of products.
 //
-// dQ in f32 (flash_bwd_dq_kernel): 32-row tiles, 2 warps, staged in shared
-// memory by the whole CTA; each warp computes its 16-row blocks of S and dO
-// V^T on the CUDA cores, the elementwise P and dS (two lanes per row), and
-// adds dS K into an f32 accumulator in shared memory. Loads do not overlap
-// the products. Its split-TF32 redesign is still to come.
+// dK/dV in f32: a CTA takes 64 keys, whose K and V hi and lo stay in shared
+// memory for the whole walk (64 KB at D = 64, 128 KB at D = 128), while the
+// producer streams the Q and dO parts, with their LSE and delta, through a
+// ring of 32-row stages (16 rows at D = 128; four stages at D = 64, two at
+// D = 128): 226 KiB of shared memory at D = 64, 209 KiB at D = 128, one CTA
+// to an SM. Two consumer warpgroups take the q tiles in turn, each summing
+// dK and dV for all 64 keys over its half of the walk; at the end one adds
+// its sums into the other's through shared memory. S^T = K Q^T and dP^T =
+// V dO^T are tf32 wgmma products (K-major on both sides); P^T and dS^T stay
+// in registers.
+//
+// dQ in f32 mirrors it: a CTA takes 64 q rows, whose Q parts and dO hi and
+// lo stay in shared memory for the whole walk (80 KB at D = 64, 160 KB at
+// D = 128), and the rows' LSE and delta are read once into registers, while
+// the producer streams K and V hi and lo through a ring of 32-key stages
+// (16 keys at D = 128; four stages at D = 64, two at D = 128): 209 KiB of
+// shared memory at D = 64, 225 KiB at D = 128, one CTA to an SM. Two
+// consumer warpgroups take the kv tiles in turn, each summing dQ for all 64
+// rows over its half of the walk, and one adds its sums into the other's at
+// the end. S = Q K^T and dP = dO V^T are tf32 wgmma products, committed as
+// two groups so that P is formed while dP is in flight; dQ += dS K runs on
+// mma.sync, reading K hi and lo from the stage. dP's dO_hi V_hi^T runs in
+// four chains, each from zero into an accumulator of its own, added to
+// nearest: dS = P (dP - delta) scale cancels where P is near 1, and along
+// one accumulator the wgmma sums' truncation would leave dP less accurate
+// than an f32 sum.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -101,117 +122,6 @@
 namespace {
 
 using namespace flash;
-
-// ---- f32: CUDA cores, products and accumulators in shared memory -------------
-
-template <int D>
-struct BwdSmem {
-  static constexpr int kTile = kTileF32;
-  static constexpr int kWarps = kTile / 16;
-  static constexpr size_t tile = pad128(sizeof(float) * kTile * ld_of<D>());  // one of q/do/k/v
-  static constexpr size_t rows = pad128(sizeof(float) * kTile);               // one of lse/delta
-  static constexpr size_t s = pad128(sizeof(float) * kWarps * 16 * ldf_of<kTile>());
-  static constexpr size_t p = pad128(sizeof(float) * kWarps * 16 * ld_of<kTile>());
-  static constexpr size_t acc = pad128(sizeof(float) * kWarps * 16 * ldf_of<D>());
-  // q, do, k, v; lse, delta; S, dP; dS; dQ
-  static constexpr size_t dq_total = 4 * tile + 2 * rows + 2 * s + p + acc;
-};
-
-// The tile's elementwise step for one lane's half row: dS from the f32
-// products S (= q.k) and dP (= dO.v) through P; `hidden(c)` says whether the
-// pair at column c is masked (causally, or its key lies past the end), and
-// the caller's maps give each column's LSE and delta.
-template <int N, typename Hidden, typename LseOf, typename DeltaOf>
-__device__ __forceinline__ void probs_and_ds(const float* s_row, const float* dp_row,
-                                             float* ds_out, int half, float scale,
-                                             Hidden hidden, LseOf lse_of, DeltaOf delta_of) {
-  for (int c = half * (N / 2); c < (half + 1) * (N / 2); ++c) {
-    const float lse = lse_of(c);
-    float p = 0.f;
-    if (lse != -CUDART_INF_F && !hidden(c)) p = expf(s_row[c] * scale - lse);
-    ds_out[c] = p * (dp_row[c] - delta_of(c)) * scale;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(BwdSmem<D>::kWarps * 32)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int sq, int sk, int q_offset, int k_offset,
-                    int causal, int walk_cut, float scale) {
-  using L = BwdSmem<D>;
-  constexpr int kTile = L::kTile;
-  constexpr int kThreads = L::kWarps * 32;
-  constexpr int LD = ld_of<D>();
-  constexpr int LDS = ldf_of<kTile>();
-  constexpr int LDP = ld_of<kTile>();
-  constexpr int LDA = ldf_of<D>();
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* at = smem;
-  float* q_s = reinterpret_cast<float*>(at);
-  float* do_s = reinterpret_cast<float*>(at += L::tile);
-  float* k_s = reinterpret_cast<float*>(at += L::tile);
-  float* v_s = reinterpret_cast<float*>(at += L::tile);
-  float* lse_s = reinterpret_cast<float*>(at += L::tile);
-  float* delta_s = reinterpret_cast<float*>(at += L::rows);
-  float* s_all = reinterpret_cast<float*>(at += L::rows);
-  float* dp_all = reinterpret_cast<float*>(at += L::s);
-  float* ds_all = reinterpret_cast<float*>(at += L::s);
-  float* acc_all = reinterpret_cast<float*>(at += L::p);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;  // heaviest tiles first
-  float* s_w = s_all + warp * 16 * LDS;
-  float* dp_w = dp_all + warp * 16 * LDS;
-  float* ds_w = ds_all + warp * 16 * LDP;
-  float* acc_w = acc_all + warp * 16 * LDA;
-
-  const size_t row0 = static_cast<size_t>(bh) * sq + q0;
-  load_tile<D>(q_s, q + row0 * D, kTile, sq - q0, tid, kThreads);
-  load_tile<D>(do_s, dout + row0 * D, kTile, sq - q0, tid, kThreads);
-  for (int i = tid; i < kTile; i += kThreads) {
-    const bool in = q0 + i < sq;
-    lse_s[i] = in ? lse[row0 + i] : -CUDART_INF_F;
-    delta_s[i] = in ? delta[row0 + i] : 0.f;
-  }
-  for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) acc_w[r * LDA + c] = 0.f;
-
-  const int kend = kv_tiles_end(q0, kTile, kTile, tiles_of(sk, kTile), q_offset, k_offset,
-                                causal, walk_cut);
-  const int row = warp * 16 + r;
-  const int qid = q_offset + q0 + row;
-
-  for (int t = 0; t < kend; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    const size_t key0 = static_cast<size_t>(bh) * sk + k0;
-    load_tile<D>(k_s, k + key0 * D, kTile, sk - k0, tid, kThreads);
-    load_tile<D>(v_s, v + key0 * D, kTile, sk - k0, tid, kThreads);
-    __syncthreads();
-
-    warp_mma<true, kTile, D>(s_w, LDS, q_s + warp * 16 * LD, LD, k_s, LD, false);    // q k^T
-    warp_mma<true, kTile, D>(dp_w, LDS, do_s + warp * 16 * LD, LD, v_s, LD, false);  // dO v^T
-    __syncwarp();
-    probs_and_ds<kTile>(
-        s_w + r * LDS, dp_w + r * LDS, ds_w + r * LDP, half, scale,
-        [&](int c) { return k0 + c >= sk || (causal && qid < k_offset + k0 + c); },
-        [&](int) { return lse_s[row]; }, [&](int) { return delta_s[row]; });
-    __syncwarp();
-    warp_mma<false, D, kTile>(acc_w, LDA, ds_w, LDP, k_s, LD, true);  // dQ += dS K
-    __syncwarp();
-  }
-
-  if (q0 + row >= sq) return;  // a row past the end of a partial tile
-  float* dq_row = dq + (row0 + row) * D;
-  for (int c = half * (D / 2); c < (half + 1) * (D / 2); ++c) dq_row[c] = acc_w[r * LDA + c];
-}
 
 // ---- dK/dV in bf16: wgmma, TMA, accumulators in registers ---------------------
 
@@ -446,9 +356,9 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
-// the workspace of the split pass, in floats: Q [3, bh, sq, D] (hi, lo,
-// rest), dO [2, bh, sq, D] and K, V [2, bh, sk, D] (hi, lo)
-inline size_t dkv_workspace_floats(int bh, int sq, int sk, int d) {
+// the workspace of the split pass of both f32 kernels, in floats: Q [3, bh,
+// sq, D] (hi, lo, rest), dO [2, bh, sq, D] and K, V [2, bh, sk, D] (hi, lo)
+inline size_t bwd_workspace_floats(int bh, int sq, int sk, int d) {
   return static_cast<size_t>(bh) * d * (5 * static_cast<size_t>(sq) + 4 * sk);
 }
 
@@ -715,6 +625,269 @@ flash_bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ---- dQ in f32: split-TF32 wgmma and mma.sync, TMA, registers ------------------
+
+template <int D>
+struct DqTilesF32 {
+  static constexpr int kRows = 64;          // q rows per CTA, both consumer warpgroups'
+  static constexpr int kThreads = 3 * 128;  // two consumer warpgroups and the producer
+  static constexpr int kKeys = 2048 / D;    // keys per streamed tile: 32, or 16 at D = 128
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr uint32_t q = kRows * D * 4;   // one of Q hi, lo, rest; dO hi, lo
+  static constexpr uint32_t kv = kKeys * D * 4;  // one of K hi, K lo, V hi, V lo
+  static constexpr uint32_t stage = 4 * kv;
+  // Q/dO, the stages, the barriers (Q/dO, full and empty per stage), plus
+  // the room to align the start to 1024 bytes
+  static constexpr size_t total = 5 * q + kStages * stage + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqTilesF32<D>::kThreads, 1)
+flash_bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq, int sq, int sk, int q_offset, int k_offset,
+                         int causal, int walk_cut, float scale) {
+  using namespace hopper;
+  using L = DqTilesF32<D>;
+  constexpr int kRows = L::kRows;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  // Q hi, Q lo, Q rest, dO hi, dO lo, for the whole walk
+  auto qdo_of = [&](int i) { return reinterpret_cast<float*>(smem + i * L::q); };
+  unsigned char* ring = smem + 5 * L::q;
+  // stage s: K hi, K lo, V hi, V lo; then the barriers
+  auto tile_of = [&](int s, int i) {
+    return reinterpret_cast<float*>(ring + s * L::stage + i * L::kv);
+  };
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(ring + kStages * L::stage);
+  uint64_t* full = qdo_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.y;
+  const int nbh = gridDim.y;  // part i of head bh is head bh + i nbh of each map
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest tiles first
+  const int kend = kv_tiles_end(q0, kRows, kKeys, tiles_of(sk, kKeys), q_offset, k_offset,
+                                causal, walk_cut);
+
+  if (threadIdx.x == 0) {
+    bar_init(qdo_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 4);  // one arrival per warp of the warpgroup that takes it
+    }
+    fence_bar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer: one thread issues every load
+    regs_dec<24>();
+    if (threadIdx.x == 256) {
+      bar_arrive_expect_tx(qdo_full, 5 * L::q);
+      for (int part = 0; part < 3; ++part)
+        tma_panels<D / 32, kRows>(qdo_of(part), &q_map, qdo_full, 0, q0, bh + part * nbh);
+      for (int part = 0; part < 2; ++part)
+        tma_panels<D / 32, kRows>(qdo_of(3 + part), &do_map, qdo_full, 0, q0, bh + part * nbh);
+      for (int t = 0; t < kend; ++t) {
+        const int s = t % kStages;
+        const int k0 = t * kKeys;
+        bar_wait(&empty[s], ((t / kStages) & 1) ^ 1);  // the first round finds it free
+        bar_arrive_expect_tx(&full[s], L::stage);
+        for (int part = 0; part < 2; ++part) {
+          tma_panels<D / 32, kKeys>(tile_of(s, part), &k_map, &full[s], 0, k0, bh + part * nbh);
+          tma_panels<D / 32, kKeys>(tile_of(s, 2 + part), &v_map, &full[s], 0, k0,
+                                    bh + part * nbh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: q rows q0 .. q0 + 63 (warp w rows 16w .. 16w +
+  // 15) over the kv tiles wg, wg + 2, ...: the two take turns, so that one's
+  // products overlap the other's elementwise work and loads
+  regs_inc<240>();
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int row0 = (tid / 32) * 16 + g;  // this thread's rows: row0, row0 + 8
+  const int col0 = 2 * (lane % 4);        // and keys col0, col0 + 1 of each 8
+  const int qid0 = q_offset + q0 + row0;
+  const float* q_hi = qdo_of(0);
+  const float* q_lo = qdo_of(1);
+  const float* q_rest = qdo_of(2);
+  const float* do_hi = qdo_of(3);
+  const float* do_lo = qdo_of(4);
+
+  // the rows' LSE and delta, read once: a row that sees no key (LSE =
+  // -inf) or lies past the end gets +inf, so that its P = exp2(-inf) is 0
+  // with no test per score
+  float lse_r[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + row0 + 8 * h;
+    const bool in = row < sq;
+    const size_t at = static_cast<size_t>(bh) * sq + row;
+    const float x = in ? lse[at] : -CUDART_INF_F;
+    lse_r[h] = x == -CUDART_INF_F ? CUDART_INF_F : x;
+    dlt[h] = in ? delta[at] : 0.f;
+  }
+
+  float dq_acc[D / 2];
+  // S's largest part (Q_hi K_hi^T) and its rest apart; dP's largest part
+  // (dO_hi V_hi^T) in kDpChains chains of kChainSteps k8 steps, each an
+  // accumulator of its own, and its rest apart; then P in s_acc, dS in
+  // dp_acc[0]
+  constexpr int kDpChains = 4;
+  constexpr int kChainSteps = D / 8 / kDpChains;
+  float s_acc[kKeys / 2], s_rest[kKeys / 2], dp_acc[kDpChains][kKeys / 2], dp_rest[kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) {
+    s_acc[i] = s_rest[i] = dp_rest[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kDpChains; ++c) dp_acc[c][i] = 0.f;
+  }
+
+  bar_wait(qdo_full, 0);
+  for (int t = wg; t < kend; t += 2) {
+    const int s = t % kStages;
+    const int k0 = t * kKeys;
+    bar_wait(&full[s], (t / kStages) & 1);
+    const float* k_hi = tile_of(s, 0);
+    const float* k_lo = tile_of(s, 1);
+    const float* v_hi = tile_of(s, 2);
+    const float* v_lo = tile_of(s, 3);
+
+    // S = Q K^T and dP = dO V^T by wgmma along D (k8 steps, 32 columns to a
+    // panel), committed as two groups. S sums Q_hi K_hi^T into s_acc and
+    // Q_rest K_hi^T + Q_lo K_hi^T + Q_hi K_lo^T into s_rest, as dK/dV's S^T.
+    // dS = P (dP - delta) scale cancels where P is near 1, so dP's error
+    // reaches dQ as it is, times |K scale|; and each wgmma truncates its
+    // sum toward zero, which along one accumulator of D / 8 steps adds a
+    // bias of up to a place a step, past an f32 sum's rounding to nearest.
+    // So dO_hi V_hi^T runs in short chains, each from zero into its own
+    // accumulator, and the chains and dP's rest (dO_lo V_hi^T + dO_hi
+    // V_lo^T) are added to nearest in registers
+    hold(s_acc);
+    hold(s_rest);
+#pragma unroll
+    for (int c = 0; c < kDpChains; ++c) hold(dp_acc[c]);
+    hold(dp_rest);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int a = (kk / 4) * kRows * 32 + (kk % 4) * 8;
+      const int b = (kk / 4) * kKeys * 32 + (kk % 4) * 8;
+      mma_ss_tf32<kKeys>(s_rest, desc_k(q_rest + a), desc_k(k_hi + b), kk > 0);
+      mma_ss_tf32<kKeys>(s_rest, desc_k(q_lo + a), desc_k(k_hi + b), 1);
+      mma_ss_tf32<kKeys>(s_rest, desc_k(q_hi + a), desc_k(k_lo + b), 1);
+      mma_ss_tf32<kKeys>(s_acc, desc_k(q_hi + a), desc_k(k_hi + b), kk > 0);
+    }
+    mma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int a = (kk / 4) * kRows * 32 + (kk % 4) * 8;
+      const int b = (kk / 4) * kKeys * 32 + (kk % 4) * 8;
+      mma_ss_tf32<kKeys>(dp_rest, desc_k(do_lo + a), desc_k(v_hi + b), kk > 0);
+      mma_ss_tf32<kKeys>(dp_rest, desc_k(do_hi + a), desc_k(v_lo + b), 1);
+      mma_ss_tf32<kKeys>(dp_acc[kk / kChainSteps], desc_k(do_hi + a), desc_k(v_hi + b),
+                         kk % kChainSteps > 0);
+    }
+    mma_commit();
+
+    // P while dP is still in flight, in natural units as dK/dV takes it; a
+    // tile crossing the diagonal or the end of the keys is masked
+    mma_wait<1>();
+    hold(s_acc);
+    hold(s_rest);
+    const bool masked = k0 + kKeys > sk ||
+                        (causal && q_offset + q0 < k_offset + k0 + kKeys - 1);
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      float p = exp2_fast(fmaf(s_acc[i] + s_rest[i], scale, -lse_r[h]) * kLog2e);
+      if (masked) {
+        const int key = k0 + (i / 4) * 8 + col0 + (i & 1);
+        if (key >= sk || (causal && qid0 + 8 * h < k_offset + key)) p = 0.f;
+      }
+      s_acc[i] = p;
+    }
+    // then dS
+    mma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kDpChains; ++c) hold(dp_acc[c]);
+    hold(dp_rest);
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) {
+      float dp = dp_acc[0][i];
+#pragma unroll
+      for (int c = 1; c < kDpChains; ++c) dp += dp_acc[c][i];
+      dp_acc[0][i] = s_acc[i] * (dp + dp_rest[i] - dlt[(i >> 1) & 1]) * scale;
+    }
+
+    // dQ += dS K by mma.sync, as dK/dV's dK += dS^T Q: each warp takes its
+    // 16 rows; dS feeds the A operand from the accumulator (to_a_tf32's
+    // key_of order), and each thread loads its B elements (keys 8ks +
+    // key_of(t%4) and 8ks + key_of(t%4 + 4), column 8nt + t/4) from the
+    // swizzled K tiles, split already. Each 8-column group of dQ sums this
+    // tile's products apart and is added to the running sum once.
+    uint32_t ds_hi[kKeys / 8][4], ds_lo[kKeys / 8][4];
+    to_a_tf32<kKeys>(dp_acc[0], ds_hi, ds_lo);
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      float dq_t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < kKeys / 8; ++ks) {
+        const int r = 8 * ks + key_of(lane % 4);  // b0's key; b1's is r + 1
+        const int at0 = swizzled_f32<kKeys>(r, 8 * nt + g);
+        const int at1 = swizzled_f32<kKeys>(r + 1, 8 * nt + g);
+        const uint32_t kh0 = __float_as_uint(k_hi[at0]), kh1 = __float_as_uint(k_hi[at1]);
+        const uint32_t kl0 = __float_as_uint(k_lo[at0]), kl1 = __float_as_uint(k_lo[at1]);
+        mma_sync_tf32(dq_t, ds_lo[ks], kh0, kh1);
+        mma_sync_tf32(dq_t, ds_hi[ks], kl0, kl1);
+        mma_sync_tf32(dq_t, ds_hi[ks], kh0, kh1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq_acc[4 * nt + e] += dq_t[e];
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[s]);  // this warp is done with the stage
+  }
+
+  // the two warpgroups' sums over their halves of the walk: once both
+  // have passed every tile the ring is free, warpgroup 1 leaves its sums
+  // there, and warpgroup 0 adds them and writes
+  float* part = reinterpret_cast<float*>(ring);
+  consumers_sync();
+  if (wg == 1) {
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) part[j * 128 + tid] = dq_acc[j];
+  }
+  consumers_sync();
+  if (wg == 1) return;
+#pragma unroll
+  for (int j = 0; j < D / 2; ++j) dq_acc[j] += part[j * 128 + tid];
+
+  // epilogue: the rows inside Sq
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + row0 + 8 * h;
+    if (row >= sq) continue;
+    float2* out = reinterpret_cast<float2*>(dq + (static_cast<size_t>(bh) * sq + row) * D);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      out[4 * j + lane % 4] = make_float2(dq_acc[4 * j + 2 * h], dq_acc[4 * j + 2 * h + 1]);
+  }
+}
+
 // ---- dQ in bf16: wgmma, TMA, accumulators in registers ------------------------
 
 // one consumer warpgroup of 64 q rows and a producer warpgroup per CTA, two
@@ -907,23 +1080,55 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
   void *dq, *dk, *dv;
-  float* ws;  // the split pass's workspace (f32 dK/dV)
+  float* ws;  // the split pass's workspace (f32)
   int bh, sq, sk, q_offset, k_offset, causal, walk_cut;
   float scale;
   cudaStream_t stream;
 };
 
+// the split pass's outputs in the workspace (bwd_workspace_floats)
+struct Parts {
+  float *q, *dout, *k, *v;
+};
+
+// The split pass that both f32 kernels run first: Q into hi, lo and rest;
+// dO, K and V into hi and lo.
+inline Parts split_pass(const Args& a, int d) {
+  const size_t rows = static_cast<size_t>(a.bh) * a.sq * d;
+  const size_t keys = static_cast<size_t>(a.bh) * a.sk * d;
+  const Parts w{a.ws, a.ws + 3 * rows, a.ws + 5 * rows, a.ws + 5 * rows + 2 * keys};
+  hopper::split_tf32_launch(a.q, w.q, rows, 3, a.stream);
+  hopper::split_tf32_launch(a.dout, w.dout, rows, 2, a.stream);
+  hopper::split_tf32_launch(a.k, w.k, keys, 2, a.stream);
+  hopper::split_tf32_launch(a.v, w.v, keys, 2, a.stream);
+  return w;
+}
+
+// The split pass, then the maps of its output (Q, K, V, dO) for an f32
+// kernel whose tiles L load L::kRows q rows and L::kKeys keys a box.
+template <typename L, int D>
+int split_and_map(const Args& a, CUtensorMap (&maps)[4]) {
+  if (a.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Parts w = split_pass(a, D);
+  int rc = hopper::make_map_f32(&maps[0], w.q, 3 * a.bh, a.sq, D, L::kRows);
+  if (rc == 0) rc = hopper::make_map_f32(&maps[1], w.k, 2 * a.bh, a.sk, D, L::kKeys);
+  if (rc == 0) rc = hopper::make_map_f32(&maps[2], w.v, 2 * a.bh, a.sk, D, L::kKeys);
+  if (rc == 0) rc = hopper::make_map_f32(&maps[3], w.dout, 2 * a.bh, a.sq, D, L::kRows);
+  return rc;
+}
+
 template <int D>
-int launch_dq_f32(const Args& a) {
-  using L = BwdSmem<D>;
-  static const cudaError_t attr = allow_smem(flash_bwd_dq_kernel<D>, L::dq_total);
+int launch_dq_tf32(const Args& a) {
+  using L = DqTilesF32<D>;
+  static const cudaError_t attr = allow_smem(flash_bwd_dq_tf32_kernel<D>, L::total);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  flash_bwd_dq_kernel<D><<<dim3(tiles_of(a.sq, L::kTile), a.bh), L::kWarps * 32, L::dq_total,
-                           a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
-      static_cast<float*>(a.dq), a.sq, a.sk, a.q_offset, a.k_offset, a.causal, a.walk_cut,
-      a.scale);
+  CUtensorMap maps[4];
+  const int rc = split_and_map<L, D>(a, maps);
+  if (rc != 0) return rc;
+  flash_bwd_dq_tf32_kernel<D><<<dim3(tiles_of(a.sq, L::kRows), a.bh), L::kThreads, L::total,
+                                a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.lse, a.delta, static_cast<float*>(a.dq), a.sq, a.sk,
+      a.q_offset, a.k_offset, a.causal, a.walk_cut, a.scale);
   return 0;
 }
 
@@ -945,29 +1150,13 @@ int launch_dq_wgmma(const Args& a) {
   return 0;
 }
 
-// The split pass (Q into hi, lo and rest; dO, K and V into hi and lo),
-// then the kernel over its output.
 template <int D>
 int launch_dkv_tf32(const Args& a) {
   using L = DkvTilesF32<D>;
   static const cudaError_t attr = allow_smem(flash_bwd_dkv_tf32_kernel<D>, L::total);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  if (a.ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t rows = static_cast<size_t>(a.bh) * a.sq * D;
-  const size_t keys = static_cast<size_t>(a.bh) * a.sk * D;
-  float* q_s = a.ws;
-  float* do_s = q_s + 3 * rows;
-  float* k_s = do_s + 2 * rows;
-  float* v_s = k_s + 2 * keys;
-  hopper::split_tf32_launch(a.q, q_s, rows, 3, a.stream);
-  hopper::split_tf32_launch(a.dout, do_s, rows, 2, a.stream);
-  hopper::split_tf32_launch(a.k, k_s, keys, 2, a.stream);
-  hopper::split_tf32_launch(a.v, v_s, keys, 2, a.stream);
   CUtensorMap maps[4];
-  int rc = hopper::make_map_f32(&maps[0], q_s, 3 * a.bh, a.sq, D, L::kRows);
-  if (rc == 0) rc = hopper::make_map_f32(&maps[1], k_s, 2 * a.bh, a.sk, D, L::kKeys);
-  if (rc == 0) rc = hopper::make_map_f32(&maps[2], v_s, 2 * a.bh, a.sk, D, L::kKeys);
-  if (rc == 0) rc = hopper::make_map_f32(&maps[3], do_s, 2 * a.bh, a.sq, D, L::kRows);
+  const int rc = split_and_map<L, D>(a, maps);
   if (rc != 0) return rc;
   flash_bwd_dkv_tf32_kernel<D><<<dim3(tiles_of(a.sk, L::kKeys), a.bh), L::kThreads, L::total,
                                  a.stream>>>(
@@ -996,11 +1185,10 @@ int launch_dkv_wgmma(const Args& a) {
   return 0;
 }
 
-// dtype 0 = f32 runs the CUDA-core dQ and the split-TF32 dK/dV, 1 = bf16
-// the wgmma ones
+// dtype 0 = f32 runs the split-TF32 kernels, 1 = bf16 the bf16 ones
 template <bool kDq, int D>
 int launch(int dtype, const Args& a) {
-  if (dtype == 0) return kDq ? launch_dq_f32<D>(a) : launch_dkv_tf32<D>(a);
+  if (dtype == 0) return kDq ? launch_dq_tf32<D>(a) : launch_dkv_tf32<D>(a);
   if (dtype == 1) return kDq ? launch_dq_wgmma<D>(a) : launch_dkv_wgmma<D>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1023,9 +1211,9 @@ int run(int head_dim, int dtype, const Args& a) {
 
 template <int D>
 int resources_of(int kernel, int dtype, int* out) {
-  using B = BwdSmem<D>;
   if (kernel == 0 && dtype == 0)
-    return resources(flash_bwd_dq_kernel<D>, B::kWarps * 32, B::dq_total, out);
+    return resources(flash_bwd_dq_tf32_kernel<D>, DqTilesF32<D>::kThreads,
+                     DqTilesF32<D>::total, out);
   if (kernel == 0 && dtype == 1)
     return resources(flash_bwd_dq_wgmma_kernel<D>, kDqThreads, DqTiles<D>::total, out);
   if (kernel == 1 && dtype == 0)
@@ -1040,24 +1228,23 @@ int resources_of(int kernel, int dtype, int* out) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. walk_cut: tiles cut from each walk, 0
-// in use (1 plants a fault that a check must see: dQ stops before the
-// diagonal kv tile, dK/dV starts one q tile late). Each returns
-// cudaGetLastError() after its launch (0 on success), or
-// cudaErrorInvalidValue for a shape or dtype the kernel does not take.
-// Launches on `stream`, does not synchronise.
+// dtype: 0 = float32, 1 = bfloat16. workspace: flash_bwd_workspace() bytes
+// for the split pass (f32), 16-byte aligned, or null where that is 0.
+// walk_cut: tiles cut from each walk, 0 in use (1 plants a fault that a
+// check must see: dQ stops before the diagonal kv tile, dK/dV starts one q
+// tile late). Each returns cudaGetLastError() after its launches (0 on
+// success), or cudaErrorInvalidValue for a shape or dtype the kernel does
+// not take. Launches on `stream`, does not synchronise.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                 const void* delta, void* dq, int bh, int sq, int sk, int head_dim,
-                 int q_offset, int k_offset, int causal, int walk_cut, float scale, int dtype,
-                 void* stream) {
+                 const void* delta, void* dq, void* workspace, int bh, int sq, int sk,
+                 int head_dim, int q_offset, int k_offset, int causal, int walk_cut, float scale,
+                 int dtype, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               dq, nullptr, nullptr, nullptr, bh, sq, sk, q_offset, k_offset, causal, walk_cut,
-               scale, static_cast<cudaStream_t>(stream)};
+               dq, nullptr, nullptr, static_cast<float*>(workspace), bh, sq, sk, q_offset,
+               k_offset, causal, walk_cut, scale, static_cast<cudaStream_t>(stream)};
   return run<true>(head_dim, dtype, a);
 }
 
-// workspace: flash_bwd_workspace(1, ...) bytes for the split pass (f32),
-// 16-byte aligned, or null where that is 0
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dk, void* dv, void* workspace,
                   int bh, int sq, int sk, int head_dim, int q_offset, int k_offset, int causal,
@@ -1068,11 +1255,11 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return run<false>(head_dim, dtype, a);
 }
 
-// Bytes of workspace the kernel (0 = dQ, 1 = dK/dV) needs for these shapes
-// (0 but for dK/dV in f32).
+// Bytes of workspace the kernel (0 = dQ, 1 = dK/dV) needs for these shapes:
+// the split pass's in f32, 0 in bf16.
 size_t flash_bwd_workspace(int kernel, int bh, int sq, int sk, int head_dim, int dtype) {
-  if (kernel != 1 || dtype != 0 || bh <= 0 || sq <= 0 || sk <= 0) return 0;
-  return dkv_workspace_floats(bh, sq, sk, head_dim) * sizeof(float);
+  if ((kernel != 0 && kernel != 1) || dtype != 0 || bh <= 0 || sq <= 0 || sk <= 0) return 0;
+  return bwd_workspace_floats(bh, sq, sk, head_dim) * sizeof(float);
 }
 
 // What the kernel (0 = dQ, 1 = dK/dV) for (head_dim, dtype) holds on the

@@ -1,12 +1,7 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// the causal walk bounds, and for the f32 dQ kernel, which stages tiles by
-// hand (the others are built from hopper.cuh), its tile size, a tile copy
-// from device memory to shared memory, and its one matrix-product primitive.
-//
-// Every product in the f32 dQ kernel has one shape: a warp owns 16 rows and
-// computes C[16 x N] (+)= A[16 x K] * B', all three in shared memory, where
-// B' is B ([K x N], row-major) or B transposed (B stored [N x K], row-major),
-// as a plain loop on the CUDA cores, so it stays f32 throughout.
+// Shared pieces of the flash-attention and paged-decode kernels (flash_fwd.cu,
+// flash_bwd.cu, paged_decode.cu): the causal walk bounds, the mask value,
+// and the helpers that set a kernel's shared-memory limit and read what it
+// holds on the card. The tiles, barriers and products are in hopper.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,64 +17,8 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;  // the bf16 kernels' softmax runs in base 2
 constexpr float kLn2 = 0.6931471805599453f;
 
-// the f32 dQ kernel's tiles: 32 rows, 2 warps per CTA
-constexpr int kTileF32 = 32;
-
-// leading dimension (elements) of a tile of D-wide rows in shared memory:
-// padded by 8 so that rows start on other banks
-template <int D>
-__host__ __device__ constexpr int ld_of() {
-  return D + 8;
-}
-// leading dimension of an f32 scratch of N-wide rows
-template <int N>
-__host__ __device__ constexpr int ldf_of() {
-  return N + 4;
-}
-
-// byte size rounded up to 128 (each buffer carved from dynamic shared memory
-// starts 128-byte aligned)
-__host__ __device__ constexpr size_t pad128(size_t bytes) { return (bytes + 127) / 128 * 128; }
-
-// Copy `rows` contiguous rows of D floats (a tile of a contiguous [S, D]
-// array) into shared memory with leading dimension ld_of<D>(), 16 bytes a
-// thread at a time, by all `nthreads` threads of the CTA. Rows from `valid`
-// on lie past the end of the sequence (the last tile of a length that is no
-// multiple of the tile) and are filled with zeros.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int rows,
-                                          int valid, int tid, int nthreads) {
-  constexpr int kVec = 4;
-  constexpr int kPerRow = D / kVec;
-  const int n = rows * kPerRow;
-  for (int i = tid; i < n; i += nthreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld_of<D>() + c) = val;
-  }
-}
-
 // Number of tiles of `tile` rows that cover `n` rows.
 __host__ __device__ constexpr int tiles_of(int n, int tile) { return (n + tile - 1) / tile; }
-
-// C[16 x N] (+)= A[16 x K] * B' for one warp. kBT: B is stored [N x K] and
-// used transposed; otherwise B is [K x N]. All row-major in shared memory.
-template <bool kBT, int N, int K>
-__device__ __forceinline__ void warp_mma(float* C, int ldc, const float* A, int lda,
-                                         const float* B, int ldb, bool accumulate) {
-  const int lane = threadIdx.x & 31;
-  for (int e = lane; e < 16 * N; e += 32) {
-    const int r = e / N;
-    const int n = e % N;
-    float acc = accumulate ? C[r * ldc + n] : 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k)
-      acc = fmaf(A[r * lda + k], kBT ? B[n * ldb + k] : B[k * ldb + n], acc);
-    C[r * ldc + n] = acc;
-  }
-}
 
 // Set the kernel's dynamic shared-memory limit once per instantiation.
 template <typename Kernel>

@@ -13,12 +13,10 @@ Three kernels, each the counterpart of a TPU kernel of the JAX package:
 
 In bf16 all three are Hopper kernels (``csrc/hopper.cuh``): TMA loads into
 an mbarrier-guarded ring, wgmma products, accumulators and the softmax in
-registers. In f32 the forward and dK/dV are the same kind of kernel with
-split-TF32 products (each f32 operand as a tf32 hi + lo, each product as
-three tensor-core products, within ~2^-22 of f32), behind a split pass
-that writes the operands' hi and lo into a workspace this module
-allocates; the f32 dQ is a CUDA-core kernel that stages every tile in
-shared memory.
+registers. In f32 all three are the same kind of kernel with split-TF32
+products (each f32 operand as a tf32 hi + lo, each product as three
+tensor-core products, within ~2^-22 of f32), behind a split pass that
+writes the operands' hi and lo into a workspace this module allocates.
 
 δ = rowsum(dO∘O) is a plain tensor op outside the kernels
 (:func:`bwd_row_stats`), as it is XLA in the JAX package.
@@ -65,8 +63,8 @@ FLASH_FWD_LIB = _Library("flash_fwd", ("flash_fwd.cu",), headers=_HEADERS, signa
     "flash_error_string": ([ctypes.c_int], ctypes.c_char_p),
 })
 FLASH_BWD_LIB = _Library("flash_bwd", ("flash_bwd.cu",), headers=_HEADERS, signatures={
-    # q, k, v, do, lse, delta, dq
-    "flash_bwd_dq": ([ctypes.c_void_p] * 7 + _DIMS, ctypes.c_int),
+    # q, k, v, do, lse, delta, dq, workspace
+    "flash_bwd_dq": ([ctypes.c_void_p] * 8 + _DIMS, ctypes.c_int),
     # q, k, v, do, lse, delta, dk, dv, workspace
     "flash_bwd_dkv": ([ctypes.c_void_p] * 9 + _DIMS, ctypes.c_int),
     # kernel (0 dQ, 1 dK/dV), bh, sq, sk, head_dim, dtype -> bytes
@@ -289,7 +287,7 @@ def _raise_on(rc: int, lib, what: str) -> None:
 
 
 def _workspace(nbytes: int, device) -> Optional[torch.Tensor]:
-    """The split pass's workspace (f32 forward and dK/dV), or None. It is
+    """The split pass's workspace (the f32 kernels), or None. It is
     freed when the caller drops it: the allocator hands it out again only
     to work that is queued on the stream after the kernel."""
     return torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
@@ -335,9 +333,11 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, q_offset: int, k_offset: int, *,
     dq = torch.empty_like(q)
     if q.numel() == 0:
         return dq
+    dims = _dims(q, k, q_offset, k_offset, sm_scale, causal, walk_cut)
+    ws = _workspace(lib.flash_bwd_workspace(0, *dims[:4], dims[9]), q.device)
     rc = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                           lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                          *_dims(q, k, q_offset, k_offset, sm_scale, causal, walk_cut))
+                          None if ws is None else ws.data_ptr(), *dims)
     _raise_on(rc, lib, "flash_bwd_dq")
     launch_counts["flash_bwd_dq"] += 1
     return dq

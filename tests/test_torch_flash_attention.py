@@ -174,10 +174,10 @@ def test_return_lse_matches_the_forward():
 
 # -- the f32 kernels' split-TF32 arithmetic ----------------------------------------
 #
-# On the card the f32 forward and dK/dV kernels run each product A B on the
-# tensor cores as A_hi B_lo + A_lo B_hi + A_hi B_hi, with hi = tf32(x) and
-# lo = tf32(x - hi) rounded by cvt.rna.tf32.f32 (csrc/hopper.cuh). hi + lo
-# misses x by up to one place of x, so dK/dV's scores take Q in three parts
+# On the card the f32 kernels run each product A B on the tensor cores as
+# A_hi B_lo + A_lo B_hi + A_hi B_hi, with hi = tf32(x) and lo = tf32(x - hi)
+# rounded by cvt.rna.tf32.f32 (csrc/hopper.cuh). hi + lo misses x by up to
+# one place of x, so the backward kernels' scores take Q in three parts
 # (A_rest = A - A_hi - A_lo adds A_rest B_hi): there P = exp(s scale - LSE)
 # with the LSE from outside, and a score's error times |s scale| becomes
 # P's relative error. The model below repeats that arithmetic in the plain
@@ -187,8 +187,22 @@ def test_return_lse_matches_the_forward():
 # tests/test_torch_kernels_cuda.py and chip_smoke.py): 5e-5 + 5e-5 |ref|.
 # The other models must fall outside it: a single tf32 pass (~2^-12
 # relative per operand) everywhere, and two-part scores where they reach
-# hundreds (key 0 at 2000 along one axis, a scale of +-1/8: the cuda test
-# of the scale's sign).
+# hundreds: key 0 at 2000 along one axis with a scale of +-1/8 (the cuda
+# test of the scale's sign) in dV, and keys 0 and 1 at 2000 along two axes
+# that share the rows' P in dQ.
+#
+# With one far key, where key 0 takes a row's whole P, dS = P (dO . v_0 -
+# delta) scale cancels and dq[..., 0] = 2000 dS is the rounding of dO . v_0
+# and delta times 250: there no two f32 orders of summation agree within
+# SPLIT_TOL, the exact f32 plain version's dq neither with JAX's. Column 0
+# of dq is held there against the plain version with f64 products instead,
+# no further from it than the f32 plain version is. That column also holds
+# dQ's dP = dO V^T to f32's accuracy. Each wgmma truncates its sum, and
+# along one accumulator of D / 8 steps that bias passes f32's rounding; so
+# the dQ kernel runs dO_hi V_hi^T in four chains, each from zero, added to
+# nearest. The "kernel" model sums dQ's dP as the tensor cores do (_chains);
+# "one_chain", with dO_hi V_hi^T in one accumulator, must fall further
+# from the f64 products than f32 there, and so must two-part scores.
 SPLIT_TOL = dict(atol=5e-5, rtol=5e-5)
 
 
@@ -208,58 +222,115 @@ def _product(a, b, a_parts=2):
     return small + torch.matmul(a_hi, b_hi)
 
 
+def _rz(x):
+    """f64 x to f32 rounded toward zero, as a tensor-core sum leaves it."""
+    r = x.float()
+    return torch.where(r.double().abs() > x.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _chains(a, b, chains):
+    """a b for tf32 a and b as wgmma sums it: in k8 steps, each adding its
+    eight exact products to the accumulator and truncating, with the steps
+    in ``chains`` runs, each from zero into an accumulator of its own, and
+    the runs added to nearest."""
+    d = a.shape[-1]
+    out = 0.0
+    for c in range(0, d, d // chains):
+        acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+        for kk in range(c, c + d // chains, 8):
+            acc = _rz(acc.double() + a[..., kk:kk + 8].double() @ b[..., kk:kk + 8, :].double())
+        out = out + acc
+    return out
+
+
+#: products per pair of tiles in each backward plain version, scores first:
+#: dK/dV makes S, dP, dV, dK; dQ makes S, dP, dQ
+_BWD_PRODUCTS = {"dkv": 4, "dq": 3}
+
+
 def _kernel_products(kernel, model):
-    """``_matmul`` for the plain version of ``kernel`` ("fwd" or "dkv"):
-    ``model`` "kernel" as the kernels compute, "two_part" with dK/dV's
-    scores from two parts of Q, "single" one tf32 pass."""
+    """``_matmul`` for the plain version of ``kernel`` ("fwd", "dkv" or
+    "dq"): ``model`` "kernel" as the kernels compute, "two_part" with the
+    backward's scores from two parts of Q, "one_chain" with dQ's dO_hi
+    V_hi^T in one accumulator, "single" one tf32 pass."""
     calls = itertools.count()
 
     def matmul(a, b):
         if model == "single":
             return torch.matmul(_tf32(a), _tf32(b))
-        # the dK/dV plain version makes S, dP, dV, dK for each pair of tiles
-        scores = kernel == "dkv" and next(calls) % 4 == 0
-        return _product(a, b, a_parts=3 if scores and model == "kernel" else 2)
+        step = next(calls) % _BWD_PRODUCTS[kernel] if kernel in _BWD_PRODUCTS else None
+        if kernel == "dq" and step == 1 and model in ("kernel", "one_chain"):
+            a_hi, b_hi = _tf32(a), _tf32(b)
+            rest = torch.matmul(a_hi, _tf32(b - b_hi)) + torch.matmul(_tf32(a - a_hi), b_hi)
+            return _chains(a_hi, b_hi, 4 if model == "kernel" else 1) + rest
+        return _product(a, b, a_parts=3 if step == 0 and model != "two_part" else 2)
     return matmul
+
+
+def _worst(out, ref):
+    """The largest |out - ref| over SPLIT_TOL's atol + rtol |ref|."""
+    return ((out - ref).abs() / (SPLIT_TOL["atol"] + SPLIT_TOL["rtol"] * ref.abs())).max().item()
 
 
 @pytest.mark.parametrize("d,q_offset,causal,large,model", [
     (64, 0, True, 0, "kernel"), (64, 0, False, 0, "kernel"), (64, 40, True, 0, "kernel"),
     (128, 0, True, 0, "kernel"), (128, 0, False, 0, "kernel"), (128, 40, True, 0, "kernel"),
-    (64, 0, True, 1, "kernel"), (128, 0, True, -1, "kernel"),
+    (64, 0, True, 1, "kernel"), (128, 0, True, -1, "kernel"), (128, 0, False, 2, "kernel"),
     (64, 40, True, 0, "single"), (128, 0, False, 0, "single"),
-    (64, 0, True, 1, "two_part"),
+    (64, 0, True, 1, "two_part"), (128, 0, False, 2, "two_part"),
+    (128, 0, True, -1, "one_chain"),
 ])
 def test_split_tf32_products_hold_the_f32_tolerance(monkeypatch, d, q_offset, causal, large,
                                                     model):
     bh, s, block = 2, 128, 64
     q, k, v, do = _arrays(10 + d + q_offset, [(bh, s, d)] * 4, "float32")
     scale = d ** -0.5
-    if large:  # scores of +-2000 q[i, 0] / 8 on key 0, exact in f32
+    if large in (1, -1):  # scores of +-2000 q[i, 0] / 8 on key 0, exact in f32
         k[:, 0] = 0.0
         k[:, 0, 0] = 2000.0
         scale = 0.125 * large
+    if large == 2:  # keys 0 and 1 far out on two axes, with equal scores
+        k[:, :2] = 0.0
+        k[:, 0, 0] = k[:, 1, 1] = 2000.0
+        q[..., 1] = q[..., 0]
+        scale = 0.125
     kw = dict(sm_scale=scale, causal=causal, block_q=block, block_k=block)
     jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
     o_j, lse_j = jfa._flash_fwd(jq, jk, jv, q_offset, 0, interpret=True, **kw)
-    _, dk_j, dv_j = jfa._flash_bwd(jq, jk, jv, o_j, lse_j, jdo, q_offset, 0, interpret=True,
-                                   **kw)
+    dq_j, dk_j, dv_j = jfa._flash_bwd(jq, jk, jv, o_j, lse_j, jdo, q_offset, 0, interpret=True,
+                                      **kw)
     tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
     monkeypatch.setattr(fa, "_matmul", _kernel_products("fwd", model))
     o, lse = fa.flash_fwd_plain(tq, tk, tv, q_offset, 0, **kw)
-    # the dK/dV kernel takes LSE and delta from outside (the reference's here)
+    # the backward kernels take LSE and delta from outside (the reference's here)
     lse_ref, delta = fa.bwd_row_stats(torch.tensor(_np(o_j)), torch.tensor(_np(lse_j)), tdo)
+    bwd_args = (tq, tk, tv, tdo, lse_ref, delta, q_offset, 0)
     monkeypatch.setattr(fa, "_matmul", _kernel_products("dkv", model))
-    dk, dv = fa.flash_bwd_dkv_plain(tq, tk, tv, tdo, lse_ref, delta, q_offset, 0, **kw)
-    pairs = {"o": (o, o_j), "dk": (dk, dk_j), "dv": (dv, dv_j)}
-    if model == "two_part":  # only dK/dV's scores differ from the kernels'
-        pairs = {"dv": pairs["dv"]}
+    dk, dv = fa.flash_bwd_dkv_plain(*bwd_args, **kw)
+    monkeypatch.setattr(fa, "_matmul", _kernel_products("dq", model))
+    dq = fa.flash_bwd_dq_plain(*bwd_args, **kw)
+    dq_j = torch.tensor(_np(dq_j))
+    pairs = {"o": (o, o_j), "dq": (dq, dq_j), "dk": (dk, dk_j), "dv": (dv, dv_j)}
+    col0 = None
+    if large in (1, -1):  # column 0 against f64 products, the rest against JAX
+        monkeypatch.setattr(fa, "_matmul", torch.matmul)
+        dq_f32 = fa.flash_bwd_dq_plain(*bwd_args, **kw)
+        monkeypatch.setattr(fa, "_matmul", lambda a, b: (a.double() @ b.double()).float())
+        dq_64 = fa.flash_bwd_dq_plain(*bwd_args, **kw)
+        col0 = (_worst(dq[..., 0], dq_64[..., 0]), _worst(dq_f32[..., 0], dq_64[..., 0]))
+        pairs["dq"] = (dq[..., 1:], dq_j[..., 1:])
+    outside = {"kernel": (), "single": tuple(pairs), "one_chain": (),
+               "two_part": ("dq",) if large == 2 else ("dv",)}[model]
+    if model == "two_part":
+        pairs = {name: pairs[name] for name in outside}
     for name, (out, ref) in pairs.items():
-        if model == "kernel":
-            np.testing.assert_allclose(_np(out), _np(ref), err_msg=name, **SPLIT_TOL)
-        else:
+        if name in outside:
             with pytest.raises(AssertionError):
                 np.testing.assert_allclose(_np(out), _np(ref), err_msg=name, **SPLIT_TOL)
+        elif model != "single":
+            np.testing.assert_allclose(_np(out), _np(ref), err_msg=name, **SPLIT_TOL)
+    if col0 is not None:  # the model's worst against f32's
+        assert col0[0] <= col0[1] if model == "kernel" else col0[0] > col0[1], col0
     if model == "kernel":
         np.testing.assert_allclose(_np(lse), _np(lse_j), atol=1e-4, rtol=1e-5)
 

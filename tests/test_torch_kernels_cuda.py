@@ -2,9 +2,8 @@
 their plain PyTorch versions, on the card. In bf16 the flash kernels are
 the wgmma/TMA ones (tiles of 64 or 128 rows; dQ streams 128-key tiles at
 D = 64, 64 at D = 128) and paged decode is split over CTAs of 256 tokens; in f32 the
-flash forward and dK/dV are split-TF32 wgmma/TMA kernels (tiles of 16 to
-128 rows), the flash dQ a CUDA-core one (32-row tiles), and paged decode
-takes one CTA per sequence and KV head. Every test here needs a CUDA device (the kernels have no CPU build)
+flash forward, dQ and dK/dV are split-TF32 wgmma/TMA kernels (tiles of 16 to
+128 rows), and paged decode takes one CTA per sequence and KV head. Every test here needs a CUDA device (the kernels have no CPU build)
 and skips without one; this file imports nothing of JAX, so it runs on a
 machine with the card alone:
 
@@ -181,8 +180,8 @@ ta = importlib.import_module("polyaxon_tpu_torch.ops.attention")
 
 # kernel vs plain, elementwise |out - ref| <= atol + rtol |ref|. f32: the
 # order of the sums and the online-softmax split differ (the kernel's tiles
-# vs the plain version's blocks), and the forward and dK/dV run each product
-# as three tf32 products (~2^-22 of |A||B| per term): 5e-5. bf16: p (and
+# vs the plain version's blocks), and the kernels run each product as three
+# tf32 products (~2^-22 of |A||B| per term): 5e-5. bf16: p (and
 # dS) are rounded to bf16 against other running maxima or other f32 sums in
 # the two, and outputs round to bf16 (one place is <= 2^-7 relative): the
 # paged kernel's 3e-3 + 2^-6 |ref|.
@@ -262,11 +261,17 @@ def _assert_pairs_close(pairs, dtype):
                                    msg=name)
 
 
+def _worst_ratio(out, ref, dtype):
+    """The largest |out - ref| over FLASH_TOL's atol + rtol |ref|."""
+    atol, rtol = FLASH_TOL[dtype]
+    return ((out.float() - ref.float()).abs() / (atol + rtol * ref.float().abs())).max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("scale", [-0.125, 0.0, 0.125])
-def test_flash_kernels_take_a_scale_of_either_sign(cuda, dtype, d, scale):
+def test_flash_kernels_take_a_scale_of_either_sign(cuda, monkeypatch, dtype, d, scale):
     # A negative scale makes a row's smallest raw score its largest scaled
     # one. Key 0 lies far out along one axis, so its score 2000 q[i, 0] is
     # exact in any order of summation, and it spreads many rows' scaled
@@ -277,7 +282,26 @@ def test_flash_kernels_take_a_scale_of_either_sign(cuda, dtype, d, scale):
     k[:, 0, 0] = 2000.0
     spread = (2000.0 * q[..., 0].float()).abs() * abs(scale) * math.log2(math.e)
     assert scale == 0.0 or (spread > 2.0 ** 7).float().mean().item() > 0.25
-    _assert_pairs_close(_both_ways(q, k, v, do, 0, 0, True, (40, 50), scale=scale), dtype)
+    pairs = _both_ways(q, k, v, do, 0, 0, True, (40, 50), scale=scale)
+    if dtype == torch.float32:
+        # Where key 0 takes a row's whole P, dS = P (dO . v_0 - delta) scale
+        # cancels, and dq[..., 0] = 2000 dS is the rounding of dO . v_0 and
+        # delta times 250: no two f32 orders of summation agree there
+        # within FLASH_TOL. So column 0 is held against the plain version
+        # with f64 products, no further from it than the f32 plain version
+        # (or within FLASH_TOL of it): a dP = dO V^T less accurate than an
+        # f32 sum fails here. The other columns are held as the rest.
+        dq, dq_p = pairs.pop("dq")
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, 0, 0, sm_scale=scale, causal=True,
+                                        block_q=40, block_k=50)
+        _, delta = fa.bwd_row_stats(o_p, lse_p, do)
+        monkeypatch.setattr(fa, "_matmul", lambda a, b: (a.double() @ b.double()).float())
+        dq_64 = fa.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, 0, 0, sm_scale=scale,
+                                      causal=True, block_q=50, block_k=40)
+        kernel, plain = (_worst_ratio(x[..., 0], dq_64[..., 0], dtype) for x in (dq, dq_p))
+        assert kernel <= max(1.0, plain), (kernel, plain)
+        pairs["dq[..., 1:]"] = (dq[..., 1:], dq_p[..., 1:])
+    _assert_pairs_close(pairs, dtype)
 
 
 @pytest.mark.cuda
@@ -302,8 +326,9 @@ def test_flash_tile_edges(cuda, d, q_offset, length):
 def test_flash_f32_tile_edges(cuda, d, q_offset, length):
     # the f32 split-TF32 kernels' tiles: the forward's 128 q rows and 64
     # keys at D = 64, 64 q rows and 32 keys at D = 128; dK/dV's 64 keys and
-    # 64 q rows at D = 64, 16 q rows at D = 128 (and the split pass's groups
-    # of 8 keys): lengths one short of, equal to and one past each
+    # 64 q rows at D = 64, 16 q rows at D = 128; dQ's 64 q rows and 32 keys
+    # at D = 64, 16 keys at D = 128 (and the split pass's groups of 8 keys):
+    # lengths one short of, equal to and one past each
     q, k, v, do = _flash_inputs(cuda, torch.float32, sq=length, sk=length, d=d,
                                 seed=length + q_offset + d)
     pairs = _both_ways(q, k, v, do, q_offset, 0, True, (length, length))

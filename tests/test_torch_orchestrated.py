@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import json
 import os
+import random
 import socket
 import threading
 import time
@@ -132,10 +133,36 @@ def test_pytorchjob_trains_its_pods_as_one_group(stack):
     assert srv.store.get_run(uuid)["heartbeat_step"] == 3
 
 
+def _ephemeral_low() -> int:
+    """The first port of the range from which the kernel hands out ports
+    on its own (to a bind to port 0 and to an outgoing connection)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range", encoding="ascii") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768  # Linux's default
+
+
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port that is free now, from below the ephemeral range, for the
+    pod to bind some seconds later. A port from bind(("", 0)), released at
+    once, goes back to that range, and under the test workers' load
+    another process (a gloo rank, another test's server, a client
+    connection) can take it before the pod starts listening: the pod then
+    serves on a port of its own choosing that the test never polls. The
+    kernel never hands out a port below the range, and no test here binds
+    one there by number."""
+    low = _ephemeral_low()
+    rng = random.Random()
+    for _ in range(100):
+        port = rng.randrange(low // 2, low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in [{low // 2}, {low})")
 
 
 def _get_ok(url) -> bool:
