@@ -21,17 +21,21 @@ non-zero:
    pace them; also as launched from the host), the plain version's time,
    one PyTorch call's time (scaled_dot_product_attention over the gathered
    cache, a yardstick the port never calls, timed both ways), the bound
-   (live K/V bytes over 3.35 TB/s), the splits of the bf16 walk, and the
-   kernel's registers, shared memory per CTA, CTAs per SM and spills. Two
-   planted faults (the long row's last tile skipped, one of its blocks
-   read off by one) must fail the same check.
+   (live K/V bytes over 3.35 TB/s), the splits of the walk (bf16: CTAs of
+   256 tokens and a combine kernel; f32: one cluster of CTAs a row and KV
+   head) and the tokens a split takes, the previous f32 design's time
+   (one CTA a row and KV head) as recorded, and the kernel's registers,
+   shared memory per CTA, CTAs per SM and spills. Two planted faults (the
+   long row's last tile skipped, one of its blocks read off by one) must
+   fail the same check.
 4. flash kernels — the forward, dQ and dK/dV kernels against their plain
    versions at the llama-1b training shape (BH = 2 x 32 heads, S = 2048,
    D = 64, causal) and at D = 128, in bf16 and f32, with cold L2, plus
    small cases with nonzero offsets, rows that see no key, and lengths
    (64, 129, 200, 383) that end in a partial tile, and in f32 lengths one
    row short of and past the split-TF32 kernels' tiles at D 64 and 128
-   (F32_EDGE_SEQS): errors and tolerances,
+   (F32_EDGE_SEQS), and the f32 forward at a near tie of two far keys
+   (flash_near_tie): errors and tolerances,
    kernel, plain and library times (scaled_dot_product_attention with
    is_causal, and the median of five timings of its backward for dQ +
    dK/dV), the bounds (f32: split-TF32, three products at 495 TFLOP/s),
@@ -290,8 +294,9 @@ non-zero:
    ring_kernels case's, each ring_bench case's (B1's), train_moe's, moe_compare's,
    train_7b_import_lora's, bench's, bench_moe's and bench_tokens'; the
    paged kernel's ``launches_by_path`` holds the serve phase's and each
-   serve_bench part's, and its ``d16_f32`` the speculative fixture's
-   launches beside kernel_tiny's error, times and bound; ``d128`` holds that D=128 path's launches
+   serve_bench part's; ``paged_decode_f32`` is the f32 cluster walk, with
+   the speculative fixture's launches beside kernel_tiny's error, times and
+   bound, and phase 3's f32 rows at D 64 and 128; ``d128`` holds that D=128 path's launches
    beside the kernels' D=128 bf16 times, bounds and SDPA times; the
    ``*_f32`` entries are the f32 kernels, with flash_f32_path's launches
    and the D=64 and D=128 f32 rows' numbers), then the last line
@@ -390,6 +395,15 @@ PREV_MS_RECORDED = {"flash_fwd": 0.9156, "flash_bwd_dq": 1.0534, "flash_bwd_dkv"
 # the same for the f32 kernels, whose CUDA-core designs gave way to
 # split-TF32 ones: their D=64 f32 times as PERF.md records them
 PREV_MS_RECORDED_F32 = {"flash_fwd": 7.244, "flash_bwd_dq": 11.14, "flash_bwd_dkv": 14.29}
+# and the f32 paged walk's previous design (one CTA per sequence and KV
+# head, CUDA cores), which gave way to the cluster walk: its times at the
+# serving shape (D 64, 128) and at the speculative fixture's (D 16), host-
+# launched and from a CUDA graph, as PERF.md records them
+PREV_MS_RECORDED_PAGED_F32 = {
+    (64, "serving"): {"ms": 0.1156, "ms_graph": 0.1140},
+    (128, "serving"): {"ms": 0.1959, "ms_graph": 0.1938},
+    (16, "tiny"): {"ms": 0.03179, "ms_graph": 0.007258},
+}
 # the f32 kernels' tiles (forward: 128 q rows and 64 keys at D 64, 64 and
 # 32 at D 128; dK/dV: 64 keys and 64 q rows at D 64, 16 q rows at D 128;
 # dQ: 64 q rows and 32 keys at D 64, 16 keys at D 128): small causal
@@ -822,19 +836,20 @@ def kernel_case(torch, pa, head_dim: int, dtype, s: dict = KERNEL_SHAPE,
     library_ms = time_ms(torch, lib, gathered, 200)
     library_ms_graph = graph_time_ms(torch, lib, gathered, 200)
     b_ms, b_by = bound_ms(q, tables, lengths, head_dim, name, s)
-    splits = pa.split_workspace(s["batch"], s["kv_heads"], s["groups"], head_dim,
-                                s["max_blocks"], s["block_size"],
-                                pa.split_tokens())[0]
+    splits, split_tokens = pa.walk_split(dtype, s["max_blocks"], s["block_size"])
     row = {"head_dim": head_dim, "dtype": name, "max_abs_err": err,
            "atol": tol[0], "rtol": tol[1], "tol_ratio": ratio,
            "planted_fault_ratios": faults, "ms": ms, "ms_graph": ms_graph,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "library_ms_graph": library_ms_graph, "bound_ms": b_ms,
            "bound_us": b_ms * 1e3, "bound_by": b_by,
-           "splits": splits if dtype == torch.bfloat16 else None,
+           "splits": splits, "split_tokens": split_tokens,
            **pa.kernel_resources(head_dim, dtype)}
     if (head_dim, name, s) == (64, "bfloat16", KERNEL_SHAPE):
         row["prev_ms_recorded"] = PREV_MS_RECORDED["paged_decode"]
+    shape = "tiny" if s == TINY_KERNEL_SHAPE else "serving" if s == KERNEL_SHAPE else None
+    if name == "float32" and (head_dim, shape) in PREV_MS_RECORDED_PAGED_F32:
+        row["prev_ms_recorded"] = PREV_MS_RECORDED_PAGED_F32[(head_dim, shape)]
     del pools, gathered
     return row
 
@@ -1370,7 +1385,34 @@ def flash_kernel_phase(torch, fa) -> list[dict]:
         log("flash_small", dtype=name, head_dim=head_dim, seq=seq, q_offset=q_offset,
             k_offset=k_offset, **{kname: {"max_abs_err": e, "tol_ratio": r}
                                   for kname, (e, r) in checked["checks"].items()})
+    for head_dim in (64, 128):
+        log("flash_near_tie", **flash_near_tie_check(torch, fa, head_dim))
     return results
+
+
+def flash_near_tie_check(torch, fa, head_dim: int) -> dict:
+    """The f32 forward at a near tie of two far keys: keys 0 and 1 at 2000
+    along two axes, q[..., 1] = q[..., 0] + 0.002 noise and a scale of 1/8,
+    so that the two share the rows' P with scaled scores in the hundreds and
+    a score's error moves P's split between them. The forward's scores
+    take Q in three parts; two parts miss f32 there (ROADMAP C10). O and
+    LSE against the plain version within FLASH_TOL and LSE_TOL."""
+    q, k, v, _ = flash_inputs(torch, 4, 256, head_dim, torch.float32, seed=head_dim + 3)
+    gen = torch.Generator(device="cuda").manual_seed(head_dim + 4)
+    k[:, :2] = 0.0
+    k[:, 0, 0] = k[:, 1, 1] = 2000.0
+    q[..., 1] = q[..., 0] + 0.002 * torch.randn(q.shape[:-1], generator=gen, device="cuda")
+    kw = dict(sm_scale=0.125, causal=True)
+    o, lse = fa.flash_fwd_cuda(q, k, v, 0, 0, **kw)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, 0, 0, **kw, block_q=256, block_k=256)
+    torch.cuda.synchronize()
+    ratios = {"o": worst_ratio(o, o_p, FLASH_TOL["float32"]),
+              "lse": worst_ratio(lse, lse_p, LSE_TOL)}
+    if not max(ratios.values()) <= 1.0:
+        raise AssertionError(f"the f32 forward at a near tie (D {head_dim}): {ratios} times "
+                             f"the tolerance")
+    return {"head_dim": head_dim, "max_abs_err": (o - o_p).abs().max().item(),
+            "tol_ratio": ratios}
 
 
 def flash_f32_path_phase(torch, fa) -> dict:
@@ -4643,11 +4685,19 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "launches_by_path": {"serve": served["launches"], **tools_serve["launches"]},
-        # the speculative fixture's f32 D=16 decode (llama-tiny)
-        "d16_f32": {"launches": tools_serve["speculative_launches"],
-                    **{key: tools_serve["kernel_tiny"][key] for key in (
-                        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")}},
+    }, {
+        # the f32 cluster walk: its launches and numbers are the speculative
+        # fixture's (llama-tiny, D 16), ``d64`` and ``d128`` phase 3's f32
+        # rows at the serving shape
+        "name": "paged_decode_f32", "route": "cuda",
+        "source": "polyaxon_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "polyaxon_tpu/ops/paged_attention.py:110",
+        "launches": tools_serve["speculative_launches"],
+        **{key: tools_serve["kernel_tiny"][key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{f"d{row['head_dim']}": {key: row[key] for key in (
+            "max_abs_err", "ms", "ms_graph", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for row in kernel_rows if row["dtype"] == "float32"},
     }]
     flash_main = flash_rows[0]  # D=64 bf16: the training shape
     flash_d128 = flash_rows[2]  # D=128 bf16: llama2-7b's attention

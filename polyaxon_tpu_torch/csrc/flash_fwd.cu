@@ -58,16 +58,21 @@
 // (hopper.cuh): each product runs as three tf32 wgmma products, A_hi B_lo +
 // A_lo B_hi + A_hi B_hi, which keeps it within ~2^-22 of f32. At 3 x 2 Sq Sk
 // D FLOP over 495 TFLOP/s its bound is 0.208 ms at the llama-1b shape in
-// f32 (0.417 ms at D = 128). A split pass first writes Q and K as hi and lo
-// and V as V^T hi and lo into a workspace (tf32 wgmma reads shared memory
-// only K-major, and P V reduces over V's rows), with each group of 8 keys of
-// V^T in the order in which P's accumulator feeds the register A operand
-// (key_of), so that P needs no shuffle. A CTA holds two consumer warpgroups
-// of 64 q rows at D = 64 (one at D = 128) and streams 64-key tiles (32 at
+// f32 (0.417 ms at D = 128). A split pass first writes Q in three parts
+// (hi, lo and the rest, x - hi - lo), K as hi and lo and V as V^T hi and lo
+// into a workspace (tf32 wgmma reads shared memory only K-major, and P V
+// reduces over V's rows), with each group of 8 keys of V^T in the order in
+// which P's accumulator feeds the register A operand (key_of), so that P
+// needs no shuffle. The scores take Q in three parts, as the backward's do
+// (a fourth product, Q_rest K_hi), and keep Q_hi K_hi in an accumulator of
+// their own, added once: hi + lo misses q by up to a place of q, and where
+// far keys take scores in the hundreds and tie, that miss moves P's split
+// between them past f32's rounding. A CTA holds two consumer warpgroups of
+// 64 q rows at D = 64 (one at D = 128) and streams 64-key tiles (32 at
 // D = 128) of K hi, K lo, V^T hi and V^T lo, 64 KB a stage, through two
-// stages: 193 KiB of shared memory, one CTA to an SM. P is split into hi and
-// lo in registers. Every other rule (the base-2 softmax, the masks, the
-// walk, the scale's sign) is the bf16 kernel's.
+// stages, beside the three Q parts: 225 KiB of shared memory, one CTA to an
+// SM. P is split into hi and lo in registers. Every other rule (the base-2
+// softmax, the masks, the walk, the scale's sign) is the bf16 kernel's.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -302,18 +307,18 @@ struct FwdTilesF32 {
   static constexpr int kBlockQ = 64 * kConsumers;
   static constexpr int kBlockK = 4096 / D;
   static constexpr int kThreads = (kConsumers + 1) * 128;
-  static constexpr uint32_t q = kBlockQ * D * 4;   // one of Q hi, Q lo
+  static constexpr uint32_t q = kBlockQ * D * 4;   // one of Q hi, Q lo, Q rest
   static constexpr uint32_t kv = kBlockK * D * 4;  // one of K hi, K lo, V^T hi, V^T lo
   static constexpr uint32_t stage = 4 * kv;
   // tiles, then the barriers (Q, full and empty per stage), plus the room
   // to align the start to 1024 bytes
-  static constexpr size_t total = 2 * q + kStages * stage + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr size_t total = 3 * q + kStages * stage + 8 * (1 + 2 * kStages) + 1024;
 };
 
-// the workspace of the split pass, in floats: Q, K [2, bh, s, D] (hi, then
-// lo) and V^T [2, bh, D, sk rounded up to 8]
+// the workspace of the split pass, in floats: Q [3, bh, sq, D] (hi, lo, the
+// rest), K [2, bh, sk, D] (hi, then lo) and V^T [2, bh, D, sk rounded up to 8]
 inline size_t f32_workspace_floats(int bh, int sq, int sk, int d) {
-  return 2 * static_cast<size_t>(bh) * d * (sq + sk + (sk + 7) / 8 * 8);
+  return static_cast<size_t>(bh) * d * (3 * static_cast<size_t>(sq) + 2 * sk + 2 * ((sk + 7) / 8 * 8));
 }
 
 template <int D, bool kNegScale>
@@ -332,7 +337,8 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
   unsigned char* smem = align1024(smem_raw);
   float* q_hi = reinterpret_cast<float*>(smem);
   float* q_lo = q_hi + kBlockQ * D;
-  unsigned char* ring = smem + 2 * L::q;
+  float* q_rest = q_lo + kBlockQ * D;
+  unsigned char* ring = smem + 3 * L::q;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + kStages * L::stage);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kStages;
@@ -342,7 +348,7 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
   };
 
   const int bh = blockIdx.y;
-  const int nbh = gridDim.y;  // head bh's lo half is head bh + nbh of each map
+  const int nbh = gridDim.y;  // part i of head bh is head bh + i nbh of each map
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // heaviest tiles first
   const int kend = kv_tiles_end(q0, kBlockQ, kBlockK, tiles_of(sk, kBlockK), q_offset, k_offset,
                                 causal, walk_cut);
@@ -362,9 +368,10 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
     // producer: one thread issues every load
     regs_dec<24>();
     if (threadIdx.x == kConsumers * 128) {
-      bar_arrive_expect_tx(q_full, 2 * L::q);
+      bar_arrive_expect_tx(q_full, 3 * L::q);
       tma_panels<D / 32, kBlockQ>(q_hi, &q_map, q_full, 0, q0, bh);
       tma_panels<D / 32, kBlockQ>(q_lo, &q_map, q_full, 0, q0, bh + nbh);
+      tma_panels<D / 32, kBlockQ>(q_rest, &q_map, q_full, 0, q0, bh + 2 * nbh);
       for (int t = 0; t < kend; ++t) {
         const int s = t % kStages;
         const int k0 = t * kBlockK;
@@ -393,13 +400,14 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
   auto top = [](float a, float b) { return kNegScale ? fminf(a, b) : fmaxf(a, b); };
   const float* qh = q_hi + wg * 64 * 32;  // this warpgroup's rows of each panel
   const float* ql = q_lo + wg * 64 * 32;
+  const float* qr = q_rest + wg * 64 * 32;
 
   float acc[D / 2];
-  float s_acc[kBlockK / 2];
+  float s_acc[kBlockK / 2], s_rest[kBlockK / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kBlockK / 2; ++i) s_acc[i] = 0.f;
+  for (int i = 0; i < kBlockK / 2; ++i) s_acc[i] = s_rest[i] = 0.f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max of each row, base 2
   float l[2] = {0.f, 0.f};                      // this thread's part of each row's sum
   uint32_t p_hi[kBlockK / 8][4], p_lo[kBlockK / 8][4];
@@ -414,20 +422,27 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
     const float* vh = tile_of(s, 2);
     const float* vl = tile_of(s, 3);
 
-    // S = Q K^T in three products per k8 step along D (32 columns to a panel)
+    // S = Q K^T in four products per k8 step along D (32 columns to a
+    // panel): Q_hi K_hi^T into s_acc, Q_rest K_hi^T + Q_lo K_hi^T + Q_hi
+    // K_lo^T into s_rest, added once
     hold(s_acc);
+    hold(s_rest);
     mma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
       const int a = (kk / 4) * kBlockQ * 32 + (kk % 4) * 8;
       const int b = (kk / 4) * kBlockK * 32 + (kk % 4) * 8;
-      mma_ss_tf32<kBlockK>(s_acc, desc_k(ql + a), desc_k(kh + b), kk > 0);
-      mma_ss_tf32<kBlockK>(s_acc, desc_k(qh + a), desc_k(kl + b), 1);
-      mma_ss_tf32<kBlockK>(s_acc, desc_k(qh + a), desc_k(kh + b), 1);
+      mma_ss_tf32<kBlockK>(s_rest, desc_k(qr + a), desc_k(kh + b), kk > 0);
+      mma_ss_tf32<kBlockK>(s_rest, desc_k(ql + a), desc_k(kh + b), 1);
+      mma_ss_tf32<kBlockK>(s_rest, desc_k(qh + a), desc_k(kl + b), 1);
+      mma_ss_tf32<kBlockK>(s_acc, desc_k(qh + a), desc_k(kh + b), kk > 0);
     }
     mma_commit();
     mma_wait<0>();
     hold(s_acc);
+    hold(s_rest);
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i) s_acc[i] += s_rest[i];
 
     // the online softmax in registers, in base 2, as in the bf16 kernel
     const bool masked = k0 + kBlockK > sk ||
@@ -507,8 +522,8 @@ flash_fwd_tf32_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// The split pass (Q and K into hi and lo, V into V^T hi and lo), then the
-// kernel over its output.
+// The split pass (Q into hi, lo and the rest, K into hi and lo, V into V^T
+// hi and lo), then the kernel over its output.
 template <int D, bool kNegScale>
 int launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse, float* ws,
                 int bh, int sq, int sk, int q_offset, int k_offset, int causal, int walk_cut,
@@ -519,14 +534,14 @@ int launch_tf32(const void* q, const void* k, const void* v, void* o, float* lse
   if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int sk8 = (sk + 7) / 8 * 8;
   float* q_s = ws;
-  float* k_s = q_s + 2 * static_cast<size_t>(bh) * sq * D;
+  float* k_s = q_s + 3 * static_cast<size_t>(bh) * sq * D;
   float* vt_s = k_s + 2 * static_cast<size_t>(bh) * sk * D;
-  hopper::split_tf32_launch(q, q_s, static_cast<size_t>(bh) * sq * D, 2, stream);
+  hopper::split_tf32_launch(q, q_s, static_cast<size_t>(bh) * sq * D, 3, stream);
   hopper::split_tf32_launch(k, k_s, static_cast<size_t>(bh) * sk * D, 2, stream);
   hopper::split_tf32_t_kernel<<<dim3(tiles_of(sk8, 32), D / 32, bh), dim3(32, 8), 0, stream>>>(
       static_cast<const float*>(v), vt_s, vt_s + static_cast<size_t>(bh) * D * sk8, sk, sk8, D);
   CUtensorMap maps[3];
-  int rc = hopper::make_map_f32(&maps[0], q_s, 2 * bh, sq, D, L::kBlockQ);
+  int rc = hopper::make_map_f32(&maps[0], q_s, 3 * bh, sq, D, L::kBlockQ);
   if (rc == 0) rc = hopper::make_map_f32(&maps[1], k_s, 2 * bh, sk, D, L::kBlockK);
   if (rc == 0) rc = hopper::make_map_f32(&maps[2], vt_s, 2 * bh, D, sk8, D);
   if (rc != 0) return rc;

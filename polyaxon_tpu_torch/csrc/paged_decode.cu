@@ -47,18 +47,44 @@
 // one CTA per (b, h), merges the partials of the live splits into the
 // output. Shared memory: 90.6 KB at D = 64, 172.5 KB at D = 128.
 //
-// f32 (paged_decode_kernel): one CTA per (b, h) walks the whole table. Its
-// 8 warps split the walk: warp w takes the 32-token tiles w, w + 8, ... and
-// keeps its own online softmax (m, l and the G x D accumulator in
-// registers); in a tile each lane owns one token and computes its G scores
-// on the CUDA cores (tensor cores would round to tf32) against q in shared
-// memory, and for p.V each lane owns D/32 output dims (at D = 16 the first
-// 16 lanes own one each), the tile's V rows read in batches with their pool
-// offsets passed by shuffles; the warps' partial results are merged through
-// shared memory (45.6 KB at D = 128, under the 48 KB static limit). f32 is
-// llama-tiny's dtype (D = 16), which serve_bench's speculative fixture
-// decodes on the card; the f32 kernel takes D = 16, 32, 64 and 128, the
-// bf16 walk 64 and 128.
+// f32 (paged_decode_f32_kernel): the walk is split over the sequence as in
+// bf16, and the splits of one (b, h) are merged inside the one launch. The
+// grid is (splits, KVH, B) and the CTAs of one (b, h) form a thread-block
+// cluster (the host's rule, paged_decode_f32_split_tokens and _max_splits:
+// splits of at least 256 tokens, at most 8 of them, a cluster the portable
+// size at most; a table past 2048 tokens gives each split more). CTA s
+// takes tokens s * split_tokens .. on; a CTA whose run starts at or past its
+// length loads nothing. Its warps (8 at D = 16, else 4) each take every 8th
+// or 4th tile of its run and keep their own online softmax (m, l and the
+// G x D accumulator in registers). A tile is 32 tokens at D = 16 and 32, 16
+// at D = 64, 8 at D = 128 (one lane a token, or 2 or 4 lanes a token, each
+// taking every 2nd or 4th 16-byte chunk of its row), so that a warp's ring
+// of stages (2 at D = 16, else 3) stays under 27 KiB: each stage is loaded
+// with cp.async, 16 bytes a lane, the pool rows looked up a tile ahead,
+// rows past the run zero-filled, and the loads of the next tiles are in
+// flight while the warp computes on this one. Scores are taken on the CUDA
+// cores in f32 FMA against q in shared memory (K rows padded by 16 bytes,
+// so that the lanes of a quarter-warp read distinct banks): tf32 tensor
+// cores would break the f32 contract, and at G <= 8 decode does about G / 2
+// flop a byte of K and V, against the card's ~20 f32 flop a byte of
+// bandwidth. For P V each lane owns D / 32 output dims (at D = 16 the first
+// 16 lanes own one each), V read from the stage and p from shared memory.
+// Then each CTA merges its warps' partials through shared memory into its
+// split's (m, l, acc), the cluster synchronises, and every CTA of it merges
+// an equal share of the G x D outputs over the live splits, reading their
+// partials through distributed shared memory, and writes out; a second
+// cluster barrier keeps each CTA's shared memory alive until the others
+// have read it. There is no workspace and no second launch: llama-tiny's
+// decode (D = 16, 160 tokens of capacity) takes one split, whose 5 tiles
+// go to 5 warps, and at the llama-1b serving shape the 2048-token row takes
+// 8 CTAs instead of one. On the card the walk's arithmetic, not its loads,
+// sets the time at that shape: the q and p reads from shared memory, not
+// the FMAs or HBM, are the limit (the kernel with its loads cut ran nearly
+// as long as the whole). f32 is llama-tiny's dtype (D = 16), which
+// serve_bench's speculative fixture decodes on the card; the f32 kernel
+// takes D = 16, 32, 64 and 128, the bf16 walk 64 and 128.
+
+#include <cooperative_groups.h>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -334,11 +360,10 @@ paged_decode_combine_kernel(const float* __restrict__ part_acc, const float* __r
   }
 }
 
-// ---- f32: one CTA per (b, h), CUDA cores -----------------------------------------
+// ---- f32: the walk split over a cluster of CTAs, CUDA cores ----------------------
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 32;  // tokens per warp iteration: one per lane
+constexpr int kF32Tokens = 256;   // tokens per split at least (the host's rule)
+constexpr int kF32MaxSplits = 8;  // splits at most: one cluster of the portable size
 
 // N consecutive floats read as one vector load (N <= 4)
 template <int N>
@@ -351,12 +376,6 @@ __device__ __forceinline__ Chunk<N> load_chunk(const float* p) {
   return *reinterpret_cast<const Chunk<N>*>(p);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
@@ -364,179 +383,292 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
-                    const float* __restrict__ v_pool, const int* __restrict__ tables,
-                    const int* __restrict__ lengths, float* __restrict__ out,
-                    int kv_heads, int groups, int num_blocks, int block_size,
-                    int max_blocks, float sm_scale) {
-  constexpr int kVec = 4;                  // K elements per 16-byte load
-  // output dims per lane, and the lanes that own them: D / 32 on every lane
-  // from D = 32 on, one on each of the first D lanes below
+struct F32Tiles {
+  static_assert(D == 16 || D % 32 == 0, "head_dim must be 16 or a multiple of 32");
+  // warps of a CTA, and tiles of a warp in flight (this one included): at
+  // D = 16 eight warps of two, so that llama-tiny's 160-token table takes
+  // one tile a warp; else four of three
+  static constexpr int kWarps = D == 16 ? 8 : 4;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kStages = D == 16 ? 2 : 3;
+  // tokens of a warp's tile and lanes per token: 32 x 1 at D <= 32, 16 x 2
+  // at D = 64, 8 x 4 at D = 128
+  static constexpr int kTok = D <= 32 ? 32 : 1024 / D;
+  static constexpr int kParts = 32 / kTok;
+  static constexpr int kChunks = D / 4;  // 16-byte chunks of a row
+  static constexpr int kLdK = D + 4;     // a staged K row, padded by 16 bytes
+  // in floats: a stage (K tile, then V tile) and a warp's ring of them,
+  // which after the walk holds the warp's partial: acc [G][D], m [G], l [G]
+  static constexpr int k_tile = kTok * kLdK;
+  static constexpr int stage = k_tile + kTok * D;
+  static constexpr int ring = kStages * stage;
+  static_assert(ring >= kMaxG * D + 2 * kMaxG, "the ring holds the warp's partial");
+  // then q [G][D], each warp's p [G][kTok], and the CTA's partial (acc, m, l)
+  static constexpr int q = kWarps * ring;
+  static constexpr int p = q + kMaxG * D;
+  static constexpr int part = p + kWarps * kMaxG * kTok;
+  static constexpr size_t total = sizeof(float) * (part + kMaxG * D + 2 * kMaxG);
+};
+
+// One (b, h)'s split `blockIdx.x` of split_tokens tokens; the cluster over
+// blockIdx.x holds all of (b, h)'s splits and writes out[b, h].
+template <int D>
+__global__ void __launch_bounds__(F32Tiles<D>::kThreads)
+paged_decode_f32_kernel(const float* __restrict__ q, const float* __restrict__ k_pool,
+                        const float* __restrict__ v_pool, const int* __restrict__ tables,
+                        const int* __restrict__ lengths, float* __restrict__ out, int kv_heads,
+                        int groups, int num_blocks, int block_size, int max_blocks,
+                        int split_tokens, float sm_scale) {
+  using L = F32Tiles<D>;
+  constexpr int kWarps = L::kWarps;
+  constexpr int kThreads = L::kThreads;
+  constexpr int kStages = L::kStages;
+  constexpr int kTok = L::kTok;
+  constexpr int kParts = L::kParts;
+  constexpr int kChunks = L::kChunks;
+  // output dims per lane in P V, and the lanes that own them: D / 32 on
+  // every lane from D = 32 on, one on each of the first D lanes below
   constexpr int kDims = D >= 32 ? D / 32 : 1;
   constexpr int kLanes = D / kDims;
-  // V rows in flight per batch: 32 at D = 64; 16 at D = 128, where a lane's
-  // slice of a row is twice as wide (32 rows there spill registers)
-  constexpr int kVBatch = D <= 64 ? 32 : 16;
-  static_assert(D == 16 || D % 32 == 0, "head_dim must be 16 or a multiple of 32");
 
-  __shared__ float q_s[kMaxG][D];
-  __shared__ float p_s[kWarps][kMaxG][kTile];
-  __shared__ float acc_s[kWarps][kMaxG][D];
-  __shared__ float m_s[kWarps][kMaxG];
-  __shared__ float l_s[kWarps][kMaxG];
-
-  const int b = blockIdx.x;
+  extern __shared__ __align__(16) float smem_f32[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = blockIdx.x;  // the cluster spans the splits: its rank
   const int h = blockIdx.y;
+  const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
   const int gd = groups * D;
-  const bool owns_dims = kLanes == 32 || lane < kLanes;
-
-  const int len = max(0, min(lengths[b], max_blocks * block_size));
-  const int* table = tables + static_cast<size_t>(b) * max_blocks;
   const size_t q_off = (static_cast<size_t>(b) * kv_heads + h) * gd;
-  const size_t head_off = static_cast<size_t>(h) * D;
-  const size_t row_stride = static_cast<size_t>(kv_heads) * D;
+  // a table holds max_blocks * block_size slots: longer lengths attend over
+  // those only, as the TPU kernel's clamped walk does
+  const int len = max(0, min(lengths[b], max_blocks * block_size));
+  const int t0 = split * split_tokens;
+  const int t1 = min(len, t0 + split_tokens);  // this CTA's run is [t0, t1)
+  const int n_tiles = t1 > t0 ? tiles_of(t1 - t0, kTok) : 0;
+  float* part = smem_f32 + L::part;  // the split's acc [G][D], m [G], l [G]
 
-  // pool row (block * bs + slot) of token `tok`, or 0 past the length
-  auto pool_row = [&](int tok) -> int {
-    if (tok >= len) return 0;
-    int blk = table[tok / block_size];
-    blk = min(max(blk, 0), num_blocks - 1);
-    return blk * block_size + tok % block_size;
-  };
+  if (n_tiles > 0) {
+    float* ring = smem_f32 + warp * L::ring;
+    float* q_s = smem_f32 + L::q;
+    float* p_s = smem_f32 + L::p + warp * kMaxG * kTok;
+    const int* table = tables + static_cast<size_t>(b) * max_blocks;
+    const size_t row_stride = static_cast<size_t>(kv_heads) * D;
+    const size_t head_off = static_cast<size_t>(h) * D;
+    const int my_tiles = n_tiles > warp ? (n_tiles - 1 - warp) / kWarps + 1 : 0;
+    const int tok_lane = lane % kTok;   // this lane's token of a tile
+    const int part_lane = lane / kTok;  // and its share of the token's chunks
+    auto tile_start = [&](int i) { return t0 + (warp + i * kWarps) * kTok; };
 
-  for (int i = tid; i < gd; i += kThreads) q_s[i / D][i % D] = q[q_off + i];
-
-  float acc[kMaxG][kDims];
-  float m_row[kMaxG];
-  float l_row[kMaxG];
+    // the pool row of this lane's token of the warp's i-th tile (-1 past the
+    // run), looked up a tile ahead of its loads, so that the table's
+    // latency is not paid on the way to each wait
+    auto lookup = [&](int i) {
+      const int tok = tile_start(i) + tok_lane;
+      if (i >= my_tiles || tok >= t1) return -1;
+      const int blk = min(max(table[tok / block_size], 0), num_blocks - 1);
+      return blk * block_size + tok % block_size;
+    };
+    // the warp's i-th tile into ring slot i % kStages, one commit group a
+    // tile (empty past the warp's tiles, so that the count stays even)
+    auto load = [&](int i, int row) {
+      if (i < my_tiles) {
+        float* k_dst = ring + (i % kStages) * L::stage;
+        float* v_dst = k_dst + L::k_tile;
 #pragma unroll
-  for (int r = 0; r < kMaxG; ++r) {
-    m_row[r] = -CUDART_INF_F;
-    l_row[r] = 0.f;
+        for (int j = 0; j < kTok * kChunks / 32; ++j) {
+          const int piece = lane + 32 * j;
+          const int t = piece / kChunks;
+          const int c = piece % kChunks;
+          const int r = __shfl_sync(kFull, row, t);
+          const size_t src = r < 0 ? 0 : static_cast<size_t>(r) * row_stride + head_off + 4 * c;
+          cp_async16(k_dst + t * L::kLdK + 4 * c, k_pool + src, r < 0 ? 0 : 16);
+          cp_async16(v_dst + t * D + 4 * c, v_pool + src, r < 0 ? 0 : 16);
+        }
+      }
+      cp_async_commit();
+    };
+    int rows[kStages - 1];
 #pragma unroll
-    for (int j = 0; j < kDims; ++j) acc[r][j] = 0.f;
-  }
-  __syncthreads();
+    for (int i = 0; i < kStages - 1; ++i) rows[i] = lookup(i);
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) load(i, rows[i]);
+    int row_next = lookup(kStages - 1);
+    for (int i = tid; i < gd; i += kThreads) q_s[i] = q[q_off + i];
 
-  const int stride = kWarps * kTile;
-  int start = warp * kTile;
-  int row = pool_row(start + lane);
-  for (; start < len; start += stride) {
-    const int tok = start + lane;
-    const bool live = tok < len;
-    const int n_live = min(kTile, len - start);
-    const int next_row = pool_row(start + stride + lane);  // used next tile
+    float acc[kMaxG][kDims];
+    float m_row[kMaxG];
+    float l_row[kMaxG];  // this lane's part of each row's sum
+#pragma unroll
+    for (int r = 0; r < kMaxG; ++r) {
+      m_row[r] = -CUDART_INF_F;
+      l_row[r] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kDims; ++j) acc[r][j] = 0.f;
+    }
+    __syncthreads();  // q_s
 
-    // scores of this lane's token against the G query rows
-    float s[kMaxG];
+    for (int i = 0; i < my_tiles; ++i) {
+      load(i + kStages - 1, row_next);  // into the slot tile i - 1 left
+      row_next = lookup(i + kStages);
+      cp_async_wait<kStages - 1>();
+      __syncwarp();  // tile i has landed, every lane's share of it
+      const float* k_s = ring + (i % kStages) * L::stage;
+      const float* v_s = k_s + L::k_tile;
+      const bool live = tile_start(i) + tok_lane < t1;
+
+      // scores of this lane's token: its chunks, then the sum over the
+      // token's lanes
+      float s[kMaxG];
 #pragma unroll
-    for (int r = 0; r < kMaxG; ++r) s[r] = 0.f;
-    if (live) {
-      const float* krow = k_pool + static_cast<size_t>(row) * row_stride + head_off;
+      for (int r = 0; r < kMaxG; ++r) s[r] = 0.f;
+      const float* k_row = k_s + tok_lane * L::kLdK;
 #pragma unroll
-      for (int c = 0; c < D; c += kVec) {
-        const Chunk<kVec> kc = load_chunk<kVec>(krow + c);
+      for (int j = 0; j < kChunks / kParts; ++j) {
+        const int c = j * kParts + part_lane;
+        const float4 kc = *reinterpret_cast<const float4*>(k_row + 4 * c);
 #pragma unroll
         for (int r = 0; r < kMaxG; ++r) {
           if (r < groups) {
-#pragma unroll
-            for (int e = 0; e < kVec; ++e) s[r] += q_s[r][c + e] * kc.v[e];
+            const float4 qc = *reinterpret_cast<const float4*>(q_s + r * D + 4 * c);
+            s[r] = fmaf(qc.x, kc.x, s[r]);
+            s[r] = fmaf(qc.y, kc.y, s[r]);
+            s[r] = fmaf(qc.z, kc.z, s[r]);
+            s[r] = fmaf(qc.w, kc.w, s[r]);
           }
         }
       }
-    }
 
-    // online softmax, one query row at a time; every tile holds at least
-    // one live token, so m_new is a real score
+      // online softmax, one query row at a time; every tile holds at least
+      // one live token, so m_new is a real score
 #pragma unroll
-    for (int r = 0; r < kMaxG; ++r) {
-      if (r < groups) {
-        const float sr = live ? s[r] * sm_scale : kMaskValue;
-        const float m_new = fmaxf(m_row[r], warp_max(sr));
-        const float alpha = expf(m_row[r] - m_new);  // 0 on the first tile
-        const float p = live ? expf(sr - m_new) : 0.f;
-        l_row[r] = alpha * l_row[r] + warp_sum(p);
-        m_row[r] = m_new;
-        p_s[warp][r][lane] = p;
+      for (int r = 0; r < kMaxG; ++r) {
+        if (r < groups) {
 #pragma unroll
-        for (int j = 0; j < kDims; ++j) acc[r][j] *= alpha;
+          for (int o = kTok; o < 32; o <<= 1) s[r] += __shfl_xor_sync(kFull, s[r], o);
+          const float sr = live ? s[r] * sm_scale : kMaskValue;
+          float mx = sr;
+#pragma unroll
+          for (int o = 1; o < kTok; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+          const float m_new = fmaxf(m_row[r], mx);
+          const float alpha = expf(m_row[r] - m_new);  // 0 on the warp's first tile
+          const float p = live ? expf(sr - m_new) : 0.f;
+          l_row[r] = alpha * l_row[r] + (part_lane == 0 ? p : 0.f);
+          m_row[r] = m_new;
+          if (part_lane == 0) p_s[r * kTok + tok_lane] = p;
+#pragma unroll
+          for (int j = 0; j < kDims; ++j) acc[r][j] *= alpha;
+        }
       }
-    }
-    __syncwarp();
+      __syncwarp();
 
-    // acc[r][lane's dims] += sum over the tile's live tokens of p[r][t] v[t]
+      // acc[r][lane's dims] += sum over the tile's tokens of p[r][t] v[t]
+      // (rows past the run were zero-filled and have p = 0)
+      if (kLanes == 32 || lane < kLanes) {
 #pragma unroll
-    for (int t0 = 0; t0 < kTile; t0 += kVBatch) {
-      Chunk<kDims> vc[kVBatch];
+        for (int t = 0; t < kTok; t += 4) {
+          Chunk<kDims> vc[4];
 #pragma unroll
-      for (int i = 0; i < kVBatch; ++i) {
-        const int row_t = __shfl_sync(kFull, row, t0 + i);
-        if (t0 + i < n_live && owns_dims)
-          vc[i] = load_chunk<kDims>(v_pool + static_cast<size_t>(row_t) * row_stride +
-                                    head_off + lane * kDims);
-      }
-#pragma unroll
-      for (int i = 0; i < kVBatch; ++i) {
-        if (t0 + i < n_live && owns_dims) {
+          for (int e = 0; e < 4; ++e) vc[e] = load_chunk<kDims>(v_s + (t + e) * D + lane * kDims);
 #pragma unroll
           for (int r = 0; r < kMaxG; ++r) {
             if (r < groups) {
-              const float p = p_s[warp][r][t0 + i];
+              const float4 p4 = *reinterpret_cast<const float4*>(p_s + r * kTok + t);
 #pragma unroll
-              for (int j = 0; j < kDims; ++j) acc[r][j] += p * vc[i].v[j];
+              for (int j = 0; j < kDims; ++j) {
+                acc[r][j] = fmaf(p4.x, vc[0].v[j], acc[r][j]);
+                acc[r][j] = fmaf(p4.y, vc[1].v[j], acc[r][j]);
+                acc[r][j] = fmaf(p4.z, vc[2].v[j], acc[r][j]);
+                acc[r][j] = fmaf(p4.w, vc[3].v[j], acc[r][j]);
+              }
             }
           }
         }
       }
+      __syncwarp();  // the next tile's loads overwrite this slot, and p_s
     }
-    __syncwarp();  // the next tile overwrites this warp's p_s
-    row = next_row;
-  }
 
-  // merge the warps' partial softmaxes (a warp that walked no tile holds
-  // m = -inf, l = 0, acc = 0 and weighs nothing)
+    // the warp's partial into its own ring (a warp that walked no tile holds
+    // m = -inf, l = 0, acc = 0 and weighs nothing)
+    cp_async_wait<0>();
+    __syncwarp();
 #pragma unroll
-  for (int r = 0; r < kMaxG; ++r) {
-    if (r < groups) {
-      if (lane == 0) {
-        m_s[warp][r] = m_row[r];
-        l_s[warp][r] = l_row[r];
-      }
-      if (owns_dims) {
+    for (int r = 0; r < kMaxG; ++r) {
+      if (r < groups) {
+        const float l_sum = warp_sum(l_row[r]);
+        if (lane == 0) {
+          ring[kMaxG * D + r] = m_row[r];
+          ring[kMaxG * D + kMaxG + r] = l_sum;
+        }
+        if (kLanes == 32 || lane < kLanes) {
 #pragma unroll
-        for (int j = 0; j < kDims; ++j) acc_s[warp][r][lane * kDims + j] = acc[r][j];
+          for (int j = 0; j < kDims; ++j) ring[r * D + lane * kDims + j] = acc[r][j];
+        }
       }
     }
-  }
-  __syncthreads();
-  for (int o = tid; o < gd; o += kThreads) {
-    const int r = o / D;
-    const int d = o % D;
-    float m = -CUDART_INF_F;
+    __syncthreads();
+    // the split's partial: the warps' merged (warp 0 holds a live token)
+    for (int o = tid; o < gd; o += kThreads) {
+      const int r = o / D;
+      float m = -CUDART_INF_F;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, m_s[w][r]);
-    float l = 0.f, a = 0.f;
-    if (m != -CUDART_INF_F) {
+      for (int w = 0; w < kWarps; ++w) m = fmaxf(m, smem_f32[w * L::ring + kMaxG * D + r]);
+      float a = 0.f, l = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) {
-        const float f = expf(m_s[w][r] - m);
-        l += f * l_s[w][r];
-        a += f * acc_s[w][r][d];
+        const float* wp = smem_f32 + w * L::ring;
+        const float f = expf(wp[kMaxG * D + r] - m);
+        a += f * wp[o];
+        l += f * wp[kMaxG * D + kMaxG + r];
+      }
+      part[o] = a;
+      if (o % D == 0) {
+        part[kMaxG * D + r] = m;
+        part[kMaxG * D + kMaxG + r] = l;
+      }
+    }
+  }
+
+  // every split's partial is written; each CTA of the cluster merges its
+  // share of the outputs over the live splits (a length of 0 has none and
+  // gives zeros)
+  cluster.sync();
+  const int live_splits = tiles_of(len, split_tokens);
+  for (int o = split * kThreads + tid; o < gd; o += gridDim.x * kThreads) {
+    const int r = o / D;
+    float ms[kF32MaxSplits], ls[kF32MaxSplits], as[kF32MaxSplits];
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int s = 0; s < kF32MaxSplits; ++s) {
+      if (s < live_splits) {
+        const float* sp = cluster.map_shared_rank(part, s);
+        ms[s] = sp[kMaxG * D + r];
+        ls[s] = sp[kMaxG * D + kMaxG + r];
+        as[s] = sp[o];
+        m = fmaxf(m, ms[s]);
+      }
+    }
+    float a = 0.f, l = 0.f;
+#pragma unroll
+    for (int s = 0; s < kF32MaxSplits; ++s) {
+      if (s < live_splits) {
+        const float f = expf(ms[s] - m);
+        a += f * as[s];
+        l += f * ls[s];
       }
     }
     out[q_off + o] = l == 0.f ? 0.f : a / l;
   }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
 }
 
 struct Args {
   const void *q, *k, *v;
   const int *tables, *lengths;
   void *out, *part_acc, *part_ml;
-  int batch, kv_heads, groups, num_blocks, block_size, max_blocks, splits;
+  int batch, kv_heads, groups, num_blocks, block_size, max_blocks, splits, split_tokens;
   float sm_scale;
   cudaStream_t stream;
 };
@@ -546,8 +678,9 @@ int launch_split(const Args& a) {
   using L = SplitSmem<D>;
   static const cudaError_t attr = allow_smem(paged_decode_split_kernel<D>, L::total);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  if (a.splits <= 0 || static_cast<long long>(a.splits) * kChunk <
-                           static_cast<long long>(a.max_blocks) * a.block_size)
+  if (a.split_tokens != kChunk || a.splits <= 0 ||
+      static_cast<long long>(a.splits) * kChunk <
+          static_cast<long long>(a.max_blocks) * a.block_size)
     return static_cast<int>(cudaErrorInvalidValue);  // the splits must cover the table
   paged_decode_split_kernel<D><<<dim3(a.splits, a.kv_heads, a.batch), kSplitThreads, L::total,
                                  a.stream>>>(
@@ -560,16 +693,36 @@ int launch_split(const Args& a) {
   return 0;
 }
 
+// one launch: grid (splits, KVH, B), a cluster over each (b, h)'s splits
 template <int D>
 int launch_f32(const Args& a) {
-  paged_decode_kernel<D><<<dim3(a.batch, a.kv_heads), kThreads, 0, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), a.tables, a.lengths, static_cast<float*>(a.out),
-      a.kv_heads, a.groups, a.num_blocks, a.block_size, a.max_blocks, a.sm_scale);
-  return 0;
+  using L = F32Tiles<D>;
+  static const cudaError_t attr = allow_smem(paged_decode_f32_kernel<D>, L::total);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (a.splits <= 0 || a.splits > kF32MaxSplits || a.split_tokens <= 0 ||
+      static_cast<long long>(a.splits) * a.split_tokens <
+          static_cast<long long>(a.max_blocks) * a.block_size)
+    return static_cast<int>(cudaErrorInvalidValue);  // the splits must cover the table
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = a.splits;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, a.kv_heads, a.batch);
+  cfg.blockDim = dim3(L::kThreads);
+  cfg.dynamicSmemBytes = L::total;
+  cfg.stream = a.stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, paged_decode_f32_kernel<D>, static_cast<const float*>(a.q),
+      static_cast<const float*>(a.k), static_cast<const float*>(a.v), a.tables, a.lengths,
+      static_cast<float*>(a.out), a.kv_heads, a.groups, a.num_blocks, a.block_size,
+      a.max_blocks, a.split_tokens, a.sm_scale));
 }
 
-// dtype 0 = f32 runs the CUDA-core kernel, 1 = bf16 the split walk
+// dtype 0 = f32 runs the cluster walk, 1 = bf16 the split walk and its combine
 template <int D>
 int launch(int dtype, const Args& a) {
   if (dtype == 0) return launch_f32<D>(a);
@@ -578,8 +731,13 @@ int launch(int dtype, const Args& a) {
 }
 
 template <int D>
+int resources_f32(int* out) {
+  return resources(paged_decode_f32_kernel<D>, F32Tiles<D>::kThreads, F32Tiles<D>::total, out);
+}
+
+template <int D>
 int resources_of(int dtype, int* out) {
-  if (dtype == 0) return resources(paged_decode_kernel<D>, kThreads, 0, out);
+  if (dtype == 0) return resources_f32<D>(out);
   if (dtype == 1)
     return resources(paged_decode_split_kernel<D>, kSplitThreads, SplitSmem<D>::total, out);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -589,24 +747,27 @@ int resources_of(int dtype, int* out) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. part_acc [B, KVH, splits, G, D] and
-// part_ml [B, KVH, splits, G, 2] (f32) are the bf16 walk's workspace, with
-// splits * paged_decode_split_tokens() >= max_blocks * block_size; f32 reads
-// neither. Returns
+// dtype: 0 = float32, 1 = bfloat16. splits x split_tokens must cover the
+// table (max_blocks * block_size tokens): in bf16 split_tokens is
+// paged_decode_split_tokens(), and part_acc [B, KVH, splits, G, D] and
+// part_ml [B, KVH, splits, G, 2] (f32) are the walk's workspace; in f32
+// the host's rule (paged_decode_f32_split_tokens, _max_splits) sizes them,
+// splits is the cluster's size and no workspace is read. Returns
 // cudaGetLastError() after the launches (0 on success), or
 // cudaErrorInvalidValue for a shape or dtype the kernels do not take.
 // Launches on `stream`, does not synchronise.
 int paged_decode(const void* q, const void* k_pool, const void* v_pool, const void* tables,
                  const void* lengths, void* out, void* part_acc, void* part_ml, int batch,
                  int kv_heads, int groups, int head_dim, int num_blocks, int block_size,
-                 int max_blocks, int splits, float sm_scale, int dtype, void* stream) {
+                 int max_blocks, int splits, int split_tokens, float sm_scale, int dtype,
+                 void* stream) {
   if (batch <= 0 || kv_heads <= 0 || groups <= 0 || groups > kMaxG || num_blocks <= 0 ||
       block_size <= 0 || max_blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGetLastError();  // start from a clean error state
   const Args a{q, k_pool, v_pool, static_cast<const int*>(tables),
                static_cast<const int*>(lengths), out, part_acc, part_ml, batch, kv_heads,
-               groups, num_blocks, block_size, max_blocks, splits, sm_scale,
+               groups, num_blocks, block_size, max_blocks, splits, split_tokens, sm_scale,
                static_cast<cudaStream_t>(stream)};
   int rc;
   if (head_dim == 64)
@@ -630,13 +791,19 @@ int paged_decode(const void* q, const void* k_pool, const void* v_pool, const vo
 int paged_decode_resources(int head_dim, int dtype, int* out) {
   if (head_dim == 64) return resources_of<64>(dtype, out);
   if (head_dim == 128) return resources_of<128>(dtype, out);
-  if (head_dim == 16 && dtype == 0) return resources(paged_decode_kernel<16>, kThreads, 0, out);
-  if (head_dim == 32 && dtype == 0) return resources(paged_decode_kernel<32>, kThreads, 0, out);
+  if (head_dim == 16 && dtype == 0) return resources_f32<16>(out);
+  if (head_dim == 32 && dtype == 0) return resources_f32<32>(out);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Tokens per CTA of the bf16 split walk, from which the host sizes `splits`.
 int paged_decode_split_tokens() { return kChunk; }
+
+// The f32 walk's host rule: splits of at least this many tokens ...
+int paged_decode_f32_split_tokens() { return kF32Tokens; }
+
+// ... and at most this many splits (one cluster) to a (b, h).
+int paged_decode_f32_max_splits() { return kF32MaxSplits; }
 
 const char* paged_decode_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

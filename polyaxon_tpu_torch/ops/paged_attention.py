@@ -9,10 +9,11 @@ Two implementations behind one signature:
 - ``impl="flash"`` — :func:`paged_decode`: on a CUDA tensor the hand-written
   kernels of ``csrc/paged_decode.cu`` (replacing the TPU kernel
   ``_decode_kernel``), which walk each row's block table up to its length
-  with an f32 online softmax (in bf16 the walk is split over CTAs of 256
-  tokens and their partials merged by a second kernel); on a CPU tensor its
-  plain version :func:`paged_decode_plain`, the same walk as a
-  block-by-block tile loop.
+  with an f32 online softmax, split over CTAs (in bf16 of 256 tokens, their
+  partials merged by a second kernel; in f32 a thread-block cluster over a
+  row's splits, merged inside the one launch); on a CPU tensor its plain
+  version :func:`paged_decode_plain`, the same walk as a block-by-block
+  tile loop.
 
 Shapes (G = query heads per KV head, GQA):
     q           [B, KVH, G, D]    one decode token per sequence
@@ -46,19 +47,21 @@ PAGED_DECODE_LIB = _Library(
     signatures={
         # q, k_pool, v_pool, tables, lengths, out, part_acc, part_ml; batch,
         # kv_heads, groups, head_dim, num_blocks, block_size, max_blocks,
-        # splits; sm_scale; dtype; stream
-        "paged_decode": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        # splits, split_tokens; sm_scale; dtype; stream
+        "paged_decode": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
                          ctypes.c_int),
         # head_dim, dtype, int[5] out
         "paged_decode_resources": ([ctypes.c_int] * 2 + [ctypes.c_void_p], ctypes.c_int),
         "paged_decode_split_tokens": ([], ctypes.c_int),
+        "paged_decode_f32_split_tokens": ([], ctypes.c_int),
+        "paged_decode_f32_max_splits": ([], ctypes.c_int),
         "paged_decode_error_string": ([ctypes.c_int], ctypes.c_char_p),
     })
 
 #: query heads per KV head the kernels take (their shared-memory sizing)
 KERNEL_MAX_GROUPS = 8
-#: head dims each dtype's kernel takes (f32's CUDA-core walk also llama-tiny's 16)
+#: head dims each dtype's kernel takes (f32's cluster walk also llama-tiny's 16)
 KERNEL_HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (64, 128)}
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -71,10 +74,30 @@ def reset_launch_counts() -> None:
         launch_counts[k] = 0
 
 
-def split_tokens() -> int:
-    """Tokens per CTA of the bf16 kernel's split walk, as the kernel
-    library reports it. Needs a CUDA device."""
-    return PAGED_DECODE_LIB.load().paged_decode_split_tokens()
+def f32_split(max_blocks: int, block_size: int, min_tokens: int,
+              max_splits: int) -> tuple[int, int]:
+    """The f32 kernel's split walk for a table of ``max_blocks`` blocks of
+    ``block_size`` tokens: ``(splits, tokens per split)``. A split takes
+    ``min_tokens`` tokens, or, where ``max_splits`` of those would not
+    cover the table, its share of it rounded up to 32 (whole tiles of a
+    warp); the splits of one (sequence, KV head) form one thread-block
+    cluster, so there are at most ``max_splits``."""
+    cap = max_blocks * block_size
+    share = -(-cap // max_splits)
+    tokens = max(min_tokens, -(-share // 32) * 32)
+    return -(-cap // tokens), tokens
+
+
+def walk_split(dtype: torch.dtype, max_blocks: int, block_size: int) -> tuple[int, int]:
+    """``(splits, tokens per split)`` of the kernel for ``dtype`` over a
+    table of ``max_blocks`` blocks of ``block_size`` tokens, from the rule
+    the kernel library reports. Needs a CUDA device."""
+    lib = PAGED_DECODE_LIB.load()
+    if dtype == torch.bfloat16:
+        tokens = lib.paged_decode_split_tokens()
+        return -(-max_blocks * block_size // tokens), tokens
+    return f32_split(max_blocks, block_size, lib.paged_decode_f32_split_tokens(),
+                     lib.paged_decode_f32_max_splits())
 
 
 def split_workspace(batch: int, kv_heads: int, groups: int, head_dim: int,
@@ -104,7 +127,7 @@ def workspace(device: torch.device, stream: int, numel: int) -> torch.Tensor:
 
 def kernel_resources(head_dim: int, dtype: torch.dtype) -> dict:
     """What the kernel for ``head_dim`` and ``dtype`` (bf16: the split
-    kernel) holds on the card: registers per thread at launch, shared
+    kernel; f32: the cluster walk) holds on the card: registers per thread at launch, shared
     memory per CTA, CTAs per SM, threads per CTA and spilled bytes per
     thread. Needs a CUDA device."""
     out = (ctypes.c_int * 5)()
@@ -230,9 +253,10 @@ def _check_kernel_args(q, k_pool, v_pool, block_tables, lengths):
 def paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths, *,
                       sm_scale: float) -> torch.Tensor:
     """Launch the CUDA kernels on the current stream (builds the library at
-    first use); in bf16 the split walk's workspace comes from
-    :func:`split_workspace`, kept per stream by :func:`workspace`. Raises on anything the kernels do not take, and
-    when a launch is refused."""
+    first use), split as :func:`walk_split` says; in bf16 the split walk's
+    workspace comes from :func:`split_workspace`, kept per stream by
+    :func:`workspace`. Raises on anything the kernels do not take, and when
+    a launch is refused."""
     _check_kernel_args(q, k_pool, v_pool, block_tables, lengths)
     lib = PAGED_DECODE_LIB.load()
     out = torch.empty_like(q)
@@ -241,11 +265,11 @@ def paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths, *,
         return out
     n, bs = k_pool.shape[0], k_pool.shape[1]
     t = block_tables.shape[1]
-    splits, acc_shape, ml_shape = split_workspace(b, kvh, g, d, t, bs,
-                                                  lib.paged_decode_split_tokens())
+    splits, tokens = walk_split(q.dtype, t, bs)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     part_acc = part_ml = None
     if q.dtype == torch.bfloat16:
+        _, acc_shape, ml_shape = split_workspace(b, kvh, g, d, t, bs, tokens)
         n_acc, n_ml = math.prod(acc_shape), math.prod(ml_shape)
         buf = workspace(q.device, stream, n_acc + n_ml)
         part_acc, part_ml = buf[:n_acc], buf[n_acc:]
@@ -254,7 +278,7 @@ def paged_decode_cuda(q, k_pool, v_pool, block_tables, lengths, *,
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
-        b, kvh, g, d, n, bs, t, splits, float(sm_scale),
+        b, kvh, g, d, n, bs, t, splits, tokens, float(sm_scale),
         _KERNEL_DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(

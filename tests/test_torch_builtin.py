@@ -23,6 +23,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu_torch.models import REGISTRY, transformer
 from polyaxon_tpu_torch.partition.convert import save_flat

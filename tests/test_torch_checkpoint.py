@@ -12,6 +12,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu_torch.partition.rules import tree_paths
 from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer

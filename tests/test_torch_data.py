@@ -13,6 +13,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu.train import data as jdata
 from polyaxon_tpu_torch.train import data

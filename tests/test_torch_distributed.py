@@ -69,6 +69,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu.models import REGISTRY as JAX_REGISTRY
 from polyaxon_tpu.parallel import build_mesh as jax_build_mesh

@@ -41,6 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu.models import REGISTRY as JAX_REGISTRY
 from polyaxon_tpu.models import resnet as jresnet
@@ -61,17 +62,6 @@ from polyaxon_tpu_torch.train.tasks import task_for
 from polyaxon_tpu_torch.train.trainer import Trainer, TrainerConfig
 
 fa = importlib.import_module("polyaxon_tpu_torch.ops.flash_attention")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The suite runs six workers on eight cores, and torch's default of one
-    thread per core oversubscribes them; two threads keep this file's CPU
-    share near one worker's (it also runs faster alone)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 
 # case -> (registry name, dtype override): resnet18-cifar at its bf16, and

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax_attention_mod = importlib.import_module("polyaxon_tpu.ops.attention")
 jfa = importlib.import_module("polyaxon_tpu.ops.flash_attention")
@@ -177,26 +178,29 @@ def test_return_lse_matches_the_forward():
 # On the card the f32 kernels run each product A B on the tensor cores as
 # A_hi B_lo + A_lo B_hi + A_hi B_hi, with hi = tf32(x) and lo = tf32(x - hi)
 # rounded by cvt.rna.tf32.f32 (csrc/hopper.cuh). hi + lo misses x by up to
-# one place of x, so the backward kernels' scores take Q in three parts
-# (A_rest = A - A_hi - A_lo adds A_rest B_hi): there P = exp(s scale - LSE)
+# one place of x, so every kernel's scores take Q in three parts (A_rest =
+# A - A_hi - A_lo adds A_rest B_hi): in the backward P = exp(s scale - LSE)
 # with the LSE from outside, and a score's error times |s scale| becomes
-# P's relative error. The model below repeats that arithmetic in the plain
-# versions' products, in the order they make them, so the JAX kernels can
-# hold it here. It is held to the tolerance the card holds those kernels
+# P's relative error; in the forward two far keys whose scores nearly tie
+# split a row's P by the difference of their scores' errors. The model
+# below repeats that arithmetic in the plain versions' products, in the
+# order they make them, so the JAX kernels can hold it here. It is held to the tolerance the card holds those kernels
 # to against their f32 plain versions (FLASH_TOL in
 # tests/test_torch_kernels_cuda.py and chip_smoke.py): 5e-5 + 5e-5 |ref|.
 # The other models must fall outside it: a single tf32 pass (~2^-12
 # relative per operand) everywhere, and two-part scores where they reach
 # hundreds: key 0 at 2000 along one axis with a scale of +-1/8 (the cuda
-# test of the scale's sign) in dV, and keys 0 and 1 at 2000 along two axes
-# that share the rows' P in dQ.
+# test of the scale's sign) in dV, keys 0 and 1 at 2000 along two axes
+# that share the rows' P in dQ, and the same two keys at a near tie
+# (q[..., 1] = q[..., 0] + 0.002 noise) in the forward's o.
 #
 # With one far key, where key 0 takes a row's whole P, dS = P (dO . v_0 -
 # delta) scale cancels and dq[..., 0] = 2000 dS is the rounding of dO . v_0
 # and delta times 250: there no two f32 orders of summation agree within
 # SPLIT_TOL, the exact f32 plain version's dq neither with JAX's. Column 0
 # of dq is held there against the plain version with f64 products instead,
-# no further from it than the f32 plain version is. That column also holds
+# no further from it than the f32 plain version is; so are columns 0 and 1
+# at the near tie, where the two far keys share such a cancellation. That column also holds
 # dQ's dP = dO V^T to f32's accuracy. Each wgmma truncates its sum, and
 # along one accumulator of D / 8 steps that bias passes f32's rounding; so
 # the dQ kernel runs dO_hi V_hi^T in four chains, each from zero, added to
@@ -243,22 +247,22 @@ def _chains(a, b, chains):
     return out
 
 
-#: products per pair of tiles in each backward plain version, scores first:
-#: dK/dV makes S, dP, dV, dK; dQ makes S, dP, dQ
-_BWD_PRODUCTS = {"dkv": 4, "dq": 3}
+#: products per pair of tiles in each plain version, scores first: the
+#: forward makes S, P V; dK/dV makes S, dP, dV, dK; dQ makes S, dP, dQ
+_PRODUCTS = {"fwd": 2, "dkv": 4, "dq": 3}
 
 
 def _kernel_products(kernel, model):
     """``_matmul`` for the plain version of ``kernel`` ("fwd", "dkv" or
     "dq"): ``model`` "kernel" as the kernels compute, "two_part" with the
-    backward's scores from two parts of Q, "one_chain" with dQ's dO_hi
+    scores from two parts of Q, "one_chain" with dQ's dO_hi
     V_hi^T in one accumulator, "single" one tf32 pass."""
     calls = itertools.count()
 
     def matmul(a, b):
         if model == "single":
             return torch.matmul(_tf32(a), _tf32(b))
-        step = next(calls) % _BWD_PRODUCTS[kernel] if kernel in _BWD_PRODUCTS else None
+        step = next(calls) % _PRODUCTS[kernel]
         if kernel == "dq" and step == 1 and model in ("kernel", "one_chain"):
             a_hi, b_hi = _tf32(a), _tf32(b)
             rest = torch.matmul(a_hi, _tf32(b - b_hi)) + torch.matmul(_tf32(a - a_hi), b_hi)
@@ -279,21 +283,25 @@ def _worst(out, ref):
     (64, 40, True, 0, "single"), (128, 0, False, 0, "single"),
     (64, 0, True, 1, "two_part"), (128, 0, False, 2, "two_part"),
     (128, 0, True, -1, "one_chain"),
+    (64, 0, True, 3, "kernel"), (128, 0, True, 3, "kernel"),
+    (64, 0, True, 3, "two_part"), (128, 0, True, 3, "two_part"),
 ])
 def test_split_tf32_products_hold_the_f32_tolerance(monkeypatch, d, q_offset, causal, large,
                                                     model):
     bh, s, block = 2, 128, 64
-    q, k, v, do = _arrays(10 + d + q_offset, [(bh, s, d)] * 4, "float32")
+    q, k, v, do, noise = _arrays(10 + d + q_offset, [(bh, s, d)] * 5, "float32")
     scale = d ** -0.5
     if large in (1, -1):  # scores of +-2000 q[i, 0] / 8 on key 0, exact in f32
         k[:, 0] = 0.0
         k[:, 0, 0] = 2000.0
         scale = 0.125 * large
-    if large == 2:  # keys 0 and 1 far out on two axes, with equal scores
+    if large in (2, 3):  # keys 0 and 1 far out on two axes, with equal scores
         k[:, :2] = 0.0
         k[:, 0, 0] = k[:, 1, 1] = 2000.0
         q[..., 1] = q[..., 0]
         scale = 0.125
+    if large == 3:  # ... or nearly equal ones
+        q[..., 1] += 0.002 * noise[..., 0]
     kw = dict(sm_scale=scale, causal=causal, block_q=block, block_k=block)
     jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
     o_j, lse_j = jfa._flash_fwd(jq, jk, jv, q_offset, 0, interpret=True, **kw)
@@ -312,15 +320,18 @@ def test_split_tf32_products_hold_the_f32_tolerance(monkeypatch, d, q_offset, ca
     dq_j = torch.tensor(_np(dq_j))
     pairs = {"o": (o, o_j), "dq": (dq, dq_j), "dk": (dk, dk_j), "dv": (dv, dv_j)}
     col0 = None
-    if large in (1, -1):  # column 0 against f64 products, the rest against JAX
+    # the far keys' columns of dq against f64 products, the rest against JAX
+    far = 2 if large == 3 and model == "kernel" else int(large in (1, -1))
+    if far:
         monkeypatch.setattr(fa, "_matmul", torch.matmul)
         dq_f32 = fa.flash_bwd_dq_plain(*bwd_args, **kw)
         monkeypatch.setattr(fa, "_matmul", lambda a, b: (a.double() @ b.double()).float())
         dq_64 = fa.flash_bwd_dq_plain(*bwd_args, **kw)
-        col0 = (_worst(dq[..., 0], dq_64[..., 0]), _worst(dq_f32[..., 0], dq_64[..., 0]))
-        pairs["dq"] = (dq[..., 1:], dq_j[..., 1:])
+        col0 = (_worst(dq[..., :far], dq_64[..., :far]),
+                _worst(dq_f32[..., :far], dq_64[..., :far]))
+        pairs["dq"] = (dq[..., far:], dq_j[..., far:])
     outside = {"kernel": (), "single": tuple(pairs), "one_chain": (),
-               "two_part": ("dq",) if large == 2 else ("dv",)}[model]
+               "two_part": {2: ("dq",), 3: ("o",)}.get(large, ("dv",))}[model]
     if model == "two_part":
         pairs = {name: pairs[name] for name in outside}
     for name, (out, ref) in pairs.items():

@@ -1,11 +1,14 @@
 """The CUDA kernels (paged decode; flash forward, dQ and dK/dV) against
 their plain PyTorch versions, on the card. In bf16 the flash kernels are
 the wgmma/TMA ones (tiles of 64 or 128 rows; dQ streams 128-key tiles at
-D = 64, 64 at D = 128) and paged decode is split over CTAs of 256 tokens; in f32 the
-flash forward, dQ and dK/dV are split-TF32 wgmma/TMA kernels (tiles of 16 to
-128 rows), and paged decode takes one CTA per sequence and KV head. Every test here needs a CUDA device (the kernels have no CPU build)
-and skips without one; this file imports nothing of JAX, so it runs on a
-machine with the card alone:
+D = 64, 64 at D = 128) and paged decode is split over CTAs of 256 tokens
+merged by a second kernel; in f32 the flash forward, dQ and dK/dV are
+split-TF32 wgmma/TMA kernels (tiles of 16 to 128 rows), and paged decode
+is split over a cluster of CTAs of 256 tokens or more (at most 8 a
+sequence and KV head, each CTA's warps on tiles of 8 to 32 tokens),
+merged inside the one launch. Every test here needs a CUDA device (the
+kernels have no CPU build) and skips without one; this file imports
+nothing of JAX, so it runs on a machine with the card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -110,12 +113,14 @@ def _assert_matches_plain(q, k, v, tables, lengths):
 @pytest.mark.parametrize("bs", [16, 128])
 @pytest.mark.parametrize("g", [1, 8])
 def test_kernel_length_edges(cuda, dtype, d, bs, g):
-    # a 768-token table (three splits in bf16): lengths 0 and 1, one block
-    # and one past it, each split boundary and one either side, the
-    # capacity, and a length past it (which attends over the capacity); the
-    # last row aliases the first row's leading blocks
+    # a 768-token table (three splits of 256 in either dtype): lengths 0 and
+    # 1, one block and one past it, each split boundary and one either
+    # side, the capacity, and a length past it (which attends over the
+    # capacity); the last row aliases the first row's leading blocks
     t = 768 // bs
-    cap, split = t * bs, pa.split_tokens()
+    cap = t * bs
+    splits, split = pa.walk_split(dtype, t, bs)
+    assert (splits, split) == (3, 256)
     lengths = [cap, 0, 1, bs, bs + 1, split - 1, split, split + 1, 2 * split - 1,
                2 * split + 1, cap - 1, cap + 5, 200]
     out = _assert_matches_plain(*_inputs(cuda, dtype, g=g, d=d, bs=bs, t=t, seed=bs + g,
@@ -144,17 +149,36 @@ def test_kernel_one_long_row(cuda, dtype, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("t,lengths", [
+    # the llama-1b serving shape's lengths over its 2048-token table: 8
+    # splits of 256, the long row's all live, most rows' CTAs past them
+    (16, [0, 1, 127, 128, 129, 2048, 700, 1000]),
+    # a 4096-token table: 8 splits of 512, and lengths at their edges
+    (32, [4096, 0, 511, 512, 513, 2049, 4095, 5000]),
+])
+def test_f32_kernel_whole_cluster(cuda, d, t, lengths):
+    splits, split = pa.walk_split(torch.float32, t, 128)
+    assert splits == 8 and split == t * 16
+    out = _assert_matches_plain(*_inputs(cuda, torch.float32, g=8, d=d, bs=128, t=t,
+                                         seed=d + t, lengths=lengths))
+    assert out[lengths.index(0)].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [16, 32])
 @pytest.mark.parametrize("bs", [16, 128])
-@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_f32_kernel_small_head_dims(cuda, d, bs, g):
     # llama-tiny's head dim (16, the speculative fixture's draft and
-    # target) and 32, where not every lane owns an output dim: lengths 0
-    # and 1, a tile and one past it, a block and one past it, the
+    # target) and 32, where not every lane owns an output dim, over a
+    # 768-token table (three splits of 256): lengths 0 and 1, a tile and
+    # one past it, a block and one past it, each split's edges, the
     # capacity and past it; the last row aliases the first's blocks
-    t = 256 // bs
+    t = 768 // bs
     cap = t * bs
-    lengths = [cap, 0, 1, 31, 32, 33, bs, bs + 1, cap - 1, cap + 5, 150]
+    lengths = [cap, 0, 1, 31, 32, 33, bs, bs + 1, 255, 256, 257, 511, 513, cap - 1,
+               cap + 5, 150]
     out = _assert_matches_plain(*_inputs(cuda, torch.float32, g=g, d=d, bs=bs, t=t,
                                          seed=d + bs + g, lengths=lengths))
     assert out[1].abs().max().item() == 0.0          # length 0 -> zeros
@@ -302,6 +326,27 @@ def test_flash_kernels_take_a_scale_of_either_sign(cuda, monkeypatch, dtype, d, 
         assert kernel <= max(1.0, plain), (kernel, plain)
         pairs["dq[..., 1:]"] = (dq[..., 1:], dq_p[..., 1:])
     _assert_pairs_close(pairs, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_forward_holds_a_near_tie_of_far_keys(cuda, d):
+    # Keys 0 and 1 lie far out along two axes and q[..., 1] = q[..., 0] +
+    # 0.002 noise, so the two share the rows' P with scaled scores in the
+    # hundreds and a score's error moves P's split between them: the
+    # forward's scores take Q in three parts, and with two the CPU model of
+    # its arithmetic falls outside f32 here
+    # (tests/test_torch_flash_attention.py).
+    q, k, v, _ = _flash_inputs(cuda, torch.float32, bh=4, d=d, seed=d + 3)
+    gen = torch.Generator(device=cuda).manual_seed(d + 4)
+    k[:, :2] = 0.0
+    k[:, 0, 0] = k[:, 1, 1] = 2000.0
+    q[..., 1] = q[..., 0] + 0.002 * torch.randn(q.shape[:-1], generator=gen, device=cuda)
+    kw = dict(sm_scale=0.125, causal=True)
+    o, lse = fa.flash_fwd_cuda(q, k, v, 0, 0, **kw)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, 0, 0, block_q=128, block_k=64, **kw)
+    torch.cuda.synchronize()
+    _assert_pairs_close({"o": (o, o_p), "lse": (lse, lse_p)}, torch.float32)
 
 
 @pytest.mark.cuda

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu.models import llama as jllama
 from polyaxon_tpu.models import transformer as jtransformer
@@ -39,16 +40,6 @@ from polyaxon_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
 
 STEPS = 5
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """The suite runs six workers on eight cores, and torch's default of one
-    thread per core oversubscribes them; two threads keep this file's CPU
-    share near one worker's (it also runs faster alone)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(before)
 
 # llama-tiny's tree factors no leaf (no second-largest dim reaches 128): the
 # wider variant factors the embedding, wi/wg (a tie of 128 and 128) and wo

@@ -22,7 +22,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
+from polyaxon_tpu.ops.paged_attention import _paged_flash
 from polyaxon_tpu.ops.paged_attention import paged_attention as jax_paged_attention
 
 pa = importlib.import_module("polyaxon_tpu_torch.ops.paged_attention")
@@ -184,7 +186,7 @@ class TestDispatch:
 
     @pytest.mark.parametrize("d", [16, 32, 64, 128])
     def test_the_f32_kernel_takes_small_head_dims(self, d):
-        """llama-tiny's 16 and 32 go to the f32 CUDA-core walk."""
+        """llama-tiny's 16 and 32 go to the f32 cluster walk."""
         q = torch.zeros(2, 2, 2, d)
         k = v = torch.zeros(6, 8, 2, d)
         pa._check_kernel_args(q, k, v, torch.zeros(2, 3, dtype=torch.int32),
@@ -192,9 +194,9 @@ class TestDispatch:
 
 
 class TestSplitWorkspace:
-    """The bf16 kernel's host rule: the wrapper sizes the split walk from the
-    table alone (the lengths live on the card) and allocates its f32
-    workspace."""
+    """The kernels' host rules: the wrapper sizes the split walk from the
+    table alone (the lengths live on the card); in bf16 it allocates the
+    walk's f32 workspace, in f32 the splits form one cluster."""
 
     @pytest.mark.parametrize("t,bs,splits", [
         (16, 128, 8),    # the llama-1b serving table: 2048 tokens
@@ -211,6 +213,21 @@ class TestSplitWorkspace:
         assert acc == (8, 4, n, 8, 64)
         assert ml == (8, 4, n, 8, 2)
 
+    @pytest.mark.parametrize("t,bs,splits,tokens", [
+        (16, 128, 8, 256),   # the llama-1b serving table: 2048 tokens
+        (10, 16, 1, 256),    # serve_bench's speculative fixture: 160 tokens
+        (2, 128, 1, 256),    # exactly one split
+        (3, 128, 2, 256),    # one block past it
+        (17, 128, 8, 288),   # past 8 x 256: each split takes its share
+        (32, 128, 8, 512),   # llama2-7b's 4096
+        (1, 8, 1, 256),
+    ])
+    def test_f32_splits_cover_the_table_in_one_cluster(self, t, bs, splits, tokens):
+        got = pa.f32_split(t, bs, F32_SPLIT_TOKENS, F32_MAX_SPLITS)
+        assert got == (splits, tokens)
+        assert (splits - 1) * tokens < t * bs <= splits * tokens
+        assert splits <= F32_MAX_SPLITS and tokens % 32 == 0
+
     def test_workspace_is_kept_per_stream_and_grows(self, monkeypatch):
         monkeypatch.setattr(pa, "_workspaces", {})
         cpu = torch.device("cpu")
@@ -225,6 +242,112 @@ class TestSplitWorkspace:
         other = pa.workspace(cpu, 8, 100)                   # another stream's own
         assert other.data_ptr() != grown.data_ptr()
         assert len(pa._workspaces) == 2
+
+
+# -- the f32 kernel's split walk -----------------------------------------------
+#
+# On the card the f32 kernel splits the walk of each (sequence, KV head) over
+# a cluster of CTAs, sized by the host rule ``pa.f32_split`` from the numbers
+# the library reports (splits of 256 tokens, at most 8, mirrored below). A
+# CTA's warps (8 at D 16, else 4) each take every 8th or 4th tile of its run
+# (32 tokens at D <= 32, 16 at D 64, 8 at D 128), with an f32 online softmax
+# of their own; the CTA merges its warps' partials, and the cluster merges
+# its live splits'. The model below
+# repeats that order of work in f32, so that the JAX Pallas kernel, which
+# walks one block at a time, can hold it. The two differ only in the order
+# of f32 sums, and the model's outputs are weighted means of unit-normal
+# values: 1e-6.
+F32_SPLIT_TOKENS, F32_MAX_SPLITS = 256, 8
+
+
+def _tile_tokens(d):
+    return 32 if d <= 32 else 1024 // d
+
+
+def _warps(d):
+    return 8 if d == 16 else 4
+
+
+def _merge(parts):
+    """(m, l, acc) partials of one online softmax merged, as the kernel
+    merges a CTA's warps and a cluster's splits: each weighted by exp(m_i -
+    m) against their largest m (a partial that saw no key has m = -inf and
+    weighs nothing)."""
+    m = torch.stack([pm for pm, _, _ in parts]).amax(dim=0)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(parts[0][2])
+    for pm, pl, pacc in parts:
+        f = torch.exp(pm - m)
+        l = l + f * pl
+        acc = acc + f[:, None] * pacc
+    return m, l, acc
+
+
+def _split_walk(q, kp, vp, tables, lengths, scale):
+    """The f32 kernel's split walk on the CPU, as the kernel orders it."""
+    b, kvh, g, d = q.shape
+    bs, t = kp.shape[1], tables.shape[1]
+    splits, tokens = pa.f32_split(t, bs, F32_SPLIT_TOKENS, F32_MAX_SPLITS)
+    tile = _tile_tokens(d)
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        n = max(0, min(int(lengths[bi]), t * bs))
+        for h in range(kvh):
+            live_splits = []
+            for s in range(splits):
+                t0, t1 = s * tokens, min(n, (s + 1) * tokens)
+                if t0 >= t1:  # past the length: no loads, no partial
+                    continue
+                n_tiles = -(-(t1 - t0) // tile)
+                warps = []
+                for w in range(_warps(d)):
+                    m = torch.full((g,), float("-inf"))
+                    l = torch.zeros(g)
+                    acc = torch.zeros(g, d)
+                    for i in range(w, n_tiles, _warps(d)):
+                        toks = torch.arange(t0 + i * tile, t0 + (i + 1) * tile)
+                        live = toks < t1
+                        rows = tables[bi, (toks % (t * bs)) // bs].long()
+                        k = torch.where(live[:, None], kp[rows, toks % bs, h], 0.0)
+                        v = torch.where(live[:, None], vp[rows, toks % bs, h], 0.0)
+                        sc = torch.where(live, (q[bi, h] @ k.T) * scale,
+                                         torch.tensor(pa.MASK_VALUE))
+                        m_new = torch.maximum(m, sc.amax(dim=-1))
+                        alpha = torch.exp(m - m_new)
+                        p = torch.where(live, torch.exp(sc - m_new[:, None]), 0.0)
+                        l = alpha * l + p.sum(dim=-1)
+                        acc = acc * alpha[:, None] + p @ v
+                        m = m_new
+                    warps.append((m, l, acc))
+                live_splits.append(_merge(warps))
+            if live_splits:
+                _, l, acc = _merge(live_splits)
+                out[bi, h] = torch.where(l[:, None] == 0, 0.0, acc / l[:, None])
+    return out
+
+
+class TestF32SplitWalk:
+    """The split walk's arithmetic against the JAX kernel: two splits of a
+    512-token table, lengths one short of a split, on it, one past it, 0 and
+    past the capacity, and a row whose leading blocks are another's."""
+
+    @pytest.mark.parametrize("g", [1, 8])
+    @pytest.mark.parametrize("d", [16, 32, 64, 128])
+    def test_the_split_walk_matches_the_pallas_kernel(self, d, g):
+        b, kvh, bs, t = 6, 2, 32, 16
+        assert pa.f32_split(t, bs, F32_SPLIT_TOKENS, F32_MAX_SPLITS) == (2, 256)
+        q, kp, vp, tables = _inputs(seed=20 + d + g, b=b, kvh=kvh, g=g, d=d,
+                                    n=b * t + 1, bs=bs, t=t)
+        tables[5, :4] = tables[2, :4]
+        lengths = np.asarray([255, 256, 257, 0, 600, 300], np.int32)
+        scale = d ** -0.5
+        ref = np.asarray(_paged_flash(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                                      jnp.asarray(tables), jnp.asarray(lengths),
+                                      sm_scale=scale, interpret=True))
+        out = _split_walk(*(torch.tensor(x) for x in (q, kp, vp, tables, lengths)),
+                          scale).numpy()
+        np.testing.assert_allclose(out, ref, atol=1e-6, rtol=1e-6)
+        assert np.all(out[3] == 0.0)
 
 
 class TestBuild:

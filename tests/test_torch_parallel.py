@@ -19,6 +19,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as JP
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu import parallel as jpar
 from polyaxon_tpu.models import REGISTRY as JAX_REGISTRY

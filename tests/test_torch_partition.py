@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu import parallel as jpar
 from polyaxon_tpu import partition as jpart

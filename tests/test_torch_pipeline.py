@@ -68,6 +68,7 @@ import pytest
 import torch
 from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as JP
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu.models import REGISTRY as JAX_REGISTRY
 from polyaxon_tpu.models import transformer as jt

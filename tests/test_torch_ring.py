@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu.ops import repeat_kv as jrepeat_kv
 from polyaxon_tpu.ops import ring_attention as jring_attention

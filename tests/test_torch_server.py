@@ -18,6 +18,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu_torch.__main__ import _parser, serve_spec
 from polyaxon_tpu_torch.obs.metrics import parse_prometheus
@@ -98,11 +99,18 @@ class TestRoutes:
         assert len(toks) == 4 and lines[-1]["done"] and lines[-1]["tokens"] == toks
 
     def test_stats_metrics_and_result_by_id(self, served):
+        # this test's own requests move the counter, whatever ran before it
+        # on the shared server: two new ids, then one repeated (a cached
+        # reply, which the counter does not count)
         _, base = served
+        before = json.loads(_get(base + "/stats")[1])["requests_total"]
         status, body, _ = _post(base + "/generate", {
             "tokens": [9, 9, 9], "max_new_tokens": 3, "request_id": "abc"})
         assert status == 200
         first = json.loads(body)
+        status, body, _ = _post(base + "/generate", {
+            "tokens": [9, 8, 7], "max_new_tokens": 3, "request_id": "abd"})
+        assert status == 200 and not json.loads(body).get("cached")
         status, body, _ = _post(base + "/generate", {
             "tokens": [9, 9, 9], "max_new_tokens": 3, "request_id": "abc"})
         again = json.loads(body)
@@ -111,7 +119,7 @@ class TestRoutes:
         assert status == 200 and json.loads(body)["tokens"] == first["tokens"]
         assert _get(base + "/result/nope")[0] == 404
         stats = json.loads(_get(base + "/stats")[1])
-        assert stats["requests_total"] >= 2 and stats["kv_audit_violations"] == 0
+        assert stats["requests_total"] - before >= 2 and stats["kv_audit_violations"] == 0
         fams = parse_prometheus(_get(base + "/metrics")[1].decode())
         for fam in ("polyaxon_serve_requests_total",
                     "polyaxon_serve_ttft_seconds",

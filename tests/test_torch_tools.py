@@ -44,6 +44,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu.models import REGISTRY as JAX_REGISTRY
 from polyaxon_tpu.models import transformer as JT
@@ -60,17 +61,6 @@ from polyaxon_tpu_torch.scripts import serve_bench as tsb
 ROOT = Path(__file__).resolve().parents[1]
 BF16 = {"mu_dtype": "bfloat16", "nu_dtype": "bfloat16"}
 BLOCKS = dict(attn_block_q=1024, attn_block_k=1024)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The port's runs here are tiny and launch-bound: a full intra-op pool
-    spins against the other test workers' processes (the MoE smoke read 20x
-    slower under load), so torch gets one thread while a test runs."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _load(name: str, path: Path):

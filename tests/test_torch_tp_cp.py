@@ -31,7 +31,7 @@ devices=jax.devices()[:world])`` and the port's one process:
   delta added after its gather), ``{model: 2}`` and ``{context: 2}``, and
   bert-tiny under ``{model: 2}`` (each model rank merging its block's
   delta, the adapters' grads summed over model); a planted fault leaving
-  those grads unsummed must fail;
+  those grads unsummed must fail (``tests/test_torch_tp_cp_lora.py``);
 - four ranks: the JAX package's overlay case (``{fsdp: 2, model: 2}`` with
   ``attn/w[qkv]$ -> [null, null, model, null]``: wq/wk/wv not fsdp-cut)
   against JAX like the runs above; and ``{data: 2, fsdp: 2}`` at
@@ -51,7 +51,7 @@ devices=jax.devices()[:world])`` and the port's one process:
 - ResNet (f32, batch 4) under ``{model: 2}`` and ``{data: 2, context: 2}``
   (the compute replicated) and ViT on 24-pixel images (nine patches and
   the CLS) under ``{context: 2}``, with first-step grads; ResNet grads
-  summed over model must fail;
+  summed over model must fail (``tests/test_torch_tp_cp_vision.py``);
 - an adafactor run saved at ``{fsdp: 2}`` and a rule's run saved at
   ``{model: 2}`` each resume at one rank (the latter without the rule) to
   the unbroken run's losses.
@@ -90,6 +90,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from polyaxon_tpu.models import REGISTRY as JAX_REGISTRY
 from polyaxon_tpu.models import transformer as jtransformer
@@ -214,6 +215,14 @@ FAULTS = {"bias_before_sum": "bert_model", "local_positions": "llama_ring",
           "reshard_adjoint": "a16_embed", "resnet_grads_over_model": "resnet_model"}
 FORWARD = {"model": "llama-tiny", "parallelism": {"context": 4}, "seq_parallel": "ulysses",
            "batch": 4, "seq": 64}
+# ResNet and ViT under model and context, and LoRA, run in files of their
+# own (tests/test_torch_tp_cp_vision.py, tests/test_torch_tp_cp_lora.py),
+# each with its own groups and JAX runs, so that the three run on three
+# test workers at once; this file holds the rest
+VISION_RUNS = ("resnet_data_context", "resnet_model", "vit_ring")
+VISION_FAULTS = ("resnet_grads_over_model",)
+MAIN_RUNS = tuple(sorted(set(RUNS) - set(VISION_RUNS)))
+MAIN_FAULTS = tuple(sorted(set(FAULTS) - set(VISION_FAULTS)))
 
 
 def _world(para: dict) -> int:
@@ -428,57 +437,69 @@ def _curve(logged, key):
     return np.array([m[key] for m in logged])
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Every case: the gloo groups run in the background while this
-    process runs the JAX trainers and the port's one process. Returns (JAX
-    results, one-process results, case dir root, the forward's inputs)."""
+def build_runs(tmp_path_factory, runs=(), faults=(), lora_runs=(), lora_faults=(),
+               main=False) -> tuple:
+    """The cases ``runs`` and ``lora_runs`` (names in RUNS and LORA_RUNS)
+    and the planted ``faults`` and ``lora_faults``: the gloo groups run in
+    the background while this process runs the JAX trainers and the port's
+    one process (of each of ``runs``). ``main`` adds the two-rank runs that
+    resume at one rank, the two slices, the restore into each rank's block
+    and the Ulysses forward. Returns (JAX results, one-process results,
+    case dir root, the forward's inputs, the LoRA inits)."""
     root = tmp_path_factory.mktemp("tp_cp")
     out = root / "cases"
-    inits = {m: _jax_init(m) for m in sorted({r[0] for r in ALL_RUNS.values()})}
-    lora_inits = {m: _lora_init(inits[m]) for m in sorted({r[0] for r in LORA_RUNS.values()})}
+    names = [*runs, *lora_runs]
+    inits = {m: _jax_init(m) for m in sorted({ALL_RUNS[n][0] for n in names})}
+    lora_inits = {m: _lora_init(inits[m]) for m in sorted({LORA_RUNS[n][0] for n in lora_runs})}
     forks = {(m, False): _fork_dir(root, m, init) for m, init in inits.items()}
     forks.update({(m, True): _fork_dir(root, f"{m}-lora", init)
                   for m, init in lora_inits.items()})
     cases2, cases4 = [], []
-    for name, (model, para, seq_parallel, _) in ALL_RUNS.items():
-        (cases2 if _world(para) == 2 else cases4).append(_case(name, forks))
-    for fault, run in {**FAULTS, **LORA_FAULTS}.items():
+    for name in names:
+        (cases2 if _world(ALL_RUNS[name][1]) == 2 else cases4).append(_case(name, forks))
+    for fault, run in [*((f, FAULTS[f]) for f in faults),
+                       *((f, LORA_FAULTS[f]) for f in lora_faults)]:
         cases2.append(_case(run, forks, name=f"fault_{fault}", fault=fault,
                             capture_grads=False))
-    plain = {k: v for k, v in _spec("llama_overlay", forks).items()
-             if k not in ("partition_rules", "checkpoint")}
-    # an adafactor run and an A16 rule's, saved at two ranks, restored at one
-    for name in ("af_fsdp", "a16_embed"):
-        cases2.append(_case(name, forks, name=f"{name}_half",
-                            spec={**_spec(name, forks), "steps": 1}))
-    for n in (1, 2):
-        cases4.append({"name": f"slices{n}", "seq_parallel": "ring",
-                       "spec": {**plain, "parallelism": SLICES, "num_slices": n,
-                                "checkpoint": False}})
-    # the 4-rank run's checkpoint restored into each rank's block
-    restore = {k: v for k, v in _spec("llama_fsdp_model", forks).items() if k != "fork_from"}
-    cases4.append({"name": "restore_blocks", "restore_shards": True,
-                   "artifacts": "llama_fsdp_model", "spec": restore})
-    # the Ulysses forward over more context ranks than kv heads
-    tokens = np.random.default_rng(1).integers(
-        0, 256, (FORWARD["batch"], FORWARD["seq"])).astype(np.int32)
-    np.save(root / "tokens.npy", tokens)
-    torch.save(params_from_jax(inits[FORWARD["model"]], device="cpu"), root / "params.pt")
-    cases4.append({"name": "ulysses_forward", "forward": True,
-                   "seq_parallel": FORWARD["seq_parallel"],
-                   "params": str(root / "params.pt"), "tokens": str(root / "tokens.npy"),
-                   "spec": {"model": FORWARD["model"],
-                            "parallelism": FORWARD["parallelism"]}})
-    ports = _free_ports(2)
-    groups = [_start_group(root, out, 2, ports[0], cases2),
-              _start_group(root, out, 4, ports[1], cases4)]
+    forward = None
+    if main:
+        plain = {k: v for k, v in _spec("llama_overlay", forks).items()
+                 if k not in ("partition_rules", "checkpoint")}
+        # an adafactor run and an A16 rule's, saved at two ranks, restored at one
+        for name in ("af_fsdp", "a16_embed"):
+            cases2.append(_case(name, forks, name=f"{name}_half",
+                                spec={**_spec(name, forks), "steps": 1}))
+        for n in (1, 2):
+            cases4.append({"name": f"slices{n}", "seq_parallel": "ring",
+                           "spec": {**plain, "parallelism": SLICES, "num_slices": n,
+                                    "checkpoint": False}})
+        # the 4-rank run's checkpoint restored into each rank's block
+        restore = {k: v for k, v in _spec("llama_fsdp_model", forks).items()
+                   if k != "fork_from"}
+        cases4.append({"name": "restore_blocks", "restore_shards": True,
+                       "artifacts": "llama_fsdp_model", "spec": restore})
+        # the Ulysses forward over more context ranks than kv heads
+        tokens = np.random.default_rng(1).integers(
+            0, 256, (FORWARD["batch"], FORWARD["seq"])).astype(np.int32)
+        np.save(root / "tokens.npy", tokens)
+        torch.save(params_from_jax(inits[FORWARD["model"]], device="cpu"), root / "params.pt")
+        cases4.append({"name": "ulysses_forward", "forward": True,
+                       "seq_parallel": FORWARD["seq_parallel"],
+                       "params": str(root / "params.pt"), "tokens": str(root / "tokens.npy"),
+                       "spec": {"model": FORWARD["model"],
+                                "parallelism": FORWARD["parallelism"]}})
+        forward = (tokens, inits[FORWARD["model"]])
+    plans = [(world, cases) for world, cases in ((2, cases2), (4, cases4)) if cases]
+    ports = _free_ports(len(plans))
+    groups = [_start_group(root, out, world, port, cases)
+              for (world, cases), port in zip(plans, ports)]
     try:
-        jax_results = {name: _jax_run(name, inits[RUNS[name][0]]) for name in RUNS}
+        jax_results = {name: _jax_run(name, inits[ALL_RUNS[name][0]]) for name in runs}
         jax_results.update({name: _jax_run(name, lora_inits[LORA_RUNS[name][0]])
-                            for name in LORA_RUNS})
+                            for name in lora_runs})
         single = {}
-        for name, (model, _, seq_parallel, _) in RUNS.items():
+        for name in runs:
+            model, _, seq_parallel, _ = RUNS[name]
             art = root / "single" / name
             spec = {**_spec(name, forks), "parallelism": None}
             single[name] = {"logged": _one_process(art, spec, seq_parallel, model),
@@ -486,7 +507,12 @@ def runs(tmp_path_factory):
     finally:
         for procs, logs in groups:
             _join(procs, logs)
-    return jax_results, single, out, (tokens, inits[FORWARD["model"]]), lora_inits
+    return jax_results, single, out, forward, lora_inits
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return build_runs(tmp_path_factory, MAIN_RUNS, MAIN_FAULTS, main=True)
 
 
 def _misses(logged: list, params: dict, jlogged: list, jparams: dict,
@@ -506,7 +532,7 @@ def _jax_tol(name: str) -> tuple:
     return RESNET_JAX_TOL if ALL_RUNS[name][3] is RESNET_KEYS else JAX_TOL
 
 
-@pytest.mark.parametrize("name", sorted(RUNS))
+@pytest.mark.parametrize("name", MAIN_RUNS)
 def test_tp_cp_ranks_match_the_jax_mesh(runs, name):
     jax_results, _, out, _, _ = runs
     jlogged, jparams, _ = jax_results[name]
@@ -521,7 +547,7 @@ def test_tp_cp_ranks_match_the_jax_mesh(runs, name):
         np.testing.assert_allclose(value, jparams[path], atol=param_tol, err_msg=path)
 
 
-@pytest.mark.parametrize("name", sorted(RUNS))
+@pytest.mark.parametrize("name", MAIN_RUNS)
 def test_tp_cp_ranks_match_one_process(runs, name):
     _, single, out, _, _ = runs
     loss_tol, norm_tol, param_tol = SELF_TOL
@@ -534,7 +560,7 @@ def test_tp_cp_ranks_match_one_process(runs, name):
                                    err_msg=path)
 
 
-@pytest.mark.parametrize("fault", sorted(FAULTS))
+@pytest.mark.parametrize("fault", MAIN_FAULTS)
 def test_each_tp_cp_planted_fault_fails_the_jax_comparison(runs, fault):
     jax_results, _, out, _, _ = runs
     run = FAULTS[fault]
@@ -615,36 +641,6 @@ def test_ulysses_forward_with_more_context_ranks_than_kv_heads(runs):
                                atol=FORWARD_TOL[0], rtol=FORWARD_TOL[1])
 
 
-@pytest.mark.parametrize("name", sorted(LORA_RUNS))
-def test_lora_ranks_match_the_jax_mesh(runs, name):
-    jax_results, _, out, _, lora_inits = runs
-    jlogged, jparams, _ = jax_results[name]
-    loss_tol, norm_tol, adapter_tol = LORA_TOL
-    for rank in range(_world(LORA_RUNS[name][1])):
-        logged = _rank(out / name, rank)["logged"]
-        np.testing.assert_allclose(_curve(logged, "loss"), _curve(jlogged, "loss"),
-                                   rtol=loss_tol)
-        np.testing.assert_allclose(_curve(logged, "grad_norm"),
-                                   _curve(jlogged, "grad_norm"), rtol=norm_tol)
-    start = {"/".join(k.key for k in path): np.asarray(v) for path, v in
-             jax.tree_util.tree_flatten_with_path(lora_inits[LORA_RUNS[name][0]])[0]}
-    for path, value in _final_params(out / name).items():
-        if path.startswith("base/"):
-            assert np.array_equal(value, start[path]), f"base leaf {path} moved"
-        else:
-            np.testing.assert_allclose(value, jparams[path], atol=adapter_tol, err_msg=path)
-
-
-@pytest.mark.parametrize("fault", sorted(LORA_FAULTS))
-def test_each_lora_planted_fault_fails_the_jax_comparison(runs, fault):
-    jax_results, _, out, _, _ = runs
-    jlogged, jparams, _ = jax_results[LORA_FAULTS[fault]]
-    case = out / f"fault_{fault}"
-    worst = _misses(_rank(case, 0)["logged"], _final_params(case), jlogged, jparams,
-                    LORA_TOL)
-    assert worst > 1, f"{fault} went unseen: within {worst:.3g} of the tolerances"
-
-
 def test_a_rule_that_moves_a_model_cut_is_refused_naming_a16(runs):
     """A rule that moves a leaf's model cut trains (it was refused before
     the reshard at read): ``wq`` stored cut over its head dim on each of
@@ -677,7 +673,7 @@ def _block(full: np.ndarray, cuts: list, coords: dict, sizes: dict) -> np.ndarra
     return full
 
 
-@pytest.mark.parametrize("name", CAPTURED)
+@pytest.mark.parametrize("name", [n for n in CAPTURED if n not in VISION_RUNS])
 def test_first_step_grads_match_jax_leaf_by_leaf(runs, name):
     """Each rank's first-step grad of each leaf (its stored block, the
     rule's where one applies) against the block of JAX's grad of the first
