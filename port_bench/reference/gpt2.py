@@ -1,0 +1,15 @@
+"""Plain reference of the port's GPT-2 (``gpt2-345m``): a causal decoder
+trained on next-token prediction at every position, as Radford et al.
+describe it (LayerNorm before each block and after the last, learned
+positions, GELU, biases, the head tied to the token table). The paper's
+scaled init of the residual projections is the benchmark's own weights'
+(``weights.py``), which both sides share.
+"""
+
+from __future__ import annotations
+
+from port_bench.reference import core
+
+
+def train(cfg: dict, runtime: dict, weights: dict, batches: list, **kwargs) -> dict:
+    return core.train(cfg, runtime, weights, batches, causal=True, weight_key=None, **kwargs)
