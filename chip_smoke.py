@@ -1129,9 +1129,12 @@ def profile_steps(torch, fn, steps: int = 3,
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # kernels only: a CPU op's self device time repeats its kernels' time
+    # kernels only: a CPU op's self device time repeats its kernels' time,
+    # and so does a ``record_function`` range's row on the device (the
+    # trainer's ``train.*`` ranges)
     rows = sorted(((e.key, device_us(e), e.count) for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
                    and device_us(e) > 0), key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     out = {

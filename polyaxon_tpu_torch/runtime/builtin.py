@@ -71,7 +71,14 @@ Spec keys (the JAX runtime's, as far as the port goes):
         last N steps with ``torch.profiler`` into ``outputs/profile`` as a
         Chrome trace. The summary's meter keys read the steps before the
         profiler: once it has run, every launch in the process costs more
-        host time.
+        host time. The trace carries the step's phases as ranges on the
+        kernels' clock (``obs/spans.py``): ``train.data`` (the next
+        batch), ``train.step``, ``train.microbatch``, ``train.forward``
+        with ``train.loss`` (the LM head and its loss) in it,
+        ``train.backward``, ``train.grad_sync`` (the mesh's sums),
+        ``train.optimizer``, and ``train.sync`` around the host's waits:
+        the step's finite gate, its anomaly reads, and the sync that
+        closes the first and the last step.
 
 The ``lora:``, ``import:`` and ``partition_rules:`` blocks are validated
 (``partition.validate_builtin_spec``, the JAX compiler's check) before any

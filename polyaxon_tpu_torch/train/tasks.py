@@ -34,6 +34,7 @@ from ..models import resnet as resnet_mod
 from ..models import transformer
 from ..models import vit as vit_mod
 from ..models.transformer import TransformerConfig
+from ..obs.spans import span
 from ..parallel.blocks import init_tree
 from ..parallel.mesh import BATCH_AXES, TOKEN_AXES, PartitionSpec, ShardingRules
 
@@ -145,10 +146,11 @@ class LMTask(Task):
     def loss(self, params, extra, batch, mesh=None):
         hidden, aux = transformer.apply_hidden(params, batch["inputs"], self.cfg, mesh=mesh,
                                                return_aux=True)
-        w, vocab_major = transformer.head_weights(params, self.cfg)
-        loss = transformer.lm_loss_from_hidden(
-            hidden, w, batch["labels"], batch.get("mask"),
-            vocab_major=vocab_major, chunk_tokens=self.cfg.loss_chunk_tokens, mesh=mesh)
+        with span("train.loss"):
+            w, vocab_major = transformer.head_weights(params, self.cfg)
+            loss = transformer.lm_loss_from_hidden(
+                hidden, w, batch["labels"], batch.get("mask"),
+                vocab_major=vocab_major, chunk_tokens=self.cfg.loss_chunk_tokens, mesh=mesh)
         metrics = {"loss": loss}
         if self.cfg.num_experts:
             # this rank's share: the token ranks' shares sum to the batch's

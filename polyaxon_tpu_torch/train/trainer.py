@@ -90,6 +90,7 @@ from typing import Any, Callable, Iterator, Optional
 import torch
 
 from ..models.transformer import TransformerConfig, flatten, unflatten
+from ..obs.spans import span
 from ..parallel.blocks import Placement, init_tree
 from ..parallel.fsdp import ShardedTree, fresh, leaf_dims
 from ..parallel.mesh import (
@@ -484,20 +485,23 @@ class Trainer:
             batch = {name: t.to(self.device) for name, t in batch.items()}
             grads, per_micro, extra = None, [], state.extra
             for i in range(k):
-                mb = {name: t[i * size:(i + 1) * size] for name, t in batch.items()}
-                # each microbatch gathers the params anew
-                loss, m, extra = self._loss(fresh(diff_tree), extra, mb, inject)
-                g = torch.autograd.grad(loss, [t for t in diff if t.requires_grad],
-                                        allow_unused=True, materialize_grads=True)
-                per_micro.append({name: v.detach() for name, v in m.items()})
-                if k == 1:
-                    grads = list(g)
-                elif grads is None:
-                    grads = [gi.to(ad) for gi in g]
-                else:
-                    for acc, gi in zip(grads, g):
-                        acc.add_(gi.to(ad))
-                del g, loss, m
+                with span("train.microbatch"):
+                    mb = {name: t[i * size:(i + 1) * size] for name, t in batch.items()}
+                    # each microbatch gathers the params anew
+                    with span("train.forward"):
+                        loss, m, extra = self._loss(fresh(diff_tree), extra, mb, inject)
+                    with span("train.backward"):
+                        g = torch.autograd.grad(loss, [t for t in diff if t.requires_grad],
+                                                allow_unused=True, materialize_grads=True)
+                    per_micro.append({name: v.detach() for name, v in m.items()})
+                    if k == 1:
+                        grads = list(g)
+                    elif grads is None:
+                        grads = [gi.to(ad) for gi in g]
+                    else:
+                        for acc, gi in zip(grads, g):
+                            acc.add_(gi.to(ad))
+                    del g, loss, m
             if k > 1:
                 grads = [g / k for g in grads]
             # the task's metrics, each the mean over the microbatches (as the
@@ -507,36 +511,40 @@ class Trainer:
                              for name in per_micro[0]})
             whole = None
             if mesh.distributed:
-                task_metrics = self._sum_metrics(task_metrics)
-                for i, c in enumerate(cuts):
-                    # NCCL reduces dense tensors only (autograd may hand back
-                    # a strided view)
-                    grads[i] = grads[i].contiguous()
-                    self._sum_grad(grads[i], c, partial[i])
+                with span("train.grad_sync"):
+                    task_metrics = self._sum_metrics(task_metrics)
+                    for i, c in enumerate(cuts):
+                        # NCCL reduces dense tensors only (autograd may hand
+                        # back a strided view)
+                        grads[i] = grads[i].contiguous()
+                        self._sum_grad(grads[i], c, partial[i])
                 if any(cuts):
                     whole = self._whole_sums
             loss = task_metrics["loss"]
             # the optimizer's leaves, as positions among the grads
             trained = [floating.index(i) for i in self._opt_index]
-            grad_norm, clip_norm = self._norms(grads, cuts, trained, whole)
-            loss_ok = torch.isfinite(loss)
-            grad_ok = torch.isfinite(grad_norm)
-            metrics = {
-                **task_metrics, "grad_norm": grad_norm,
-                "anomaly_loss": (~loss_ok).float(),
-                "anomaly_grad": (loss_ok & ~grad_ok).float(),
-            }
-            opt_state = state.opt_state
-            if bool(loss_ok & grad_ok):
-                masters = [leaves[floating[i]] for i in trained]
-                updates, opt_state = self.tx.update([grads[i] for i in trained], opt_state,
-                                                    masters, clip_norm)
-                with torch.no_grad():
-                    # a leaf the optimizer does not train gets no update,
-                    # not even a zero (which would turn a -0.0 into +0.0)
-                    for p, u in zip(masters, updates):
-                        p.add_(u.to(p.dtype))
-                state.extra = extra
+            with span("train.optimizer"):
+                grad_norm, clip_norm = self._norms(grads, cuts, trained, whole)
+                loss_ok = torch.isfinite(loss)
+                grad_ok = torch.isfinite(grad_norm)
+                metrics = {
+                    **task_metrics, "grad_norm": grad_norm,
+                    "anomaly_loss": (~loss_ok).float(),
+                    "anomaly_grad": (loss_ok & ~grad_ok).float(),
+                }
+                opt_state = state.opt_state
+                with span("train.sync"):
+                    finite = bool(loss_ok & grad_ok)
+                if finite:
+                    masters = [leaves[floating[i]] for i in trained]
+                    updates, opt_state = self.tx.update([grads[i] for i in trained],
+                                                        opt_state, masters, clip_norm)
+                    with torch.no_grad():
+                        # a leaf the optimizer does not train gets no update,
+                        # not even a zero (which would turn a -0.0 into +0.0)
+                        for p, u in zip(masters, updates):
+                            p.add_(u.to(p.dtype))
+                    state.extra = extra
             # a skipped step keeps the old params, moments, schedule and
             # count; ``step`` counts attempted steps (== batches consumed)
             return TrainState(state.params, opt_state, state.step + 1, state.extra), metrics
@@ -596,9 +604,10 @@ class Trainer:
     # -- the loop -------------------------------------------------------------
 
     def _sync(self, metrics: dict) -> None:
-        float(metrics["loss"])
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("train.sync"):
+            float(metrics["loss"])
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def fit(self, batches: Iterator[dict], num_steps: int,
             state: Optional[TrainState] = None,
@@ -660,8 +669,9 @@ class Trainer:
             the step to rewind the loop to when a rollback happened, else
             None; raises TrainingDivergedError when the budgets are gone."""
             nonlocal consec
-            a_loss = bool(float(m["anomaly_loss"]))
-            a_grad = bool(float(m["anomaly_grad"]))
+            with span("train.sync"):
+                a_loss = bool(float(m["anomaly_loss"]))
+                a_grad = bool(float(m["anomaly_grad"]))
             if not (a_loss or a_grad):
                 consec = 0
                 return None
@@ -722,9 +732,11 @@ class Trainer:
                 if self.chaos is not None:
                     self.chaos.pre_step(data_pos)
                 inject = self.chaos is not None and self.chaos.nan_due(data_pos)
-                batch = next(batches)
+                with span("train.data"):
+                    batch = next(batches)
                 data_pos += 1
-                state, metrics = step_fn(state, batch, inject)
+                with span("train.step"):
+                    state, metrics = step_fn(state, batch, inject)
                 if watchdog is not None:
                     watchdog.beat(i)
                 if self.on_progress is not None:

@@ -1,0 +1,11 @@
+"""``bwd_ms``: device time a step launched inside the program's
+``train.backward`` ranges (the layers' backward, with the loss chunks
+recomputed there), in ms (``spans.py``). Nothing where the trace holds no
+device activity or the program opened no range."""
+
+from port_bench import spans
+
+
+def read(ctx):
+    sp = spans.phases_of(ctx.trace)
+    return None if sp is None else sp.phase_ms("train.backward")

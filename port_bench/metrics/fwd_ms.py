@@ -1,0 +1,11 @@
+"""``fwd_ms``: device time a step launched inside the program's
+``train.forward`` ranges and not inside ``train.loss`` (the embedding, the
+layers, the final norm), in ms (``spans.py``). Nothing where the trace
+holds no device activity or the program opened no range."""
+
+from port_bench import spans
+
+
+def read(ctx):
+    sp = spans.phases_of(ctx.trace)
+    return None if sp is None else sp.phase_ms("train.forward")
