@@ -7,7 +7,7 @@ Phases, each printing its numbers on lines of its own; any failure exits
 non-zero:
 
 1. device — the card's name and power limit (nvidia-smi); CUDA required.
-2. build  — nvcc builds the three kernel libraries from
+2. build  — nvcc builds the four kernel libraries from
    ``polyaxon_tpu_torch/csrc`` at once, one nvcc per source (seconds, and
    ptxas's register, spill and shared-memory report); then sass: the f32
    flash kernels' TF32 tensor-core instructions (``cuobjdump -sass``), which
@@ -75,7 +75,16 @@ non-zero:
    agrees with the gather path within RING_TOL normwise, the gather
    path's first q chunk placed one block late (a planted fault) must not,
    and each path's rise of ``max_memory_allocated`` and CUDA-event time
-   are printed beside the tool's host-clock times.
+   are printed beside the tool's host-clock times. Then lm_loss: the LM
+   loss's row kernel (``csrc/lm_loss.cu``) at the benchmark cells' chunk
+   of 4,096 rows (GPT-2's 50,304 padded columns every row live, BERT's
+   30,592 with its masked 15% live and with every row live) against its
+   plain version, with kernel, plain and library (``F.cross_entropy``
+   forward and backward) times beside the byte bound and the kernel's
+   resources; and each cell's microbatch through the whole loss, forward
+   and backward, fused (``lm_loss_from_hidden``) against the recomputed
+   path it replaced: times, launches, the extra memory and the grads'
+   normwise gaps.
 6. serve — the port's ``build_engine`` at llama-1b full width (22 layers,
    hidden 2048, bf16, random init from seed 0) with the
    examples/llama1b_service.yaml runtime settings and attn_impl flash,
@@ -88,7 +97,8 @@ non-zero:
 7. train — ``run_builtin`` (the port's builtin runtime) on llama-1b at full
    width with the examples/llama1b_tpujob.yaml runtime keys (steps cut from
    8 to 3): every loss finite, no anomaly, the step-0 loss near ln 32000,
-   each flash kernel's launch count equal to its formula; step time p50,
+   each flash kernel's launch count and the LM loss row kernel's (one a
+   loss chunk of each microbatch) equal to their formulas; step time p50,
    tokens/s, MFU against 989 TFLOP/s, peak device memory. Then one
    microbatch (2 x 2048) at full depth, loss and grads with attn_impl flash
    against dense, which must agree; with each of the three planted faults
@@ -116,7 +126,10 @@ non-zero:
    image stream, timed apart from the step; every ResNet batch statistic
    moves in one step. Then BERT's and ViT's one microbatch at full depth,
    flash against dense with the planted faults, within their own limits
-   (FAMILY_COMPARE_TOL). Their profiles run with the others, last.
+   (FAMILY_COMPARE_TOL). Their profiles run with the others, last. Then
+   train_gpt2: gpt2-345m at the benchmark cell's 64 x 1024 in 2
+   microbatches, the same checks (the loss row kernel 16 launches a step,
+   BERT's 8).
 8b. moe (slice 10) — train_moe: ``run_builtin`` on llama-moe-1b at full
    width with bench.py's single-chip MoE recipe (32 x 2048 in 8
    microbatches, remat attn_qkv, flash blocks 1024, capacity dispatch
@@ -290,7 +303,7 @@ non-zero:
    one step of each new family's trainer (BERT, ViT, ResNet) by kernel.
 15. the ``{"kernels": [...]}`` line (each flash kernel's launches are the
    llama-1b train phase's; ``launches_by_path`` adds train_lora's, train_bert's,
-   train_vit's, the 1-rank group runs' of dist_train_1rank, each
+   train_vit's, train_gpt2's, the 1-rank group runs' of dist_train_1rank, each
    ring_kernels case's, each ring_bench case's (B1's), train_moe's, moe_compare's,
    train_7b_import_lora's, bench's, bench_moe's and bench_tokens'; the
    paged kernel's ``launches_by_path`` holds the serve phase's and each
@@ -300,7 +313,11 @@ non-zero:
    beside the kernels' D=128 bf16 times, bounds and SDPA times; the
    ``*_f32`` entries are the f32 kernels, with flash_f32_path's launches
    and the D=64 and D=128 f32 rows' numbers), then the last line
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``. The ``lm_loss`` entry's launches are
+   the llama-1b train phase's; its ``launches_by_path`` holds train_lora's,
+   each family's and train_gpt2's, the 1-rank group runs', train_moe's,
+   moe_compare's and train_7b_import_lora's, and ``per_step`` BERT's and
+   GPT-2's launches a step.
 
 Needs one card and the repository checkout around this file; imports
 nothing of JAX.
@@ -531,6 +548,13 @@ VIT_SPEC = {
     "model": "vit-b16", "steps": 3, "batch_size": 128, "learning_rate": 1.0e-3,
     "data": {"kind": "synthetic-image"}, "checkpoint": False, "log_interval": 1,
     "platform": "cuda",
+}
+GPT2_SPEC = {
+    # gpt2_mpijob.yaml's 64 x 1024 a card in 2 microbatches, as the
+    # benchmark's gpt2-345m cell runs it (at 1 it runs out of memory)
+    "model": "gpt2-345m", "steps": 3, "batch_size": 64, "seq_len": 1024,
+    "microbatches": 2, "learning_rate": 3.0e-4, "data": {"kind": "synthetic-lm"},
+    "checkpoint": False, "log_interval": 1, "platform": "cuda",
 }
 RESNET_SPEC = {
     # resnet50_ddp.yaml: its 256 on one process
@@ -1707,6 +1731,130 @@ def ring_bench_phase(torch, fa) -> dict:
     return out
 
 
+# -- phase 5b: the LM loss ---------------------------------------------------------
+
+# the benchmark cells' loss: a chunk of 4,096 rows of each head's padded
+# logits (the kernel's shape), and a microbatch through the whole loss;
+# ``live`` the share of rows the loss counts (BERT's masked 15%)
+LM_LOSS_CASES = {
+    "gpt2-345m": dict(vocab=50257, hidden=1024, batch=32, seq=1024, live=1.0),
+    "bert-base": dict(vocab=30522, hidden=768, batch=64, seq=512, live=0.15),
+}
+LM_LOSS_ROWS = 4096
+# kernel against plain: each row's loss, and the gradient within one bf16
+# place (the tests' LM_LOSS_TOL)
+LM_LOSS_TOL = (1e-6, 2.0 ** -7)
+LM_LOSS_WHOLE_TIMINGS = 5
+
+
+def lm_loss_rows_case(torch, ll, c: dict, live: float) -> dict:
+    """The row kernel at one chunk: checked against its plain version,
+    timed beside its byte bound, the plain version and ``F.cross_entropy``
+    forward and backward over the same logits (``library_ms``)."""
+    vocab, rows = c["vocab"], LM_LOSS_ROWS
+    vp = ll.padded_vocab(vocab)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = (torch.randn(rows, vp, generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    labels = torch.randint(0, vocab, (rows,), generator=gen, device="cuda")
+    mask = (torch.rand(rows, generator=gen, device="cuda") < live).float()
+    scale = (1.0 / mask.sum().clamp(min=1.0)).reshape(1)
+    out = torch.empty(rows, device="cuda")
+    got, ref = logits.clone(), logits.clone()
+    loss = ll.lm_loss_rows_cuda(got, labels, mask, scale, vocab, grad=True, out=out.clone())
+    ref_loss = ll.lm_loss_rows_plain(ref, labels, mask, scale, vocab, grad=True,
+                                     out=out.clone())
+    torch.cuda.synchronize()
+    atol, rtol = LM_LOSS_TOL
+    loss_err = ((loss - ref_loss).abs() / (1e-5 + 1e-5 * ref_loss.abs())).max().item()
+    grad_err = ((got.float() - ref.float()).abs()
+                / (atol + rtol * ref.float().abs())).max().item()
+    if loss_err > 1 or grad_err > 1:
+        raise AssertionError(f"lm_loss kernel off its plain version: loss {loss_err}, "
+                             f"gradient {grad_err} of the tolerance")
+    live_rows = int(mask.sum().item())
+    # live rows read and written once, the others only written (zeros)
+    nbytes = 2 * vp * (2 * live_rows + (rows - live_rows)) + rows * (8 + 4 + 4)
+    z = logits[:, :vocab].contiguous()
+
+    def library():
+        zz = z.detach().requires_grad_()
+        ce = (torch.nn.functional.cross_entropy(zz, labels, reduction="none") * mask).sum()
+        torch.autograd.grad(ce * scale, zz)
+
+    return {
+        "vocab": vocab, "vp": vp, "rows": rows, "live_rows": live_rows,
+        "max_err_of_tol": max(loss_err, grad_err),
+        "ms": adaptive_time_ms(torch, lambda: ll.lm_loss_rows_cuda(
+            logits, labels, mask, scale, vocab, grad=True, out=out), [()]),
+        "plain_ms": time_ms(torch, lambda: ll.lm_loss_rows_plain(
+            logits, labels, mask, scale, vocab, grad=True, out=out), [()], 3),
+        "library_ms": adaptive_time_ms(torch, library, [()]),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "resources": ll.kernel_resources(vp, torch.bfloat16),
+    }
+
+
+def lm_loss_whole_case(torch, ll, c: dict) -> dict:
+    """A cell's microbatch through the whole loss, forward and backward:
+    the fused path (``lm_loss_from_hidden``) against the recomputed one it
+    replaced (``_recomputed_lm_loss``), same inputs, CUDA-event times; the
+    two losses and grads compared normwise, and the fused path's launches."""
+    from polyaxon_tpu_torch.models import transformer
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, s, h, vocab = c["batch"], c["seq"], c["hidden"], c["vocab"]
+    x = torch.randn(b, s, h, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(vocab, h, generator=gen, device="cuda") * 0.05
+    labels = torch.randint(0, vocab, (b, s), generator=gen, device="cuda")
+    mask = (None if c["live"] >= 1 else
+            (torch.rand(b, s, generator=gen, device="cuda") < c["live"]).float())
+    out = {}
+    for name, fn in (("fused", transformer.lm_loss_from_hidden),
+                     ("recomputed", transformer._recomputed_lm_loss)):
+        tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+
+        def step():
+            tx.grad = tw.grad = None
+            loss = fn(tx, tw, labels, mask, vocab_major=True, chunk_tokens=LM_LOSS_ROWS)
+            loss.backward()
+            return loss
+
+        ll.reset_launch_counts()
+        loss = step()
+        torch.cuda.synchronize()
+        launches = ll.launch_counts["lm_loss"]
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = time_ms(torch, step, [()], LM_LOSS_WHOLE_TIMINGS)
+        out[name] = {"loss": loss.item(), "ms": ms, "launches": launches,
+                     "peak_extra_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                     "gx": tx.grad.float(), "gw": tw.grad}
+    new, old = out["fused"], out["recomputed"]
+    gaps = {k: ((new[k] - old[k]).norm() / old[k].norm()).item() for k in ("gx", "gw")}
+    if abs(new["loss"] - old["loss"]) > 1e-3 * abs(old["loss"]) or max(gaps.values()) > 1e-2:
+        raise AssertionError(f"fused loss off the recomputed one: {new['loss']} vs "
+                             f"{old['loss']}, grads {gaps}")
+    for row in out.values():
+        del row["gx"], row["gw"]
+    return {**out, "grad_gaps": gaps, "speedup": old["ms"] / new["ms"]}
+
+
+def lm_loss_phase(torch, ll) -> dict:
+    """The row kernel at each cell's chunk shape (and BERT's with every row
+    live), then each cell's microbatch through the whole loss."""
+    out = {}
+    for name, c in LM_LOSS_CASES.items():
+        out[name] = lm_loss_rows_case(torch, ll, c, c["live"])
+        if c["live"] < 1:
+            out[f"{name}/all_rows"] = lm_loss_rows_case(torch, ll, c, 1.0)
+        out[f"{name}/whole"] = lm_loss_whole_case(torch, ll, c)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for case, row in out.items():
+        log("lm_loss", case=case, **row)
+    return out
+
+
 # -- phase 6: train ----------------------------------------------------------------
 
 
@@ -1724,6 +1872,29 @@ def flash_launch_formula(spec: dict, layers: int) -> dict:
     if stages > 1 and spec.get("pp_remat_ticks"):
         rerun += 1
     return {"flash_fwd": per * rerun, "flash_bwd_dq": per, "flash_bwd_dkv": per}
+
+
+def lm_loss_launch_formula(spec: dict) -> Optional[int]:
+    """Launches of the LM loss's row kernel over a run on one rank that
+    holds the whole batch: one a loss chunk (``loss_chunks`` of a
+    microbatch's rows at the spec's ``loss_chunk_tokens``) of each
+    microbatch of each step; 0 for a family with no LM head. None on a
+    mesh of more than one rank, whose share of the batch, sequence or
+    vocabulary the formula does not follow: such a run's count is
+    reported, not checked."""
+    from polyaxon_tpu_torch.models import REGISTRY, transformer
+
+    family, cfg = REGISTRY[spec["model"]]
+    if family not in ("lm", "mlm"):
+        return 0
+    if math.prod((spec.get("parallelism") or {}).values()) > 1:
+        return None
+    micro = int(spec.get("microbatches", 1))
+    chunk_tokens = spec.get("loss_chunk_tokens")
+    chunks = transformer.loss_chunks(
+        int(spec["batch_size"]) // micro, int(spec.get("seq_len", min(2048, cfg.max_seq))),
+        cfg.loss_chunk_tokens if chunk_tokens is None else int(chunk_tokens))
+    return int(spec["steps"]) * micro * chunks
 
 
 def model_shape(name: str) -> tuple[str, int, int]:
@@ -1744,6 +1915,7 @@ def train_phase(torch, fa, spec: dict, visits: int = 1,
     """The port's builtin runtime on the card; returns its measurements.
     ``visits``: the ring visits of each attention on this rank (its
     context coordinate + 1 in a causal ring)."""
+    from polyaxon_tpu_torch.ops import lm_loss as ll
     from polyaxon_tpu_torch.runtime.builtin import run_builtin
 
     logged = []
@@ -1751,13 +1923,17 @@ def train_phase(torch, fa, spec: dict, visits: int = 1,
     torch.cuda.reset_peak_memory_stats()
     start_gib = torch.cuda.memory_allocated() / 2**30  # left by the earlier phases
     fa.reset_launch_counts()
+    ll.reset_launch_counts()
     t0 = time.monotonic()
     summary = run_builtin(dict(spec), track=lambda step, m: logged.append((step, m)))
     wall_s = time.monotonic() - t0
-    launches = dict(fa.launch_counts)
+    launches = {**fa.launch_counts, **ll.launch_counts}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     family, layers, classes = model_shape(spec["model"])
     expected = {k: n * visits for k, n in flash_launch_formula(spec, layers).items()}
+    lm_loss_launches = lm_loss_launch_formula(spec)
+    if lm_loss_launches is not None:
+        expected["lm_loss"] = lm_loss_launches
     losses = [m["loss"] for _, m in sorted(logged, key=lambda e: e[0])]
     per_sample = int(spec["seq_len"]) if family in ("lm", "mlm") else 1
     out = {"losses": losses, "grad_norms": [m["grad_norm"] for _, m in logged],
@@ -1782,8 +1958,8 @@ def train_phase(torch, fa, spec: dict, visits: int = 1,
     if not abs(losses[0] - math.log(classes)) <= loss0_margin:
         raise AssertionError(f"step-0 loss {losses[0]} is not within {loss0_margin} of "
                              f"ln {classes}")
-    if launches != expected:
-        raise AssertionError(f"flash launches {launches} != formula {expected}")
+    if {k: launches[k] for k in expected} != expected:
+        raise AssertionError(f"kernel launches {launches} != formula {expected}")
     if summary["mfu"] is None:
         raise AssertionError("no MFU: the card is not in the meter's peak table")
     return out
@@ -2328,11 +2504,13 @@ def moe_compare_phase(torch, fa, spec: dict) -> dict:
     from dataclasses import replace
 
     from polyaxon_tpu_torch.models import transformer as tm
+    from polyaxon_tpu_torch.ops import lm_loss as ll
 
     micro = spec["batch_size"] // spec["microbatches"]
     cfg, batch, paths, leaves = moe_setup(torch, spec, micro)
     E, k = cfg.num_experts, cfg.expert_top_k
     fa.reset_launch_counts()
+    ll.reset_launch_counts()
     t0 = time.monotonic()
 
     def run(**changes):
@@ -2394,7 +2572,7 @@ def moe_compare_phase(torch, fa, spec: dict) -> dict:
     twice = [moe_layer_run(torch, streamed, x_in, layer, paths, leaves) for _ in range(2)]
     out["layer_twice_bit_equal"] = all(torch.equal(a, b) for a, b in zip(*twice))
     del twice, x_in
-    out["launches"] = dict(fa.launch_counts)
+    out["launches"] = {**fa.launch_counts, **ll.launch_counts}
     out["seconds"] = time.monotonic() - t0
     out["planted_faults"] = faults
     out["limits"] = {"hidden_rel": MOE_HIDDEN_TOL, "grad_rel": MOE_GRAD_TOL}
@@ -4484,7 +4662,8 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda)
 
     fa = importlib.import_module("polyaxon_tpu_torch.ops.flash_attention")
-    build_phase([pa.PAGED_DECODE_LIB, fa.FLASH_FWD_LIB, fa.FLASH_BWD_LIB])
+    ll = importlib.import_module("polyaxon_tpu_torch.ops.lm_loss")
+    build_phase([pa.PAGED_DECODE_LIB, fa.FLASH_FWD_LIB, fa.FLASH_BWD_LIB, ll.LM_LOSS_LIB])
     log("sass", **sass_phase(fa))
 
     kernel_rows = kernel_phase(torch, pa)
@@ -4494,6 +4673,7 @@ def main() -> int:
     flash_bidir_phase(torch, fa)
     ring_rows = ring_phase(torch, fa)
     ring_bench_rows = ring_bench_phase(torch, fa)
+    lm_loss_rows = lm_loss_phase(torch, ll)
 
     from polyaxon_tpu_torch.models import REGISTRY
 
@@ -4553,6 +4733,11 @@ def main() -> int:
             family_compare_phase(torch, fa, spec)
             gc.collect()
             torch.cuda.empty_cache()
+
+    families["train_gpt2"] = train_phase(torch, fa, GPT2_SPEC)
+    log("train_gpt2", **families["train_gpt2"])
+    gc.collect()
+    torch.cuda.empty_cache()
 
     moe_run = train_phase(torch, fa, MOE_SPEC)
     moe_cfg = REGISTRY[MOE_SPEC["model"]][1]
@@ -4755,6 +4940,30 @@ def main() -> int:
             else:
                 row.update(numbers)
         kernels.append(row)
+    # the LM loss's row kernel: GPT-2's chunk (every row live); ``bert`` at
+    # BERT's chunk with its masked 15% live; launches the llama-1b train
+    # phase's, each run's as its formula says (train_phase checks them)
+    lm_gpt2, lm_bert = lm_loss_rows["gpt2-345m"], lm_loss_rows["bert-base"]
+    kernels.append({
+        "name": "lm_loss", "route": "cuda", "source": "polyaxon_tpu_torch/csrc/lm_loss.cu",
+        "replaces": None, "launches": trained["launches"]["lm_loss"],
+        **{key: lm_gpt2[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")},
+        "bert": {key: lm_bert[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "launches_by_path": {"train": trained["launches"]["lm_loss"],
+                             "train_lora": lora_run["launches"]["lm_loss"],
+                             **{phase: run["launches"]["lm_loss"]
+                                for phase, run in families.items()
+                                if run["expected_launches"]["lm_loss"]},
+                             **{f"dist_train_1rank/{model}": run["launches"]["lm_loss"]
+                                for model, run in dist_1rank.items()
+                                if isinstance(run, dict) and run["launches"]["lm_loss"]},
+                             "train_moe": moe_run["launches"]["lm_loss"],
+                             "moe_compare": moe_cmp["launches"]["lm_loss"],
+                             "train_7b_import_lora": import_7b["launches"]["lm_loss"]},
+        "per_step": {phase: families[phase]["launches"]["lm_loss"] / spec["steps"]
+                     for phase, spec in (("train_bert", BERT_SPEC),
+                                         ("train_gpt2", GPT2_SPEC))}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,7 +6,8 @@ parameter tree (the same nested-dict layout with layer-stacked ``[L, ...]``
 leaves, so weights carry across unchanged), the init law, the layer body
 with its remat policies, the mixture-of-experts MLP (top-k router, the
 Switch balance term, capacity / all-to-all / dense dispatch),
-``apply_hidden``/``apply`` and the (chunked) LM loss. Parameters are a
+``apply_hidden``/``apply`` and the chunked LM loss (off a ``model`` mesh
+its gradient forms in the forward, ``ops/lm_loss.py``). Parameters are a
 plain nested dict of tensors. The decode-mode layer loop of the serving
 path lives in ``serve/model.py`` (the JAX serving model has no MoE branch,
 and neither does the port's).
@@ -55,6 +56,7 @@ from torch.utils.checkpoint import (
 from ..ops.attention import attention, repeat_kv
 from ..ops.gating import gated
 from ..ops.layers import apply_rope, gelu, layer_norm, rms_norm, rope_frequencies, swiglu
+from ..ops.lm_loss import fused_lm_loss
 from ..ops.ring_attention import ring_attention
 from ..ops.ulysses import ulysses_attention
 from ..parallel import collectives
@@ -974,12 +976,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _chunk_nll(x, w, labels, vocab_major: bool, mesh=None):
-    """Per-token NLL for one chunk: project to vocab in the activation
-    dtype, reduce in f32. The chunk's logits are the only vocab-sized live
-    tensor. Under ``model`` the logits are this rank's vocab columns: the
+    """Per-token NLL for one chunk of the vocab-parallel loss: project to
+    this rank's vocab columns in the activation dtype, reduce in f32. The
     row max and the sum of exponentials are taken over model (as
     ``logsumexp`` takes them, the max without a grad), the gold logit from
-    the rank that holds the label."""
+    the rank that holds the label. Without a ``model`` mesh it is the plain
+    ``logsumexp`` of the whole vocabulary."""
     w = w.to(x.dtype)
     logits = torch.matmul(x, w.t() if vocab_major else w).float()
     if mesh is None or not mesh.tp:
@@ -1015,10 +1017,16 @@ def lm_loss_from_hidden(
     chunk_tokens: int = 4096,
     mesh=None,
 ) -> torch.Tensor:
-    """Blockwise fused vocab projection + cross entropy: sequence chunks of
-    ``x`` [batch, seq, hidden] against the head weight, so at most about
-    ``chunk_tokens`` x vocab f32 logits are live at once. Each chunk is
-    recomputed in the backward, so the same bound holds for gradients.
+    """Blockwise fused vocab projection + cross entropy of ``x`` [batch,
+    seq, hidden] against the head weight, in :func:`loss_chunks` chunks of
+    about ``chunk_tokens`` rows, so at most one chunk's logits are live.
+
+    Without a ``model`` mesh it is :func:`~..ops.lm_loss.fused_lm_loss`:
+    the head cast once into a 128-row-aligned buffer, each chunk's logits
+    in the activation dtype reduced by one kernel launch that leaves the
+    gradient in their place, dx and dW formed in the forward, nothing
+    recomputed in the backward. Under ``model`` it is
+    :func:`_recomputed_lm_loss`.
 
     The loss is the NLL sum over the token (or mask) count. With a
     ``mesh`` the rows (and under ``context`` the sequence) are this rank's
@@ -1026,6 +1034,20 @@ def lm_loss_from_hidden(
     a sharded batch's sum by its global count: the ranks' shares sum to
     the loss. Under ``model``, ``w`` is this rank's vocab block and the
     loss is every model rank's alike."""
+    b, s, _ = x.shape
+    if mesh is not None and mesh.tp:
+        return _recomputed_lm_loss(x, w, labels, mask, vocab_major=vocab_major,
+                                   chunk_tokens=chunk_tokens, mesh=mesh)
+    return fused_lm_loss(x, w, labels, mask, vocab_major=vocab_major,
+                         chunks=loss_chunks(b, s, chunk_tokens), mesh=mesh)
+
+
+def _recomputed_lm_loss(x, w, labels, mask=None, *, vocab_major: bool, chunk_tokens: int,
+                        mesh=None) -> torch.Tensor:
+    """The vocab-parallel loss: :func:`_chunk_nll` over sequence chunks of
+    ``x``, each chunk recomputed in the backward (so at most one chunk's
+    f32 logits are live in either pass); the count and the sum as
+    :func:`lm_loss_from_hidden` says."""
     b, s, _ = x.shape
     mask_f = None if mask is None else mask.float()
     if mesh is not None:

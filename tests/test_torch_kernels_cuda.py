@@ -1,14 +1,15 @@
-"""The CUDA kernels (paged decode; flash forward, dQ and dK/dV) against
-their plain PyTorch versions, on the card. In bf16 the flash kernels are
-the wgmma/TMA ones (tiles of 64 or 128 rows; dQ streams 128-key tiles at
-D = 64, 64 at D = 128) and paged decode is split over CTAs of 256 tokens
-merged by a second kernel; in f32 the flash forward, dQ and dK/dV are
-split-TF32 wgmma/TMA kernels (tiles of 16 to 128 rows), and paged decode
-is split over a cluster of CTAs of 256 tokens or more (at most 8 a
-sequence and KV head, each CTA's warps on tiles of 8 to 32 tokens),
-merged inside the one launch. Every test here needs a CUDA device (the
-kernels have no CPU build) and skips without one; this file imports
-nothing of JAX, so it runs on a machine with the card alone:
+"""The CUDA kernels (paged decode; flash forward, dQ and dK/dV; the LM
+loss's rows) against their plain PyTorch versions, on the card. In bf16
+the flash kernels are the wgmma/TMA ones (tiles of 64 or 128 rows; dQ
+streams 128-key tiles at D = 64, 64 at D = 128) and paged decode is
+split over CTAs of 256 tokens merged by a second kernel; in f32 the
+flash forward, dQ and dK/dV are split-TF32 wgmma/TMA kernels (tiles of
+16 to 128 rows), and paged decode is split over a cluster of CTAs of 256
+tokens or more (at most 8 a sequence and KV head, each CTA's warps on
+tiles of 8 to 32 tokens), merged inside the one launch. Every test here
+needs a CUDA device (the kernels have no CPU build) and skips without
+one; this file imports nothing of JAX, so it runs on a machine with the
+card alone:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -651,3 +652,132 @@ def test_the_loopback_ring_matches_one_flash_call(cuda, dtype, causal, cp):
     for name, out, want in pairs:
         err = (out.float() - want.float()).abs().max().item()
         assert err <= RING_TOL[dtype] * want.float().abs().max().item(), (name, err)
+
+
+# -- the LM loss's row kernel (csrc/lm_loss.cu) ---------------------------------
+
+ll = importlib.import_module("polyaxon_tpu_torch.ops.lm_loss")
+
+# Kernel against plain, both in f32 registers: the row's sums in other
+# orders and exp2f against torch's exp (a few ulp): 1e-5 on the loss; the
+# gradient rounds to the logits' dtype, so in bf16 one place (2^-7
+# relative) can part them.
+LM_LOSS_TOL = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (1e-6, 2.0 ** -7)}
+
+
+def _lm_loss_rows_inputs(dev, dtype, vocab, rows=6, seed=0):
+    """Logits [rows, vp] with garbage (1e4) in the pad columns, labels that
+    include the last and the first real column, a row whose mask is 0 and
+    a last one of weight 0.5."""
+    vp = ll.padded_vocab(vocab)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.full((rows, vp), 1e4, device=dev)
+    logits[:, :vocab] = torch.randn(rows, vocab, generator=gen, device=dev) * 3
+    labels = torch.randint(0, vocab, (rows,), generator=gen, device=dev)
+    labels[:2] = torch.tensor([vocab - 1, 0])
+    mask = torch.ones(rows, device=dev)
+    mask[2], mask[rows - 1] = 0.0, 0.5
+    return logits.to(dtype), labels, mask, torch.tensor([0.25], device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vocab", [50257, 30522])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_loss_kernel_matches_plain(cuda, dtype, vocab):
+    logits, labels, mask, scale = _lm_loss_rows_inputs(cuda, dtype, vocab)
+    ref_logits = logits.clone()
+    before = ll.launch_counts["lm_loss"]
+    loss = ll.lm_loss_rows_cuda(logits, labels, mask, scale, vocab, grad=True,
+                                out=torch.empty(len(labels), device=cuda))
+    torch.cuda.synchronize()
+    assert ll.launch_counts["lm_loss"] == before + 1
+    ref = ll.lm_loss_rows_plain(ref_logits, labels, mask, scale, vocab, grad=True,
+                                out=torch.empty(len(labels), device=cuda))
+    torch.testing.assert_close(loss, ref, atol=1e-5, rtol=1e-5)
+    atol, rtol = LM_LOSS_TOL[dtype]
+    torch.testing.assert_close(logits.float(), ref_logits.float(), atol=atol, rtol=rtol)
+    assert loss[2].item() == 0.0 and not logits[2].any()     # the row whose mask is 0
+    assert not logits[:, vocab:].any()                       # zeros in the pad
+    assert (logits[0, vocab - 1] < 0) and (logits[1, 0] < 0)  # the gold columns
+
+
+@pytest.mark.cuda
+def test_lm_loss_kernel_without_grad_leaves_the_logits(cuda):
+    logits, labels, mask, scale = _lm_loss_rows_inputs(cuda, torch.bfloat16, 50257)
+    kept = logits.clone()
+    loss = ll.lm_loss_rows_cuda(logits, labels, None, scale, 50257, grad=False,
+                                out=torch.empty(len(labels), device=cuda))
+    ref = ll.lm_loss_rows_plain(kept.clone(), labels, None, scale, 50257, grad=False,
+                                out=torch.empty(len(labels), device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(logits, kept)
+    torch.testing.assert_close(loss, ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lm_loss_kernel_rows_wider_than_shared_memory(cuda):
+    """f32 rows of 65,536 columns (256 KB) do not fit a CTA's shared
+    memory: pass 2 reads the row from the device again."""
+    logits, labels, mask, scale = _lm_loss_rows_inputs(cuda, torch.float32, 65000, rows=4)
+    ref_logits = logits.clone()
+    loss = ll.lm_loss_rows_cuda(logits, labels, mask, scale, 65000, grad=True,
+                                out=torch.empty(4, device=cuda))
+    ref = ll.lm_loss_rows_plain(ref_logits, labels, mask, scale, 65000, grad=True,
+                                out=torch.empty(4, device=cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(loss, ref, atol=1e-5, rtol=1e-5)
+    atol, rtol = LM_LOSS_TOL[torch.float32]
+    torch.testing.assert_close(logits, ref_logits, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vocab_major", [True, False])
+def test_the_fused_loss_launches_once_a_chunk_and_matches_the_recomputed_path(
+        cuda, vocab_major):
+    """bf16 activations, an f32 head of an odd vocabulary: 4 chunks of 256
+    rows; the loss and both grads against the recomputed path on the card,
+    normwise (the two round the same bf16 logits and gradient, each GEMM
+    summing in its own order)."""
+    from polyaxon_tpu_torch.models import transformer
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(4, 256, 64, generator=gen, device=cuda).to(torch.bfloat16)
+    w = torch.randn(1001, 64, generator=gen, device=cuda) * 0.3
+    if not vocab_major:
+        w = w.t().contiguous()
+    labels = torch.randint(0, 1001, (4, 256), generator=gen, device=cuda)
+    mask = (torch.rand(4, 256, generator=gen, device=cuda) < 0.5).float()
+    grads = []
+    for fn in (transformer.lm_loss_from_hidden, transformer._recomputed_lm_loss):
+        tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = ll.launch_counts["lm_loss"]
+        loss = fn(tx, tw, labels, mask, vocab_major=vocab_major, chunk_tokens=256)
+        (loss * 0.5).backward()
+        torch.cuda.synchronize()
+        grads.append((loss.item(), tx.grad.float(), tw.grad, ll.launch_counts["lm_loss"] - before))
+    (loss, gx, gw, launches), (old_loss, old_gx, old_gw, old_launches) = grads
+    assert (launches, old_launches) == (4, 0)
+    assert gw.shape == w.shape
+    assert loss == pytest.approx(old_loss, rel=1e-3)
+    for got, want in ((gx, old_gx), (gw, old_gw)):
+        assert (got - want).norm() <= 1e-2 * want.norm()
+
+
+@pytest.mark.cuda
+def test_lm_loss_refused_arguments_raise(cuda):
+    logits, labels, mask, scale = _lm_loss_rows_inputs(cuda, torch.bfloat16, 1001)
+    out = torch.empty(len(labels), device=cuda)
+    with pytest.raises(TypeError):
+        ll.lm_loss_rows_cuda(logits.half(), labels, mask, scale, 1001, grad=True, out=out)
+    with pytest.raises(TypeError):
+        ll.lm_loss_rows_cuda(logits, labels.int(), mask, scale, 1001, grad=True, out=out)
+    with pytest.raises(ValueError):                     # not contiguous
+        ll.lm_loss_rows_cuda(logits[:, :1024].t(), labels, mask, scale, 1001, grad=True,
+                             out=out)
+    with pytest.raises(ValueError):                     # 1,001 columns, not a multiple of 128
+        ll.lm_loss_rows_cuda(logits[:, :1001].contiguous(), labels, mask, scale, 1001,
+                             grad=True, out=out)
+    with pytest.raises(ValueError):                     # a vocabulary past the columns
+        ll.lm_loss_rows_cuda(logits, labels, mask, scale, 1025, grad=True, out=out)
+    with pytest.raises(ValueError):                     # logits on the CPU
+        ll.lm_loss_rows_cuda(logits.cpu(), labels, mask, scale, 1001, grad=True, out=out)
