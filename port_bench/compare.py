@@ -15,7 +15,8 @@ steps). What is compared, each against a limit of the cell's own
   the median leaf's (such as a key's bias, whose exact gradient is zero
   under the softmax, and which Adam moves by round-off alone).
 
-A leaf is one layer's tensor: each layer-stacked leaf counts as its layers.
+A leaf is one layer's tensor: each leaf the family's layout marks as
+layer-stacked counts as its layers.
 A non-finite reading is infinitely far.
 """
 
@@ -27,13 +28,13 @@ import statistics
 EXCLUDE_BELOW = 1e-3
 
 
-def slice_norms(named: dict) -> dict:
-    """``{leaf: norm}`` with each ``layers/...`` tensor cut into its
-    layers, in float64."""
+def slice_norms(named: dict, stacked: set) -> dict:
+    """``{leaf: norm}`` with each tensor whose path is in ``stacked`` cut
+    into its layers, in float64."""
     out = {}
     for path, t in named.items():
         t = t.detach()
-        if path.startswith("layers/"):
+        if path in stacked:
             for i in range(t.shape[0]):
                 out[f"{path}[{i}]"] = float(t[i].double().norm())
         else:
@@ -41,9 +42,9 @@ def slice_norms(named: dict) -> dict:
     return out
 
 
-def readings(losses: list, mu: dict, change: dict) -> dict:
-    return {"loss": [float(x) for x in losses], "grad": slice_norms(mu),
-            "change": slice_norms(change)}
+def readings(losses: list, mu: dict, change: dict, stacked: set) -> dict:
+    return {"loss": [float(x) for x in losses], "grad": slice_norms(mu, stacked),
+            "change": slice_norms(change, stacked)}
 
 
 def _worst(side: dict, ref: dict, leaves) -> float:

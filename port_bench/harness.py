@@ -3,10 +3,12 @@ reference and the comparison.
 
 Set-up builds the port's trainer as its builtin runtime does
 (``runtime/builtin.py``'s ``build_trainer`` over the example's runtime keys
-and the keys the cell changes), hands it weights the benchmark made from the
-seed (``weights.py``), and makes the cell's pool of batches on the host
-(``traffic/<objective>.py``). It then drives the first steps through
-``Trainer.fit`` and the same feed the window uses, one step a call, and keeps
+and the keys the cell changes), checks it against the configuration file
+and the family's layout (``layouts/<family>.py``), hands it weights the
+benchmark made from the seed in that layout (``weights.py``), and makes the
+cell's pool of batches on the host (``traffic/<objective>.py``). It then
+drives the first steps through ``Trainer.fit`` and the same feed the window
+uses, one step a call, and keeps
 the program's readings of them (each loss, Adam's first moment after step 1,
 each weight's change after the last). Those steps also warm every shape the
 window runs.
@@ -79,17 +81,13 @@ def runtime_spec(cell: manifest.Cell, device: torch.device) -> dict:
     return spec
 
 
-def check_program(trainer, cell: manifest.Cell) -> None:
-    """Raise where the program's preset or optimizer is not what the
-    configuration file states, or its parameters not the layout the
-    benchmark makes."""
-    m, c = trainer.cfg.model, cell.config
-    stated = {"vocab_size": m.vocab_size, "hidden_size": m.hidden,
-              "num_hidden_layers": m.num_layers, "num_attention_heads": m.num_heads,
-              "intermediate_size": m.mlp_dim, "max_position_embeddings": m.max_seq,
-              "layer_norm_eps": m.eps, "causal": m.causal,
-              "activation_dtype": str(m.dtype).removeprefix("torch."),
-              "param_dtype": str(m.param_dtype).removeprefix("torch.")}
+def check_program(trainer, cell: manifest.Cell, spec: list) -> None:
+    """Raise where the program's configuration (as the family's
+    ``stated`` gives it) or optimizer is not what the configuration file
+    states, or its parameters not the layout ``spec`` the benchmark
+    makes."""
+    c = cell.config
+    stated = dict(cell.layout.stated(trainer.cfg.model))
     o = trainer.cfg.optimizer
     stated.update({f"optimizer.{k}": getattr(o, k) for k in
                    ("name", "b1", "b2", "weight_decay", "grad_clip", "schedule",
@@ -102,9 +100,10 @@ def check_program(trainer, cell: manifest.Cell) -> None:
                          f"{c['name']}.json: {wrong}")
     shapes = {p: tuple(t.shape) for p, t in
               weights_mod.flat_paths(trainer.task.abstract_params()).items()}
-    mine = {p: s for p, s, _, _ in weights_mod.layout(c)}
+    mine = {leaf.path: leaf.shape for leaf in spec}
     if shapes != mine:
-        raise ValueError(f"the program's parameter layout differs from weights.py's: "
+        raise ValueError(f"the program's parameter layout differs from layouts/"
+                         f"{c['family']}.py's: "
                          f"{sorted(set(shapes.items()) ^ set(mine.items()))[:6]}")
 
 
@@ -137,9 +136,10 @@ def program_setup(cell: manifest.Cell, seed: int, device: torch.device,
     t = time.perf_counter()
     spec = runtime_spec(cell, device)
     trainer, _ = build_trainer(spec)
-    check_program(trainer, cell)
-    state = trainer.init_state_from(weights_mod.nest(weights_mod.make(cell.config, seed,
-                                                                      device)))
+    leaves = weights_mod.leaves(cell.layout, cell.config)
+    stacked = weights_mod.stacked(leaves)
+    check_program(trainer, cell, leaves)
+    state = trainer.init_state_from(weights_mod.nest(weights_mod.make(leaves, seed, device)))
     phases["trainer_and_weights"] = time.perf_counter() - t
     t = time.perf_counter()
     pool = cell.traffic.make_pool(seed, cell.workload["traffic_params"], cell.config)
@@ -155,15 +155,16 @@ def program_setup(cell: manifest.Cell, seed: int, device: torch.device,
         losses.append(float(final["loss"]))
         prog.anomalies += _anomalies(final)
         if s == 0:
-            grad = compare.slice_norms(compare.program_mu_and_params(prog.box[0])[0])
+            grad = compare.slice_norms(compare.program_mu_and_params(prog.box[0])[0],
+                                       stacked)
         phases[f"step_{s + 1}"] = prog.step_s
     t = time.perf_counter()
     _, now = compare.program_mu_and_params(prog.box[0])
-    first = weights_mod.make(cell.config, seed, device)
+    first = weights_mod.make(leaves, seed, device)
     change = {}
     with torch.no_grad():
         for path, w in first.items():
-            change.update(compare.slice_norms({path: now[path] - w}))
+            change.update(compare.slice_norms({path: now[path] - w}, stacked))
     del first, now
     prog.readings = {"loss": losses, "grad": grad, "change": change}
     phases["readings"] = time.perf_counter() - t
@@ -204,6 +205,7 @@ def traced_steps(prog: Program, steps: int, sync) -> tuple:
         return steps
 
     tr = trace_mod.profile_steps(run, sync)
+    print(tr.spans.line(), file=sys.stderr, flush=True)
     return tr, prog.feed.served[served:]
 
 
@@ -211,14 +213,15 @@ def reference_readings(cell: manifest.Cell, spec: dict, seed: int, device: torch
                        pool: list, *, quant: bool = False, keep_rows: float = 1.0) -> dict:
     """The family's reference over the first batches, from the same
     weights, as :func:`compare.readings`."""
-    first = weights_mod.make(cell.config, seed, device)
+    leaves = weights_mod.leaves(cell.layout, cell.config)
+    first = weights_mod.make(leaves, seed, device)
     out = cell.reference.train(
         cell.config, spec, first, pool[:CHECK_STEPS],
         microbatches=int(spec.get("microbatches", 1)),
         block_tokens=int(cell.workload["reference_block_tokens"]), device=device,
         quant=quant, keep_rows=keep_rows)
     del first
-    return compare.readings(out["loss"], out["mu"], out["change"])
+    return compare.readings(out["loss"], out["mu"], out["change"], weights_mod.stacked(leaves))
 
 
 def release(prog: Program, device: torch.device) -> None:

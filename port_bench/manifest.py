@@ -2,16 +2,24 @@
 
 - a configuration ``<c>``: ``configs/<c>.json`` (sizes, the port's preset,
   the example's runtime keys, ``family`` and ``counts``);
-- its family's plain reference: ``reference/<family>.py`` (``train``);
-- its operation counts: ``counts/<counts>.py``;
+- its family's files: ``layouts/<family>.py`` (``layout``: each weight's
+  path, shape, scale, offset and whether it is layer-stacked; ``stated``:
+  the program's configuration under the file's keys, which the harness
+  checks), ``reference/<family>.py`` (``train``: the plain reference, a
+  model handed to ``reference/core.py``'s step loop);
+- its operation counts: ``counts/<counts>.py`` (``step_flops``,
+  ``flash_least_s``);
 - a cell ``<w>``: ``workloads/<w>.json`` (the traffic's parameters, the
   runtime keys the cell changes, the limits of the comparison);
 - the traffic's generator: ``traffic/<objective>.py`` (``make_pool``,
   ``loss_tokens``);
 - a per-layer metric ``<m>``: ``metrics/<m>.py`` (``read(ctx)``).
 
-A later cell, configuration or metric is new files and a new entry; no
-file here changes.
+A later cell, configuration, family or metric is new files and new entries:
+a family brings its layout, reference and counts, a configuration its
+file and a ``configs`` entry, a cell its workload file (and a traffic file
+where its objective is new) and a ``workloads`` entry. No file here
+changes.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ class Cell:
     config: dict
     workload: dict
     traffic: ModuleType
+    layout: ModuleType
     reference: ModuleType
     counts: ModuleType
     end_to_end: list
@@ -93,6 +102,7 @@ def resolve(name: str, root: Path = ROOT) -> Cell:
     return Cell(
         name=name, chips=int(entry["chips"]), config=config, workload=workload,
         traffic=_load(base / "traffic" / f"{workload['objective']}.py", "traffic"),
+        layout=_load(base / "layouts" / f"{config['family']}.py", "layout"),
         reference=_load(base / "reference" / f"{config['family']}.py", "reference"),
         counts=_load(base / "counts" / f"{config['counts']}.py", "counts"),
         end_to_end=e2e, readers=readers)

@@ -1,6 +1,6 @@
 """Plain reference of the port's BERT (``bert-base``): a bidirectional
-encoder trained on the masked-LM loss, which reads the selected positions
-alone (the batch's ``mask``).
+encoder (``learned_pos.py``, not causal) trained on the masked-LM loss,
+which reads the selected positions alone (the batch's ``mask``).
 
 It is the architecture the port states for its BERT, not Devlin et al.'s
 in every part: LayerNorm before each block with a final LayerNorm (the paper
@@ -13,8 +13,9 @@ the paper's.
 from __future__ import annotations
 
 from port_bench.reference import core
+from port_bench.reference.learned_pos import Model
 
 
 def train(cfg: dict, runtime: dict, weights: dict, batches: list, **kwargs) -> dict:
-    return core.train(cfg, runtime, weights, batches, causal=False, weight_key="mask",
-                      **kwargs)
+    return core.train(cfg, runtime, weights, batches, model=Model(cfg, causal=False),
+                      weight_key="mask", **kwargs)

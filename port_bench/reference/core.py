@@ -1,19 +1,29 @@
-"""The plain reference of a learned-position transformer's training steps:
-PyTorch in float32 with TF32 off, no kernels, no cache, nothing of the
-program.
+"""The plain reference's training steps, for every family: PyTorch in
+float32 with TF32 off, no kernels, no cache, nothing of the program.
 
-It follows the port's stated architecture, which ``bert.py`` and
-``gpt2.py`` name: token and learned position embeddings; per layer a
-pre-LayerNorm attention block (q, k, v and o projections with biases,
-softmax attention, causal or not) and a pre-LayerNorm MLP (GELU, tanh
-approximation), each added to the residual; a final LayerNorm; the head tied
-to the token table; the mean cross entropy over the positions the loss
-reads. A step is the trainer's: the batch in ``microbatches`` row slices,
-each slice's loss its own mean and the step's gradient the mean over
-slices; the global norm clip; AdamW (optax's order: Adam's moments, the
-decoupled weight decay on every leaf, then minus the scheduled rate, which
-reads the update count before it is incremented, so with warmup the first
-update is zero).
+A family's file (``<family>.py``) hands :func:`train` its model, an object
+with
+
+- ``block(p, inputs, labels, weight, mm, stats)`` -> ``(nll, term)``: over
+  a block of a microbatch's rows, ``nll`` the sum of ``weight`` x the token
+  cross entropy (``weight`` None: every position counts once), and
+  ``term`` this block's share of a term of the microbatch's loss that is
+  not a mean over its tokens (None where the model has none). ``p`` maps
+  the weights' ``/``-joined paths to tensors; every matrix product goes
+  through ``mm``;
+- optionally ``stats(p, inputs, weight, mm)``: a pass over the whole
+  microbatch without gradients, whose result the loop hands to each
+  block as ``stats``. A term such as an MoE balance, E x sum_e f_e P_e
+  with f_e the share of the microbatch's assignments on expert e (no
+  gradient) and P_e its mean router probability, is then a sum over
+  blocks: f from ``stats``, each block's share of P's sum over T.
+
+A step is the trainer's: the batch in ``microbatches`` row slices, each
+slice's loss its own mean (``nll`` over the slice's counted positions,
+plus ``term``) and the step's gradient the mean over slices; the global
+norm clip; AdamW (optax's order: Adam's moments, the decoupled weight decay
+on every leaf, then minus the scheduled rate, which reads the update count
+before it is incremented, so with warmup the first update is zero).
 
 Each slice runs in blocks of rows so that the f32 activations fit beside
 the model, the gradients summed over the blocks. ``quant=True`` is the
@@ -49,72 +59,9 @@ class _Fp8(torch.autograd.Function):
         return _round8(g, "e5m2")
 
 
-class Model:
-    """The forward and loss of one block of rows; ``p`` maps the weights'
-    ``/``-joined paths to tensors."""
-
-    def __init__(self, cfg: dict, causal: bool, quant: bool = False):
-        self.h, self.L = cfg["hidden_size"], cfg["num_hidden_layers"]
-        self.n = cfg["num_attention_heads"]
-        self.d = self.h // self.n
-        self.eps = float(cfg["layer_norm_eps"])
-        self.causal = causal
-        self.quant = quant
-
-    def mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if self.quant:
-            a, b = _Fp8.apply(a), _Fp8.apply(b)
-        return torch.matmul(a, b)
-
-    def ln(self, x, scale, bias):
-        mean = x.mean(dim=-1, keepdim=True)
-        var = (x - mean).square().mean(dim=-1, keepdim=True)
-        return (x - mean) / torch.sqrt(var + self.eps) * scale + bias
-
-    @staticmethod
-    def gelu(x):
-        return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
-
-    def attend(self, q, k, v):
-        """q, k, v [rows, heads, S, d] -> [rows, S, heads * d]."""
-        rows, n, s, d = q.shape
-        scores = self.mm(q, k.transpose(-1, -2)) / math.sqrt(d)
-        if self.causal:
-            keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
-            scores = scores.masked_fill(~keep, float("-inf"))
-        probs = torch.softmax(scores, dim=-1)
-        return self.mm(probs, v).transpose(1, 2).reshape(rows, s, n * d)
-
-    def nll_sum(self, p: dict, inputs, labels, weight) -> torch.Tensor:
-        """Sum of ``weight`` x the token cross entropy over a block."""
-        rows, s = inputs.shape
-        h, n, d = self.h, self.n, self.d
-        x = p["embed/tokens"][inputs] + p["embed/pos"][:s]
-        for i in range(self.L):
-            y = self.ln(x, p["layers/attn_norm/scale"][i], p["layers/attn_norm/bias"][i])
-
-            def heads(w, b):
-                out = self.mm(y, w[i].reshape(h, n * d)) + b[i].reshape(n * d)
-                return out.view(rows, s, n, d).transpose(1, 2)
-
-            o = self.attend(heads(p["layers/attn/wq"], p["layers/attn/bq"]),
-                            heads(p["layers/attn/wk"], p["layers/attn/bk"]),
-                            heads(p["layers/attn/wv"], p["layers/attn/bv"]))
-            x = x + self.mm(o, p["layers/attn/wo"][i].reshape(n * d, h)) + p["layers/attn/bo"][i]
-            y = self.ln(x, p["layers/mlp_norm/scale"][i], p["layers/mlp_norm/bias"][i])
-            mid = self.gelu(self.mm(y, p["layers/mlp/wi"][i]) + p["layers/mlp/bi"][i])
-            x = x + self.mm(mid, p["layers/mlp/wo"][i]) + p["layers/mlp/bo"][i]
-        x = self.ln(x, p["final_norm/scale"], p["final_norm/bias"])
-        if weight is None:
-            hid, gold, w = x.reshape(rows * s, h), labels.reshape(-1), None
-        else:
-            # only the positions the loss reads need the head
-            at = weight.reshape(-1) > 0
-            hid, gold, w = x.reshape(rows * s, h)[at], labels.reshape(-1)[at], \
-                weight.reshape(-1)[at]
-        logits = self.mm(hid, p["embed/tokens"].t())
-        nll = torch.logsumexp(logits, dim=-1) - logits.gather(1, gold[:, None])[:, 0]
-        return nll.sum() if w is None else (nll * w).sum()
+def fp8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The control's matrix product: both operands through float8."""
+    return torch.matmul(_Fp8.apply(a), _Fp8.apply(b))
 
 
 def learning_rate(opt: dict, runtime: dict, count: int) -> float:
@@ -131,26 +78,27 @@ def learning_rate(opt: dict, runtime: dict, count: int) -> float:
     return peak * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay)) + alpha)
 
 
-def train(cfg: dict, runtime: dict, weights: dict, batches: list, *, causal: bool,
+def train(cfg: dict, runtime: dict, weights: dict, batches: list, *, model,
           weight_key, microbatches: int, block_tokens: int, device, quant: bool = False,
           keep_rows: float = 1.0) -> dict:
-    """Train from ``weights`` (which stay as they are) on ``batches``, one
-    step each. Returns each step's loss, the first moment after the first
-    step and each weight's change over all the steps (``{path:
-    tensor}``)."""
+    """Train ``model`` from ``weights`` (which stay as they are) on
+    ``batches``, one step each; ``weight_key`` names the batch's loss
+    weights (None: every position). Returns each step's loss, the first
+    moment after the first step and each weight's change over all the steps
+    (``{path: tensor}``)."""
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        return _train(cfg, runtime, weights, batches, causal, weight_key, microbatches,
-                      block_tokens, device, quant, keep_rows)
+        return _train(cfg, runtime, weights, batches, model, weight_key, microbatches,
+                      block_tokens, device, fp8_matmul if quant else torch.matmul, keep_rows)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
-def _train(cfg, runtime, weights, batches, causal, weight_key, k, block_tokens, device,
-           quant, keep_rows):
+def _train(cfg, runtime, weights, batches, model, weight_key, k, block_tokens, device, mm,
+           keep_rows):
     opt = cfg["optimizer"]
-    model = Model(cfg, causal, quant)
+    stats_of = getattr(model, "stats", None)
     params = {name: w.detach().clone().requires_grad_() for name, w in weights.items()}
     mu = {name: torch.zeros_like(w) for name, w in params.items()}
     nu = {name: torch.zeros_like(w) for name, w in params.items()}
@@ -166,12 +114,18 @@ def _train(cfg, runtime, weights, batches, causal, weight_key, k, block_tokens, 
             weight = take[weight_key].float() if weight_key else None
             count_tokens = float(weight.sum()) if weight is not None else \
                 float(take["labels"].numel())
+            stats = None
+            if stats_of is not None:
+                with torch.no_grad():
+                    stats = stats_of(params, take["inputs"], weight, mm)
             block = max(block_tokens // take["inputs"].shape[1], 1)
             for a in range(0, hi - lo, block):
                 w_blk = None if weight is None else weight[a:a + block]
-                part = model.nll_sum(params, take["inputs"][a:a + block],
-                                     take["labels"][a:a + block], w_blk)
-                part = part / max(count_tokens, 1.0) / k
+                nll, term = model.block(params, take["inputs"][a:a + block],
+                                        take["labels"][a:a + block], w_blk, mm, stats)
+                part = nll / max(count_tokens, 1.0) / k
+                if term is not None:
+                    part = part + term / k
                 part.backward()
                 step_loss += float(part.detach())
         losses.append(step_loss)

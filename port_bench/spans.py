@@ -7,27 +7,25 @@ from the same Chrome events ``trace.py`` reduces.
   that launched it (matched by ``correlation``). Time, not the
   thread, decides: the backward's launches come from the autograd engine's
   thread while the main thread waits inside ``train.backward``.
-- Each idle gap, taken as ``trace.reduce`` takes them, goes to the nest at
-  its middle.
+- Each idle gap goes to the nest at its middle: the gaps are
+  ``trace.reduce``'s own list, which it hands to :func:`reduce`.
 - Each synchronising CUDA runtime call goes to the nest at its start.
 
 A nest is the tuple of covering range names, outermost first; ``()`` is
 time under no range. A phase is the innermost of :data:`PHASES` in a nest.
 
-Importing this module hooks :func:`reduce` onto ``trace.reduce``: the
-:class:`trace.Trace` it returns carries the reduction as ``spans``, and a
-line of the device, idle and sync calls a step under each innermost range
-goes to standard error. The per-layer readers of the phases import it, so
-the manifest's loading of them installs it before any step is traced.
+``trace.reduce`` fills its :class:`trace.Trace`'s ``spans`` from
+:func:`reduce`; the harness prints :meth:`Spans.line` (device ms, idle ms
+and sync calls a step under each innermost range) to standard error.
 """
 
 from __future__ import annotations
 
 import bisect
-import sys
 from dataclasses import dataclass, field
 
 from . import trace
+from .trace import idle_gaps  # trace.reduce's gap rule, for a trace reduced here alone
 
 PREFIX = "train."
 PHASES = ("train.forward", "train.loss", "train.backward", "train.optimizer")
@@ -96,24 +94,18 @@ class _Nests:
         return self.nests[j] if 0 <= j < len(self.nests) else ()
 
 
-def _window(evs: list) -> tuple:
-    span = [e for e in evs
-            if e.get("name") == trace.WINDOW and e.get("cat") == "user_annotation"]
-    if not span:
-        return float("-inf"), float("inf")
-    return float(span[0]["ts"]), float(span[0]["ts"]) + float(span[0]["dur"])
-
-
 def _add(table: dict, key: tuple, v: float) -> None:
     table[key] = table.get(key, 0.0) + v
 
 
-def reduce(events, steps: int) -> Spans:
+def reduce(events, steps: int, gaps=None) -> Spans:
     """The trace's events (Chrome JSON, times in microseconds) inside the
-    span named ``trace.WINDOW``, by ``train.*`` range."""
+    span named ``trace.WINDOW``, by ``train.*`` range; ``gaps``: the idle
+    gaps as ``trace.reduce`` found them (None: found here by its rule,
+    ``trace.idle_gaps``)."""
     evs = events["traceEvents"] if isinstance(events, dict) else events
     evs = [e for e in evs if e.get("ph") == "X" and "dur" in e]
-    lo, hi = _window(evs)
+    lo, hi = trace.window(evs)
     ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in evs
               if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith(PREFIX)
               and lo <= float(e["ts"]) < hi]
@@ -137,30 +129,9 @@ def reduce(events, steps: int) -> Spans:
         if lo <= s < hi:
             host = launched.get((e.get("args") or {}).get("correlation"))
             _add(out.device_us, UNLAUNCHED if host is None else nests.at(host), t - s)
-    for a, b in idle_gaps(device, lo, hi):
+    for a, b in idle_gaps(device, lo, hi) if gaps is None else gaps:
         _add(out.idle_us, nests.at((a + b) / 2), b - a)
     return out
-
-
-def idle_gaps(device: list, lo: float, hi: float) -> list:
-    """The gaps in the union of ``device`` ((start, end) pairs) inside
-    [lo, hi), as ``trace.reduce`` takes them: a copy of its rule, held
-    equal to it gap by gap in ``tests/test_port_bench_spans.py``."""
-    merged: list = []
-    for s, t in sorted(device):
-        s, t = max(s, lo), min(t, hi)
-        if t <= s:
-            continue
-        if merged and s <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], t)
-        else:
-            merged.append([s, t])
-    if not merged:
-        return []
-    gaps = [(merged[0][0] if lo == float("-inf") else lo, merged[0][0])]
-    gaps += [(a[1], b[0]) for a, b in zip(merged, merged[1:])]
-    gaps.append((merged[-1][1], merged[-1][1] if hi == float("inf") else hi))
-    return [g for g in gaps if g[1] > g[0]]
 
 
 def of(tr):
@@ -177,18 +148,3 @@ def phases_of(tr):
     range."""
     sp = of(tr)
     return sp if sp is not None and sp.ranges else None
-
-
-def _traced(plain):
-    def reduce_with_spans(events, steps, window_s):
-        tr = plain(events, steps, window_s)
-        tr.spans = reduce(events, steps)
-        print(tr.spans.line(), file=sys.stderr, flush=True)
-        return tr
-
-    reduce_with_spans.plain = plain
-    return reduce_with_spans
-
-
-if not hasattr(trace.reduce, "plain"):
-    trace.reduce = _traced(trace.reduce)

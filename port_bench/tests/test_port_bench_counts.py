@@ -8,7 +8,7 @@ import json
 import pytest
 
 from port_bench import kernels, trace
-from port_bench.counts import transformer
+from port_bench.counts import llama, transformer
 from port_bench.peaks import peaks_for
 from port_bench.tests.tiny import REPO
 
@@ -52,6 +52,32 @@ FLASH = [
 def test_flash_least_times_are_the_worked_numbers(name, batch, seq, micro, fwd, bwd):
     got = transformer.flash_least_s(_config(name), batch, seq, micro, H100)
     assert got == pytest.approx({"flash_fwd": fwd, "flash_bwd": bwd}, rel=1e-12)
+
+
+# TinyLlama's shape (the port's llama-1b: hidden 2048, 22 layers, GQA 32 / 4,
+# SwiGLU 5632, an untied 32,000-way head) at 8 x 2048, every position read:
+# projections 2 T L (2 h n d + 2 h kv d + 3 h m) = 2*16384*22*(8388608 +
+# 1048576 + 34603008) = 3.17484e13, head 2 T h V = 2.14748e12, attention
+# 4 B n S(S+1)/2 d L = 4*8*32*2098176*64*22 = 3.02513e12; each x 3
+LLAMA_1B = {"hidden_size": 2048, "num_hidden_layers": 22, "num_attention_heads": 32,
+            "num_key_value_heads": 4, "intermediate_size": 5632, "vocab_size": 32000,
+            "causal": True}
+
+
+def test_llama_step_flops_are_the_worked_numbers():
+    got = llama.step_flops(LLAMA_1B, 8, 2048, 8 * 2048)
+    assert got == {"model": 110763045814272, "matmul": 101687645700096}
+    # GQA: fewer kv heads, fewer projection FLOPs; attention's are the query heads'
+    mha = llama.step_flops(dict(LLAMA_1B, num_key_value_heads=32), 8, 2048, 8 * 2048)
+    assert mha["model"] - got["model"] == 3 * 2 * 8 * 2048 * 22 * 2 * 2048 * (32 - 4) * 64
+
+
+def test_llama_flash_work_reads_k_and_v_over_the_query_heads():
+    """The port expands k and v to the query heads before its flash
+    kernels, so their work does not depend on the number of kv heads."""
+    for kv in (4, 32):
+        got = llama.flash_least_s(dict(LLAMA_1B, num_key_value_heads=kv), 8, 2048, 1, H100)
+        assert got == transformer.flash_least_s(LLAMA_1B, 8, 2048, 1, H100)
 
 
 def test_flash_launches_are_one_of_each_kernel_a_layer_and_microbatch():

@@ -118,3 +118,11 @@ def test_the_limits_are_set():
         limits = manifest.resolve(w["name"]).workload["limits"]
         assert all(isinstance(v, float) and math.isfinite(v) and v > 0
                    for v in limits.values()), (w["name"], limits)
+
+
+def test_a_family_without_its_layout_is_refused(tmp_path):
+    root = make_root(tmp_path)
+    (root / "port_bench/layouts/llama.py").unlink()
+    with pytest.raises(FileNotFoundError, match="layout"):
+        manifest.resolve("llama-tiny.lm-s64", root)
+    assert manifest.resolve("gpt2-tiny.lm-s64", root).layout.layout
